@@ -1,0 +1,442 @@
+"""Drive the PyTorch port on one NVIDIA card and hold every kernel against
+its plain version.
+
+    python3 chip_smoke.py
+
+Phases, in order (any failure exits non-zero):
+
+1. the card's name and power limit (``nvidia-smi``) and the CUDA version;
+2. build the hand-written kernels from ``metis_tpu_torch/ops/csrc``;
+3. kernels: each of B1 (forward), B2 (dQ) and B3 (dK/dV) against its plain
+   PyTorch version at the main-path shape and at GQA, ragged-length,
+   non-causal and stats-mode shapes, in bf16; times (CUDA events, median) of
+   each kernel, its plain version and PyTorch's SDPA as a yardstick, beside
+   the bound computed from the inputs;
+4. slice: the flash GPT at the ``--model-size 1.5B`` preset (full width and
+   depth, random weights from a seed): agreement of flash and dense
+   attention on a small GPT, ``profile_model`` to a profile directory and back
+   through ``ProfileStore.from_dir``, 5 train steps through
+   ``build_executable`` with the kernel launch counts read around every step,
+   the same 5 steps with dense attention as the reference trajectory, and
+   ``validate_uniform_plan`` against the step time the profile predicts.
+
+The last lines are the ``kernels`` JSON, the card's name and power limit, and
+``{"ok": true, "device": {...}}``.  TF32 is off in every comparison: fp32
+products run in full fp32 on both sides.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import math
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+
+import torch
+
+# Published H100 SXM peaks (NVIDIA data sheet, dense): the bound of a kernel
+# is the larger of its operations over the bf16 tensor-core rate and its
+# bytes over the memory rate.
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES_PER_S = 3.35e12
+
+# bf16 kernels against fp32 plain versions, held per row (see ``row_err``):
+# storing a bf16 output rounds each element by at most 2^-9 (2e-3), and the
+# products round P and dS to bf16 too, so a right kernel reads a few 1e-3.
+KERNEL_TOL = 1e-2
+# a row whose reference norm is below this share of the RMS row norm (dQ of
+# the first causal row cancels to rounding noise) is held to that floor
+ROW_FLOOR = 1e-2
+# gradients of a small bf16 GPT, flash against dense attention, normwise per leaf
+GRAD_TOL = 1e-2
+# the 1.5B loss through 8 bf16 blocks, flash against dense attention, at
+# step 0 and along the 5-step trajectory
+LOSS_TOL = 2e-2
+TRAJ_TOL = 5e-2
+
+SEED = 0
+MAIN = dict(name="main", b=4, hq=32, hkv=32, s=1024, d=128, causal=True)
+KERNEL_CASES = [
+    MAIN,
+    dict(name="gqa", b=2, hq=8, hkv=2, s=1024, d=128, causal=True),
+    dict(name="ragged", b=2, hq=8, hkv=8, s=1000, d=128, causal=True),
+    dict(name="noncausal_d64", b=2, hq=8, hkv=8, s=512, d=64, causal=False),
+    dict(name="stats", b=2, hq=8, hkv=2, s=1000, d=128, causal=False,
+         stats=True),
+]
+SOURCE = "metis_tpu_torch/ops/csrc/flash_attention.cu"
+REPLACES = {
+    "fa_fwd": "metis_tpu/ops/flash_attention.py:85",
+    "fa_bwd_dq": "metis_tpu/ops/flash_attention.py:137",
+    "fa_bwd_dkv": "metis_tpu/ops/flash_attention.py:186",
+}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Median device time of ``fn`` over ``iters`` launches (CUDA events)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def row_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
+    """(max abs error, worst per-row relative error).
+
+    A row is the last axis.  Each row's error norm is taken over its own
+    reference norm, floored at ``ROW_FLOOR`` of the reference's RMS row norm,
+    so a late causal row with small values is held to its own scale and not
+    to that of the largest rows."""
+    diff = got.float() - want.float()
+    max_abs = diff.abs().max().item()
+    if not math.isfinite(max_abs):
+        return max_abs, max_abs
+    ref = torch.linalg.vector_norm(want.float(), dim=-1)
+    floor = max(ROW_FLOOR * ref.square().mean().sqrt().item(), 1e-30)
+    rel = torch.linalg.vector_norm(diff, dim=-1) / ref.clamp_min(floor)
+    return max_abs, rel.max().item()
+
+
+def norm_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Normwise relative error ||got - want|| / ||want||."""
+    want = want.float()
+    return ((got.float() - want).norm() / want.norm().clamp_min(1e-30)).item()
+
+
+def visible_pairs(s_q: int, s_kv: int, causal: bool) -> int:
+    """(query, key) pairs the inputs need: top-left causal or full."""
+    if not causal:
+        return s_q * s_kv
+    return sum(min(i + 1, s_kv) for i in range(s_q))
+
+
+def bound(flops: float, nbytes: float) -> tuple[float, str]:
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def nbytes(*ts: torch.Tensor) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def kernel_case(case: dict, gen: torch.Generator, timed: bool) -> dict:
+    """Hold B1, B2 and B3 against their plain versions at one shape."""
+    from metis_tpu_torch.ops import flash_attention as fa
+
+    b, hq, hkv, s, d = case["b"], case["hq"], case["hkv"], case["s"], case["d"]
+    causal, stats = case["causal"], case.get("stats", False)
+    heads = dict(q_heads=hq, kv_heads=hkv, causal=causal)
+    dev = torch.device("cuda")
+
+    def rnd(rows):
+        return torch.randn(rows, s, d, generator=gen, device=dev).to(torch.bfloat16)
+
+    q, k, v, do = rnd(b * hq), rnd(b * hkv), rnd(b * hkv), rnd(b * hq)
+    out = {"case": case["name"]}
+
+    o, m, l = fa.fa_fwd(q, k, v, normalize=not stats, **heads)
+    o_ref, m_ref, l_ref = fa.fa_fwd_plain(q, k, v, normalize=not stats, **heads)
+    torch.cuda.synchronize()
+    errs = {"o": row_err(o, o_ref), "m": row_err(m, m_ref), "l": row_err(l, l_ref)}
+    out["fa_fwd"] = errs
+    if not stats:
+        # the backward's inputs come from the plain forward, shared by both sides
+        lse = fa.logsumexp_of(m_ref, l_ref)
+        delta = (do.float() * o_ref.float()).sum(-1)
+        dq = fa.fa_bwd_dq(q, k, v, do, lse, delta, **heads)
+        dq_ref = fa.fa_bwd_dq_plain(q, k, v, do, lse, delta, **heads)
+        dk, dv = fa.fa_bwd_dkv(q, k, v, do, lse, delta, **heads)
+        dk_ref, dv_ref = fa.fa_bwd_dkv_plain(q, k, v, do, lse, delta, **heads)
+        torch.cuda.synchronize()
+        out["fa_bwd_dq"] = {"dq": row_err(dq, dq_ref)}
+        out["fa_bwd_dkv"] = {"dk": row_err(dk, dk_ref), "dv": row_err(dv, dv_ref)}
+        if timed:
+            # the measure's own check: a dQ with delta 10% low past row 300
+            # is within 1% of the reference's largest magnitude, but must
+            # fail per row
+            wrong = delta.clone()
+            wrong[:, 300:] *= 0.9
+            broken = fa.fa_bwd_dq_plain(q, k, v, do, lse, wrong, **heads)
+            out["control"] = row_err(broken, dq_ref)
+            del broken
+        del dq_ref, dk_ref, dv_ref
+    del o_ref
+
+    if timed:
+        pairs = b * hq * visible_pairs(s, s, causal)
+        io = nbytes(m, l)
+        out["timing"] = {
+            "fa_fwd": dict(
+                ms=cuda_ms(lambda: fa.fa_fwd(q, k, v, **heads)),
+                plain_ms=cuda_ms(lambda: fa.fa_fwd_plain(q, k, v, **heads), 5, 1),
+                bound=bound(4 * pairs * d, nbytes(q, k, v, o) + io)),
+            "fa_bwd_dq": dict(
+                ms=cuda_ms(lambda: fa.fa_bwd_dq(q, k, v, do, lse, delta, **heads)),
+                plain_ms=cuda_ms(lambda: fa.fa_bwd_dq_plain(
+                    q, k, v, do, lse, delta, **heads), 5, 1),
+                bound=bound(6 * pairs * d, nbytes(q, k, v, do, dq) + io)),
+            "fa_bwd_dkv": dict(
+                ms=cuda_ms(lambda: fa.fa_bwd_dkv(q, k, v, do, lse, delta, **heads)),
+                plain_ms=cuda_ms(lambda: fa.fa_bwd_dkv_plain(
+                    q, k, v, do, lse, delta, **heads), 5, 1),
+                bound=bound(8 * pairs * d, nbytes(q, k, v, do, dk, dv) + io)),
+        }
+        out["timing"].update(sdpa_ms(q, k, v, do, b, hq, s, d, causal))
+    return out
+
+
+def sdpa_ms(q, k, v, do, b, h, s, d, causal) -> dict:
+    """PyTorch's fused attention on the same inputs — a yardstick only; the
+    port never calls it.  The backward computes dq, dk and dv in one call."""
+    import torch.nn.functional as F
+
+    q4, k4, v4 = (t.view(b, h, s, d).detach().requires_grad_() for t in (q, k, v))
+    do4 = do.view(b, h, s, d)
+    fwd = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal))
+    o4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal)
+    bwd = cuda_ms(lambda: torch.autograd.grad(o4, (q4, k4, v4), do4,
+                                              retain_graph=True))
+    return {"sdpa_fwd_ms": fwd, "sdpa_bwd_ms": bwd}
+
+
+def kernel_phase() -> dict:
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    failures, main_timing = [], None
+    for case in KERNEL_CASES:
+        res = kernel_case(case, gen, timed=case is MAIN)
+        for kname in ("fa_fwd", "fa_bwd_dq", "fa_bwd_dkv"):
+            for tensor, (abs_err, rel) in res.get(kname, {}).items():
+                ok = rel <= KERNEL_TOL
+                log(f"  {case['name']:>14} {kname:>10} {tensor:>2}: max_abs_err "
+                    f"{abs_err:.3e}  row rel err {rel:.3e}  (tol {KERNEL_TOL:g}) "
+                    f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    failures.append(f"{case['name']}/{kname}/{tensor}")
+        if "control" in res:
+            abs_err, rel = res["control"]
+            caught = rel > KERNEL_TOL
+            log(f"  {case['name']:>14} control: plain dq with delta 10% low past "
+                f"row 300: max_abs_err {abs_err:.3e}  row rel err {rel:.3e}  "
+                f"{'rejected' if caught else 'NOT REJECTED'}")
+            if not caught:
+                failures.append(f"{case['name']}/control")
+        if "timing" in res:
+            main_timing = res
+            t = res["timing"]
+            for kname, lib in (("fa_fwd", "sdpa_fwd_ms"), ("fa_bwd_dq", "sdpa_bwd_ms"),
+                               ("fa_bwd_dkv", "sdpa_bwd_ms")):
+                bound_ms, bound_by = t[kname]["bound"]
+                log(f"  {kname:>10} at {case['name']}: {t[kname]['ms']:.4f} ms, plain "
+                    f"{t[kname]['plain_ms']:.4f} ms, {lib} {t[lib]:.4f} ms, bound "
+                    f"{bound_ms:.4f} ms ({bound_by})")
+        torch.cuda.empty_cache()
+    if failures:
+        raise SystemExit(f"kernel disagrees with its plain version: {failures}")
+    return main_timing
+
+
+def kernel_records(main: dict, launches: dict) -> list[dict]:
+    timing = main["timing"]
+    library = {"fa_fwd": timing["sdpa_fwd_ms"], "fa_bwd_dq": timing["sdpa_bwd_ms"],
+               "fa_bwd_dkv": timing["sdpa_bwd_ms"]}
+    records = []
+    for name in ("fa_fwd", "fa_bwd_dq", "fa_bwd_dkv"):
+        t = timing[name]
+        errs = main[name]
+        bound_ms, bound_by = t["bound"]
+        records.append({
+            "name": name, "route": "cuda", "source": SOURCE,
+            "replaces": REPLACES[name], "launches": launches[name],
+            "max_abs_err": max(e[0] for e in errs.values()),
+            "max_row_rel_err": max(e[1] for e in errs.values()),
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library[name],
+        })
+    return records
+
+
+def agreement_phase() -> None:
+    """Flash and dense attention give the same small GPT on the card."""
+    from metis_tpu_torch.execution.train import param_leaves
+    from metis_tpu_torch.models.gpt import GPTConfig, init_params, next_token_loss
+
+    base = GPTConfig(vocab_size=512, seq_len=256, hidden=256, num_heads=2,
+                     num_blocks=2)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = init_params(gen, base, device="cuda")
+    tokens = torch.randint(0, base.vocab_size, (2, base.seq_len), generator=gen,
+                           device="cuda")
+    results = {}
+    for attn in ("flash", "dense"):
+        cfg = dataclasses.replace(base, attn=attn)
+        leaves = [p.detach().requires_grad_() for p in param_leaves(params)]
+        loss = next_token_loss(_rebuild(params, leaves), tokens, tokens.roll(-1, 1), cfg)
+        grads = torch.autograd.grad(loss, leaves)
+        results[attn] = (loss.item(), grads)
+    (lf, gf), (ld, gd) = results["flash"], results["dense"]
+    worst = max(norm_err(a, b) for a, b in zip(gf, gd))
+    log(f"  small GPT flash vs dense: loss {lf:.5f} vs {ld:.5f} (tol {LOSS_TOL:g}), "
+        f"worst normwise grad rel err {worst:.3e} (tol {GRAD_TOL:g})")
+    if not (abs(lf - ld) <= LOSS_TOL and worst <= GRAD_TOL):
+        raise SystemExit("flash GPT disagrees with the dense GPT")
+
+
+def _rebuild(tree: dict, leaves: list[torch.Tensor]) -> dict:
+    it = iter(leaves)
+    return {k: {kk: next(it) for kk in sub} for k, sub in tree.items()}
+
+
+def slice_phase() -> dict:
+    from metis_tpu_torch.core.config import ModelSpec
+    from metis_tpu_torch.core.types import UniformPlan
+    from metis_tpu_torch.execution.builder import build_executable
+    from metis_tpu_torch.execution.mesh import PlanArtifact
+    from metis_tpu_torch.models import config_for_model_spec
+    from metis_tpu_torch.ops import flash_attention as fa
+    from metis_tpu_torch.profiles.profiler import profile_model
+    from metis_tpu_torch.profiles.store import ProfileStore
+    from metis_tpu_torch.validation import predict_uniform_plan_ms, validate_uniform_plan
+
+    agreement_phase()
+
+    # the --model-size 1.5B preset (planner/cli.py MODEL_SIZE_PRESETS)
+    model = ModelSpec(name="gpt-1.5B", num_layers=10, hidden_size=4096,
+                      sequence_length=1024, vocab_size=51200, num_heads=32,
+                      attn="flash")
+    plan = UniformPlan(dp=1, pp=1, tp=1, mbs=4, gbs=4)
+
+    t0 = time.perf_counter()
+    store = profile_model(model, tps=(1,), bss=(1, 2, 4), device="cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        store.dump_to_dir(tmp, {"model_name": model.name, "attn": model.attn})
+        store = ProfileStore.from_dir(tmp)
+    device_type = store.device_types[0]
+    prof = store.get(device_type, 1, plan.mbs)
+    log(f"  profile {device_type}: {len(prof.layer_times_ms)} layers, "
+        f"fwd+bwd {sum(prof.layer_times_ms):.3f} ms at bs={plan.mbs}, optimizer "
+        f"{store.model.optimizer_time_ms:.3f} ms, batch "
+        f"{store.model.batch_generator_ms:.3f} ms ({time.perf_counter() - t0:.1f} s)")
+    for bs in (1, 2, 4):
+        p = store.get(device_type, 1, bs)
+        log(f"    bs={bs}: layer_times_ms {[round(t, 3) for t in p.layer_times_ms]}"
+            f"  layer_memory_mb {[round(m, 1) for m in p.layer_memory_mb]}")
+    if store.attn != "flash" or len(prof.layer_times_ms) != model.num_layers:
+        raise SystemExit("profile did not round-trip")
+    torch.cuda.empty_cache()
+
+    cfg = config_for_model_spec(model)
+    artifact = PlanArtifact.from_uniform_plan(plan)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    tokens = torch.randint(0, cfg.vocab_size, (plan.gbs, cfg.seq_len),
+                           generator=gen, device="cuda")
+    targets = tokens.roll(-1, 1)
+    exe = build_executable(cfg, artifact, device="cuda")
+    state = exe.init(SEED)
+    losses, launches = [], {name: 0 for name in fa.launch_counts}
+    for i in range(5):
+        fa.reset_launch_counts()
+        state, loss = exe.step(state, tokens, targets)
+        losses.append(loss.item())
+        step_counts = dict(fa.launch_counts)
+        log(f"  step {i}: loss {losses[-1]:.5f}  launches {step_counts}")
+        for name, n in step_counts.items():
+            if n != cfg.num_blocks:
+                raise SystemExit(f"step {i}: {name} launched {n} times, "
+                                 f"expected {cfg.num_blocks}")
+            launches[name] += n
+    del state, exe
+    torch.cuda.empty_cache()
+
+    # the same weights and tokens trained through dense attention: the
+    # reference trajectory (no kernel runs on this side)
+    dense = build_executable(dataclasses.replace(cfg, attn="dense"), artifact,
+                             device="cuda")
+    state = dense.init(SEED)
+    dense_losses = []
+    for _ in range(5):
+        state, loss = dense.step(state, tokens, targets)
+        dense_losses.append(loss.item())
+    del state, dense
+    torch.cuda.empty_cache()
+
+    gaps = [abs(a - b) for a, b in zip(losses, dense_losses)]
+    log(f"  losses flash {[round(x, 5) for x in losses]}")
+    log(f"  losses dense {[round(x, 5) for x in dense_losses]}")
+    log(f"  flash vs dense: step 0 gap {gaps[0]:.3e} (tol {LOSS_TOL:g}), "
+        f"largest gap {max(gaps):.3e} (tol {TRAJ_TOL:g})")
+    if not all(math.isfinite(x) for x in losses + dense_losses):
+        raise SystemExit(f"non-finite losses {losses} / {dense_losses}")
+    if gaps[0] > LOSS_TOL or max(gaps) > TRAJ_TOL:
+        raise SystemExit("the 1.5B flash trajectory disagrees with dense attention")
+    if abs(losses[0] - math.log(cfg.vocab_size)) > 1.0 or losses[-1] >= losses[0]:
+        raise SystemExit(f"losses {losses}: expected ~ln(vocab) falling on one batch")
+
+    predicted = predict_uniform_plan_ms(store, device_type, plan)
+    torch.cuda.reset_peak_memory_stats()
+    report = validate_uniform_plan(plan, predicted, model, device="cuda")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  validate: measured {report.measured_ms:.3f} ms/step, predicted "
+        f"{report.predicted_ms:.3f} ms, error_pct {report.error_pct:.2f}, "
+        f"peak memory {peak_gb:.2f} GB")
+    return {"launches": launches, "losses": losses, "dense_losses": dense_losses,
+            "measured_ms": report.measured_ms, "predicted_ms": report.predicted_ms,
+            "error_pct": report.error_pct, "peak_memory_gb": peak_gb}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    card = card_line()
+    log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    from metis_tpu_torch.ops import flash_attention as fa
+
+    t0 = time.perf_counter()
+    built = fa.kernel_library()
+    log(f"build: {built.path.name} in {time.perf_counter() - t0:.1f} s "
+        f"(nvcc {built.seconds:.1f} s)")
+    for line in built.ptxas_log.splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"  ptxas: {line.strip()}")
+
+    log("kernels:")
+    main_case = kernel_phase()
+    log("slice:")
+    result = slice_phase()
+
+    log(json.dumps({"kernels": kernel_records(main_case, result["launches"])}))
+    log(json.dumps({"slice": {k: v for k, v in result.items() if k != "launches"}}))
+    log(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,174 @@
+"""Single-device training step — the port of ``metis_tpu/execution/train.py``
+for dp = tp = 1 and no sequence axis (GPT family).
+
+PyTorch runs eagerly, so the reference's jitted step becomes a plain
+function: forward, ``backward()``, ``optimizer.step()``.  The optimizer is
+``torch.optim.AdamW`` configured as ``optax.adamw(1e-4, weight_decay=0.01)``:
+betas (0.9, 0.999), eps 1e-8, and decay on every leaf, biases and norms
+included (one parameter group, no exclusions).
+"""
+from __future__ import annotations
+
+import math
+import time
+from collections import deque
+from dataclasses import dataclass
+from functools import partial
+from typing import Callable
+
+import torch
+
+from metis_tpu_torch.core.device import resolve_device
+from metis_tpu_torch.core.events import NULL_LOG
+from metis_tpu_torch.models import _require_gpt
+from metis_tpu_torch.models.gpt import GPTConfig, init_params, next_token_loss
+
+
+@dataclass
+class TrainState:
+    """Parameters (nested dict of leaf tensors), the optimizer that owns
+    their moments, and the count of steps taken."""
+
+    params: dict
+    optimizer: torch.optim.Optimizer
+    step: int = 0
+
+
+def init_params_for(gen: torch.Generator, cfg: GPTConfig,
+                    device: str | torch.device = "cuda") -> dict:
+    _require_gpt(cfg)
+    return init_params(gen, cfg, device=resolve_device(device))
+
+
+def loss_fn_for(cfg: GPTConfig) -> Callable:
+    _require_gpt(cfg)
+    return next_token_loss
+
+
+def param_leaves(params: dict) -> list[torch.Tensor]:
+    """Leaves of a parameter tree in a fixed (insertion) order."""
+    return [leaf for sub in params.values() for leaf in sub.values()]
+
+
+class StepTimer:
+    """Per-step train-loop telemetry -> EventLog ``train_step`` events.
+
+    ``record()`` once per completed step: wall-clock step time, cumulative
+    elapsed, and tokens/sec from ``tokens_per_step``.  Kernels launch
+    asynchronously, so a step's wall time is honest only when the caller
+    synchronizes (``loss.item()`` does); between syncs the per-step times
+    are launch times."""
+
+    def __init__(self, events=None, tokens_per_step: int = 0,
+                 start_step: int = 0):
+        self.events = events if events is not None else NULL_LOG
+        self.tokens_per_step = tokens_per_step
+        self.step_idx = start_step
+        self._clock = time.perf_counter
+        self._t0 = self._clock()
+        self._last = self._t0
+
+    def record(self, loss: float | None = None, emit: bool = True,
+               **fields) -> dict:
+        now = self._clock()
+        step_ms = (now - self._last) * 1e3
+        self._last = now
+        self.step_idx += 1
+        rec: dict = {"step": self.step_idx,
+                     "step_ms": round(step_ms, 3),
+                     "elapsed_s": round(now - self._t0, 3)}
+        if self.tokens_per_step and step_ms > 0:
+            rec["tokens_per_s"] = round(
+                self.tokens_per_step / (step_ms / 1e3))
+        if loss is not None:
+            rec["loss"] = loss
+        rec.update(fields)
+        if emit:
+            self.events.emit("train_step", **rec)
+        return rec
+
+
+class LossAnomalyDetector:
+    """Step-loss sanity guard.
+
+    ``observe(loss, step)`` classifies each synced step loss: ``"nan"`` for
+    a non-finite loss, ``"spike"`` for one above ``spike_factor`` x the
+    rolling mean of the last ``window`` healthy losses (once ``min_history``
+    exist), ``None`` for a healthy loss, which joins the window.  Anomalous
+    losses never enter the window."""
+
+    def __init__(self, spike_factor: float = 10.0, window: int = 8,
+                 min_history: int = 3):
+        if spike_factor <= 1.0:
+            raise ValueError("spike_factor must exceed 1.0")
+        if window < 1 or min_history < 1:
+            raise ValueError("window and min_history must be >= 1")
+        self.spike_factor = spike_factor
+        self.min_history = min_history
+        self._healthy: deque = deque(maxlen=window)
+
+    def observe(self, loss: float, step: int | None = None) -> str | None:
+        loss = float(loss)
+        if not math.isfinite(loss):
+            return "nan"
+        if len(self._healthy) >= self.min_history:
+            mean = sum(self._healthy) / len(self._healthy)
+            if mean > 0 and loss > self.spike_factor * mean:
+                return "spike"
+        self._healthy.append(loss)
+        return None
+
+    def reset(self) -> None:
+        """Forget history (after a rollback)."""
+        self._healthy.clear()
+
+
+def build_optimizer(lr: float = 1e-4, weight_decay: float = 0.01):
+    """A factory ``params -> torch.optim.AdamW`` matching ``optax.adamw``.
+    ``fused``: one kernel per tensor group reads and writes each parameter
+    and moment once, where the default multi-tensor path makes a pass per
+    arithmetic step."""
+    return partial(torch.optim.AdamW, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                   weight_decay=weight_decay, fused=True)
+
+
+def train_state_from_params(params: dict, optimizer=None) -> TrainState:
+    """Make ``params``' leaves trainable and wrap them with a fresh optimizer
+    (one group over every leaf, as optax applies decay to all of them)."""
+    factory = optimizer or build_optimizer()
+    leaves = param_leaves(params)
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+    return TrainState(params=params, optimizer=factory(leaves))
+
+
+def build_train_state(seed: int, cfg: GPTConfig,
+                      device: str | torch.device = "cuda",
+                      optimizer=None) -> TrainState:
+    """Initialize parameters on ``device`` from ``seed`` and the matching
+    optimizer state."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return train_state_from_params(init_params_for(gen, cfg, dev), optimizer)
+
+
+def make_train_step(cfg: GPTConfig, attn_impl=None) -> Callable:
+    """``(state, tokens, targets) -> (state, loss)``.
+
+    The reference donates the state to its jitted step; here the step
+    updates the parameters and optimizer moments in place and returns the
+    same state object, so no second copy of the model is ever held.  The
+    loss comes back as a 0-d tensor on the device (read it with ``.item()``,
+    which waits for the step)."""
+    loss_fn = loss_fn_for(cfg)
+
+    def step(state: TrainState, tokens: torch.Tensor, targets: torch.Tensor):
+        loss = loss_fn(state.params, tokens, targets, cfg, attn_impl)
+        loss.backward()
+        state.optimizer.step()
+        # free the gradients now rather than at the next step's backward
+        state.optimizer.zero_grad(set_to_none=True)
+        state.step += 1
+        return state, loss.detach()
+
+    return step

@@ -1,0 +1,239 @@
+"""GPT transformer — the port of ``metis_tpu/models/gpt.py``.
+
+Same parameter layout as the reference, leaf for leaf, so a JAX parameter
+tree converts with one ``torch.from_numpy`` per leaf (``models/convert.py``):
+block leaves are stacked along a leading layer axis, and ``qkv`` is
+``(L, 3, h, h)``.  ``num_layers`` profiled layers = embedding pseudo-layer +
+``num_blocks`` transformer blocks + LM-head pseudo-layer.
+
+Numerics follow the reference: activations in ``cfg.dtype`` (bf16), fp32
+parameters cast at each use, layer norm with the population variance and eps
+1e-5, the tanh GELU, fp32 logits.  One difference is inherent to eager
+PyTorch: a bf16 product rounds to bf16 before its bias is added, where XLA
+kept the fp32 accumulator — compare the two in fp32.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass, replace
+from typing import Callable
+
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from metis_tpu_torch.core.config import ModelSpec
+
+AttnFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
+# (q, k, v) -> context; all [batch, heads, seq, head_dim]
+
+
+@dataclass(frozen=True)
+class GPTConfig:
+    vocab_size: int
+    seq_len: int
+    hidden: int
+    num_heads: int
+    num_blocks: int
+    ffn_multiplier: int = 4
+    dtype: torch.dtype = torch.bfloat16
+    param_dtype: torch.dtype = torch.float32
+    remat: bool = False
+    # "dense" (materialized scores) or "flash" (the blockwise kernels,
+    # metis_tpu_torch.ops.flash_attention)
+    attn: str = "dense"
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden // self.num_heads
+
+    @property
+    def ffn_dim(self) -> int:
+        return self.hidden * self.ffn_multiplier
+
+    @property
+    def num_profile_layers(self) -> int:
+        """Profiled layer count (embed + blocks + head)."""
+        return self.num_blocks + 2
+
+    @staticmethod
+    def from_model_spec(spec: ModelSpec, **overrides) -> "GPTConfig":
+        cfg = GPTConfig(
+            vocab_size=spec.vocab_size,
+            seq_len=spec.sequence_length,
+            hidden=spec.hidden_size,
+            num_heads=spec.num_heads,
+            num_blocks=spec.num_blocks,
+            ffn_multiplier=spec.ffn_multiplier,
+            attn=spec.attn,
+        )
+        return replace(cfg, **overrides) if overrides else cfg
+
+
+def init_params(gen: torch.Generator, cfg: GPTConfig,
+                device: str | torch.device = "cuda") -> dict:
+    """Parameter tree (nested dicts of tensors on ``device``), drawn from
+    ``gen`` — a ``torch.Generator`` on the same device.  Same shapes, scales
+    and layout as the reference; the random numbers differ from
+    ``jax.random``'s."""
+    h, f, v = cfg.hidden, cfg.ffn_dim, cfg.vocab_size
+    L = cfg.num_blocks
+    pd = cfg.param_dtype
+    scale = 0.02
+    resid_scale = scale / math.sqrt(2 * max(L, 1))
+
+    def normal(shape, std):
+        return (torch.randn(shape, generator=gen, device=device) * std).to(pd)
+
+    def const(shape, value):
+        return torch.full(shape, value, dtype=pd, device=device)
+
+    return {
+        "embed": {
+            "tok": normal((v, h), scale),
+            "pos": normal((cfg.seq_len, h), scale),
+        },
+        "blocks": {
+            "ln1_scale": const((L, h), 1.0),
+            "ln1_bias": const((L, h), 0.0),
+            # (layer, {q,k,v}, in, out): q/k/v on their own axis, as in the
+            # reference, so a tensor-parallel slice splits whole heads
+            "qkv": normal((L, 3, h, h), scale),
+            "qkv_bias": const((L, 3, h), 0.0),
+            "proj": normal((L, h, h), resid_scale),
+            "proj_bias": const((L, h), 0.0),
+            "ln2_scale": const((L, h), 1.0),
+            "ln2_bias": const((L, h), 0.0),
+            "mlp_in": normal((L, h, f), scale),
+            "mlp_in_bias": const((L, f), 0.0),
+            "mlp_out": normal((L, f, h), resid_scale),
+            "mlp_out_bias": const((L, h), 0.0),
+        },
+        "head": {
+            "ln_scale": const((h,), 1.0),
+            "ln_bias": const((h,), 0.0),
+            "out": normal((h, v), scale),
+        },
+    }
+
+
+def _layer_norm(x: torch.Tensor, scale: torch.Tensor,
+                bias: torch.Tensor) -> torch.Tensor:
+    x32 = x.float()
+    mean = x32.mean(-1, keepdim=True)
+    var = x32.var(-1, keepdim=True, unbiased=False)  # population variance
+    y = (x32 - mean) * torch.rsqrt(var + 1e-5)
+    return (y * scale + bias).to(x.dtype)
+
+
+def causal_attention(q: torch.Tensor, k: torch.Tensor,
+                     v: torch.Tensor) -> torch.Tensor:
+    """Baseline full-materialization causal attention (masked with -inf).
+    q,k,v: [batch, heads, seq, head_dim]."""
+    seq = q.shape[2]
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    scores = scores / math.sqrt(q.shape[-1])
+    mask = torch.ones(seq, seq, dtype=torch.bool, device=q.device).tril()
+    scores = scores.masked_fill(~mask, float("-inf"))
+    weights = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.matmul(weights, v)
+
+
+def default_attention(cfg: GPTConfig) -> AttnFn:
+    """Resolve ``cfg.attn`` to an AttnFn."""
+    if cfg.attn == "flash":
+        from metis_tpu_torch.ops.flash_attention import flash_attn_fn
+        return flash_attn_fn()
+    if cfg.attn != "dense":
+        raise ValueError(f"unknown GPTConfig.attn: {cfg.attn!r}")
+    return causal_attention
+
+
+def block_forward(x: torch.Tensor, layer: dict, cfg: GPTConfig,
+                  attn_impl: AttnFn) -> torch.Tensor:
+    """One transformer block on [batch, seq, hidden] activations."""
+    h, nh, hd = cfg.hidden, cfg.num_heads, cfg.head_dim
+    dt = cfg.dtype
+
+    y = _layer_norm(x, layer["ln1_scale"], layer["ln1_bias"])
+    qkv = torch.einsum("bsh,chk->cbsk", y, layer["qkv"].to(dt))
+    qkv = (qkv.float() + layer["qkv_bias"][:, None, None, :]).to(dt)
+    q, k, v = qkv[0], qkv[1], qkv[2]
+
+    def heads(t):  # [b, s, h] -> [b, nh, s, hd]
+        b, s, _ = t.shape
+        return t.reshape(b, s, nh, hd).transpose(1, 2)
+
+    ctx = attn_impl(heads(q), heads(k), heads(v))
+    b, _, s, _ = ctx.shape
+    ctx = ctx.transpose(1, 2).reshape(b, s, h)
+    attn_out = torch.matmul(ctx, layer["proj"].to(dt))
+    x = x + (attn_out.float() + layer["proj_bias"]).to(dt)
+
+    y = _layer_norm(x, layer["ln2_scale"], layer["ln2_bias"])
+    z = torch.matmul(y, layer["mlp_in"].to(dt))
+    z = F.gelu(z.float() + layer["mlp_in_bias"], approximate="tanh").to(dt)
+    z = torch.matmul(z, layer["mlp_out"].to(dt))
+    return x + (z.float() + layer["mlp_out_bias"]).to(dt)
+
+
+def embed(params: dict, tokens: torch.Tensor, cfg: GPTConfig) -> torch.Tensor:
+    """Embedding pseudo-layer (profile layer 0): token + position lookup.
+    Gathers before casting — the same values as the reference's
+    cast-then-gather, without a bf16 copy of the whole table."""
+    seq = tokens.shape[1]
+    tok = F.embedding(tokens, params["embed"]["tok"]).to(cfg.dtype)
+    pos = params["embed"]["pos"][:seq].to(cfg.dtype)
+    return tok + pos[None, :, :]
+
+
+def unstack_blocks(blocks: dict) -> list[dict]:
+    """The per-layer views of the stacked block leaves.
+
+    One ``unbind`` per leaf: its backward stacks the per-layer gradients
+    into the leaf's gradient once.  Indexing ``leaf[i]`` per layer instead
+    would give each layer's backward a zero-filled gradient of the whole
+    stack, summed L times."""
+    names = list(blocks)
+    per_leaf = [blocks[n].unbind(0) for n in names]
+    return [dict(zip(names, leaves)) for leaves in zip(*per_leaf)]
+
+
+def run_blocks(params: dict, x: torch.Tensor, cfg: GPTConfig,
+               attn_impl: AttnFn | None = None) -> torch.Tensor:
+    """Run the stacked blocks over the activations — a Python loop where
+    the reference scans."""
+    attn = attn_impl or default_attention(cfg)
+    for layer in unstack_blocks(params["blocks"]):
+        if cfg.remat:
+            x = checkpoint(block_forward, x, layer, cfg, attn, use_reentrant=False)
+        else:
+            x = block_forward(x, layer, cfg, attn)
+    return x
+
+
+def head_logits(params: dict, x: torch.Tensor, cfg: GPTConfig) -> torch.Tensor:
+    """LM-head pseudo-layer (profile layer N-1): final LN + projection,
+    fp32 logits."""
+    y = _layer_norm(x, params["head"]["ln_scale"], params["head"]["ln_bias"])
+    return torch.matmul(y, params["head"]["out"].to(cfg.dtype)).float()
+
+
+def forward(params: dict, tokens: torch.Tensor, cfg: GPTConfig,
+            attn_impl: AttnFn | None = None) -> torch.Tensor:
+    """Full forward: tokens [batch, seq] -> logits [batch, seq, vocab] (fp32)."""
+    x = embed(params, tokens, cfg)
+    x = run_blocks(params, x, cfg, attn_impl)
+    return head_logits(params, x, cfg)
+
+
+def next_token_loss(params: dict, tokens: torch.Tensor, targets: torch.Tensor,
+                    cfg: GPTConfig, attn_impl: AttnFn | None = None) -> torch.Tensor:
+    """Mean cross-entropy of next-token prediction (fp32 scalar)."""
+    logits = forward(params, tokens, cfg, attn_impl)
+    return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                           targets.reshape(-1).long())
+
+
+def param_count(params: dict) -> int:
+    return sum(leaf.numel() for sub in params.values() for leaf in sub.values())

@@ -1,0 +1,391 @@
+"""Measured profiler — the port of ``metis_tpu/profiles/profiler.py``.
+
+Each profiled layer (embedding pseudo-layer, one transformer block, LM-head
+pseudo-layer) runs as its own forward + backward closure on the device and
+is timed; the per-layer vector is then normalized so its sum equals the
+measured whole-model forward + backward time (only the ratios of the
+isolated closures are trusted, as in the reference).  On the default
+``marginal_blocks=True`` path the block time is the marginal cost of a
+2-block vs 1-block run, so per-call launch overhead cancels, and the
+embed/head closures have that same overhead (``2*t1 - t2``) subtracted,
+floored at 10% of the raw measurement.
+
+Timing on CUDA uses the two-point queue form (``core/timing.py``): kernels
+queue on one stream and run in order.  On the CPU each call is timed
+synchronously and the median taken.  Memory on CUDA is the peak allocated
+during each closure (``torch.cuda.max_memory_allocated`` after
+``reset_peak_memory_stats``) plus the bytes of the closure's inputs — the
+reference's compiled arguments + temporaries + outputs.  On the CPU the
+analytic model stands in.
+
+This slice profiles ``tp = 1`` on one device; larger tps are skipped with a
+``profile_skipped`` event.  Decode-mode profiling comes with a later slice.
+"""
+from __future__ import annotations
+
+import re
+import time
+from dataclasses import dataclass
+from pathlib import Path
+from typing import Callable, Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from metis_tpu_torch.core.config import ModelSpec
+from metis_tpu_torch.core.device import resolve_device
+from metis_tpu_torch.core.errors import MetisError
+from metis_tpu_torch.core.events import NULL_LOG, EventLog
+from metis_tpu_torch.core.timing import two_point_queue_ms
+from metis_tpu_torch.execution.train import (
+    build_optimizer,
+    init_params_for,
+    loss_fn_for,
+    param_leaves,
+)
+from metis_tpu_torch.models import config_for_model_spec, resolve_attention
+from metis_tpu_torch.models.gpt import (
+    GPTConfig,
+    block_forward,
+    embed,
+    head_logits,
+    run_blocks,
+)
+from metis_tpu_torch.profiles.store import (
+    DeviceTypeMeta,
+    LayerProfile,
+    ModelProfileMeta,
+    ProfileStore,
+)
+
+_MB = 1024 * 1024
+
+
+@dataclass(frozen=True)
+class ProfilerConfig:
+    """Measurement knobs.  ``marginal_blocks``: measure the block time as
+    the difference between a 2-block and a 1-block run (see module doc)."""
+
+    warmup: int = 2
+    iters: int = 5
+    seed: int = 0
+    marginal_blocks: bool = True
+
+
+def infer_device_type(device: str | torch.device = "cuda") -> str:
+    """Profile-key device type: the model code in the CUDA device name
+    ('NVIDIA H100 80GB HBM3' -> 'H100'), or 'CPU'."""
+    dev = resolve_device(device)
+    if dev.type == "cpu":
+        return "CPU"
+    name = torch.cuda.get_device_name(dev)
+    m = re.search(r"\b([A-Z]+\d+)", name)
+    # filenames embed this key (DeviceType.{key}_tp..), keep it word-safe
+    return m.group(1) if m else "".join(c for c in name if c.isalnum()) or "GPU"
+
+
+def _median_ms(fn: Callable, args: tuple, warmup: int, iters: int,
+               device: torch.device) -> float:
+    """Wall time of ``fn(*args)`` in ms, after warmup, fully synced.
+
+    CPU: per-call medians.  CUDA: the two-point queue form with
+    ``torch.cuda.synchronize`` as the fence."""
+    fn(*args)
+    if device.type == "cpu":
+        for _ in range(max(warmup - 1, 0)):
+            fn(*args)
+        samples = []
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            fn(*args)
+            samples.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(samples))
+
+    def enqueue(n: int):
+        for _ in range(n):
+            fn(*args)
+
+    return two_point_queue_ms(enqueue, iters,
+                              sync=lambda _: torch.cuda.synchronize(device))
+
+
+def _analytic_memory_mb(param_bytes: float, act_bytes: float, tp: int) -> float:
+    """Memory model where no measurement exists (the CPU): sharded weights +
+    fp32 Adam state (master + 2 moments over bf16: x6) + live activations."""
+    return (param_bytes / tp * 7.0 + act_bytes) / _MB
+
+
+def _tensor_bytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _param_bytes(tree: dict) -> int:
+    return _tensor_bytes(tree.values())
+
+
+def _leaf_copies(blocks: dict, k: int, stacked: bool = True) -> dict:
+    """The first ``k`` blocks as trainable leaves of their own (a single
+    unstacked layer when ``stacked`` is False), so a closure's backward
+    produces gradients of exactly those blocks — not of the whole stack,
+    as a view into it would."""
+    return {name: (leaf[:k] if stacked else leaf[0]).detach().clone()
+            .requires_grad_() for name, leaf in blocks.items()}
+
+
+class LayerProfiler:
+    """Profiles one GPT model shape on one device across (tp, bs)."""
+
+    def __init__(
+        self,
+        model: ModelSpec,
+        device_type: str | None = None,
+        device: str | torch.device = "cuda",
+        config: ProfilerConfig = ProfilerConfig(),
+        dtype: torch.dtype = torch.bfloat16,
+        events: EventLog = NULL_LOG,
+    ):
+        self.model = model
+        self.device = resolve_device(device)
+        self.device_type = device_type or infer_device_type(self.device)
+        self.config = config
+        self.cfg = config_for_model_spec(model, dtype=dtype)
+        self.events = events
+        self._params: dict | None = None
+
+    def _model_params(self) -> dict:
+        """One seeded parameter set, shared by every measurement."""
+        if self._params is None:
+            gen = torch.Generator(device=self.device).manual_seed(self.config.seed)
+            params = init_params_for(gen, self.cfg, self.device)
+            for leaf in param_leaves(params):
+                leaf.requires_grad_(True)
+            self._params = params
+        return self._params
+
+    # -- per-layer closures -------------------------------------------------
+    def _make_layer_fns(self, cfg: GPTConfig):
+        """(embed_fb, block_fb, head_fb, scan_fb): each runs forward plus the
+        gradients of its parameters and input activations."""
+        attn = resolve_attention(cfg)
+
+        def embed_fb(embed_params, tokens):
+            out = embed({"embed": embed_params}, tokens, cfg).float().sum()
+            return torch.autograd.grad(out, list(embed_params.values()))
+
+        def block_fb(layer, x):
+            out = block_forward(x, layer, cfg, attn).float().sum()
+            return torch.autograd.grad(out, [*layer.values(), x])
+
+        def scan_fb(layers, x):
+            """fwd+bwd of a k-block run — the marginal-cost probe body."""
+            out = run_blocks({"blocks": layers}, x, cfg, attn).float().sum()
+            return torch.autograd.grad(out, [*layers.values(), x])
+
+        def head_fb(head_params, x, targets):
+            logits = head_logits({"head": head_params}, x, cfg)
+            loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                                   targets.reshape(-1).long())
+            return torch.autograd.grad(loss, [*head_params.values(), x])
+
+        return embed_fb, block_fb, head_fb, scan_fb
+
+    def _peak_memory_mb(self, fn: Callable, args: tuple, arg_bytes: int
+                        ) -> float | None:
+        """Peak bytes one call of ``fn`` allocates beyond what was live, plus
+        its inputs' bytes; None off CUDA."""
+        if self.device.type != "cuda":
+            return None
+        torch.cuda.synchronize(self.device)
+        base = torch.cuda.memory_allocated(self.device)
+        torch.cuda.reset_peak_memory_stats(self.device)
+        out = fn(*args)
+        torch.cuda.synchronize(self.device)
+        peak = torch.cuda.max_memory_allocated(self.device)
+        del out
+        return (peak - base + arg_bytes) / _MB
+
+    def _profile_one(self, tp: int, bs: int) -> LayerProfile:
+        cfg, model, dev = self.cfg, self.model, self.device
+        params = self._model_params()
+        gen = torch.Generator(device=dev).manual_seed(self.config.seed)
+        tokens = torch.randint(0, cfg.vocab_size, (bs, cfg.seq_len),
+                               generator=gen, device=dev)
+        x = torch.randn((bs, cfg.seq_len, cfg.hidden), generator=gen,
+                        device=dev).to(cfg.dtype).requires_grad_()
+        layer0 = _leaf_copies(params["blocks"], 1, stacked=False)
+        embed_fb, block_fb, head_fb, scan_fb = self._make_layer_fns(cfg)
+        embed_p, head_p = params["embed"], params["head"]
+        w, it = self.config.warmup, self.config.iters
+
+        def timed(fn, *args):
+            return _median_ms(fn, args, w, it, dev)
+
+        embed_ms = timed(embed_fb, embed_p, tokens)
+        head_ms = timed(head_fb, head_p, x, tokens)
+
+        block_ms = None
+        if self.config.marginal_blocks and cfg.num_blocks >= 2:
+            # marginal block cost: 2 blocks minus 1 — per-call overhead cancels
+            layers1 = _leaf_copies(params["blocks"], 1)
+            layers2 = _leaf_copies(params["blocks"], 2)
+            t1 = timed(scan_fb, layers1, x)
+            t2 = timed(scan_fb, layers2, x)
+            if t2 > t1:
+                block_ms = t2 - t1
+                # t1 = overhead + one block, so overhead = 2*t1 - t2; bound it
+                # by the isolated block's own excess over the marginal time,
+                # and floor the adjusted pseudo-layers at 10% of their raw time
+                iso_block_ms = timed(block_fb, layer0, x)
+                overhead = max(min(2 * t1 - t2, iso_block_ms - block_ms), 0.0)
+                embed_ms = max(embed_ms - overhead, 0.1 * embed_ms)
+                head_ms = max(head_ms - overhead, 0.1 * head_ms)
+        if block_ms is None:
+            block_ms = timed(block_fb, layer0, x)
+
+        # whole-model fwd+bwd — the ground truth the decomposition sums to
+        loss_fn = loss_fn_for(cfg)
+        leaves = param_leaves(params)
+
+        def full_fb(tokens):
+            return torch.autograd.grad(loss_fn(params, tokens, tokens, cfg),
+                                       leaves)
+
+        full_ms = timed(full_fb, tokens)
+        raw = [embed_ms] + [block_ms] * cfg.num_blocks + [head_ms]
+        scale = full_ms / sum(raw)
+        times = [t * scale for t in raw]
+
+        s, h, v = cfg.seq_len, cfg.hidden, cfg.vocab_size
+        act_block = 10 * bs * s * h * model.dtype_bytes / tp
+        act_head = bs * s * v * model.dtype_bytes / tp
+        pbytes = self._params_per_layer_bytes(params)
+        mem_embed = self._peak_memory_mb(
+            embed_fb, (embed_p, tokens), _param_bytes(embed_p) + _tensor_bytes([tokens]))
+        mem_block = self._peak_memory_mb(
+            block_fb, (layer0, x), _param_bytes(layer0) + _tensor_bytes([x]))
+        mem_head = self._peak_memory_mb(
+            head_fb, (head_p, x, tokens),
+            _param_bytes(head_p) + _tensor_bytes([x, tokens]))
+        mems = [mem_embed if mem_embed is not None
+                else _analytic_memory_mb(pbytes[0], act_block, tp)]
+        mems += [mem_block if mem_block is not None
+                 else _analytic_memory_mb(pbytes[1], act_block, tp)] * cfg.num_blocks
+        mems += [mem_head if mem_head is not None
+                 else _analytic_memory_mb(pbytes[-1], act_head, tp)]
+        return LayerProfile(layer_times_ms=tuple(times),
+                            layer_memory_mb=tuple(mems), fb_sync_ms=0.0)
+
+    def _params_per_layer_bytes(self, params: dict) -> tuple[int, ...]:
+        """Parameter bytes per profiled layer (embed, blocks..., head) — the
+        ``parameters_per_layer_bytes`` contract field."""
+        embed_b = _param_bytes(params["embed"])
+        blocks_b = _param_bytes(params["blocks"]) // self.cfg.num_blocks
+        head_b = _param_bytes(params["head"])
+        return tuple([embed_b] + [blocks_b] * self.cfg.num_blocks + [head_b])
+
+    def _profile_optimizer_ms(self) -> float:
+        """AdamW update time over the whole model's parameters (all-ones
+        gradients), with the optimizer the executor runs.  The updates move
+        the shared parameters, which every timing has already used."""
+        leaves = param_leaves(self._model_params())
+        for leaf in leaves:
+            leaf.grad = torch.ones_like(leaf)
+        opt = build_optimizer()(leaves)
+        try:
+            return _median_ms(opt.step, (), self.config.warmup,
+                              self.config.iters, self.device)
+        finally:
+            opt.zero_grad(set_to_none=True)
+
+    def _profile_batch_gen_ms(self, bs: int) -> float:
+        """Host batching through the port's input pipeline plus the
+        host-to-device copy — the loader that feeds training."""
+        from metis_tpu_torch.data.pipeline import TokenDataset, batch_source
+
+        n_batches = self.config.warmup + 3 * self.config.iters + 2
+        ds = TokenDataset.synthetic(
+            self.cfg.vocab_size, bs * n_batches * self.cfg.seq_len + 1,
+            self.cfg.seq_len, seed=self.config.seed)
+        gen = batch_source(ds, bs, device=self.device)
+        return _median_ms(gen, (), self.config.warmup, self.config.iters,
+                          self.device)
+
+    # -- public API ---------------------------------------------------------
+    def run(self, tps: Sequence[int] = (1,),
+            bss: Sequence[int] = (1,)) -> ProfileStore:
+        """Profile every (tp, bs) this slice can measure into a ProfileStore:
+        tp = 1 on one device; other tps are skipped with an event."""
+        self.events.emit(
+            "profile_started", device_type=self.device_type,
+            model=self.model.name, tps=list(tps), bss=list(bss), devices=1)
+        entries: dict[tuple[str, int, int], LayerProfile] = {}
+        t_run = time.perf_counter()
+        for tp in tps:
+            if tp != 1 or self.cfg.num_heads % tp != 0:
+                self.events.emit(
+                    "profile_skipped", device_type=self.device_type, tp=tp,
+                    reason=(f"tp={tp} does not divide {self.cfg.num_heads} heads"
+                            if self.cfg.num_heads % tp
+                            else f"tp={tp} exceeds 1 device(s)"))
+                continue
+            for bs in bss:
+                t_cfg = time.perf_counter()
+                prof = self._profile_one(tp, bs)
+                entries[(self.device_type, tp, bs)] = prof
+                self.events.emit(
+                    "profile_measured", device_type=self.device_type,
+                    tp=tp, bs=bs,
+                    full_model_ms=round(sum(prof.layer_times_ms), 4),
+                    max_layer_memory_mb=round(max(prof.layer_memory_mb), 2),
+                    wall_s=round(time.perf_counter() - t_cfg, 3))
+        if not entries:
+            raise MetisError(
+                f"no (tp, bs) combination profileable on one device; "
+                f"requested tps={list(tps)}")
+
+        pbytes = self._params_per_layer_bytes(self._model_params())
+        opt_ms = self._profile_optimizer_ms()
+        bg_ms = self._profile_batch_gen_ms(max(bss))
+        self.events.emit(
+            "profile_finished", device_type=self.device_type,
+            num_configs=len(entries), optimizer_ms=round(opt_ms, 4),
+            batch_gen_ms=round(bg_ms, 4),
+            wall_s=round(time.perf_counter() - t_run, 3))
+        meta = ModelProfileMeta(
+            num_layers=self.cfg.num_profile_layers,
+            optimizer_time_ms=opt_ms,
+            batch_generator_ms=bg_ms,
+            params_per_layer_bytes=pbytes,
+        )
+        type_meta = {self.device_type: DeviceTypeMeta(opt_ms, bg_ms)}
+        return ProfileStore(entries, meta, type_meta)
+
+
+def profile_model(
+    model: ModelSpec,
+    tps: Sequence[int] = (1,),
+    bss: Sequence[int] = (1,),
+    device_type: str | None = None,
+    device: str | torch.device = "cuda",
+    config: ProfilerConfig = ProfilerConfig(),
+    events: EventLog = NULL_LOG,
+) -> ProfileStore:
+    """One-call measured profiling (see :class:`LayerProfiler`)."""
+    return LayerProfiler(model, device_type, device, config,
+                         events=events).run(tps, bss)
+
+
+def profile_to_dir(
+    model: ModelSpec,
+    out_dir: str | Path,
+    tps: Sequence[int] = (1,),
+    bss: Sequence[int] = (1,),
+    device_type: str | None = None,
+    device: str | torch.device = "cuda",
+    config: ProfilerConfig = ProfilerConfig(),
+) -> list[Path]:
+    """Profile and write reference-schema JSON files."""
+    store = profile_model(model, tps, bss, device_type, device, config)
+    return store.dump_to_dir(
+        out_dir, {"model_name": model.name, "attn": model.attn})
