@@ -8,10 +8,12 @@ Phases, in order (any failure exits non-zero):
 1. the card's name and power limit (``nvidia-smi``) and the CUDA version;
 2. build the hand-written kernels from ``metis_tpu_torch/ops/csrc``;
 3. kernels: each of B1 (forward), B2 (dQ) and B3 (dK/dV) against its plain
-   PyTorch version at the main-path shape and at GQA, ragged-length,
-   non-causal and stats-mode shapes, in bf16; times (CUDA events, median) of
-   each kernel, its plain version and PyTorch's SDPA as a yardstick, beside
-   the bound computed from the inputs;
+   PyTorch version at the main-path shape and at GQA, ragged-length (across
+   the 128-row tile edges too), non-causal and stats-mode shapes, in bf16;
+   times of each kernel, its plain version and PyTorch's SDPA as a yardstick
+   (CUDA events around a run of back-to-back calls, see ``cuda_ms``; the
+   kernels and SDPA three times, with their spread), beside the bound
+   computed from the inputs;
 4. slice: the flash GPT at the ``--model-size 1.5B`` preset (full width and
    depth, random weights from a seed): agreement of flash and dense
    attention on a small GPT, ``profile_model`` to a profile directory and back
@@ -29,6 +31,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -63,6 +66,11 @@ KERNEL_CASES = [
     MAIN,
     dict(name="gqa", b=2, hq=8, hkv=2, s=1024, d=128, causal=True),
     dict(name="ragged", b=2, hq=8, hkv=8, s=1000, d=128, causal=True),
+    # one short of and one past the 128-row tiles of B1 (query) and B3 (key)
+    dict(name="edge127", b=2, hq=8, hkv=8, s=127, d=128, causal=True),
+    dict(name="edge129", b=2, hq=8, hkv=4, s=129, d=128, causal=True),
+    # g = 8 query heads per KV head: B3's loop over the group members
+    dict(name="gqa8", b=2, hq=16, hkv=2, s=1024, d=128, causal=True),
     dict(name="noncausal_d64", b=2, hq=8, hkv=8, s=512, d=64, causal=False),
     dict(name="stats", b=2, hq=8, hkv=2, s=1000, d=128, causal=False,
          stats=True),
@@ -86,20 +94,45 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Median device time of ``fn`` over ``iters`` launches (CUDA events)."""
+    """Device time of one call of ``fn``: after ``warmup`` calls, one pair of
+    CUDA events around ``iters`` back-to-back calls, over ``iters``.  The
+    host queues the calls ahead of the card, so its gaps between calls are
+    not counted (an event pair around each single call counts them whenever
+    the host's overhead of a call is close to its device time)."""
     for _ in range(warmup):
         fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
-    pairs = []
+    start.record()
     for _ in range(iters):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
         fn()
-        end.record()
-        pairs.append((start, end))
+    end.record()
     torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in pairs)
+    return start.elapsed_time(end) / iters
+
+
+def timed_runs(fn, reps: int = 3) -> dict:
+    """``cuda_ms`` repeated ``reps`` times: the median and every run."""
+    runs = [cuda_ms(fn) for _ in range(reps)]
+    return {"ms": statistics.median(runs), "runs": runs}
+
+
+def ptxas_summary(log: str) -> list[str]:
+    """One line per kernel of an ``nvcc -Xptxas -v`` log: registers and spills."""
+    lines, name, spill = [], None, ""
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '\S*?(fa_\w+?_kernel)ILi(\d+)E", line)
+        if entry:
+            name = f"{entry.group(1)}<{entry.group(2)}>"
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spills:
+            spill = f"{spills.group(1)} B spill stores, {spills.group(2)} B spill loads"
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs and name:
+            lines.append(f"{name}: {regs.group(1)} registers, {spill}")
+            name = None
+    return lines
 
 
 def row_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
@@ -189,16 +222,16 @@ def kernel_case(case: dict, gen: torch.Generator, timed: bool) -> dict:
         io = nbytes(m, l)
         out["timing"] = {
             "fa_fwd": dict(
-                ms=cuda_ms(lambda: fa.fa_fwd(q, k, v, **heads)),
+                **timed_runs(lambda: fa.fa_fwd(q, k, v, **heads)),
                 plain_ms=cuda_ms(lambda: fa.fa_fwd_plain(q, k, v, **heads), 5, 1),
                 bound=bound(4 * pairs * d, nbytes(q, k, v, o) + io)),
             "fa_bwd_dq": dict(
-                ms=cuda_ms(lambda: fa.fa_bwd_dq(q, k, v, do, lse, delta, **heads)),
+                **timed_runs(lambda: fa.fa_bwd_dq(q, k, v, do, lse, delta, **heads)),
                 plain_ms=cuda_ms(lambda: fa.fa_bwd_dq_plain(
                     q, k, v, do, lse, delta, **heads), 5, 1),
                 bound=bound(6 * pairs * d, nbytes(q, k, v, do, dq) + io)),
             "fa_bwd_dkv": dict(
-                ms=cuda_ms(lambda: fa.fa_bwd_dkv(q, k, v, do, lse, delta, **heads)),
+                **timed_runs(lambda: fa.fa_bwd_dkv(q, k, v, do, lse, delta, **heads)),
                 plain_ms=cuda_ms(lambda: fa.fa_bwd_dkv_plain(
                     q, k, v, do, lse, delta, **heads), 5, 1),
                 bound=bound(8 * pairs * d, nbytes(q, k, v, do, dk, dv) + io)),
@@ -214,11 +247,10 @@ def sdpa_ms(q, k, v, do, b, h, s, d, causal) -> dict:
 
     q4, k4, v4 = (t.view(b, h, s, d).detach().requires_grad_() for t in (q, k, v))
     do4 = do.view(b, h, s, d)
-    fwd = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal))
+    fwd = timed_runs(lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal))
     o4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal)
-    bwd = cuda_ms(lambda: torch.autograd.grad(o4, (q4, k4, v4), do4,
-                                              retain_graph=True))
-    return {"sdpa_fwd_ms": fwd, "sdpa_bwd_ms": bwd}
+    bwd = timed_runs(lambda: torch.autograd.grad(o4, (q4, k4, v4), do4, retain_graph=True))
+    return {"sdpa_fwd": fwd, "sdpa_bwd": bwd}
 
 
 def kernel_phase() -> dict:
@@ -245,12 +277,16 @@ def kernel_phase() -> dict:
         if "timing" in res:
             main_timing = res
             t = res["timing"]
-            for kname, lib in (("fa_fwd", "sdpa_fwd_ms"), ("fa_bwd_dq", "sdpa_bwd_ms"),
-                               ("fa_bwd_dkv", "sdpa_bwd_ms")):
+            for kname, lib in (("fa_fwd", "sdpa_fwd"), ("fa_bwd_dq", "sdpa_bwd"),
+                               ("fa_bwd_dkv", "sdpa_bwd")):
                 bound_ms, bound_by = t[kname]["bound"]
                 log(f"  {kname:>10} at {case['name']}: {t[kname]['ms']:.4f} ms, plain "
-                    f"{t[kname]['plain_ms']:.4f} ms, {lib} {t[lib]:.4f} ms, bound "
+                    f"{t[kname]['plain_ms']:.4f} ms, {lib} {t[lib]['ms']:.4f} ms, bound "
                     f"{bound_ms:.4f} ms ({bound_by})")
+            for name in ("fa_fwd", "fa_bwd_dq", "fa_bwd_dkv", "sdpa_fwd", "sdpa_bwd"):
+                runs = t[name]["runs"]
+                log(f"  {name:>10} runs {[round(r, 4) for r in runs]} ms, spread "
+                    f"{(max(runs) - min(runs)) / t[name]['ms']:.2%} of the median")
         torch.cuda.empty_cache()
     if failures:
         raise SystemExit(f"kernel disagrees with its plain version: {failures}")
@@ -259,8 +295,8 @@ def kernel_phase() -> dict:
 
 def kernel_records(main: dict, launches: dict) -> list[dict]:
     timing = main["timing"]
-    library = {"fa_fwd": timing["sdpa_fwd_ms"], "fa_bwd_dq": timing["sdpa_bwd_ms"],
-               "fa_bwd_dkv": timing["sdpa_bwd_ms"]}
+    library = {"fa_fwd": timing["sdpa_fwd"]["ms"], "fa_bwd_dq": timing["sdpa_bwd"]["ms"],
+               "fa_bwd_dkv": timing["sdpa_bwd"]["ms"]}
     records = []
     for name in ("fa_fwd", "fa_bwd_dq", "fa_bwd_dkv"):
         t = timing[name]
@@ -420,9 +456,8 @@ def main() -> int:
     built = fa.kernel_library()
     log(f"build: {built.path.name} in {time.perf_counter() - t0:.1f} s "
         f"(nvcc {built.seconds:.1f} s)")
-    for line in built.ptxas_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    for line in ptxas_summary(built.ptxas_log):
+        log(f"  ptxas: {line}")
 
     log("kernels:")
     main_case = kernel_phase()

@@ -2,10 +2,10 @@
 
 Each source under ``csrc/`` compiles with ``nvcc`` into a shared library with
 a plain C interface (no PyTorch headers, so a build takes seconds).  The
-library lands in ``_build/`` beside this file, named by a hash of the source
-and the flags, so an edited source rebuilds and an unchanged one loads as
-is.  Nothing builds at import time: the CPU tests import every module on a
-machine with no ``nvcc``.
+library lands in ``_build/`` beside this file, named by a hash of the source,
+every header beside it (``*.cuh``) and the flags, so an edited source or
+header rebuilds and an unchanged one loads as is.  Nothing builds at import
+time: the CPU tests import every module on a machine with no ``nvcc``.
 """
 from __future__ import annotations
 
@@ -46,12 +46,21 @@ def find_nvcc() -> str:
     return nvcc
 
 
+def library_path(source: str, csrc: Path = CSRC) -> Path:
+    """Where the build of ``csrc/<source>`` lands: named by a hash of the
+    source, of every ``*.cuh`` header in its directory and of the flags."""
+    src = csrc / source
+    digest = hashlib.sha256()
+    for path in [src, *sorted(csrc.glob("*.cuh"))]:
+        digest.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{src.stem}_{digest.hexdigest()[:16]}.so"
+
+
 def build(source: str) -> BuiltLibrary:
     """Compile ``csrc/<source>`` (unless an identical build exists) and load it."""
     src = CSRC / source
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"lib{src.stem}_{digest}.so"
+    out = library_path(source)
     log_path = out.with_suffix(".ptxas.txt")
     seconds = 0.0
     if not out.exists():

@@ -4,6 +4,7 @@
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
 // into a library with a plain C interface (the three extern "C" functions at
 // the end), loaded through ctypes by metis_tpu_torch/ops/flash_attention.py.
+// hopper.cuh beside this file holds the cp.async, wgmma and lane primitives.
 //
 // Layout: heads folded into the leading dim. q/o/dO/dq are [b*hq, s_q, D],
 // k/v/dk/dv are [b*hkv, s_kv, D], all bf16 and contiguous; m, l, lse and
@@ -13,63 +14,69 @@
 // key rows j <= i. Any sequence length runs: the ragged last tile is masked
 // here, never padded by the caller.
 //
-// Design, shared by the three kernels. A Pallas grid on the TPU runs in order
-// and carries (m, l, acc) in VMEM scratch across its last grid dimension; on
-// Hopper blocks run in no order, so each CTA owns one output tile and loops
-// over the other operand inside the CTA. The causal block skip becomes the
-// bound of that loop. Tiles are 64 x D (16 KB at D = 128 in bf16), staged in
-// shared memory with a 16-byte row pad against bank conflicts. 4 warps per
-// CTA; each warp owns 16 rows of the CTA's tile and runs its products on the
-// tensor cores through WMMA (16x16x16 bf16, fp32 accumulate). The softmax and
-// gradient elementwise work reads the fp32 product tiles back from shared
-// memory, because the WMMA accumulator layout is opaque.
+// A Pallas grid on the TPU runs in order and carries (m, l, acc) in VMEM
+// scratch across its last grid dimension; on Hopper blocks run in no order,
+// so each CTA owns one output tile and loops over the other operand inside
+// the CTA, with the causal block skip as the bound of that loop.
 //
-// What the simple design leaves on the table (work for later PRs): WMMA is
-// mma.sync, about half of what wgmma reaches; loads are synchronous
-// (no cp.async / TMA double buffering), so the tensor cores idle while a tile
-// arrives; products round-trip through shared memory for the elementwise
-// step; the dK/dV kernel runs one CTA per SM at D = 128.
+// B1 (forward) and B3 (dK/dV) are built for Hopper: two warpgroups per CTA
+// run their products as wgmma, whose accumulator layout is documented, so the
+// softmax and gradient elementwise work happens on the accumulators in
+// registers and the bf16 weights feed the next product straight from
+// registers. Their tiles arrive asynchronously in the 128-byte-swizzled
+// layout wgmma reads, the next tile in flight while the current one
+// computes: B1's through a TMA ring that a producer warp fills, B3's through
+// a cp.async ring. B2 (dQ) is still the first design: WMMA (16x16x16, opaque
+// fragments) on tiles with a 16-byte row pad, so its fp32 products
+// round-trip through shared memory, and its loads are synchronous.
+//
+// The host side of B1 builds its TMA tensor maps with cuTensorMapEncodeTiled,
+// which it takes from the driver at run time (cudaGetDriverEntryPoint), so
+// the library needs no link flag beyond the runtime.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int TILE = 64;          // rows of every Q and KV tile
-constexpr int WARPS = 4;          // each warp owns 16 rows of a tile
+constexpr int TILE = 64;          // rows of every Q and KV tile of B2
+constexpr int WARPS = 4;          // each warp of B2 owns 16 rows of a tile
 constexpr int THREADS = WARPS * 32;
-constexpr int PAD_H = 8;          // bf16 row pad (16 bytes)
-constexpr int PAD_F = 4;          // fp32 row pad (16 bytes)
+constexpr int PAD_H = 8;          // bf16 row pad of B2's tiles (16 bytes)
+constexpr int PAD_F = 4;          // fp32 row pad of B2's tiles (16 bytes)
 constexpr float NEG_INF = -1e30f; // the reference's mask value
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
 typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragBRow;
 typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragBCol;
 typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
 
-// Shared-memory geometry for head dim D. Every region is a multiple of 128
-// bytes, so carving them in sequence keeps each one 128-byte aligned, and
+// B2's shared-memory geometry for head dim D. Every region is a multiple of
+// 128 bytes, so carving them in sequence keeps each one 128-byte aligned, and
 // every 16-row fragment start stays 32-byte aligned as WMMA requires.
 template <int D>
 struct Tiles {
   static_assert(D % 16 == 0, "head dim must be a multiple of 16");
   static constexpr int LDH = D + PAD_H;     // bf16 [64][D] tiles (Q, K, V, dO)
-  static constexpr int LDO = D + PAD_F;     // fp32 [64][D] accumulator / staging
+  static constexpr int LDO = D + PAD_F;     // fp32 [64][D] dq staging
   static constexpr int LDS = TILE + PAD_F;  // fp32 [64][64] product tiles
-  static constexpr int LDP = TILE + PAD_H;  // bf16 [64][64] probability tiles
+  static constexpr int LDP = TILE + PAD_H;  // bf16 [64][64] dS tile
   static constexpr size_t H = TILE * LDH * sizeof(bf16);
   static constexpr size_t O = TILE * LDO * sizeof(float);
   static constexpr size_t S = TILE * LDS * sizeof(float);
   static constexpr size_t P = TILE * LDP * sizeof(bf16);
   static constexpr size_t ROW = TILE * sizeof(float);
-  static constexpr size_t FWD = 3 * H + S + P + O + 2 * ROW;
   static constexpr size_t DQ = 4 * H + 2 * S + P + 2 * ROW;
-  static constexpr size_t DKV = 4 * H + 2 * S + 2 * P + 2 * ROW;
   static_assert(O <= 2 * S, "fp32 output staging must fit in two product tiles");
 };
 
@@ -99,18 +106,6 @@ __device__ __forceinline__ void load_rows(float* dst, const float* src, int row0
   }
 }
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
 // out[16 x 64] (fp32, ldm ldo) = A[16 x D] . B[64 x D]^T, A and B bf16 row-major
 // in shared memory: one warp's product of its rows against a whole tile.
 template <int D>
@@ -133,130 +128,296 @@ __device__ __forceinline__ void rows_times_tile_t(float* out, int ldo, const bf1
   }
 }
 
+// Issue the asynchronous copy of rows [row0, row0 + ROWS) of a contiguous
+// [nrows, D] bf16 matrix into a 128-byte-swizzled [ROWS][D] tile (hopper.cuh);
+// rows past nrows are zero-filled. All NTHREADS threads of the CTA take part.
+template <int D, int ROWS, int NTHREADS>
+__device__ __forceinline__ void load_tile_sw128(unsigned char* dst, const bf16* src,
+                                                int row0, int nrows) {
+  constexpr int CHUNKS = D / 8;  // 16-byte chunks per row
+  static_assert(ROWS * CHUNKS % NTHREADS == 0, "tile must split evenly over the CTA");
+#pragma unroll
+  for (int it = 0; it < ROWS * CHUNKS / NTHREADS; ++it) {
+    const int i = it * NTHREADS + threadIdx.x;
+    const int r = i / CHUNKS;
+    const int c = i % CHUNKS;
+    const bool valid = row0 + r < nrows;
+    metis::cp_async_16(dst + metis::sw128_offset(ROWS, r, c),
+                       src + (size_t)(valid ? row0 + r : 0) * D + c * 8, valid);
+  }
+}
+
 // ---------------------------------------------------------------------------
 // B1. Replaces metis_tpu/ops/flash_attention.py:85 _fa_kernel (pallas_call at
 // :390, reached through _fa_call :344).
 //
-// One CTA per (b*hq, 64-row Q tile), looping over the KV tiles with an online
-// softmax; the causal skip is the loop bound (KV tiles that start after the
-// tile's last row are never visited). normalize=1 writes O = acc / l,
-// normalize=0 the unnormalised acc; m_out/l_out (optional) get the per-row
-// running max and sum.
+// One CTA per (b*hq, 128-row Q tile), looping over 128-row KV tiles with an
+// online softmax. normalize=1 writes O = acc / l, normalize=0 the
+// unnormalised acc (the stats mode of ring attention); m_out/l_out (optional)
+// get the per-row running max and sum.
 //
 // Bound on an H100 SXM at the main-path shape (b=4, h=32, s=1024, d=128,
-// causal, bf16): 2*b*h*s^2*d = 3.4e10 FLOP, 35 us at 989 TFLOP/s; it reads
-// Q, K, V and writes O, 4 x 33.5 MB, 40 us at 3.35 TB/s. So it is bound by
-// bytes at this shape, narrowly.
+// causal, bf16): 4 * b*h*s(s+1)/2 * d = 3.4e10 FLOP, 35 us at 989 TFLOP/s;
+// it reads Q, K, V and writes O, 4 x 33.5 MB, 40 us at 3.35 TB/s. Bound by
+// bytes, narrowly.
+//
+// What held the first design back (0.973 ms, 24x its bound): the fp32 output
+// accumulator lived in shared memory, loaded, rescaled and stored on every
+// KV tile, because WMMA fragments are opaque; S went to shared memory too
+// and came back one row at a time per warp with two 5-step shuffle
+// reductions; K and V arrived synchronously between two barriers; 113 KB of
+// shared memory per 64-row CTA left 8 warps per SM.
+//
+// This design: a producer warp and two consumer warpgroups, each owning 64
+// query rows (16 per warp). The producer's one lane loads Q once and then K
+// and V tile by tile with TMA (128-byte-swizzled boxes; rows past the end
+// read as zeros) into a two-stage ring, tracked by mbarriers: full when a
+// tile has landed, empty when every consumer is done with it. So the next
+// tile is in flight while one computes, and the consumers spend no
+// instructions and no barrier of the CTA on loads. S = Q K^T is one wgmma
+// chain per KV tile (m64n128k16, Q and K read from shared memory through
+// descriptors) into registers; the output accumulator O (64 x D per
+// warpgroup, D/2 fp32 per thread) is a wgmma accumulator and stays in
+// registers for the whole KV loop. The online softmax works on S in place:
+// each lane holds two rows, so the row max and sum are two-step quad
+// shuffles; exp2 with log2(e) folded into the scale; the alpha rescale
+// multiplies O in registers; P is rounded to bf16 in registers and is the A
+// operand of O += P V (m64nDk16, V read from shared memory, transposed). No
+// fp32 tile touches shared memory. The two warpgroups take turns issuing
+// S = Q K^T (named barriers), so one's softmax runs while the other's
+// products use the tensor cores. The per-lane row sums are reduced across
+// the quad once, after the loop. The causal mask is applied only on the
+// diagonal tile (and the ragged end). The heaviest causal Q tiles are
+// launched first (reversed blockIdx.x), so the tail wave is short.
+// Shared memory per CTA: Q 128 x D bf16 + 2 stages x (K, V) 128 x D bf16 + 7
+// mbarriers + 1 KB of alignment slack = 164,920 bytes at D = 128, 83,000 at
+// D = 64. Registers (ptxas, CUDA 12.8): 166 per thread at D = 128, 137 at
+// D = 64, no spills; 1 CTA (9 warps) per SM.
+//
+// Tried on the card and left out, because they were slower at the main-path
+// shape (tools/torch_kernel_ab.py, H100 80GB HBM3 at 700 W): 64-row KV tiles
+// in three stages, 0.138-0.140 ms against 0.130-0.132 ms; the softmax of
+// tile j overlapping P V of tile j - 1 inside one warpgroup (S_j and
+// P_{j-1} V_{j-1} issued together), 0.180 ms against 0.138 ms at 64-row
+// tiles; cp.async loads by all threads with a barrier of the CTA per tile,
+// 0.146-0.161 ms.
+constexpr int FWD_BM = 128;     // query rows per CTA: 2 consumer warpgroups x 64
+constexpr int FWD_BN = 128;     // key rows per KV tile
+constexpr int FWD_STAGES = 2;   // K/V ring depth
+constexpr int FWD_CONSUMERS = 256;
+constexpr int FWD_THREADS = FWD_CONSUMERS + 32;  // + one producer warp
+static_assert(FWD_BN == FWD_BM, "every warpgroup sees every KV tile up to the diagonal");
+
 template <int D>
-__global__ void __launch_bounds__(THREADS)
-fa_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-              const bf16* __restrict__ v, bf16* __restrict__ o,
+struct FwdSmem {
+  static constexpr size_t Q = FWD_BM * D * sizeof(bf16);
+  static constexpr size_t KV = FWD_BN * D * sizeof(bf16);
+  static constexpr size_t BARS = (1 + 3 * FWD_STAGES) * sizeof(uint64_t);
+  // Q, the (K, V) stages, the barriers, alignment slack
+  static constexpr size_t BYTES = Q + 2 * FWD_STAGES * KV + BARS + metis::SW128_ATOM;
+};
+
+template <int D>
+__global__ void __launch_bounds__(FWD_THREADS, 1)
+fa_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+              const __grid_constant__ CUtensorMap tm_v, bf16* __restrict__ o,
               float* __restrict__ m_out, float* __restrict__ l_out, int s_q,
               int s_kv, int hq, int hkv, float sm_scale, int causal, int normalize) {
-  typedef Tiles<D> T;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = reinterpret_cast<bf16*>(smem + T::H);
-  bf16* sV = reinterpret_cast<bf16*>(smem + 2 * T::H);
-  float* sS = reinterpret_cast<float*>(smem + 3 * T::H);
-  bf16* sP = reinterpret_cast<bf16*>(smem + 3 * T::H + T::S);
-  float* sO = reinterpret_cast<float*>(smem + 3 * T::H + T::S + T::P);
-  float* sM = reinterpret_cast<float*>(smem + 3 * T::H + T::S + T::P + T::O);
-  float* sL = sM + TILE;
+  typedef FwdSmem<D> L;
+  constexpr int NT = FWD_BN / 8;  // 8-column tiles of S per warp
+  constexpr int DT = D / 8;       // 8-column tiles of O per warp
+  constexpr int ROW = metis::SW128_ROW;
+  extern __shared__ unsigned char smem_raw[];
+  // swizzle atoms need 1024-byte alignment
+  unsigned char* smem = smem_raw + ((metis::SW128_ATOM - metis::smem_u32(smem_raw) %
+                                     metis::SW128_ATOM) % metis::SW128_ATOM);
+  unsigned char* sQ = smem;
+  unsigned char* sKV = smem + L::Q;  // stage s: K at 2s KV, V at (2s + 1) KV
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sKV + 2 * FWD_STAGES * L::KV);
+  uint64_t* k_full = q_full + 1;             // [FWD_STAGES]: K of the stage has landed
+  uint64_t* v_full = k_full + FWD_STAGES;    // [FWD_STAGES]: V of the stage has landed
+  uint64_t* empty = v_full + FWD_STAGES;     // [FWD_STAGES]: every consumer is done with it
 
   const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * TILE;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * FWD_BM;  // heaviest causal tiles first
   const int g = hq / hkv;
   const int bh_kv = (bh / hq) * hkv + (bh % hq) / g;
-  const bf16* kb = k + (size_t)bh_kv * s_kv * D;
-  const bf16* vb = v + (size_t)bh_kv * s_kv * D;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int r0 = warp * 16;
+  const int kv_end = causal ? min(s_kv, q0 + FWD_BM) : s_kv;
+  const int n_tiles = (kv_end + FWD_BN - 1) / FWD_BN;
 
-  load_tile<D>(sQ, q + (size_t)bh * s_q * D, q0, s_q);
-  for (int i = threadIdx.x; i < TILE * T::LDO; i += THREADS) sO[i] = 0.f;
-  for (int i = threadIdx.x; i < TILE; i += THREADS) {
-    sM[i] = NEG_INF;
-    sL[i] = 0.f;
-  }
-
-  const int kv_end = causal ? min(s_kv, q0 + TILE) : s_kv;
-  for (int k0 = 0; k0 < kv_end; k0 += TILE) {
-    __syncthreads();  // the previous tile's readers are done with sK/sV
-    load_tile<D>(sK, kb, k0, s_kv);
-    load_tile<D>(sV, vb, k0, s_kv);
-    __syncthreads();
-
-    rows_times_tile_t<D>(sS + r0 * T::LDS, T::LDS, sQ + r0 * T::LDH, sK);
-    __syncwarp();
-
-    // online softmax over this warp's 16 rows; lane owns columns lane, lane+32
-    for (int r = r0; r < r0 + 16; ++r) {
-      const int qi = q0 + r;
-      const float m_prev = sM[r];
-      const float l_prev = sL[r];
-      float s[2];
-      float mx = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int kj = k0 + lane + 32 * j;
-        float val = sS[r * T::LDS + lane + 32 * j] * sm_scale;
-        if (causal && kj > qi) val = NEG_INF;
-        s[j] = val;
-        if (kj < s_kv) mx = fmaxf(mx, val);  // columns past the end do not exist
-      }
-      mx = warp_max(mx);
-      const float m_new = fmaxf(m_prev, mx);
-      const float alpha = __expf(m_prev - m_new);
-      float psum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int kj = k0 + lane + 32 * j;
-        const float p = (kj < s_kv) ? __expf(s[j] - m_new) : 0.f;
-        sP[r * T::LDP + lane + 32 * j] = __float2bfloat16(p);
-        psum += p;
-      }
-      psum = warp_sum(psum);
-      for (int c = lane; c < D; c += 32) sO[r * T::LDO + c] *= alpha;
-      if (lane == 0) {
-        sM[r] = m_new;
-        sL[r] = l_prev * alpha + psum;
-      }
+  if (threadIdx.x == 0) {
+    metis::mbar_init(q_full, 1);
+    for (int s = 0; s < FWD_STAGES; ++s) {
+      metis::mbar_init(&k_full[s], 1);
+      metis::mbar_init(&v_full[s], 1);
+      metis::mbar_init(&empty[s], FWD_CONSUMERS);
     }
-    __syncwarp();
-
-    // acc[16 x D] += P[16 x 64] . V[64 x D]
-#pragma unroll
-    for (int n = 0; n < D; n += 16) {
-      FragC acc;
-      wmma::load_matrix_sync(acc, sO + r0 * T::LDO + n, T::LDO, wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < TILE; kk += 16) {
-        FragA fa;
-        FragBRow fb;
-        wmma::load_matrix_sync(fa, sP + r0 * T::LDP + kk, T::LDP);
-        wmma::load_matrix_sync(fb, sV + kk * T::LDH + n, T::LDH);
-        wmma::mma_sync(acc, fa, fb, acc);
-      }
-      wmma::store_matrix_sync(sO + r0 * T::LDO + n, acc, T::LDO, wmma::mem_row_major);
-    }
-    __syncwarp();
+    metis::fence_mbar_init();
   }
   __syncthreads();
 
-  for (int r = r0; r < r0 + 16; ++r) {
-    const int qi = q0 + r;
-    if (qi >= s_q) break;
-    const float l = sL[r];
-    const float denom = (normalize && l != 0.f) ? l : 1.f;
-    bf16* orow = o + ((size_t)bh * s_q + qi) * D;
-    for (int c = lane; c < D; c += 32) {
-      orow[c] = __float2bfloat16(sO[r * T::LDO + c] / denom);
+  if (threadIdx.x >= FWD_CONSUMERS) {  // the producer warp: one lane issues every load
+    if (threadIdx.x == FWD_CONSUMERS) {
+      metis::mbar_arrive_expect_tx(q_full, L::Q);
+      for (int slab = 0; slab < D / 64; ++slab) {
+        metis::tma_load_3d(sQ + slab * FWD_BM * ROW, &tm_q, q_full, slab * 64, q0, bh);
+      }
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % FWD_STAGES;
+        const int round = j / FWD_STAGES;
+        if (round > 0) metis::mbar_wait(&empty[s], (round - 1) & 1);
+        unsigned char* stage = sKV + s * 2 * L::KV;
+        metis::mbar_arrive_expect_tx(&k_full[s], L::KV);
+        for (int slab = 0; slab < D / 64; ++slab) {
+          metis::tma_load_3d(stage + slab * FWD_BN * ROW, &tm_k, &k_full[s], slab * 64,
+                             j * FWD_BN, bh_kv);
+        }
+        metis::mbar_arrive_expect_tx(&v_full[s], L::KV);
+        for (int slab = 0; slab < D / 64; ++slab) {
+          metis::tma_load_3d(stage + L::KV + slab * FWD_BN * ROW, &tm_v, &v_full[s],
+                             slab * 64, j * FWD_BN, bh_kv);
+        }
+      }
     }
-    if (m_out != nullptr && lane == 0) {
-      m_out[(size_t)bh * s_q + qi] = sM[r];
-      l_out[(size_t)bh * s_q + qi] = l;
+    return;
+  }
+
+  const int warp = threadIdx.x / 32;
+  const int wg = warp / 4;
+  const int lane = threadIdx.x % 32;
+  const int gid = lane / 4, tig = lane % 4;
+  const int wq = q0 + warp * 16;  // first query row of this warp
+
+  float acc[DT][4];
+#pragma unroll
+  for (int i = 0; i < DT; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  // rows gid and gid + 8 of the warp: running max (log2 units) and this
+  // lane's share of the running sum
+  float m_run[2] = {-INFINITY, -INFINITY};
+  float l_run[2] = {0.f, 0.f};
+  const float scale_log2 = sm_scale * LOG2E;
+
+  // The two warpgroups take turns issuing S = Q K^T: warpgroup w waits on
+  // named barrier 1 + w for its turn and hands the turn over on the other's,
+  // so one's softmax runs while the other's products do. Warpgroup 0 starts.
+  if (wg == 1) metis::named_bar_arrive(1, FWD_CONSUMERS);
+  metis::mbar_wait(q_full, 0);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int k0 = j * FWD_BN;
+    const int s = j % FWD_STAGES;
+    const uint32_t parity = (j / FWD_STAGES) & 1;
+    const unsigned char* cK = sKV + s * 2 * L::KV;
+    const unsigned char* cV = cK + L::KV;
+
+    // KV tiles are as wide as the Q tile, so every row of the CTA sees each
+    // tile up to the diagonal one: no warpgroup skips a tile.
+    metis::mbar_wait(&k_full[s], parity);
+    metis::named_bar_sync(1 + wg, FWD_CONSUMERS);
+    // S[64 x 128] = Q[64 x D] . K[128 x D]^T, k16 blocks along D
+    float sc[NT][4];
+#pragma unroll
+    for (int i = 0; i < NT; ++i) sc[i][0] = sc[i][1] = sc[i][2] = sc[i][3] = 0.f;
+    metis::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int col = (kk % 4) * 32;  // byte offset of the k16 block in its slab's rows
+      metis::wgmma_m64n128k16_ss(
+          sc, metis::desc_k_major(sQ + (kk / 4) * FWD_BM * ROW + wg * 64 * ROW + col),
+          metis::desc_k_major(cK + (kk / 4) * FWD_BN * ROW + col), 1);
+    }
+    metis::wgmma_commit();
+    metis::named_bar_arrive(2 - wg, FWD_CONSUMERS);
+    metis::wgmma_wait<0>();
+    metis::fence_operands(sc);
+
+    // online softmax on the accumulators: lane holds rows gid (e = 0, 1)
+    // and gid + 8 (e = 2, 3), columns 8 nt + 2 tig + (e & 1)
+    const bool edge = (causal && k0 + FWD_BN - 1 > wq) || k0 + FWD_BN > s_kv;
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = sc[nt][e] * scale_log2;
+        if (edge) {
+          const int col = k0 + nt * 8 + 2 * tig + (e & 1);
+          const int row = wq + gid + (e >> 1) * 8;
+          if (col >= s_kv || (causal && col > row)) x = -INFINITY;
+        }
+        sc[nt][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    }
+    float m_use[2], alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m_new = fmaxf(m_run[r], metis::quad_max(mx[r]));
+      m_use[r] = m_new == -INFINITY ? 0.f : m_new;  // a row with nothing seen yet
+      alpha[r] = metis::exp2_approx(m_run[r] - m_use[r]);
+      m_run[r] = m_new;
+    }
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = metis::exp2_approx(sc[nt][e] - m_use[e >> 1]);
+        sc[nt][e] = p;
+        rs[e >> 1] += p;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + rs[r];
+#pragma unroll
+    for (int dt = 0; dt < DT; ++dt) {
+      acc[dt][0] *= alpha[0];
+      acc[dt][1] *= alpha[0];
+      acc[dt][2] *= alpha[1];
+      acc[dt][3] *= alpha[1];
+    }
+
+    // O[64 x D] += P[64 x 128] . V[128 x D], P from registers, V transposed
+    uint32_t pa[FWD_BN / 16][4];
+#pragma unroll
+    for (int kc = 0; kc < FWD_BN / 16; ++kc) {
+      pa[kc][0] = metis::pack_bf16(sc[2 * kc][0], sc[2 * kc][1]);
+      pa[kc][1] = metis::pack_bf16(sc[2 * kc][2], sc[2 * kc][3]);
+      pa[kc][2] = metis::pack_bf16(sc[2 * kc + 1][0], sc[2 * kc + 1][1]);
+      pa[kc][3] = metis::pack_bf16(sc[2 * kc + 1][2], sc[2 * kc + 1][3]);
+    }
+    metis::mbar_wait(&v_full[s], parity);
+    metis::wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < FWD_BN / 16; ++kc) {
+      const uint64_t dv = metis::desc_mn_major(cV + kc * 16 * ROW, FWD_BN * ROW);
+      if constexpr (D == 128) {
+        metis::wgmma_m64n128k16_rs_tb(acc, pa[kc], dv);
+      } else {
+        metis::wgmma_m64n64k16_rs_tb(acc, pa[kc], dv);
+      }
+    }
+    metis::wgmma_commit();
+    metis::wgmma_wait<0>();
+    metis::fence_operands(acc);
+    metis::mbar_arrive(&empty[s]);  // this thread is done with the stage
+  }
+  if (wg == 0) metis::named_bar_sync(1, FWD_CONSUMERS);  // warpgroup 1's last hand-over
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = wq + gid + 8 * r;
+    const float l = metis::quad_sum(l_run[r]);
+    if (row >= s_q) continue;
+    const float inv = (normalize && l != 0.f) ? 1.f / l : 1.f;
+    bf16* orow = o + ((size_t)bh * s_q + row) * D + 2 * tig;
+#pragma unroll
+    for (int dt = 0; dt < DT; ++dt) {
+      *reinterpret_cast<uint32_t*>(orow + dt * 8) =
+          metis::pack_bf16(acc[dt][2 * r] * inv, acc[dt][2 * r + 1] * inv);
+    }
+    if (m_out != nullptr && tig == 0) {
+      m_out[(size_t)bh * s_q + row] = m_run[r] == -INFINITY ? NEG_INF : m_run[r] * LN2;
+      l_out[(size_t)bh * s_q + row] = l;
     }
   }
 }
@@ -372,126 +533,223 @@ fa_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // B3. Replaces metis_tpu/ops/flash_attention.py:186 _fa_bwd_dkv_kernel
 // (pallas_call at :309, reached through _fa_bwd_call :244).
 //
-// One CTA per (b*hkv, 64-row KV tile), looping over the g query heads of the
-// GQA group and, for each, the Q tiles that can see this KV tile:
-//   dv += p^T dO, dk += ds^T Q.
-// Warps own KV rows, so the products are taken transposed (S^T = K Q^T,
-// dP^T = V dO^T). dk and dv accumulate in registers and each output tile is
-// written once: no atomics, as in the reference.
+// One CTA per (b*hkv, 128-row KV tile), looping over the g query heads of
+// the GQA group and, for each, the 64-row Q tiles that can see this KV tile:
+//   dv += p^T dO, dk += ds^T Q,  p = exp(s - lse), ds = p (dp - delta) scale.
+// dk and dv accumulate in registers and each output tile is written once,
+// after the loop over the group: no atomics, as in the reference.
 //
-// Bound on an H100 SXM at the main-path shape: four products, 4*b*h*s^2*d =
-// 6.9e10 FLOP, 69 us at 989 TFLOP/s; bytes (Q, K, V, dO, dK, dV, lse, delta)
-// 6 x 33.5 MB, 60 us at 3.35 TB/s.
+// Bound on an H100 SXM at the main-path shape: four products,
+// 8 * b*h*s(s+1)/2 * d = 6.9e10 FLOP, 70 us at 989 TFLOP/s; bytes (Q, K, V,
+// dO, dK, dV, lse, delta) 6 x 33.5 MB, 60 us at 3.35 TB/s. Bound by
+// operations.
+//
+// What held the first design back (1.186 ms, 17x its bound): dK and dV as
+// WMMA fragments across 4 warps took 255 registers with 52 bytes of spill at
+// D = 128; S^T and dP^T went to shared memory as fp32 and came back, and
+// p^T and dS^T went there again as bf16 for the dV and dK products; 123 KB
+// of shared memory held one CTA of 4 warps per SM; Q, dO, lse and delta
+// arrived synchronously for every Q tile.
+//
+// This design: two warpgroups, each owning 64 KV rows (16 per warp), with
+// their dK and dV rows (2 x 64 x D fp32 per warpgroup, D fp32 per thread) as
+// wgmma accumulators. For each Q tile a warpgroup computes S^T = K Q^T and
+// dP^T = V dO^T (m64n64k16, both operands read from shared memory through
+// descriptors) into registers, applies p = exp2(s scale log2e - lse log2e)
+// and ds = p (dp - delta) scale there, with lse and delta per column read
+// from shared memory, rounds P^T and dS^T to bf16 in registers, and uses
+// them directly as the A operands of dV += P^T dO and dK += dS^T Q (m64nDk16,
+// dO and Q read transposed from shared memory). P^T and dS^T never touch
+// shared memory. Q, dO, lse and delta flow through two cp.async stages over
+// one flattened (group member, Q tile) loop, so the next tile, or the next
+// member's first tile, arrives while the current one computes. The causal
+// mask is applied only on Q tiles that cross the diagonal (or the ragged
+// end); a warpgroup whose 64 keys follow every row of a Q tile skips it. KV
+// tile 0 sees every query row, and the grid launches it first.
+// Shared memory per CTA: K, V 128 x D bf16 + 2 stages x (Q, dO 64 x D bf16 +
+// lse, delta 64 fp32, rounded up to 1 KB) + 1 KB of alignment slack =
+// 134,144 bytes at D = 128, 68,608 at D = 64. Registers (ptxas, CUDA 12.8):
+// 239 per thread at D = 128, 219 at D = 64, no spills; 1 CTA (8 warps) per SM.
+constexpr int DKV_BN = 128;  // key rows per CTA: 2 warpgroups x 64
+constexpr int DKV_BM = 64;   // query rows per Q tile
+constexpr int DKV_THREADS = 256;
+
 template <int D>
-__global__ void __launch_bounds__(THREADS)
+struct DkvSmem {
+  static constexpr size_t KV = DKV_BN * D * sizeof(bf16);  // K or V
+  static constexpr size_t QT = DKV_BM * D * sizeof(bf16);  // Q or dO tile
+  // Q, dO, lse, delta; rounded up so that every stage's tiles start on a swizzle atom
+  static constexpr size_t STAGE =
+      (2 * QT + 2 * DKV_BM * sizeof(float) + metis::SW128_ATOM - 1) / metis::SW128_ATOM *
+      metis::SW128_ATOM;
+  static constexpr size_t BYTES = 2 * KV + 2 * STAGE + metis::SW128_ATOM;
+};
+
+template <int D>
+__global__ void __launch_bounds__(DKV_THREADS, 1)
 fa_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const bf16* __restrict__ v, const bf16* __restrict__ dout,
                   const float* __restrict__ lse, const float* __restrict__ delta,
                   bf16* __restrict__ dk, bf16* __restrict__ dv, int s_q, int s_kv,
                   int hq, int hkv, float sm_scale, int causal) {
-  typedef Tiles<D> T;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem);
-  bf16* sV = reinterpret_cast<bf16*>(smem + T::H);
-  bf16* sQ = reinterpret_cast<bf16*>(smem + 2 * T::H);
-  bf16* sdO = reinterpret_cast<bf16*>(smem + 3 * T::H);
-  float* sS = reinterpret_cast<float*>(smem + 4 * T::H);           // S^T [kv][q]
-  float* sdP = reinterpret_cast<float*>(smem + 4 * T::H + T::S);   // dP^T [kv][q]
-  bf16* sP = reinterpret_cast<bf16*>(smem + 4 * T::H + 2 * T::S);  // p^T
-  bf16* sdS = reinterpret_cast<bf16*>(smem + 4 * T::H + 2 * T::S + T::P);
-  float* sLse = reinterpret_cast<float*>(smem + 4 * T::H + 2 * T::S + 2 * T::P);
-  float* sDelta = sLse + TILE;
-  float* sStage = sS;
+  typedef DkvSmem<D> L;
+  constexpr int NT = DKV_BM / 8;  // 8-column tiles of S^T and dP^T per warp
+  constexpr int DT = D / 8;       // 8-column tiles of dK and dV per warp
+  constexpr int ROW = metis::SW128_ROW;
+  extern __shared__ unsigned char smem_raw[];
+  // swizzle atoms need 1024-byte alignment
+  unsigned char* smem = smem_raw + ((metis::SW128_ATOM - metis::smem_u32(smem_raw) %
+                                     metis::SW128_ATOM) % metis::SW128_ATOM);
+  unsigned char* sK = smem;
+  unsigned char* sV = smem + L::KV;
+  unsigned char* stages = smem + 2 * L::KV;  // stage s: Q, dO, lse, delta
 
   const int bh_kv = blockIdx.y;
-  const int k0 = blockIdx.x * TILE;
+  const int k0 = blockIdx.x * DKV_BN;
   const int g = hq / hkv;
   const int batch = bh_kv / hkv;
   const int kvh = bh_kv % hkv;
   const int warp = threadIdx.x / 32;
+  const int wg = warp / 4;
   const int lane = threadIdx.x % 32;
-  const int r0 = warp * 16;
-
-  load_tile<D>(sK, k + (size_t)bh_kv * s_kv * D, k0, s_kv);
-  load_tile<D>(sV, v + (size_t)bh_kv * s_kv * D, k0, s_kv);
-
-  FragC dk_acc[D / 16];
-  FragC dv_acc[D / 16];
-#pragma unroll
-  for (int i = 0; i < D / 16; ++i) {
-    wmma::fill_fragment(dk_acc[i], 0.f);
-    wmma::fill_fragment(dv_acc[i], 0.f);
-  }
+  const int gid = lane / 4, tig = lane % 4;
+  const int wk = k0 + warp * 16;  // first key row of this warp
+  const int wgk = k0 + wg * 64;   // ... and of its warpgroup
 
   // causal: query rows before k0 see none of this tile
-  const int q_begin = causal ? (k0 / TILE) * TILE : 0;
-  for (int member = 0; member < g; ++member) {
-    const int bh = batch * hq + kvh * g + member;
-    const bf16* qb = q + (size_t)bh * s_q * D;
-    const bf16* dob = dout + (size_t)bh * s_q * D;
-    for (int q0 = q_begin; q0 < s_q; q0 += TILE) {
-      __syncthreads();
-      load_tile<D>(sQ, qb, q0, s_q);
-      load_tile<D>(sdO, dob, q0, s_q);
-      load_rows(sLse, lse + (size_t)bh * s_q, q0, s_q);
-      load_rows(sDelta, delta + (size_t)bh * s_q, q0, s_q);
-      __syncthreads();
+  const int q_begin = causal ? (k0 / DKV_BM) * DKV_BM : 0;
+  const int nq = s_q > q_begin ? (s_q - q_begin + DKV_BM - 1) / DKV_BM : 0;
+  const int total = g * nq;  // (group member, Q tile) pairs
 
-      rows_times_tile_t<D>(sS + r0 * T::LDS, T::LDS, sK + r0 * T::LDH, sQ);
-      rows_times_tile_t<D>(sdP + r0 * T::LDS, T::LDS, sV + r0 * T::LDH, sdO);
-      __syncwarp();
-
-      for (int r = r0; r < r0 + 16; ++r) {
-        const int kj = k0 + r;
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int c = lane + 32 * j;
-          const int qi = q0 + c;
-          float p = __expf(sS[r * T::LDS + c] * sm_scale - sLse[c]);
-          if ((causal && kj > qi) || qi >= s_q) p = 0.f;
-          const float ds = p * (sdP[r * T::LDS + c] - sDelta[c]) * sm_scale;
-          sP[r * T::LDP + c] = __float2bfloat16(p);
-          sdS[r * T::LDP + c] = __float2bfloat16(ds);
-        }
-      }
-      __syncwarp();
-
-      // dv[16 x D] += p^T[16 x 64] . dO[64 x D];  dk[16 x D] += ds^T[16 x 64] . Q[64 x D]
-#pragma unroll
-      for (int i = 0; i < D / 16; ++i) {
-#pragma unroll
-        for (int kk = 0; kk < TILE; kk += 16) {
-          FragA fa;
-          FragBRow fb;
-          wmma::load_matrix_sync(fa, sP + r0 * T::LDP + kk, T::LDP);
-          wmma::load_matrix_sync(fb, sdO + kk * T::LDH + i * 16, T::LDH);
-          wmma::mma_sync(dv_acc[i], fa, fb, dv_acc[i]);
-          wmma::load_matrix_sync(fa, sdS + r0 * T::LDP + kk, T::LDP);
-          wmma::load_matrix_sync(fb, sQ + kk * T::LDH + i * 16, T::LDH);
-          wmma::mma_sync(dk_acc[i], fa, fb, dk_acc[i]);
-        }
-      }
+  auto load_stage = [&](int it) {
+    const int q0 = q_begin + (it % nq) * DKV_BM;
+    const size_t bh = (size_t)batch * hq + kvh * g + it / nq;
+    unsigned char* base = stages + (it & 1) * L::STAGE;
+    load_tile_sw128<D, DKV_BM, DKV_THREADS>(base, q + bh * s_q * D, q0, s_q);
+    load_tile_sw128<D, DKV_BM, DKV_THREADS>(base + L::QT, dout + bh * s_q * D, q0, s_q);
+    if (threadIdx.x < 2 * DKV_BM) {  // lse rows, then delta rows
+      const int i = threadIdx.x % DKV_BM;
+      const float* src = (threadIdx.x < DKV_BM ? lse : delta) + bh * s_q;
+      const bool valid = q0 + i < s_q;
+      metis::cp_async_4(reinterpret_cast<float*>(base + 2 * L::QT) + threadIdx.x,
+                        src + (valid ? q0 + i : 0), valid);
     }
+  };
+
+  load_tile_sw128<D, DKV_BN, DKV_THREADS>(sK, k + (size_t)bh_kv * s_kv * D, k0, s_kv);
+  load_tile_sw128<D, DKV_BN, DKV_THREADS>(sV, v + (size_t)bh_kv * s_kv * D, k0, s_kv);
+  if (total > 0) load_stage(0);
+  metis::cp_async_commit();
+
+  float dk_acc[DT][4], dv_acc[DT][4];
+#pragma unroll
+  for (int i = 0; i < DT; ++i) {
+    dk_acc[i][0] = dk_acc[i][1] = dk_acc[i][2] = dk_acc[i][3] = 0.f;
+    dv_acc[i][0] = dv_acc[i][1] = dv_acc[i][2] = dv_acc[i][3] = 0.f;
   }
-  __syncthreads();
+  const float scale_log2 = sm_scale * LOG2E;
 
-  bf16* outs[2] = {dk + (size_t)bh_kv * s_kv * D, dv + (size_t)bh_kv * s_kv * D};
+  for (int it = 0; it < total; ++it) {
+    if (it + 1 < total) load_stage(it + 1);
+    metis::cp_async_commit();
+    metis::cp_async_wait<1>();    // this stage (and K, V) have landed for this thread
+    metis::fence_proxy_async();  // ... where wgmma reads them
+    __syncthreads();              // ... for every thread
+    const int q0 = q_begin + (it % nq) * DKV_BM;
+    const unsigned char* cQ = stages + (it & 1) * L::STAGE;
+    const unsigned char* cdO = cQ + L::QT;
+    const float* cLse = reinterpret_cast<const float*>(cQ + 2 * L::QT);
+    const float* cDelta = cLse + DKV_BM;
+
+    if (!causal || q0 + DKV_BM - 1 >= wgk) {  // else every row of the tile precedes these keys
+      // S^T[64 x 64] = K[64 x D] . Q[64 x D]^T, dP^T = V . dO^T, k16 blocks along D
+      float st[NT][4], dpt[NT][4];
 #pragma unroll
-  for (int which = 0; which < 2; ++which) {
+      for (int i = 0; i < NT; ++i) {
+        st[i][0] = st[i][1] = st[i][2] = st[i][3] = 0.f;
+        dpt[i][0] = dpt[i][1] = dpt[i][2] = dpt[i][3] = 0.f;
+      }
+      metis::wgmma_fence();
 #pragma unroll
-    for (int i = 0; i < D / 16; ++i) {
-      wmma::store_matrix_sync(sStage + r0 * T::LDO + i * 16,
-                              which == 0 ? dk_acc[i] : dv_acc[i], T::LDO,
-                              wmma::mem_row_major);
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int a_at = (kk / 4) * DKV_BN * ROW + wg * 64 * ROW + (kk % 4) * 32;
+        const int b_at = (kk / 4) * DKV_BM * ROW + (kk % 4) * 32;
+        metis::wgmma_m64n64k16_ss(st, metis::desc_k_major(sK + a_at),
+                                  metis::desc_k_major(cQ + b_at), 1);
+        metis::wgmma_m64n64k16_ss(dpt, metis::desc_k_major(sV + a_at),
+                                  metis::desc_k_major(cdO + b_at), 1);
+      }
+      metis::wgmma_commit();
+      metis::wgmma_wait<0>();
+      metis::fence_operands(st);
+      metis::fence_operands(dpt);
+
+      // p and ds on the accumulators: lane holds key rows gid (e = 0, 1)
+      // and gid + 8 (e = 2, 3), query columns 8 nt + 2 tig + (e & 1)
+      const bool edge = (causal && q0 < wk + 15) || q0 + DKV_BM > s_q;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qc = nt * 8 + 2 * tig + (e & 1);
+          float p = metis::exp2_approx(st[nt][e] * scale_log2 - cLse[qc] * LOG2E);
+          if (edge) {
+            const int qi = q0 + qc;
+            const int kj = wk + gid + (e >> 1) * 8;
+            if (qi >= s_q || (causal && kj > qi)) p = 0.f;
+          }
+          dpt[nt][e] = p * (dpt[nt][e] - cDelta[qc]) * sm_scale;
+          st[nt][e] = p;
+        }
+      }
+      uint32_t pa[DKV_BM / 16][4], da[DKV_BM / 16][4];
+#pragma unroll
+      for (int kc = 0; kc < DKV_BM / 16; ++kc) {
+        pa[kc][0] = metis::pack_bf16(st[2 * kc][0], st[2 * kc][1]);
+        pa[kc][1] = metis::pack_bf16(st[2 * kc][2], st[2 * kc][3]);
+        pa[kc][2] = metis::pack_bf16(st[2 * kc + 1][0], st[2 * kc + 1][1]);
+        pa[kc][3] = metis::pack_bf16(st[2 * kc + 1][2], st[2 * kc + 1][3]);
+        da[kc][0] = metis::pack_bf16(dpt[2 * kc][0], dpt[2 * kc][1]);
+        da[kc][1] = metis::pack_bf16(dpt[2 * kc][2], dpt[2 * kc][3]);
+        da[kc][2] = metis::pack_bf16(dpt[2 * kc + 1][0], dpt[2 * kc + 1][1]);
+        da[kc][3] = metis::pack_bf16(dpt[2 * kc + 1][2], dpt[2 * kc + 1][3]);
+      }
+
+      // dV[64 x D] += P^T[64 x 64] . dO[64 x D];  dK += dS^T . Q  (B transposed)
+      metis::wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < DKV_BM / 16; ++kc) {
+        const uint64_t d_do = metis::desc_mn_major(cdO + kc * 16 * ROW, DKV_BM * ROW);
+        const uint64_t d_q = metis::desc_mn_major(cQ + kc * 16 * ROW, DKV_BM * ROW);
+        if constexpr (D == 128) {
+          metis::wgmma_m64n128k16_rs_tb(dv_acc, pa[kc], d_do);
+          metis::wgmma_m64n128k16_rs_tb(dk_acc, da[kc], d_q);
+        } else {
+          metis::wgmma_m64n64k16_rs_tb(dv_acc, pa[kc], d_do);
+          metis::wgmma_m64n64k16_rs_tb(dk_acc, da[kc], d_q);
+        }
+      }
+      metis::wgmma_commit();
+      metis::wgmma_wait<0>();
+      metis::fence_operands(dv_acc);
+      metis::fence_operands(dk_acc);
     }
-    __syncwarp();
-    for (int r = r0; r < r0 + 16; ++r) {
-      const int kj = k0 + r;
-      if (kj >= s_kv) break;
-      bf16* row = outs[which] + (size_t)kj * D;
-      for (int c = lane; c < D; c += 32) row[c] = __float2bfloat16(sStage[r * T::LDO + c]);
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+  metis::cp_async_wait<0>();  // no copy outlives the CTA (total == 0 leaves K, V in flight)
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kj = wk + gid + 8 * r;
+    if (kj >= s_kv) continue;
+    const size_t at = ((size_t)bh_kv * s_kv + kj) * D + 2 * tig;
+#pragma unroll
+    for (int dt = 0; dt < DT; ++dt) {
+      *reinterpret_cast<uint32_t*>(dk + at + dt * 8) =
+          metis::pack_bf16(dk_acc[dt][2 * r], dk_acc[dt][2 * r + 1]);
+      *reinterpret_cast<uint32_t*>(dv + at + dt * 8) =
+          metis::pack_bf16(dv_acc[dt][2 * r], dv_acc[dt][2 * r + 1]);
     }
-    __syncwarp();
   }
 }
 
@@ -501,16 +759,52 @@ cudaError_t prepare(Kernel kernel, size_t smem) {
                               (int)smem);
 }
 
+// cuTensorMapEncodeTiled, fetched from the driver at run time (so the
+// library links the runtime only).
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// TMA map of a contiguous [n][rows][d] bf16 tensor, boxes of box_rows x 64
+// columns written 128-byte-swizzled; rows past the end read as zeros.
+cudaError_t tensor_map(CUtensorMap* map, const void* base, int n, int rows, int d,
+                       int box_rows) {
+  static EncodeTiledFn encode = nullptr;
+  if (encode == nullptr) {
+    cudaDriverEntryPointQueryResult found;
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled",
+                                              reinterpret_cast<void**>(&encode),
+                                              cudaEnableDefault, &found);
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess) return cudaErrorNotSupported;
+  }
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)rows, (cuuint64_t)n};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * sizeof(bf16),
+                                 (cuuint64_t)rows * d * sizeof(bf16)};
+  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+                              dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 template <int D>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, void* m,
                        void* l, int b, int hq, int hkv, int s_q, int s_kv, int causal,
                        int normalize, cudaStream_t stream) {
-  cudaError_t err = prepare(fa_fwd_kernel<D>, Tiles<D>::FWD);
+  cudaError_t err = prepare(fa_fwd_kernel<D>, FwdSmem<D>::BYTES);
+  CUtensorMap tm_q, tm_k, tm_v;
+  if (err == cudaSuccess) err = tensor_map(&tm_q, q, b * hq, s_q, D, FWD_BM);
+  if (err == cudaSuccess) err = tensor_map(&tm_k, k, b * hkv, s_kv, D, FWD_BN);
+  if (err == cudaSuccess) err = tensor_map(&tm_v, v, b * hkv, s_kv, D, FWD_BN);
   if (err != cudaSuccess) return err;
-  dim3 grid((s_q + TILE - 1) / TILE, b * hq);
-  fa_fwd_kernel<D><<<grid, THREADS, Tiles<D>::FWD, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), static_cast<float*>(m),
+  dim3 grid((s_q + FWD_BM - 1) / FWD_BM, b * hq);
+  fa_fwd_kernel<D><<<grid, FWD_THREADS, FwdSmem<D>::BYTES, stream>>>(
+      tm_q, tm_k, tm_v, static_cast<bf16*>(o), static_cast<float*>(m),
       static_cast<float*>(l), s_q, s_kv, hq, hkv, 1.0f / sqrtf((float)D), causal, normalize);
   return cudaGetLastError();
 }
@@ -535,10 +829,10 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
                        const void* lse, const void* delta, void* dk, void* dv, int b,
                        int hq, int hkv, int s_q, int s_kv, int causal,
                        cudaStream_t stream) {
-  cudaError_t err = prepare(fa_bwd_dkv_kernel<D>, Tiles<D>::DKV);
+  cudaError_t err = prepare(fa_bwd_dkv_kernel<D>, DkvSmem<D>::BYTES);
   if (err != cudaSuccess) return err;
-  dim3 grid((s_kv + TILE - 1) / TILE, b * hkv);
-  fa_bwd_dkv_kernel<D><<<grid, THREADS, Tiles<D>::DKV, stream>>>(
+  dim3 grid((s_kv + DKV_BN - 1) / DKV_BN, b * hkv);
+  fa_bwd_dkv_kernel<D><<<grid, DKV_THREADS, DkvSmem<D>::BYTES, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),

@@ -41,6 +41,13 @@ def _rel(got, want):
     (1, 4, 2, 100, 64, True),
     (2, 2, 2, 256, 128, False),
     (1, 8, 1, 65, 128, True),
+    # lengths one short of and one past the 128-row tiles of B1 (query) and
+    # B3 (key), where the causal diagonal meets the ragged edge
+    (1, 4, 4, 127, 128, True),
+    (2, 4, 4, 129, 128, True),
+    (1, 4, 2, 129, 64, True),
+    # g = 8 query heads per KV head: B3's loop over the group members
+    (1, 16, 2, 1024, 128, True),
 ])
 def test_kernels_match_plain_versions(card, b, hq, hkv, s, d, causal):
     gen = torch.Generator(device=card).manual_seed(0)
