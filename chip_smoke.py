@@ -12,8 +12,9 @@ Phases, in order (any failure exits non-zero):
    the 128-row tile edges too), non-causal and stats-mode shapes, in bf16;
    times of each kernel, its plain version and PyTorch's SDPA as a yardstick
    (CUDA events around a run of back-to-back calls, see ``cuda_ms``; the
-   kernels and SDPA three times, with their spread), beside the bound
-   computed from the inputs;
+   kernels three times and SDPA five, with their spread), beside the bound
+   computed from the inputs, and the backward pair B2 + B3 back to back
+   against SDPA's whole backward;
 4. slice: the flash GPT at the ``--model-size 1.5B`` preset (full width and
    depth, random weights from a seed): agreement of flash and dense
    attention on a small GPT, ``profile_model`` to a profile directory and back
@@ -71,6 +72,8 @@ KERNEL_CASES = [
     dict(name="edge129", b=2, hq=8, hkv=4, s=129, d=128, causal=True),
     # g = 8 query heads per KV head: B3's loop over the group members
     dict(name="gqa8", b=2, hq=16, hkv=2, s=1024, d=128, causal=True),
+    # B2's one Q tile of 128 rows with 64 valid: its second warpgroup has no row
+    dict(name="edge64", b=2, hq=8, hkv=8, s=64, d=128, causal=True),
     dict(name="noncausal_d64", b=2, hq=8, hkv=8, s=512, d=64, causal=False),
     dict(name="stats", b=2, hq=8, hkv=2, s=1000, d=128, causal=False,
          stats=True),
@@ -235,6 +238,9 @@ def kernel_case(case: dict, gen: torch.Generator, timed: bool) -> dict:
                 plain_ms=cuda_ms(lambda: fa.fa_bwd_dkv_plain(
                     q, k, v, do, lse, delta, **heads), 5, 1),
                 bound=bound(8 * pairs * d, nbytes(q, k, v, do, dk, dv) + io)),
+            # the port's whole backward, as SDPA's backward computes it in one call
+            "bwd_pair": timed_runs(lambda: (fa.fa_bwd_dq(q, k, v, do, lse, delta, **heads),
+                                            fa.fa_bwd_dkv(q, k, v, do, lse, delta, **heads))),
         }
         out["timing"].update(sdpa_ms(q, k, v, do, b, hq, s, d, causal))
     return out
@@ -249,7 +255,9 @@ def sdpa_ms(q, k, v, do, b, h, s, d, causal) -> dict:
     do4 = do.view(b, h, s, d)
     fwd = timed_runs(lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal))
     o4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal)
-    bwd = timed_runs(lambda: torch.autograd.grad(o4, (q4, k4, v4), do4, retain_graph=True))
+    # five repetitions: its backward varies more between repetitions than the kernels do
+    bwd = timed_runs(lambda: torch.autograd.grad(o4, (q4, k4, v4), do4, retain_graph=True),
+                     reps=5)
     return {"sdpa_fwd": fwd, "sdpa_bwd": bwd}
 
 
@@ -283,7 +291,10 @@ def kernel_phase() -> dict:
                 log(f"  {kname:>10} at {case['name']}: {t[kname]['ms']:.4f} ms, plain "
                     f"{t[kname]['plain_ms']:.4f} ms, {lib} {t[lib]['ms']:.4f} ms, bound "
                     f"{bound_ms:.4f} ms ({bound_by})")
-            for name in ("fa_fwd", "fa_bwd_dq", "fa_bwd_dkv", "sdpa_fwd", "sdpa_bwd"):
+            log(f"  backward pair B2+B3: {t['bwd_pair']['ms']:.4f} ms against sdpa_bwd "
+                f"{t['sdpa_bwd']['ms']:.4f} ms")
+            for name in ("fa_fwd", "fa_bwd_dq", "fa_bwd_dkv", "bwd_pair", "sdpa_fwd",
+                         "sdpa_bwd"):
                 runs = t[name]["runs"]
                 log(f"  {name:>10} runs {[round(r, 4) for r in runs]} ms, spread "
                     f"{(max(runs) - min(runs)) / t[name]['ms']:.2%} of the median")

@@ -19,114 +19,33 @@
 // so each CTA owns one output tile and loops over the other operand inside
 // the CTA, with the causal block skip as the bound of that loop.
 //
-// B1 (forward) and B3 (dK/dV) are built for Hopper: two warpgroups per CTA
-// run their products as wgmma, whose accumulator layout is documented, so the
-// softmax and gradient elementwise work happens on the accumulators in
-// registers and the bf16 weights feed the next product straight from
-// registers. Their tiles arrive asynchronously in the 128-byte-swizzled
-// layout wgmma reads, the next tile in flight while the current one
-// computes: B1's through a TMA ring that a producer warp fills, B3's through
-// a cp.async ring. B2 (dQ) is still the first design: WMMA (16x16x16, opaque
-// fragments) on tiles with a 16-byte row pad, so its fp32 products
-// round-trip through shared memory, and its loads are synchronous.
+// All three are built for Hopper: two warpgroups per CTA run their products
+// as wgmma, whose accumulator layout is documented, so the softmax and
+// gradient elementwise work happens on the accumulators in registers and the
+// bf16 weights feed the next product straight from registers. Their tiles
+// arrive asynchronously in the 128-byte-swizzled layout wgmma reads, the next
+// tile in flight while the current one computes: B1's and B2's through a TMA
+// ring that a producer warp fills, B3's through a cp.async ring.
 //
-// The host side of B1 builds its TMA tensor maps with cuTensorMapEncodeTiled,
-// which it takes from the driver at run time (cudaGetDriverEntryPoint), so
-// the library needs no link flag beyond the runtime.
+// The host side of B1 and B2 builds their TMA tensor maps with
+// cuTensorMapEncodeTiled, which it takes from the driver at run time
+// (cudaGetDriverEntryPoint), so the library needs no link flag beyond the
+// runtime.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "hopper.cuh"
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int TILE = 64;          // rows of every Q and KV tile of B2
-constexpr int WARPS = 4;          // each warp of B2 owns 16 rows of a tile
-constexpr int THREADS = WARPS * 32;
-constexpr int PAD_H = 8;          // bf16 row pad of B2's tiles (16 bytes)
-constexpr int PAD_F = 4;          // fp32 row pad of B2's tiles (16 bytes)
 constexpr float NEG_INF = -1e30f; // the reference's mask value
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
-
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragBRow;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragBCol;
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
-
-// B2's shared-memory geometry for head dim D. Every region is a multiple of
-// 128 bytes, so carving them in sequence keeps each one 128-byte aligned, and
-// every 16-row fragment start stays 32-byte aligned as WMMA requires.
-template <int D>
-struct Tiles {
-  static_assert(D % 16 == 0, "head dim must be a multiple of 16");
-  static constexpr int LDH = D + PAD_H;     // bf16 [64][D] tiles (Q, K, V, dO)
-  static constexpr int LDO = D + PAD_F;     // fp32 [64][D] dq staging
-  static constexpr int LDS = TILE + PAD_F;  // fp32 [64][64] product tiles
-  static constexpr int LDP = TILE + PAD_H;  // bf16 [64][64] dS tile
-  static constexpr size_t H = TILE * LDH * sizeof(bf16);
-  static constexpr size_t O = TILE * LDO * sizeof(float);
-  static constexpr size_t S = TILE * LDS * sizeof(float);
-  static constexpr size_t P = TILE * LDP * sizeof(bf16);
-  static constexpr size_t ROW = TILE * sizeof(float);
-  static constexpr size_t DQ = 4 * H + 2 * S + P + 2 * ROW;
-  static_assert(O <= 2 * S, "fp32 output staging must fit in two product tiles");
-};
-
-// Copy rows [row0, row0 + 64) of a contiguous [nrows, D] bf16 matrix into a
-// padded shared tile, 16 bytes per thread per step; rows past nrows read 0.
-template <int D>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int row0,
-                                          int nrows) {
-  constexpr int CHUNKS = D / 8;
-  constexpr int LDH = Tiles<D>::LDH;
-  for (int i = threadIdx.x; i < TILE * CHUNKS; i += THREADS) {
-    const int r = i / CHUNKS;
-    const int c = (i % CHUNKS) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < nrows) {
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * D + c);
-    }
-    *reinterpret_cast<uint4*>(dst + r * LDH + c) = val;
-  }
-}
-
-// Load 64 fp32 per-row values (lse, delta) starting at row0; rows past nrows read 0.
-__device__ __forceinline__ void load_rows(float* dst, const float* src, int row0,
-                                          int nrows) {
-  for (int i = threadIdx.x; i < TILE; i += THREADS) {
-    dst[i] = (row0 + i < nrows) ? src[row0 + i] : 0.f;
-  }
-}
-
-// out[16 x 64] (fp32, ldm ldo) = A[16 x D] . B[64 x D]^T, A and B bf16 row-major
-// in shared memory: one warp's product of its rows against a whole tile.
-template <int D>
-__device__ __forceinline__ void rows_times_tile_t(float* out, int ldo, const bf16* a,
-                                                  const bf16* b) {
-  constexpr int LDH = Tiles<D>::LDH;
-#pragma unroll
-  for (int n = 0; n < TILE; n += 16) {
-    FragC acc;
-    wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-    for (int kk = 0; kk < D; kk += 16) {
-      FragA fa;
-      FragBCol fb;
-      wmma::load_matrix_sync(fa, a + kk, LDH);
-      wmma::load_matrix_sync(fb, b + n * LDH + kk, LDH);
-      wmma::mma_sync(acc, fa, fb, acc);
-    }
-    wmma::store_matrix_sync(out + n, acc, ldo, wmma::mem_row_major);
-  }
-}
 
 // Issue the asynchronous copy of rows [row0, row0 + ROWS) of a contiguous
 // [nrows, D] bf16 matrix into a 128-byte-swizzled [ROWS][D] tile (hopper.cuh);
@@ -389,12 +308,7 @@ fa_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ 
     metis::wgmma_fence();
 #pragma unroll
     for (int kc = 0; kc < FWD_BN / 16; ++kc) {
-      const uint64_t dv = metis::desc_mn_major(cV + kc * 16 * ROW, FWD_BN * ROW);
-      if constexpr (D == 128) {
-        metis::wgmma_m64n128k16_rs_tb(acc, pa[kc], dv);
-      } else {
-        metis::wgmma_m64n64k16_rs_tb(acc, pa[kc], dv);
-      }
+      metis::wgmma_rs_tb<D>(acc, pa[kc], metis::desc_mn_major(cV + kc * 16 * ROW, FWD_BN * ROW));
     }
     metis::wgmma_commit();
     metis::wgmma_wait<0>();
@@ -426,106 +340,275 @@ fa_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ 
 // B2. Replaces metis_tpu/ops/flash_attention.py:137 _fa_bwd_dq_kernel
 // (pallas_call at :276, reached through _fa_bwd_call :244).
 //
-// One CTA per (b*hq, 64-row Q tile), looping over the KV tiles it can see:
+// One CTA per (b*hq, 128-row Q tile), looping over the 64-row KV tiles its
+// rows can see:
 //   p = exp(s - lse), dp = dO V^T, ds = p (dp - delta) scale, dq += ds K.
-// dq accumulates in WMMA fragments (registers) across the loop and is written
-// once.
+// dq accumulates in registers and each output tile is written once, after
+// the loop: no atomics, as in the reference.
 //
-// Bound on an H100 SXM at the main-path shape: three products, 3*b*h*s^2*d =
-// 5.2e10 FLOP, 52 us at 989 TFLOP/s; bytes (Q, K, V, dO, dQ, lse, delta)
-// 5 x 33.5 MB, 50 us at 3.35 TB/s.
+// Bound on an H100 SXM at the main-path shape (b=4, h=32, s=1024, d=128,
+// causal, bf16): three products, 6 * b*h*s(s+1)/2 * d = 5.2e10 FLOP, 52 us
+// at 989 TFLOP/s; bytes (Q, K, V, dO, dQ, lse, delta) 5 x 33.5 MB, 50 us at
+// 3.35 TB/s. Bound by operations, narrowly.
+//
+// What held the first design back (0.6684 ms, 13x its bound): S = Q K^T and
+// dP = dO V^T were opaque WMMA fragments stored to shared memory as fp32
+// tiles and read back one row at a time per warp; dS went to shared memory
+// as bf16 and came back as WMMA fragments for dQ += dS K; the A fragments of
+// Q and dO were re-read from shared memory for every 16-column tile of S and
+// dP, and K's for every 16-column tile of dQ; K and V arrived synchronously
+// between two barriers of the CTA; 114 KB of shared memory per 64-row CTA
+// of 4 warps left 8 warps per SM; the lightest causal tiles launched first;
+// dQ was staged through shared memory and stored one element per lane.
+//
+// This design is B1's skeleton with a third product: a producer warp and two
+// consumer warpgroups, each owning 64 query rows (16 per warp). The
+// producer's one lane loads Q and dO once and then K and V tile by tile with
+// TMA (128-byte-swizzled boxes; rows past the end read as zeros) into a
+// two-stage ring tracked by mbarriers: full when a tile has landed, empty
+// when every consumer is done with it. lse (with log2(e) folded in) and
+// delta belong to the two rows a lane owns, so each lane reads its four
+// values from global memory once, before the loop. Per KV tile a warpgroup
+// issues S = Q K^T and dP = dO V^T as two wgmma chains (m64n64k16, both
+// operands read from shared memory through descriptors) into registers,
+// computes p = exp2(s scale log2e - lse log2e) on S while dP is still in
+// flight, then ds = p (dp - delta) scale on the accumulators, rounds dS to
+// bf16 in registers and uses it as the A operand of dQ += dS K (m64nDk16, K
+// read transposed from shared memory). The dQ accumulator (64 x D per
+// warpgroup, D/2 fp32 per thread) stays in registers for the whole loop; no
+// tile touches shared memory inside it, and the epilogue stores packed bf16
+// pairs straight from the accumulator layout. The causal mask is applied
+// only on the diagonal tile (and the ragged end). The last causal KV tile
+// lies wholly after warpgroup 0's rows, and a warpgroup with no valid row
+// (s_q - q0 <= 64) sees no tile: a warpgroup that skips a tile still waits
+// for it to land and then arrives on its empty barrier, so every phase
+// counts all consumers and no arrival falls into an earlier round's phase.
+// The heaviest causal Q tiles are launched first (reversed blockIdx.x).
+// Shared memory per CTA: Q, dO 128 x D bf16 + 2 stages x (K, V) 64 x D bf16
+// + 7 mbarriers + 1 KB of alignment slack = 132,152 bytes at D = 128, 66,616
+// at D = 64. Registers (ptxas, CUDA 12.8): 158 per thread at D = 128, 125 at
+// D = 64, no spills; 1 CTA (9 warps) per SM. 0.135-0.138 ms at the main-path
+// shape (tools/torch_kernel_ab.py, H100 80GB HBM3 at 700 W), 2.6x its bound.
+//
+// Tried on the card and left out, because they were slower at the main-path
+// shape (tools/torch_kernel_ab.py, same card, against 0.135-0.137 ms in the
+// same calls): the two warpgroups taking turns to issue S and dP (named
+// barriers, as in B1), 0.140 ms; three stages, 0.142; no skipped tiles
+// (every warpgroup computes every tile, masked), 0.147; dQ += dS K of tile
+// j - 1 left in flight while tile j's S and dP are issued, 0.190; p computed
+// only after both products retire, 0.148; the first k16 block overwriting S
+// and dP (scale_d 0) instead of zeroing them, 0.139; the grid's Q tiles
+// slowest-varying (heaviest first across all heads, at the cost of K/V reuse
+// in L2), 0.149; 128-row KV tiles, 168 registers with 2,844 bytes of spill
+// at D = 128, 0.863 ms (before the fence ahead of the dP chain was added).
+constexpr int DQ_BM = 128;    // query rows per CTA: 2 consumer warpgroups x 64
+constexpr int DQ_BN = 64;     // key rows per KV tile (the m64n64 products of S and dP)
+constexpr int DQ_STAGES = 2;  // K/V ring depth
+constexpr int DQ_CONSUMERS = 256;
+constexpr int DQ_THREADS = DQ_CONSUMERS + 32;  // + one producer warp
+
 template <int D>
-__global__ void __launch_bounds__(THREADS)
-fa_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                 const float* __restrict__ lse, const float* __restrict__ delta,
-                 bf16* __restrict__ dq, int s_q, int s_kv, int hq, int hkv,
-                 float sm_scale, int causal) {
-  typedef Tiles<D> T;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sdO = reinterpret_cast<bf16*>(smem + T::H);
-  bf16* sK = reinterpret_cast<bf16*>(smem + 2 * T::H);
-  bf16* sV = reinterpret_cast<bf16*>(smem + 3 * T::H);
-  float* sS = reinterpret_cast<float*>(smem + 4 * T::H);
-  float* sdP = reinterpret_cast<float*>(smem + 4 * T::H + T::S);
-  bf16* sdS = reinterpret_cast<bf16*>(smem + 4 * T::H + 2 * T::S);
-  float* sLse = reinterpret_cast<float*>(smem + 4 * T::H + 2 * T::S + T::P);
-  float* sDelta = sLse + TILE;
-  float* sStage = sS;  // fp32 [64][LDO] dq staging, reuses sS and sdP at the end
+struct DqSmem {
+  static constexpr size_t Q = DQ_BM * D * sizeof(bf16);   // Q or dO
+  static constexpr size_t KV = DQ_BN * D * sizeof(bf16);  // K or V tile
+  static constexpr size_t BARS = (1 + 3 * DQ_STAGES) * sizeof(uint64_t);
+  // Q, dO, the (K, V) stages, the barriers, alignment slack
+  static constexpr size_t BYTES = 2 * Q + 2 * DQ_STAGES * KV + BARS + metis::SW128_ATOM;
+};
+
+template <int D>
+__global__ void __launch_bounds__(DQ_THREADS, 1)
+fa_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v,
+                 const __grid_constant__ CUtensorMap tm_do, const float* __restrict__ lse,
+                 const float* __restrict__ delta, bf16* __restrict__ dq, int s_q, int s_kv,
+                 int hq, int hkv, float sm_scale, int causal) {
+  typedef DqSmem<D> L;
+  constexpr int NT = DQ_BN / 8;  // 8-column tiles of S and dP per warp
+  constexpr int DT = D / 8;      // 8-column tiles of dQ per warp
+  constexpr int ROW = metis::SW128_ROW;
+  extern __shared__ unsigned char smem_raw[];
+  // swizzle atoms need 1024-byte alignment
+  unsigned char* smem = smem_raw + ((metis::SW128_ATOM - metis::smem_u32(smem_raw) %
+                                     metis::SW128_ATOM) % metis::SW128_ATOM);
+  unsigned char* sQ = smem;
+  unsigned char* sdO = smem + L::Q;
+  unsigned char* sKV = smem + 2 * L::Q;  // stage s: K at 2s KV, V at (2s + 1) KV
+  uint64_t* qdo_full = reinterpret_cast<uint64_t*>(sKV + 2 * DQ_STAGES * L::KV);
+  uint64_t* k_full = qdo_full + 1;          // [DQ_STAGES]: K of the stage has landed
+  uint64_t* v_full = k_full + DQ_STAGES;    // [DQ_STAGES]: V of the stage has landed
+  uint64_t* empty = v_full + DQ_STAGES;     // [DQ_STAGES]: every consumer is done with it
 
   const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * TILE;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * DQ_BM;  // heaviest causal tiles first
   const int g = hq / hkv;
   const int bh_kv = (bh / hq) * hkv + (bh % hq) / g;
-  const bf16* kb = k + (size_t)bh_kv * s_kv * D;
-  const bf16* vb = v + (size_t)bh_kv * s_kv * D;
+  const int kv_end = causal ? min(s_kv, q0 + DQ_BM) : s_kv;
+  const int n_tiles = (kv_end + DQ_BN - 1) / DQ_BN;
+
+  if (threadIdx.x == 0) {
+    metis::mbar_init(qdo_full, 1);
+    for (int s = 0; s < DQ_STAGES; ++s) {
+      metis::mbar_init(&k_full[s], 1);
+      metis::mbar_init(&v_full[s], 1);
+      metis::mbar_init(&empty[s], DQ_CONSUMERS);
+    }
+    metis::fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= DQ_CONSUMERS) {  // the producer warp: one lane issues every load
+    if (threadIdx.x == DQ_CONSUMERS) {
+      metis::mbar_arrive_expect_tx(qdo_full, 2 * L::Q);
+      for (int slab = 0; slab < D / 64; ++slab) {
+        metis::tma_load_3d(sQ + slab * DQ_BM * ROW, &tm_q, qdo_full, slab * 64, q0, bh);
+        metis::tma_load_3d(sdO + slab * DQ_BM * ROW, &tm_do, qdo_full, slab * 64, q0, bh);
+      }
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % DQ_STAGES;
+        const int round = j / DQ_STAGES;
+        if (round > 0) metis::mbar_wait(&empty[s], (round - 1) & 1);
+        unsigned char* stage = sKV + s * 2 * L::KV;
+        metis::mbar_arrive_expect_tx(&k_full[s], L::KV);
+        for (int slab = 0; slab < D / 64; ++slab) {
+          metis::tma_load_3d(stage + slab * DQ_BN * ROW, &tm_k, &k_full[s], slab * 64,
+                             j * DQ_BN, bh_kv);
+        }
+        metis::mbar_arrive_expect_tx(&v_full[s], L::KV);
+        for (int slab = 0; slab < D / 64; ++slab) {
+          metis::tma_load_3d(stage + L::KV + slab * DQ_BN * ROW, &tm_v, &v_full[s],
+                             slab * 64, j * DQ_BN, bh_kv);
+        }
+      }
+    }
+    return;
+  }
+
   const int warp = threadIdx.x / 32;
+  // read through a shuffle, so the warpgroup's skip below is a uniform
+  // branch: 0.136 ms against 0.146 with warp / 4
+  const int wg = metis::warpgroup_index();
   const int lane = threadIdx.x % 32;
-  const int r0 = warp * 16;
+  const int gid = lane / 4, tig = lane % 4;
+  const int wq = q0 + warp * 16;    // first query row of this warp
+  const int wgq = q0 + wg * 64;     // ... and of its warpgroup
 
-  load_tile<D>(sQ, q + (size_t)bh * s_q * D, q0, s_q);
-  load_tile<D>(sdO, dout + (size_t)bh * s_q * D, q0, s_q);
-  load_rows(sLse, lse + (size_t)bh * s_q, q0, s_q);
-  load_rows(sDelta, delta + (size_t)bh * s_q, q0, s_q);
-
-  FragC dq_acc[D / 16];
+  // rows gid and gid + 8 of the warp: lse in log2 units and delta; a row
+  // past the end gets p = 0
+  float lse2[2], dlt[2];
 #pragma unroll
-  for (int i = 0; i < D / 16; ++i) wmma::fill_fragment(dq_acc[i], 0.f);
-
-  const int kv_end = causal ? min(s_kv, q0 + TILE) : s_kv;
-  for (int k0 = 0; k0 < kv_end; k0 += TILE) {
-    __syncthreads();
-    load_tile<D>(sK, kb, k0, s_kv);
-    load_tile<D>(sV, vb, k0, s_kv);
-    __syncthreads();
-
-    rows_times_tile_t<D>(sS + r0 * T::LDS, T::LDS, sQ + r0 * T::LDH, sK);
-    rows_times_tile_t<D>(sdP + r0 * T::LDS, T::LDS, sdO + r0 * T::LDH, sV);
-    __syncwarp();
-
-    for (int r = r0; r < r0 + 16; ++r) {
-      const int qi = q0 + r;
-      const float row_lse = sLse[r];
-      const float row_delta = sDelta[r];
+  for (int r = 0; r < 2; ++r) {
+    const int row = wq + gid + 8 * r;
+    const bool valid = row < s_q;
+    lse2[r] = valid ? lse[(size_t)bh * s_q + row] * LOG2E : INFINITY;
+    dlt[r] = valid ? delta[(size_t)bh * s_q + row] : 0.f;
+  }
+  float acc[DT][4];
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int c = lane + 32 * j;
-        const int kj = k0 + c;
-        float p = __expf(sS[r * T::LDS + c] * sm_scale - row_lse);
-        if ((causal && kj > qi) || kj >= s_kv) p = 0.f;
-        const float ds = p * (sdP[r * T::LDS + c] - row_delta) * sm_scale;
-        sdS[r * T::LDP + c] = __float2bfloat16(ds);
+  for (int i = 0; i < DT; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  const float scale_log2 = sm_scale * LOG2E;
+
+  metis::mbar_wait(qdo_full, 0);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int k0 = j * DQ_BN;
+    const int s = j % DQ_STAGES;
+    const uint32_t parity = (j / DQ_STAGES) & 1;
+    const unsigned char* cK = sKV + s * 2 * L::KV;
+    const unsigned char* cV = cK + L::KV;
+
+    metis::mbar_wait(&k_full[s], parity);
+    if ((causal && k0 > wgq + 63) || wgq >= s_q) {
+      // every key of the tile follows every row of this warpgroup, or it has
+      // no valid row: nothing to add. The arrival still counts; waiting for
+      // the tile first keeps it out of the stage's previous phase.
+      metis::mbar_arrive(&empty[s]);
+      continue;
+    }
+
+    // S[64 x 64] = Q[64 x D] . K[64 x D]^T and dP = dO . V^T, k16 blocks along D
+    float sc[NT][4], dp[NT][4];
+#pragma unroll
+    for (int i = 0; i < NT; ++i) {
+      sc[i][0] = sc[i][1] = sc[i][2] = sc[i][3] = 0.f;
+      dp[i][0] = dp[i][1] = dp[i][2] = dp[i][3] = 0.f;
+    }
+    metis::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int col = (kk % 4) * 32;  // byte offset of the k16 block in its slab's rows
+      metis::wgmma_m64n64k16_ss(
+          sc, metis::desc_k_major(sQ + (kk / 4) * DQ_BM * ROW + wg * 64 * ROW + col),
+          metis::desc_k_major(cK + (kk / 4) * DQ_BN * ROW + col), 1);
+    }
+    metis::wgmma_commit();
+    metis::mbar_wait(&v_full[s], parity);
+    // without this fence ptxas fences and waits after every product of the
+    // kernel itself (its warning C7520): 0.166 ms against 0.135
+    metis::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int col = (kk % 4) * 32;
+      metis::wgmma_m64n64k16_ss(
+          dp, metis::desc_k_major(sdO + (kk / 4) * DQ_BM * ROW + wg * 64 * ROW + col),
+          metis::desc_k_major(cV + (kk / 4) * DQ_BN * ROW + col), 1);
+    }
+    metis::wgmma_commit();
+
+    // p on the accumulators while dP is in flight: lane holds rows gid
+    // (e = 0, 1) and gid + 8 (e = 2, 3), columns 8 nt + 2 tig + (e & 1)
+    metis::wgmma_wait<1>();
+    metis::fence_operands(sc);
+    const bool edge = (causal && k0 + DQ_BN - 1 > wq) || k0 + DQ_BN > s_kv;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = metis::exp2_approx(sc[nt][e] * scale_log2 - lse2[e >> 1]);
+        if (edge) {
+          const int col = k0 + nt * 8 + 2 * tig + (e & 1);
+          const int row = wq + gid + (e >> 1) * 8;
+          if (col >= s_kv || (causal && col > row)) p = 0.f;
+        }
+        sc[nt][e] = p;
       }
     }
-    __syncwarp();
+    metis::wgmma_wait<0>();
+    metis::fence_operands(dp);
 
-    // dq[16 x D] += dS[16 x 64] . K[64 x D]
+    // dS = p (dp - delta) scale, rounded to bf16 pairs: the A operand of dQ += dS K
+    uint32_t da[DQ_BN / 16][4];
 #pragma unroll
-    for (int i = 0; i < D / 16; ++i) {
+    for (int kc = 0; kc < DQ_BN / 16; ++kc) {
 #pragma unroll
-      for (int kk = 0; kk < TILE; kk += 16) {
-        FragA fa;
-        FragBRow fb;
-        wmma::load_matrix_sync(fa, sdS + r0 * T::LDP + kk, T::LDP);
-        wmma::load_matrix_sync(fb, sK + kk * T::LDH + i * 16, T::LDH);
-        wmma::mma_sync(dq_acc[i], fa, fb, dq_acc[i]);
+      for (int h = 0; h < 2; ++h) {
+        const int nt = 2 * kc + h;
+        da[kc][2 * h] = metis::pack_bf16(sc[nt][0] * (dp[nt][0] - dlt[0]) * sm_scale,
+                                         sc[nt][1] * (dp[nt][1] - dlt[0]) * sm_scale);
+        da[kc][2 * h + 1] = metis::pack_bf16(sc[nt][2] * (dp[nt][2] - dlt[1]) * sm_scale,
+                                             sc[nt][3] * (dp[nt][3] - dlt[1]) * sm_scale);
       }
     }
+    metis::wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < DQ_BN / 16; ++kc) {
+      metis::wgmma_rs_tb<D>(acc, da[kc], metis::desc_mn_major(cK + kc * 16 * ROW, DQ_BN * ROW));
+    }
+    metis::wgmma_commit();
+    metis::wgmma_wait<0>();
+    metis::fence_operands(acc);
+    metis::mbar_arrive(&empty[s]);  // this thread is done with the stage
   }
-  __syncthreads();  // every warp is done with sS/sdP before they become staging
 
 #pragma unroll
-  for (int i = 0; i < D / 16; ++i) {
-    wmma::store_matrix_sync(sStage + r0 * T::LDO + i * 16, dq_acc[i], T::LDO,
-                            wmma::mem_row_major);
-  }
-  __syncwarp();
-  for (int r = r0; r < r0 + 16; ++r) {
-    const int qi = q0 + r;
-    if (qi >= s_q) break;
-    bf16* row = dq + ((size_t)bh * s_q + qi) * D;
-    for (int c = lane; c < D; c += 32) row[c] = __float2bfloat16(sStage[r * T::LDO + c]);
+  for (int r = 0; r < 2; ++r) {
+    const int row = wq + gid + 8 * r;
+    if (row >= s_q) continue;
+    bf16* out = dq + ((size_t)bh * s_q + row) * D + 2 * tig;
+#pragma unroll
+    for (int dt = 0; dt < DT; ++dt) {
+      *reinterpret_cast<uint32_t*>(out + dt * 8) =
+          metis::pack_bf16(acc[dt][2 * r], acc[dt][2 * r + 1]);
+    }
   }
 }
 
@@ -721,13 +804,8 @@ fa_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int kc = 0; kc < DKV_BM / 16; ++kc) {
         const uint64_t d_do = metis::desc_mn_major(cdO + kc * 16 * ROW, DKV_BM * ROW);
         const uint64_t d_q = metis::desc_mn_major(cQ + kc * 16 * ROW, DKV_BM * ROW);
-        if constexpr (D == 128) {
-          metis::wgmma_m64n128k16_rs_tb(dv_acc, pa[kc], d_do);
-          metis::wgmma_m64n128k16_rs_tb(dk_acc, da[kc], d_q);
-        } else {
-          metis::wgmma_m64n64k16_rs_tb(dv_acc, pa[kc], d_do);
-          metis::wgmma_m64n64k16_rs_tb(dk_acc, da[kc], d_q);
-        }
+        metis::wgmma_rs_tb<D>(dv_acc, pa[kc], d_do);
+        metis::wgmma_rs_tb<D>(dk_acc, da[kc], d_q);
       }
       metis::wgmma_commit();
       metis::wgmma_wait<0>();
@@ -813,14 +891,18 @@ template <int D>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout,
                       const void* lse, const void* delta, void* dq, int b, int hq,
                       int hkv, int s_q, int s_kv, int causal, cudaStream_t stream) {
-  cudaError_t err = prepare(fa_bwd_dq_kernel<D>, Tiles<D>::DQ);
+  cudaError_t err = prepare(fa_bwd_dq_kernel<D>, DqSmem<D>::BYTES);
+  CUtensorMap tm_q, tm_k, tm_v, tm_do;
+  if (err == cudaSuccess) err = tensor_map(&tm_q, q, b * hq, s_q, D, DQ_BM);
+  if (err == cudaSuccess) err = tensor_map(&tm_k, k, b * hkv, s_kv, D, DQ_BN);
+  if (err == cudaSuccess) err = tensor_map(&tm_v, v, b * hkv, s_kv, D, DQ_BN);
+  if (err == cudaSuccess) err = tensor_map(&tm_do, dout, b * hq, s_q, D, DQ_BM);
   if (err != cudaSuccess) return err;
-  dim3 grid((s_q + TILE - 1) / TILE, b * hq);
-  fa_bwd_dq_kernel<D><<<grid, THREADS, Tiles<D>::DQ, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<bf16*>(dq), s_q, s_kv, hq, hkv, 1.0f / sqrtf((float)D), causal);
+  dim3 grid((s_q + DQ_BM - 1) / DQ_BM, b * hq);
+  fa_bwd_dq_kernel<D><<<grid, DQ_THREADS, DqSmem<D>::BYTES, stream>>>(
+      tm_q, tm_k, tm_v, tm_do, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dq), s_q, s_kv, hq, hkv,
+      1.0f / sqrtf((float)D), causal);
   return cudaGetLastError();
 }
 

@@ -59,6 +59,12 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// threadIdx.x / 128 as lane 0 sees it: the compiler then knows that the value
+// is the same across the warp, and a branch on it is a uniform one.
+__device__ __forceinline__ int warpgroup_index() {
+  return __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+}
+
 // Two floats rounded to bf16 in one register, lo in the low half (the lower
 // column of a fragment pair).
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -239,6 +245,19 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs_tb(float (&d)[16][4], const 
         "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
         "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// The two products above by their width N (64 or 128 columns, N / 8
+// fragment tiles), for kernels whose head dim picks the shape.
+template <int N>
+__device__ __forceinline__ void wgmma_rs_tb(float (&d)[N / 8][4], const uint32_t a[4],
+                                            uint64_t desc_b) {
+  static_assert(N == 64 || N == 128, "wgmma width 64 or 128");
+  if constexpr (N == 64) {
+    wgmma_m64n64k16_rs_tb(d, a, desc_b);
+  } else {
+    wgmma_m64n128k16_rs_tb(d, a, desc_b);
+  }
 }
 
 // mbarrier in shared memory: `count` arrivals complete a phase.

@@ -48,6 +48,11 @@ def _rel(got, want):
     (1, 4, 2, 129, 64, True),
     # g = 8 query heads per KV head: B3's loop over the group members
     (1, 16, 2, 1024, 128, True),
+    # B2's 128-row Q tiles: the second warpgroup of the only tile has no
+    # valid row; the last tile is half valid; non-causal with g = 4
+    (1, 4, 4, 64, 128, True),
+    (1, 4, 2, 192, 128, True),
+    (1, 8, 2, 320, 64, False),
 ])
 def test_kernels_match_plain_versions(card, b, hq, hkv, s, d, causal):
     gen = torch.Generator(device=card).manual_seed(0)

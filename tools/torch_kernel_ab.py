@@ -5,12 +5,13 @@
 Imports ``metis_tpu_torch`` from the checkout DIR (this one, or a
 ``git archive`` of another commit unpacked somewhere), builds that tree's
 kernels, and times its B1, B2 and B3 at ``chip_smoke.py``'s main-path shape
-(b 4, h 32, s 1024, d 128, causal, bf16) with this checkout's timer
-(``chip_smoke.timed_runs``: CUDA events around back-to-back calls, three
-repetitions), on inputs made from the same seed.  Prints one JSON line: the
-card and its power limit, the tree, and each kernel's median and runs.  To
-compare two trees on one card, run it on each in turns (old, new, new, old)
-within one command.  Needs one CUDA card.
+(b 4, h 32, s 1024, d 128, causal, bf16), and B2 then B3 back to back (the
+whole backward), with this checkout's timer (``chip_smoke.timed_runs``:
+CUDA events around back-to-back calls, three repetitions), on inputs made
+from the same seed.  Prints one JSON line: the card and its power limit, the
+tree, and each kernel's (and the pair's) median and runs.  To compare two
+trees on one card, run it on each in turns (old, new, new, old) within one
+command.  Needs one CUDA card.
 """
 from __future__ import annotations
 
@@ -64,6 +65,9 @@ def main(argv: list[str] | None = None) -> int:
         "fa_fwd": smoke.timed_runs(lambda: fa.fa_fwd(q, k, v, **heads)),
         "fa_bwd_dq": smoke.timed_runs(lambda: fa.fa_bwd_dq(q, k, v, do, lse, delta, **heads)),
         "fa_bwd_dkv": smoke.timed_runs(lambda: fa.fa_bwd_dkv(q, k, v, do, lse, delta, **heads)),
+        # the whole backward, B2 then B3 back to back
+        "bwd_pair": smoke.timed_runs(lambda: (fa.fa_bwd_dq(q, k, v, do, lse, delta, **heads),
+                                              fa.fa_bwd_dkv(q, k, v, do, lse, delta, **heads))),
     }
     print(json.dumps(result))
     return 0
