@@ -21,7 +21,15 @@ Phases, in order (any failure exits non-zero):
    through ``ProfileStore.from_dir``, 5 train steps through
    ``build_executable`` with the kernel launch counts read around every step,
    the same 5 steps with dense attention as the reference trajectory, and
-   ``validate_uniform_plan`` against the step time the profile predicts.
+   ``validate_uniform_plan`` against the step time the ported estimator
+   (``planner.api.plan_uniform``) predicts from that profile;
+5. planner: on the slice's profile directory and a one-card hostfile and
+   clusterfile, the ``uniform`` and ``hetero`` searches of the port's CLI
+   (their rankings printed), ``validate`` of the top three uniform plans on
+   the card, 3 train steps of the best hetero plan through
+   ``PlanArtifact.from_ranked_plan`` with the kernel launch counts read
+   around every step, and ``plan_hetero`` on 2 nodes x 8 H100 from the same
+   profile (host search time, candidate counts, top three).
 
 The last lines are the ``kernels`` JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.  TF32 is off in every comparison: fp32
@@ -30,12 +38,14 @@ products run in full fp32 on both sides.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import re
 import statistics
 import subprocess
 import sys
+import pathlib
 import tempfile
 import time
 
@@ -60,6 +70,11 @@ GRAD_TOL = 1e-2
 # step 0 and along the 5-step trajectory
 LOSS_TOL = 2e-2
 TRAJ_TOL = 5e-2
+
+# the planner's clusterfile: GB per card (the planner reads memory * 1024 MB)
+CLUSTER_MEMORY_GB = 80
+# the mbs = gbs = 4 plan's predicted step against its measured step
+PLAN_ERROR_PCT = 5.0
 
 SEED = 0
 MAIN = dict(name="main", b=4, hq=32, hkv=32, s=1024, d=128, causal=True)
@@ -355,16 +370,33 @@ def _rebuild(tree: dict, leaves: list[torch.Tensor]) -> dict:
     return {k: {kk: next(it) for kk in sub} for k, sub in tree.items()}
 
 
-def slice_phase() -> dict:
-    from metis_tpu_torch.core.config import ModelSpec
+def write_cluster_files(work: pathlib.Path, device_type: str,
+                        nodes: int, per_node: int) -> tuple[str, str]:
+    """A hostfile and a clusterfile of ``nodes`` x ``per_node`` cards: 80 GB
+    each, NVLink 4 within a node (450 GB/s per direction), 400 Gb/s NDR
+    InfiniBand between nodes (50 GB/s)."""
+    ips = [f"127.0.0.{i + 1}" for i in range(nodes)]
+    hostfile = work / f"hostfile_{nodes}x{per_node}"
+    clusterfile = work / f"clusterfile_{nodes}x{per_node}.json"
+    hostfile.write_text("".join(f"{ip} slots={per_node}\n" for ip in ips))
+    clusterfile.write_text(json.dumps({ip: {
+        "instance_type": device_type, "memory": CLUSTER_MEMORY_GB,
+        "intra_bandwidth": 450, "inter_bandwidth": 50} for ip in ips}))
+    return str(hostfile), str(clusterfile)
+
+
+def slice_phase(work: pathlib.Path) -> dict:
+    from metis_tpu_torch.cluster.spec import ClusterSpec
+    from metis_tpu_torch.core.config import ModelSpec, SearchConfig
     from metis_tpu_torch.core.types import UniformPlan
     from metis_tpu_torch.execution.builder import build_executable
     from metis_tpu_torch.execution.mesh import PlanArtifact
     from metis_tpu_torch.models import config_for_model_spec
     from metis_tpu_torch.ops import flash_attention as fa
+    from metis_tpu_torch.planner.api import plan_uniform
     from metis_tpu_torch.profiles.profiler import profile_model
     from metis_tpu_torch.profiles.store import ProfileStore
-    from metis_tpu_torch.validation import predict_uniform_plan_ms, validate_uniform_plan
+    from metis_tpu_torch.validation import validate_uniform_plan
 
     agreement_phase()
 
@@ -376,9 +408,10 @@ def slice_phase() -> dict:
 
     t0 = time.perf_counter()
     store = profile_model(model, tps=(1,), bss=(1, 2, 4), device="cuda")
-    with tempfile.TemporaryDirectory() as tmp:
-        store.dump_to_dir(tmp, {"model_name": model.name, "attn": model.attn})
-        store = ProfileStore.from_dir(tmp)
+    # kept for the planner phase
+    profile_dir = work / "profiles"
+    store.dump_to_dir(profile_dir, {"model_name": model.name, "attn": model.attn})
+    store = ProfileStore.from_dir(profile_dir)
     device_type = store.device_types[0]
     prof = store.get(device_type, 1, plan.mbs)
     log(f"  profile {device_type}: {len(prof.layer_times_ms)} layers, "
@@ -440,7 +473,13 @@ def slice_phase() -> dict:
     if abs(losses[0] - math.log(cfg.vocab_size)) > 1.0 or losses[-1] >= losses[0]:
         raise SystemExit(f"losses {losses}: expected ~ln(vocab) falling on one batch")
 
-    predicted = predict_uniform_plan_ms(store, device_type, plan)
+    # the prediction is the ported estimator's, on one card of this type
+    hostfile, clusterfile = write_cluster_files(work, device_type, 1, 1)
+    ranked = plan_uniform(ClusterSpec.from_files(hostfile, clusterfile), store,
+                          model, SearchConfig(gbs=plan.gbs, max_profiled_tp=1,
+                                              max_profiled_bs=plan.mbs),
+                          include_oom=True)
+    predicted = next(r for r in ranked.plans if r.plan == plan).cost.total_ms
     torch.cuda.reset_peak_memory_stats()
     report = validate_uniform_plan(plan, predicted, model, device="cuda")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -449,7 +488,180 @@ def slice_phase() -> dict:
         f"peak memory {peak_gb:.2f} GB")
     return {"launches": launches, "losses": losses, "dense_losses": dense_losses,
             "measured_ms": report.measured_ms, "predicted_ms": report.predicted_ms,
-            "error_pct": report.error_pct, "peak_memory_gb": peak_gb}
+            "error_pct": report.error_pct, "peak_memory_gb": peak_gb,
+            "device_type": device_type, "profile_dir": str(profile_dir),
+            "hostfile": hostfile, "clusterfile": clusterfile}
+
+
+def print_ranking(kind: str, rows: list[dict]) -> None:
+    for i, row in enumerate(rows, 1):
+        if kind == "uniform":
+            plan = row["plan"]
+            what = (f"dp {plan['dp']} pp {plan['pp']} tp {plan['tp']} mbs "
+                    f"{plan['mbs']} gbs {plan['gbs']}")
+        else:
+            what = (f"{row['node_sequence']} groups {row['device_groups']} "
+                    f"batches {row['batches']} strategies "
+                    f"{[(s['dp'], s['tp']) for s in row['strategies']]} layers "
+                    f"{row['layer_partition']}")
+        breakdown = {k: round(v, 3) for k, v in row["cost_breakdown"].items()
+                     if isinstance(v, float) and v}
+        log(f"    {kind} #{i}: {what}: "
+            f"cost_ms {row['cost_ms']:.3f}, oom {row['cost_breakdown']['oom']}, "
+            f"breakdown {breakdown}")
+
+
+def planner_phase(work: pathlib.Path, sliced: dict) -> dict:
+    """Plan on the slice's profile with the port's CLI, validate the top
+    uniform plans on the card, train the best hetero plan, and plan a
+    16-card cluster from the same profile."""
+    from metis_tpu_torch import cli
+    from metis_tpu_torch.cluster.spec import ClusterSpec
+    from metis_tpu_torch.core.config import ModelSpec, SearchConfig
+    from metis_tpu_torch.core.types import dump_ranked_plans
+    from metis_tpu_torch.execution.builder import build_executable
+    from metis_tpu_torch.execution.mesh import PlanArtifact
+    from metis_tpu_torch.models import config_for_model_spec
+    from metis_tpu_torch.ops import flash_attention as fa
+    from metis_tpu_torch.planner.api import plan_hetero
+    from metis_tpu_torch.profiles.store import ProfileStore
+
+    gbs = 4
+    total = torch.cuda.get_device_properties(0).total_memory
+    log(f"  card memory {total / 2**30:.2f} GiB ({total / 1e9:.2f} GB); the "
+        f"clusterfile gives {CLUSTER_MEMORY_GB} GB, {CLUSTER_MEMORY_GB * 1024} MB "
+        "to the planner")
+    args = ["--hostfile", sliced["hostfile"], "--clusterfile", sliced["clusterfile"],
+            "--profile-dir", sliced["profile_dir"], "--model-name", "gpt-1.5B",
+            "--model-size", "1.5B", "--attn", "flash", "--gbs", str(gbs),
+            "--max-tp", "1", "--max-bs", "4"]
+    # the layer balancer charges a stage mem_coef x the sum of its layers'
+    # profiled peaks; the reference's 5.0 puts the 1.5B model at several
+    # times the measured step peak, so the hetero search also runs with the
+    # coefficient that makes the demand of the executed plan (mbs 4) equal
+    # to that peak (rounded up)
+    store = ProfileStore.from_dir(sliced["profile_dir"])
+    rows_mb = sum(store.get(sliced["device_type"], 1, gbs).layer_memory_mb)
+    peak_mb = sliced["peak_memory_gb"] * 1e9 / 2**20
+    mem_coef = math.ceil(peak_mb / rows_mb * 100) / 100
+    log(f"  memory: layer rows at bs {gbs} sum to {rows_mb:.0f} MB, the step's "
+        f"peak {peak_mb:.0f} MB: mem_coef {mem_coef} (reference 5.0 charges "
+        f"{5.0 * rows_mb:.0f} MB)")
+    out = {}
+    for kind, extra in (("uniform", ["--include-oom"]), ("hetero-reference", []),
+                        ("hetero", ["--mem-coef", str(mem_coef)])):
+        path = work / f"{kind}.json"
+        t0 = time.perf_counter()
+        if cli.main([kind.split("-")[0], *args, *extra, "--output", str(path)]) != 0:
+            raise SystemExit(f"{kind} search failed")
+        rows = json.loads(path.read_text())
+        log(f"  {' '.join([kind, *extra])}: {len(rows)} plans ranked in "
+            f"{time.perf_counter() - t0:.2f} s (host)")
+        print_ranking(kind, rows)
+        out[kind] = rows
+        if kind == "hetero-reference":
+            continue  # recorded: at 5.0 no plan fits one card
+        if not rows:
+            raise SystemExit(f"the {kind} search costed no plan")
+        if not all(math.isfinite(r["cost_ms"]) for r in rows):
+            raise SystemExit(f"a {kind} plan has a non-finite cost")
+    full = [r for r in out["uniform"] if r["plan"]["mbs"] == gbs]
+    if not full or full[0]["cost_breakdown"]["oom"]:
+        raise SystemExit(f"the mbs = {gbs} uniform plan is missing or flagged OOM "
+                         f"(the step's peak is {sliced['peak_memory_gb']:.2f} GB)")
+
+    path = work / "validate.json"
+    if cli.main(["validate", *args, "--validate-top-k", "3",
+                 "--output", str(path)]) != 0:
+        raise SystemExit("validate failed")
+    validated = json.loads(path.read_text())
+    reports = validated["plans"]
+    for r in reports:
+        log(f"  validate mbs {r['plan']['mbs']} gbs {r['plan']['gbs']}: measured "
+            f"{r['measured_ms']:.3f} ms, predicted {r['predicted_ms']:.3f} ms, "
+            f"error_pct {r['error_pct']:.2f}")
+    log(f"  validate calibration {validated.get('calibration')}, calibrated mean "
+        f"abs error {validated.get('calibrated_mean_abs_error_pct')}%")
+    gated = [r for r in reports if r["plan"]["mbs"] == gbs]
+    if len(reports) != 3 or len(gated) != 1:
+        raise SystemExit(f"validate gave {len(reports)} reports, expected 3 with "
+                         f"one at mbs = {gbs}")
+    if not abs(gated[0]["error_pct"]) <= PLAN_ERROR_PCT:
+        raise SystemExit(f"the mbs = gbs = {gbs} plan's error_pct "
+                         f"{gated[0]['error_pct']:.2f} exceeds {PLAN_ERROR_PCT}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the best hetero plan, trained through its plan artifact
+    model = ModelSpec(name="gpt-1.5B", num_layers=10, hidden_size=4096,
+                      sequence_length=1024, vocab_size=51200, num_heads=32,
+                      attn="flash")
+    one_card = ClusterSpec.from_files(sliced["hostfile"], sliced["clusterfile"])
+    config = SearchConfig(gbs=gbs, max_profiled_tp=1, max_profiled_bs=4,
+                          mem_coef=mem_coef)
+    result = plan_hetero(one_card, store, model, config, top_k=20)
+    if dump_ranked_plans(result.plans) != json.dumps(out["hetero"], indent=2):
+        raise SystemExit("plan_hetero disagrees with the hetero subcommand")
+    artifact = PlanArtifact.from_ranked_plan(result.best)
+    log(f"  hetero best as artifact: mesh {dict(zip(artifact.mesh_axes, artifact.mesh_shape))}, "
+        f"microbatches {artifact.microbatches}, layers {artifact.layer_partition}")
+    cfg = config_for_model_spec(model)
+    exe = build_executable(cfg, artifact, device="cuda")
+    state = exe.init(SEED)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    tokens = torch.randint(0, cfg.vocab_size, (artifact.gbs, cfg.seq_len),
+                           generator=gen, device="cuda")
+    losses = []
+    for i in range(3):
+        fa.reset_launch_counts()
+        state, loss = exe.step(state, tokens, tokens.roll(-1, 1))
+        losses.append(loss.item())
+        counts = dict(fa.launch_counts)
+        log(f"  hetero step {i}: loss {losses[-1]:.5f}  launches {counts}")
+        if any(n != cfg.num_blocks for n in counts.values()):
+            raise SystemExit(f"hetero step {i}: launches {counts}, expected "
+                             f"{cfg.num_blocks} of each")
+    if not all(math.isfinite(x) for x in losses):
+        raise SystemExit(f"non-finite hetero losses {losses}")
+    del state, exe
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # a 2 x 8 cluster of these cards, planned from the one card's profile
+    # (the reference's memory coefficient): at max tp 1 as the searches
+    # above, and at max tp 4, where the tp 2 and 4 candidates prune for
+    # want of a profile (the profile-miss contract)
+    big = ClusterSpec.from_files(*write_cluster_files(
+        work, sliced["device_type"], 2, 8))
+    scale = {}
+    for max_tp in (1, 4):
+        res = plan_hetero(big, store, model, SearchConfig(
+            gbs=64, max_profiled_tp=max_tp, max_profiled_bs=4), top_k=3)
+        log(f"  2 x 8 {sliced['device_type']} at gbs 64, max tp {max_tp}: num_costed "
+            f"{res.num_costed}, num_pruned {res.num_pruned} (profile misses), "
+            f"search_seconds {res.search_seconds:.3f} (host)")
+        rows = json.loads(dump_ranked_plans(res.plans))
+        print_ranking("hetero", rows)
+        if not rows or not all(math.isfinite(r["cost_ms"]) for r in rows):
+            raise SystemExit("the 16-card search costed no finite plan")
+        if max_tp > 1 and res.num_pruned == 0:
+            raise SystemExit("tp > 1 candidates without a tp > 1 profile did "
+                             "not prune")
+        scale[f"max_tp_{max_tp}"] = {
+            "num_costed": res.num_costed, "num_pruned": res.num_pruned,
+            "search_seconds_host": res.search_seconds,
+            "top_ms": [r["cost_ms"] for r in rows]}
+    return {
+        "mem_coef": mem_coef,
+        "hetero_reference_plans": len(out["hetero-reference"]),
+        "uniform_top": [(r["plan"]["mbs"], r["cost_ms"], r["cost_breakdown"]["oom"])
+                        for r in out["uniform"]],
+        "hetero_top_ms": out["hetero"][0]["cost_ms"],
+        "validate": [(r["plan"]["mbs"], r["measured_ms"], r["predicted_ms"],
+                      r["error_pct"]) for r in reports],
+        "hetero_losses": losses,
+        "scale": scale,
+    }
 
 
 def main() -> int:
@@ -472,11 +684,19 @@ def main() -> int:
 
     log("kernels:")
     main_case = kernel_phase()
-    log("slice:")
-    result = slice_phase()
+    with tempfile.TemporaryDirectory() as tmp:
+        work = pathlib.Path(tmp)
+        log("slice:")
+        result = slice_phase(work)
+        log("planner:")
+        t0 = time.perf_counter()
+        planned = planner_phase(work, result)
+        log(f"  planner phase {time.perf_counter() - t0:.1f} s")
 
     log(json.dumps({"kernels": kernel_records(main_case, result["launches"])}))
-    log(json.dumps({"slice": {k: v for k, v in result.items() if k != "launches"}}))
+    hidden = ("launches", "profile_dir", "hostfile", "clusterfile")
+    log(json.dumps({"slice": {k: v for k, v in result.items() if k not in hidden}}))
+    log(json.dumps({"planner": planned}))
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -98,3 +98,33 @@ class PlanArtifact:
             gbs=plan.gbs,
             microbatches=plan.num_microbatches,
         )
+
+    @staticmethod
+    def from_ranked_plan(ranked) -> "PlanArtifact":
+        """Capture a hetero planner result (``planner.api.RankedPlan``).  When
+        every stage shares one strategy shape the artifact is rectangular
+        with every plan axis named honestly — (pp, dp, ep, sp, tp), trivial
+        axes kept at size 1.  Otherwise mesh fields stay empty and per-stage
+        data drives execution.  The JSON is the reference's byte for byte;
+        this slice executes the one-device case (mesh ``(1, 1, 1, 1, 1)``)."""
+        from dataclasses import asdict
+
+        inter, intra = ranked.inter, ranked.intra
+        strategies = tuple(asdict(s) for s in intra.strategies)
+        uniform = len(
+            {(s.dp, s.tp, s.cp, s.ep) for s in intra.strategies}) == 1
+        s0 = intra.strategies[0]
+        return PlanArtifact(
+            mesh_axes=(PP, DP, EP, SP, TP) if uniform else (),
+            mesh_shape=(
+                (inter.num_stages, s0.dp // s0.ep, s0.ep, s0.cp, s0.tp)
+                if uniform else ()),
+            layer_partition=tuple(intra.layer_partition),
+            strategies=strategies,
+            gbs=inter.gbs,
+            microbatches=inter.batches,
+            node_sequence=tuple(inter.node_sequence),
+            device_groups=tuple(inter.device_groups),
+            schedule=getattr(intra, "schedule", "gpipe"),
+            virtual_stages=getattr(intra, "virtual_stages", 1),
+        )

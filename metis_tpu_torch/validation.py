@@ -1,18 +1,23 @@
-"""Cost-model validation: predicted vs measured step time — the port of the
-measured half of ``metis_tpu/validation.py`` (``ValidationReport``,
-``measure_uniform_plan_ms`` for pp = 1, ``_timed_steps_ms``,
-``validate_uniform_plan``).
+"""Cost-model validation: predicted vs measured step time — the port of
+``metis_tpu/validation.py`` for one device (``ValidationReport``,
+``measure_uniform_plan_ms`` at pp = 1, ``_timed_steps_ms``,
+``validate_uniform_plan``, ``validate_planner_choice``,
+``contention_calibrated`` and ``affine_loo_calibrated``).
 
 The measured side runs the same code production training uses
 (``execution.builder.build_executable``), so a validation failure indicts
-the cost model, not a bespoke measurement rig.  The calibration fits of the
-reference come with the planner slice; until then
-``predict_uniform_plan_ms`` prices the one plan this slice executes.
+the cost model, not a bespoke measurement rig.  Predictions come from the
+planner: ``planner.api.plan_uniform`` ranks the plans with the ported
+``UniformCostEstimator``, and ``validate_planner_choice`` measures the top
+of that ranking.
 """
 from __future__ import annotations
 
+import dataclasses
+import math
 import time
 from dataclasses import dataclass
+from typing import Sequence
 
 import numpy as np
 import torch
@@ -54,24 +59,6 @@ class ValidationReport:
             "error_pct": self.error_pct,
             "steps": self.steps,
         }
-
-
-def predict_uniform_plan_ms(profiles, device_type: str,
-                            plan: UniformPlan) -> float:
-    """The cost model's step time for a pp = dp = tp = 1 plan (the case of
-    ``metis_tpu/cost/estimator.py:536-555`` with one stage and no
-    communication): every microbatch runs every layer, then one optimizer
-    step and one batch fetch.  The fwd/bwd sync term is 0 for profiles whose
-    layer times sum to the measured total, as this port's profiler writes."""
-    if (plan.pp, plan.dp, plan.tp) != (1, 1, 1):
-        raise NotImplementedError(
-            "multi-device plans are priced by the planner's estimator, which "
-            "comes with the planner slice")
-    prof = profiles.get(device_type, plan.tp, plan.mbs)
-    meta = profiles.type_meta[device_type]
-    num_mbs = plan.num_microbatches
-    return (num_mbs * (prof.total_time_ms + prof.fb_sync_ms)
-            + meta.optimizer_time_ms + meta.batch_generator_ms)
 
 
 def measure_uniform_plan_ms(
@@ -150,3 +137,107 @@ def validate_uniform_plan(
         plan, model, device, steps=steps, warmup=warmup, seed=seed)
     return ValidationReport(
         plan=plan, predicted_ms=predicted_ms, measured_ms=measured, steps=steps)
+
+
+def contention_calibrated(reports: Sequence, key=None,
+                          fit_points: int = 1) -> tuple[dict, list]:
+    """Fit-and-hold-out environment calibration (the reference's
+    ``contention_calibrated``): within each group of ``key(report)`` (default:
+    one group) the first ``fit_points`` reports fit a scalar factor, the
+    geometric mean of their measured / predicted ratios, and the remaining
+    reports are re-issued with predictions ``predicted * factor``.
+
+    Returns ``(factors, held_out)``: factors keyed by group key (None for
+    the default single group)."""
+    groups: dict = {}
+    for r in reports:
+        groups.setdefault(key(r) if key is not None else None, []).append(r)
+    factors: dict = {}
+    held_out: list = []
+    k_fit = max(fit_points, 1)
+    for k, rs in groups.items():
+        fit = rs[:k_fit]
+        factors[k] = math.exp(
+            sum(math.log(r.measured_ms / r.predicted_ms) for r in fit)
+            / len(fit))
+        held_out.extend(
+            dataclasses.replace(r, predicted_ms=r.predicted_ms * factors[k])
+            for r in rs[k_fit:])
+    return factors, held_out
+
+
+def affine_loo_calibrated(
+    reports: Sequence, regressor=None
+) -> tuple[dict, list]:
+    """Leave-one-out affine calibration: ``measured ~= a * predicted +
+    c * regressor`` with ``a, c >= 0``, fit by least squares on all OTHER
+    reports — every report is evaluated with the fit that EXCLUDED it, so
+    each error is a held-out number while no plan is wasted as a pure fit
+    point.  When measured times are flat it converges to a ~= 0 with a
+    constant term; when compute dominates the slope recovers.
+
+    ``regressor(report)`` supplies the second column (default: 1.0 — a
+    fixed per-step dispatch overhead).  Falls back to the scalar
+    ``contention_calibrated`` below 3 reports.  Returns ``(fit,
+    loo_reports)`` with fit refit on ALL points for the record."""
+    if len(reports) < 3:
+        k = max(1, len(reports) - 1)
+        f, held = contention_calibrated(reports, fit_points=k)
+        return ({"factor": round(f.get(None, 1.0), 4), "overhead_ms": 0.0,
+                 "mode": "scalar", "fit_points": k}, held)
+
+    preds = np.array([r.predicted_ms for r in reports], np.float64)
+    meas = np.array([r.measured_ms for r in reports], np.float64)
+    reg = np.array([regressor(r) if regressor is not None else 1.0
+                    for r in reports], np.float64)
+
+    def fit(p, m, g):
+        a_mat = np.stack([p, g], axis=1)
+        (a, c), *_ = np.linalg.lstsq(a_mat, m, rcond=None)
+        if a < 0:  # dispatch-flat regime: overhead-only model
+            a = 0.0
+            c = float((m * g).sum() / (g * g).sum())
+        elif c < 0:  # compute-only model
+            c = 0.0
+            a = float((p * m).sum() / (p * p).sum())
+        return float(a), float(c)
+
+    out = []
+    idx = np.arange(len(reports))
+    for i, r in enumerate(reports):
+        mask = idx != i
+        a, c = fit(preds[mask], meas[mask], reg[mask])
+        out.append(dataclasses.replace(
+            r, predicted_ms=a * preds[i] + c * reg[i]))
+    a_all, c_all = fit(preds, meas, reg)
+    return ({"factor": round(a_all, 4), "overhead_ms": round(c_all, 4),
+             "mode": "affine_loo", "fit_points": len(reports)}, out)
+
+
+def validate_planner_choice(
+    ranked_plans,
+    model: ModelSpec,
+    device: str | torch.device = "cuda",
+    top_k: int = 1,
+    steps: int = 5,
+    warmup: int = 2,
+) -> list[ValidationReport]:
+    """Validate the top-k plans of a ``UniformPlannerResult`` — the full
+    predicted-vs-measured loop over what the planner would deploy.  Each
+    prediction is the plan's ``cost.total_ms`` from the estimator.
+
+    Plans the uniform executor cannot realize (pipeline depth not dividing
+    the block count evenly) are skipped, not failed, as in the reference.
+    Runs on ``device`` (the card unless the caller asks for the CPU)."""
+    dev = resolve_device(device)
+    reports = []
+    for ranked in ranked_plans:
+        if len(reports) >= top_k:
+            break
+        if ranked.plan.pp > 1 and model.num_blocks % ranked.plan.pp != 0:
+            continue
+        reports.append(
+            validate_uniform_plan(
+                ranked.plan, ranked.cost.total_ms, model, dev,
+                steps=steps, warmup=warmup))
+    return reports

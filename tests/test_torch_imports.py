@@ -81,7 +81,11 @@ def _entry_points():
     from metis_tpu_torch.models.convert import from_numpy_tree
     from metis_tpu_torch.models.gpt import GPTConfig
     from metis_tpu_torch.profiles.profiler import infer_device_type, profile_model
-    from metis_tpu_torch.validation import measure_uniform_plan_ms
+    from metis_tpu_torch import cli
+    from metis_tpu_torch.validation import (
+        measure_uniform_plan_ms,
+        validate_planner_choice,
+    )
 
     spec = ModelSpec(name="t", num_layers=3, hidden_size=32,
                      sequence_length=16, vocab_size=64, num_heads=2)
@@ -99,12 +103,19 @@ def _entry_points():
         "measure_uniform_plan_ms": lambda: measure_uniform_plan_ms(plan, spec),
         "from_numpy_tree": lambda: from_numpy_tree({"a": {"b": [1.0]}}),
         "batch_source": lambda: batch_source(ds, 2, device="cuda"),
+        "validate_planner_choice": lambda: validate_planner_choice([], spec),
+        # the device is resolved before the files are read or a plan searched
+        "validate_cli": lambda: cli.main([
+            "validate", "--hostfile", "hosts", "--clusterfile", "c.json",
+            "--profile-dir", "profiles", "--model-size", "1.5B",
+            "--gbs", "4"]),
     }
 
 
 ENTRY_POINTS = ["entry", "build_executable", "build_train_state",
                 "profile_model", "infer_device_type", "measure_uniform_plan_ms",
-                "from_numpy_tree", "batch_source"]
+                "from_numpy_tree", "batch_source", "validate_planner_choice",
+                "validate_cli"]
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)

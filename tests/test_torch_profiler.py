@@ -25,11 +25,8 @@ from metis_tpu_torch.core.types import UniformPlan
 from metis_tpu_torch.data import pipeline as tpipe
 from metis_tpu_torch.profiles import profiler as tprof
 from metis_tpu_torch.profiles import store as tstore
-from metis_tpu_torch.validation import (
-    ValidationReport,
-    predict_uniform_plan_ms,
-    validate_uniform_plan,
-)
+from metis_tpu_torch.core.errors import MetisError
+from metis_tpu_torch.validation import ValidationReport, validate_uniform_plan
 
 # the suite runs in several workers at once; one intra-op thread keeps these
 # tiny tensors from contending with the other workers' timing tests
@@ -151,19 +148,56 @@ def test_two_point_timing_and_fence():
     assert forced_scalar({"a": [torch.full((3,), 2.0)]}) == 2.0
 
 
+def _cpu_cluster(cluster_mod, devices: int):
+    spec = cluster_mod.DeviceSpec("CPU", 8, intra_bw_gbps=50, inter_bw_gbps=10)
+    return cluster_mod.ClusterSpec.homogeneous("CPU", 1, devices, spec=spec)
+
+
 def test_validation_on_the_host(port_run):
-    _, store, _ = port_run
+    """The prediction is the estimator's, and equals the JAX package's
+    ``UniformCostEstimator`` on the same profile directory."""
+    from metis_tpu.cluster import spec as jcluster
+    from metis_tpu.core.config import SearchConfig as JSearchConfig
+    from metis_tpu.cost.estimator import EstimatorOptions as JOptions
+    from metis_tpu.cost.estimator import UniformCostEstimator as JEstimator
+    from metis_tpu.cost.volume import TransformerVolume as JVolume
+    from metis_tpu.planner.api import plan_uniform as jplan_uniform
+    from metis_tpu_torch.cluster import spec as tcluster
+    from metis_tpu_torch.core.config import SearchConfig
+    from metis_tpu_torch.cost.estimator import EstimatorOptions, UniformCostEstimator
+    from metis_tpu_torch.cost.volume import TransformerVolume
+    from metis_tpu_torch.planner.api import plan_uniform
+
+    out, store, _ = port_run
+    jstore_ = jstore.ProfileStore.from_dir(out)
+    model, jmodel = ModelSpec(**SPEC), JModelSpec(**SPEC)
     plan = UniformPlan(dp=1, pp=1, tp=1, mbs=2, gbs=4)
-    prof = store.get("CPU", 1, 2)
-    meta = store.type_meta["CPU"]
-    predicted = predict_uniform_plan_ms(store, "CPU", plan)
-    assert predicted == pytest.approx(
-        2 * prof.total_time_ms + meta.optimizer_time_ms + meta.batch_generator_ms)
-    report = validate_uniform_plan(plan, predicted, ModelSpec(**SPEC),
+    config, jconfig = SearchConfig(gbs=4), JSearchConfig(gbs=4)
+    est = UniformCostEstimator(
+        _cpu_cluster(tcluster, 1), store,
+        TransformerVolume(model, store.model.params_per_layer_bytes),
+        EstimatorOptions.from_config(config))
+    jest = JEstimator(
+        _cpu_cluster(jcluster, 1), jstore_,
+        JVolume(jmodel, jstore_.model.params_per_layer_bytes),
+        JOptions.from_config(jconfig))
+    predicted = est.get_cost(plan, "CPU").total_ms
+    assert predicted == jest.get_cost(JUniformPlan(1, 1, 1, 2, 4), "CPU").total_ms
+    report = validate_uniform_plan(plan, predicted, model,
                                    device="cpu", steps=2, warmup=1)
     assert report.measured_ms > 0 and np.isfinite(report.error_pct)
-    with pytest.raises(NotImplementedError):
-        predict_uniform_plan_ms(store, "CPU", UniformPlan(2, 1, 1, 1, 4))
+    # several devices: the plans come from plan_uniform, priced as the JAX
+    # package prices them, and this slice's executor refuses to run them
+    res = plan_uniform(_cpu_cluster(tcluster, 2), store, model, config,
+                       include_oom=True)
+    jres = jplan_uniform(_cpu_cluster(jcluster, 2), jstore_, jmodel, jconfig,
+                         include_oom=True)
+    assert [(r.plan.dp, r.plan.mbs, r.cost.total_ms) for r in res.plans] == [
+        (r.plan.dp, r.plan.mbs, r.cost.total_ms) for r in jres.plans]
+    two = next(r for r in res.plans if r.plan.dp == 2)
+    with pytest.raises(MetisError, match="needs 2 devices"):
+        validate_uniform_plan(two.plan, two.cost.total_ms, model,
+                              device="cpu", steps=1, warmup=0)
 
 
 def test_validation_report_matches_jax():
