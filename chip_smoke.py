@@ -29,10 +29,22 @@ Phases, in order (any failure exits non-zero):
    the card, 3 train steps of the best hetero plan through
    ``PlanArtifact.from_ranked_plan`` with the kernel launch counts read
    around every step, and ``plan_hetero`` on 2 nodes x 8 H100 from the same
-   profile (host search time, candidate counts, top three).
+   profile (host search time, candidate counts, top three);
+6. dist: dp x tp plans through ``execution.dist.spawn`` and
+   ``build_executable``'s ``gspmd`` route, each rank reading its own kernel
+   launch counts around every step: (a) NCCL at world size 1, the slice's
+   5 steps, equal to the one-device trajectory within 1e-6; (b) tp 2 on two
+   gloo ranks sharing the card, full width and depth, within 0.05 of the
+   one-device trajectory, 8 launches of each kernel per rank per step, each
+   rank's peak memory; (c) dp 2 and dp 2 x tp 2 on gloo ranks sharing the
+   card at 2 blocks of full width, 3 steps, each within 0.05 of a
+   dp = tp = 1 run at that depth; (d) ``profile --tps 1,2`` on the one card
+   skips tp 2 with a ``profile_skipped`` event and writes no tp 2 profile.
+   The ranks of (b) and (c) share one card, so their step times are no
+   dp/tp speed.
 
-The last lines are the ``kernels`` JSON, the card's name and power limit, and
-``{"ok": true, "device": {...}}``.  TF32 is off in every comparison: fp32
+The last lines are the ``kernels``, ``slice``, ``planner`` and ``dist`` JSON,
+the card's name and power limit, and ``{"ok": true, "device": {...}}``.  TF32 is off in every comparison: fp32
 products run in full fp32 on both sides.
 """
 from __future__ import annotations
@@ -75,11 +87,17 @@ TRAJ_TOL = 5e-2
 CLUSTER_MEMORY_GB = 80
 # the mbs = gbs = 4 plan's predicted step against its measured step
 PLAN_ERROR_PCT = 5.0
+# the gspmd route at NCCL world size 1 against the one-device step
+WORLD1_TOL = 1e-6
+SHARED_CARD = "ranks share one card; not a dp/tp speed"
 
 SEED = 0
 MAIN = dict(name="main", b=4, hq=32, hkv=32, s=1024, d=128, causal=True)
+# one rank's share of the main path at tp 2: half the heads
+TP2 = dict(name="tp2", b=4, hq=16, hkv=16, s=1024, d=128, causal=True)
 KERNEL_CASES = [
     MAIN,
+    TP2,
     dict(name="gqa", b=2, hq=8, hkv=2, s=1024, d=128, causal=True),
     dict(name="ragged", b=2, hq=8, hkv=8, s=1000, d=128, causal=True),
     # one short of and one past the 128-row tiles of B1 (query) and B3 (key)
@@ -276,11 +294,14 @@ def sdpa_ms(q, k, v, do, b, h, s, d, causal) -> dict:
     return {"sdpa_fwd": fwd, "sdpa_bwd": bwd}
 
 
-def kernel_phase() -> dict:
+def kernel_phase() -> tuple[dict, dict]:
+    """Every case held; returns the main case (with its timing) and the
+    per-rank tp 2 case."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    failures, main_timing = [], None
+    failures, held = [], {}
     for case in KERNEL_CASES:
         res = kernel_case(case, gen, timed=case is MAIN)
+        held[case["name"]] = res
         for kname in ("fa_fwd", "fa_bwd_dq", "fa_bwd_dkv"):
             for tensor, (abs_err, rel) in res.get(kname, {}).items():
                 ok = rel <= KERNEL_TOL
@@ -298,7 +319,6 @@ def kernel_phase() -> dict:
             if not caught:
                 failures.append(f"{case['name']}/control")
         if "timing" in res:
-            main_timing = res
             t = res["timing"]
             for kname, lib in (("fa_fwd", "sdpa_fwd"), ("fa_bwd_dq", "sdpa_bwd"),
                                ("fa_bwd_dkv", "sdpa_bwd")):
@@ -316,23 +336,29 @@ def kernel_phase() -> dict:
         torch.cuda.empty_cache()
     if failures:
         raise SystemExit(f"kernel disagrees with its plain version: {failures}")
-    return main_timing
+    return held[MAIN["name"]], held[TP2["name"]]
 
 
-def kernel_records(main: dict, launches: dict) -> list[dict]:
+def kernel_records(main: dict, tp2: dict, launches: dict,
+                   rank_launches: dict) -> list[dict]:
+    """One record per kernel: errors over the shapes of the main paths (the
+    one-device step and one tp 2 rank), times at the main shape, launches
+    of the one-device run and of each tp 2 rank."""
     timing = main["timing"]
     library = {"fa_fwd": timing["sdpa_fwd"]["ms"], "fa_bwd_dq": timing["sdpa_bwd"]["ms"],
                "fa_bwd_dkv": timing["sdpa_bwd"]["ms"]}
     records = []
     for name in ("fa_fwd", "fa_bwd_dq", "fa_bwd_dkv"):
         t = timing[name]
-        errs = main[name]
+        errs = list(main[name].values()) + list(tp2[name].values())
         bound_ms, bound_by = t["bound"]
         records.append({
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[name], "launches": launches[name],
-            "max_abs_err": max(e[0] for e in errs.values()),
-            "max_row_rel_err": max(e[1] for e in errs.values()),
+            "launches_tp2_per_rank": rank_launches[name],
+            "held_at": [MAIN["name"], TP2["name"]],
+            "max_abs_err": max(e[0] for e in errs),
+            "max_row_rel_err": max(e[1] for e in errs),
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library[name],
         })
@@ -490,7 +516,8 @@ def slice_phase(work: pathlib.Path) -> dict:
             "measured_ms": report.measured_ms, "predicted_ms": report.predicted_ms,
             "error_pct": report.error_pct, "peak_memory_gb": peak_gb,
             "device_type": device_type, "profile_dir": str(profile_dir),
-            "hostfile": hostfile, "clusterfile": clusterfile}
+            "hostfile": hostfile, "clusterfile": clusterfile,
+            "tokens": tokens.cpu()}
 
 
 def print_ranking(kind: str, rows: list[dict]) -> None:
@@ -664,6 +691,119 @@ def planner_phase(work: pathlib.Path, sliced: dict) -> dict:
     }
 
 
+def dist_legs_check(label: str, ranks: list[dict], want: list[float], tol: float,
+                    blocks: int) -> dict:
+    """Hold every rank's trajectory to ``want`` within ``tol`` per step and
+    its launches to ``blocks`` of each kernel per step; print and return the
+    readings."""
+    gaps = [abs(a - b) for r in ranks for a, b in zip(r["losses"], want)]
+    worst = max(gaps)
+    log(f"  {label}: kinds {sorted({r['kind'] for r in ranks})}, losses "
+        f"{[round(x, 5) for x in ranks[0]['losses']]} against "
+        f"{[round(x, 5) for x in want]}, largest gap {worst:.3e} (tol {tol:g})")
+    for rank, r in enumerate(ranks):
+        peak = r.get("peak_memory_bytes", 0) / 1e9
+        log(f"    rank {rank} {r['slots']}: launches per step {r['launches']}, "
+            f"peak memory {peak:.2f} GB, step ms {[round(x, 1) for x in r['step_ms']]} "
+            f"({SHARED_CARD if len(ranks) > 1 else 'one rank'})")
+    if any(r["kind"] != "gspmd" for r in ranks):
+        raise SystemExit(f"{label}: not on the gspmd route")
+    if not all(math.isfinite(x) for r in ranks for x in r["losses"]):
+        raise SystemExit(f"{label}: non-finite losses")
+    if len(gaps) != len(ranks) * len(want) or worst > tol:
+        raise SystemExit(f"{label}: trajectory off by {worst:.3e} (tol {tol:g})")
+    for r in ranks:
+        for counts in r["launches"]:
+            if any(n != blocks for n in counts.values()):
+                raise SystemExit(f"{label}: launches {counts}, expected {blocks} of each")
+    return {"largest_gap": worst, "losses": [r["losses"] for r in ranks],
+            "launches_per_step": ranks[0]["launches"][0],
+            "peak_memory_gb": [r.get("peak_memory_bytes", 0) / 1e9 for r in ranks],
+            "step_ms_shared_card": [r["step_ms"] for r in ranks]}
+
+
+def dist_phase(work: pathlib.Path, sliced: dict) -> dict:
+    """The gspmd route over torch.distributed on the one card (module doc,
+    phase 6)."""
+    from metis_tpu_torch import cli
+    from metis_tpu_torch.core.config import ModelSpec
+    from metis_tpu_torch.core.types import UniformPlan
+    from metis_tpu_torch.execution import dist as mdist
+    from metis_tpu_torch.execution.builder import build_executable
+    from metis_tpu_torch.execution.mesh import PlanArtifact
+    from metis_tpu_torch.models import config_for_model_spec
+    from metis_tpu_torch.testing import run_plan_rank
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = ModelSpec(name="gpt-1.5B", num_layers=10, hidden_size=4096,
+                      sequence_length=1024, vocab_size=51200, num_heads=32,
+                      attn="flash")
+    cfg = config_for_model_spec(model)
+    tokens = sliced["tokens"]
+    batch = (tokens, tokens.roll(-1, 1))
+    gbs = tokens.shape[0]
+    card = ["cuda:0"]
+
+    def artifact(dp, tp):
+        return PlanArtifact.from_uniform_plan(UniformPlan(dp, 1, tp, gbs // dp, gbs)).to_json()
+
+    out = {}
+    t0 = time.perf_counter()
+    ranks = mdist.spawn(run_plan_rank, 1, "nccl", card, artifact(1, 1), cfg, SEED,
+                        [batch] * 5)
+    out["a_nccl_world1"] = dist_legs_check(
+        "(a) NCCL world 1, 1.5B", ranks, sliced["losses"], WORLD1_TOL, cfg.num_blocks)
+    log(f"  (a) {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    ranks = mdist.spawn(run_plan_rank, 2, "gloo", card * 2, artifact(1, 2), cfg, SEED,
+                        [batch] * 5)
+    out["b_tp2"] = dist_legs_check(
+        "(b) tp 2 on two gloo ranks, 1.5B", ranks, sliced["losses"], TRAJ_TOL,
+        cfg.num_blocks)
+    rank_launches = {name: [sum(step[name] for step in r["launches"]) for r in ranks]
+                     for name in ranks[0]["launches"][0]}
+    log(f"  (b) {time.perf_counter() - t0:.1f} s")
+
+    shallow = dataclasses.replace(cfg, num_blocks=2)
+    exe = build_executable(shallow, PlanArtifact.from_json(artifact(1, 1)), device="cuda")
+    state, ref = exe.init(SEED), []
+    for _ in range(3):
+        state, loss = exe.step(state, batch[0].cuda(), batch[1].cuda())
+        ref.append(loss.item())
+    del state, exe
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  (c) reference, 2 blocks on one device: losses {[round(x, 5) for x in ref]}")
+    for dp, tp in ((2, 1), (2, 2)):
+        t0 = time.perf_counter()
+        ranks = mdist.spawn(run_plan_rank, dp * tp, "gloo", card * (dp * tp),
+                            artifact(dp, tp), shallow, SEED, [batch] * 3)
+        out[f"c_dp{dp}_tp{tp}"] = dist_legs_check(
+            f"(c) dp {dp} x tp {tp} on gloo ranks, 2 blocks", ranks, ref, TRAJ_TOL,
+            shallow.num_blocks)
+        log(f"  (c) dp {dp} x tp {tp}: {time.perf_counter() - t0:.1f} s")
+    out["c_reference_losses"] = ref
+
+    events, prof_dir = work / "profile_events.jsonl", work / "profiles_tp"
+    if cli.main(["profile", "--model-name", "gpt-1.5B", "--model-size", "1.5B",
+                 "--attn", "flash", "--tps", "1,2", "--bss", "1", "--warmup", "1",
+                 "--iters", "2", "--events", str(events),
+                 "--output-dir", str(prof_dir)]) != 0:
+        raise SystemExit("profile --tps 1,2 failed")
+    skipped = [e for e in map(json.loads, events.read_text().splitlines())
+               if e["event"] == "profile_skipped"]
+    files = sorted(f.name for f in prof_dir.iterdir())
+    log(f"  (d) profile --tps 1,2: profile_skipped {skipped}; wrote {files}")
+    if ([e["tp"] for e in skipped] != [2] or "exceeds 1 device" not in skipped[0]["reason"]
+            or any("_tp2_" in f for f in files)):
+        raise SystemExit("profile --tps 1,2 did not skip tp 2 on one card")
+    out["d_profile_skipped"] = skipped
+    torch.cuda.empty_cache()
+    return out, rank_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -683,7 +823,7 @@ def main() -> int:
         log(f"  ptxas: {line}")
 
     log("kernels:")
-    main_case = kernel_phase()
+    main_case, tp2_case = kernel_phase()
     with tempfile.TemporaryDirectory() as tmp:
         work = pathlib.Path(tmp)
         log("slice:")
@@ -692,11 +832,17 @@ def main() -> int:
         t0 = time.perf_counter()
         planned = planner_phase(work, result)
         log(f"  planner phase {time.perf_counter() - t0:.1f} s")
+        log("dist:")
+        t0 = time.perf_counter()
+        dist_out, rank_launches = dist_phase(work, result)
+        log(f"  dist phase {time.perf_counter() - t0:.1f} s")
 
-    log(json.dumps({"kernels": kernel_records(main_case, result["launches"])}))
-    hidden = ("launches", "profile_dir", "hostfile", "clusterfile")
+    log(json.dumps({"kernels": kernel_records(main_case, tp2_case, result["launches"],
+                                              rank_launches)}))
+    hidden = ("launches", "profile_dir", "hostfile", "clusterfile", "tokens")
     log(json.dumps({"slice": {k: v for k, v in result.items() if k not in hidden}}))
     log(json.dumps({"planner": planned}))
+    log(json.dumps({"dist": dist_out}))
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

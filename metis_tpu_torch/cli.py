@@ -3,12 +3,14 @@
 The port of ``metis_tpu/planner/cli.py``'s training loop commands, with the
 reference's flags and output bytes:
 
-  profile   measure per-layer profiles on the CUDA card and write the
-            profile JSON dir the planner reads;
+  profile   measure per-layer profiles on the CUDA cards (tp > 1 as a job of
+            tp ranks, one per card) and write the profile JSON dir the
+            planner reads;
   hetero    heterogeneous-cluster plan search (``planner.api.plan_hetero``);
   uniform   uniform Megatron-grid sweep (``planner.api.plan_uniform``);
   validate  predicted-vs-measured step time of the top uniform plans,
-            measured on the card (``--device cpu`` to run on the host).
+            measured on the cards, a dp x tp plan one rank per card
+            (``--device cpu`` to run on the host).
 
 The searches run on the host and take no device.  The reference's
 ``--platform`` (a JAX backend pin) becomes ``--device``.  ``train`` and the

@@ -1,1 +1,1 @@
-"""Plan artifact and single-device training step of the port."""
+"""Plan artifact, process mesh, launcher and training steps of the port."""

@@ -1,13 +1,18 @@
 """PlanArtifact -> executable training step — the port of
 ``metis_tpu/execution/builder.py``.
 
-This slice realizes the ``pp == 1`` route on one device (the reference's
-GSPMD route at dp = tp = 1).  Pipelined plans, hetero stages and every
-multi-device mesh raise ``NotImplementedError`` naming the later slice.
+This slice realizes the ``pp == 1`` routes: one device outside a process
+group (``kind="single_device"``), and the reference's GSPMD route
+(``kind="gspmd"``) inside a process group of the plan's size — Megatron
+tensor parallelism plus data-parallel gradient averaging, one rank per
+device, started by ``execution.dist.spawn``.  Pipelined plans, hetero stages
+and the strategy axes zero / sp / cp / ep raise ``NotImplementedError``
+naming the later slice.
 
 The path is normalized to ``(init, step)`` as in the reference:
 ``init(seed) -> state`` and ``step(state, tokens, targets) -> (state, loss)``
-on full-batch ``[gbs, seq]`` token tensors.
+on full-batch ``[gbs, seq]`` token tensors (each rank of a mesh runs its dp
+rows of them).
 """
 from __future__ import annotations
 
@@ -15,9 +20,11 @@ from dataclasses import dataclass
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 
 from metis_tpu_torch.core.device import resolve_device
-from metis_tpu_torch.execution.mesh import PP, PlanArtifact
+from metis_tpu_torch.core.errors import MetisError
+from metis_tpu_torch.execution.mesh import DP, PP, TP, PlanArtifact, ProcessMesh
 from metis_tpu_torch.execution.train import build_train_state, make_train_step
 from metis_tpu_torch.models.gpt import GPTConfig
 
@@ -26,9 +33,10 @@ from metis_tpu_torch.models.gpt import GPTConfig
 class Executable:
     """A plan realized: which path runs it, plus the normalized step API."""
 
-    kind: str  # "single_device"
+    kind: str  # "single_device" or "gspmd"
     init: Callable
     step: Callable
+    mesh: ProcessMesh | None = None
 
 
 def build_executable(cfg: GPTConfig, artifact: PlanArtifact,
@@ -54,7 +62,14 @@ def build_executable(cfg: GPTConfig, artifact: PlanArtifact,
         raise NotImplementedError(
             f"strategy axes {extras} come with later slices (context and "
             "expert parallelism, ZeRO, sequence parallelism)")
-    artifact.require_single_device()
+    if dist.is_initialized():
+        return _gspmd_executable(cfg, artifact, dev, optimizer)
+    if artifact.num_devices != 1:
+        raise MetisError(
+            f"mesh {dict(zip(artifact.mesh_axes, artifact.mesh_shape))} needs "
+            f"{artifact.num_devices} ranks; run it through the launcher "
+            "(metis_tpu_torch.execution.dist.spawn), one rank per device, "
+            "and build it on every rank")
     return _single_device_executable(cfg, dev, optimizer)
 
 
@@ -64,3 +79,22 @@ def _single_device_executable(cfg, device, optimizer) -> Executable:
 
     return Executable(kind="single_device", init=init,
                       step=make_train_step(cfg))
+
+
+def _gspmd_executable(cfg, artifact, device, optimizer) -> Executable:
+    mesh = artifact.build_mesh()
+    dp, tp = mesh.size(DP), mesh.size(TP)
+    if artifact.gbs % dp:
+        raise ValueError(f"gbs {artifact.gbs} does not split over dp = {dp}")
+    for what, n in (("heads", cfg.num_heads), ("vocab rows", cfg.vocab_size),
+                    ("ffn units", cfg.ffn_dim)):
+        if n % tp:
+            raise ValueError(f"{n} {what} do not split over tp = {tp}")
+
+    def init(seed: int):
+        return build_train_state(seed, cfg, device=device, optimizer=optimizer,
+                                 mesh=mesh)
+
+    return Executable(kind="gspmd", init=init,
+                      step=make_train_step(cfg, mesh=mesh), mesh=mesh)
+

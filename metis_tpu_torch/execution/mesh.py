@@ -1,22 +1,146 @@
-"""The plan artifact — the port's copy of ``PlanArtifact`` from
-``metis_tpu/execution/mesh.py`` (the JSON contract between planner and
-executor).
+"""Plan -> process mesh and parameter shards — the port of
+``metis_tpu/execution/mesh.py``.
 
-This slice executes on one device, so there is no device mesh: an artifact
-whose mesh needs more than one device raises ``NotImplementedError``.
-Multi-device plans (dp x tp over NCCL, pipelines, hetero stages) come with
-later slices.
+The reference places arrays on a ``jax.sharding.Mesh`` and lets GSPMD insert
+the collectives.  Here one process runs per device (``execution/dist.py``
+starts them), a ``ProcessMesh`` tells each process its coordinates and one
+``torch.distributed`` group per mesh axis, and the model calls the
+collectives itself (``models/parallel.py``).  The spec trees are the
+reference's ``PartitionSpec`` trees with plain tuples of axis names (None =
+not split, ``core/sharding.py``) standing in for ``P``: column-parallel qkv /
+mlp-in, row-parallel proj / mlp-out, vocab-parallel embedding and head, the
+batch over dp.
 """
 from __future__ import annotations
 
 import json
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from pathlib import Path
 
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from metis_tpu_torch.core.errors import MetisError
+from metis_tpu_torch.core.sharding import Spec, slice_leaf
 from metis_tpu_torch.core.types import UniformPlan
 
 PP, DP, TP, SP, EP = "pp", "dp", "tp", "sp", "ep"
+
+
+@dataclass(frozen=True)
+class ProcessMesh:
+    """This process's place in a row-major device grid (last axis fastest,
+    as the reference's ``_grid`` reshapes its device list): the axis names,
+    the grid's shape, this rank's coordinate on each axis, and the process
+    group of the ranks that differ from this one only on that axis (None
+    for an axis of size 1, where no collective is needed)."""
+
+    axes: tuple[str, ...]
+    shape: tuple[int, ...]
+    coords: tuple[int, ...]
+    groups: dict = field(default_factory=dict, compare=False, repr=False)
+
+    def size(self, axis: str) -> int:
+        return self.shape[self.axes.index(axis)] if axis in self.axes else 1
+
+    def index(self, axis: str) -> int:
+        return self.coords[self.axes.index(axis)] if axis in self.axes else 0
+
+    def group(self, axis: str):
+        return self.groups.get(axis)
+
+    def slots(self) -> dict[str, tuple[int, int]]:
+        """``{axis: (index, size)}`` — what ``slice_leaf`` takes."""
+        return {a: (c, n) for a, c, n in zip(self.axes, self.coords, self.shape)}
+
+
+#: the mesh of a process that runs the whole model alone: no axis, no group
+ONE_DEVICE = ProcessMesh((), (), ())
+
+
+def _grid(shape: tuple[int, ...], axes: tuple[str, ...]) -> ProcessMesh:
+    """The mesh of this process inside the current process group, whose
+    size must be the grid's.  Every rank creates every axis group in the
+    same order, as ``torch.distributed.new_group`` requires."""
+    need = math.prod(shape)
+    if not dist.is_initialized():
+        raise MetisError(
+            f"mesh {dict(zip(axes, shape))} needs a process group of {need} "
+            "ranks; run it through the launcher "
+            "(metis_tpu_torch.execution.dist.spawn)")
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if world != need:
+        raise MetisError(
+            f"mesh {dict(zip(axes, shape))} needs {need} ranks, the process "
+            f"group has {world}")
+    coords = tuple(int(c) for c in np.unravel_index(rank, shape))
+    grid = np.arange(need).reshape(shape)
+    groups = {}
+    for i, axis in enumerate(axes):
+        if shape[i] == 1:
+            continue
+        lines = np.moveaxis(grid, i, -1).reshape(-1, shape[i])
+        for line in lines:
+            g = dist.new_group([int(r) for r in line])
+            if rank in line:
+                groups[axis] = g
+    return ProcessMesh(tuple(axes), tuple(shape), coords, groups)
+
+
+def mesh_for_uniform_plan(plan: UniformPlan) -> ProcessMesh:
+    """(pp, dp, tp) mesh over the current process group."""
+    return _grid((plan.pp, plan.dp, plan.tp), (PP, DP, TP))
+
+
+def mesh_dp_tp(dp: int, tp: int) -> ProcessMesh:
+    """(dp, tp) mesh for non-pipelined execution."""
+    return _grid((dp, tp), (DP, TP))
+
+
+def gpt_param_specs(cfg, tp_axis: str = TP) -> dict:
+    """Spec tree matching ``models.gpt.init_params`` (the reference's
+    ``gpt_param_specs`` without a pipeline axis)."""
+    t = tp_axis
+    return {
+        "embed": {
+            "tok": (t, None),       # vocab-parallel embedding
+            "pos": (),
+        },
+        "blocks": {
+            "ln1_scale": (None, None),
+            "ln1_bias": (None, None),
+            "qkv": (None, None, None, t),  # column-parallel (whole heads)
+            "qkv_bias": (None, None, t),
+            "proj": (None, t, None),       # row-parallel
+            "proj_bias": (None, None),
+            "ln2_scale": (None, None),
+            "ln2_bias": (None, None),
+            "mlp_in": (None, None, t),     # column-parallel
+            "mlp_in_bias": (None, t),
+            "mlp_out": (None, t, None),    # row-parallel
+            "mlp_out_bias": (None, None),
+        },
+        "head": {
+            "ln_scale": (),
+            "ln_bias": (),
+            "out": (None, t),       # vocab-parallel head
+        },
+    }
+
+
+def batch_spec(dp_axis: str = DP, seq_axis: str | None = None) -> Spec:
+    """Spec of [batch, seq] token arrays."""
+    return (dp_axis, seq_axis)
+
+
+def shard_params(params: dict, mesh: ProcessMesh, specs: dict) -> dict:
+    """This rank's slices of a full parameter tree (contiguous copies)."""
+    slots = mesh.slots()
+    return {group: {name: slice_leaf(leaf, specs[group][name], slots).contiguous()
+                    for name, leaf in sub.items()}
+            for group, sub in params.items()}
 
 
 @dataclass(frozen=True)
@@ -74,19 +198,20 @@ class PlanArtifact:
     def load(path) -> "PlanArtifact":
         return PlanArtifact.from_json(Path(path).read_text())
 
-    def require_single_device(self) -> None:
-        """Raise unless the artifact's mesh holds exactly one device — the
-        only execution this slice has."""
+    @property
+    def num_devices(self) -> int:
+        return math.prod(self.mesh_shape)
+
+    def build_mesh(self) -> ProcessMesh:
+        """This process's mesh for a rectangular (uniform-stage) artifact,
+        inside a process group of the artifact's size.  Both layouts work:
+        ``(pp, dp, tp)`` from ``from_uniform_plan`` and ``(pp, dp, ep, sp,
+        tp)`` from ``from_ranked_plan``, trivial axes of size 1."""
         if not self.mesh_shape:
-            raise NotImplementedError(
-                "non-rectangular (hetero) plans run on the per-stage executor "
-                "of a later slice")
-        devices = math.prod(self.mesh_shape)
-        if devices != 1:
-            raise NotImplementedError(
-                f"mesh {dict(zip(self.mesh_axes, self.mesh_shape))} needs "
-                f"{devices} devices; multi-device execution (dp x tp over "
-                "NCCL, pipeline and hetero executors) comes with a later slice")
+            raise ValueError(
+                "artifact has non-uniform stages; build per-stage meshes from "
+                "device_groups/strategies instead")
+        return _grid(self.mesh_shape, self.mesh_axes)
 
     @staticmethod
     def from_uniform_plan(plan: UniformPlan) -> "PlanArtifact":
@@ -105,8 +230,7 @@ class PlanArtifact:
         every stage shares one strategy shape the artifact is rectangular
         with every plan axis named honestly — (pp, dp, ep, sp, tp), trivial
         axes kept at size 1.  Otherwise mesh fields stay empty and per-stage
-        data drives execution.  The JSON is the reference's byte for byte;
-        this slice executes the one-device case (mesh ``(1, 1, 1, 1, 1)``)."""
+        data drives execution.  The JSON is the reference's byte for byte."""
         from dataclasses import asdict
 
         inter, intra = ranked.inter, ranked.intra

@@ -1,11 +1,16 @@
-"""Single-device training step — the port of ``metis_tpu/execution/train.py``
-for dp = tp = 1 and no sequence axis (GPT family).
+"""Training step — the port of ``metis_tpu/execution/train.py`` for the
+GPT family without a sequence axis: one device, or one rank of a dp x tp
+process mesh (``execution/mesh.py``).
 
 PyTorch runs eagerly, so the reference's jitted step becomes a plain
 function: forward, ``backward()``, ``optimizer.step()``.  The optimizer is
 ``torch.optim.AdamW`` configured as ``optax.adamw(1e-4, weight_decay=0.01)``:
 betas (0.9, 0.999), eps 1e-8, and decay on every leaf, biases and norms
 included (one parameter group, no exclusions).
+
+On a mesh each rank holds its Megatron shards (``gpt_param_specs``), runs its
+dp index's rows of the batch, and averages its gradients over the dp group
+before the update — what GSPMD derives from the shardings in the reference.
 """
 from __future__ import annotations
 
@@ -17,9 +22,19 @@ from functools import partial
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 
 from metis_tpu_torch.core.device import resolve_device
 from metis_tpu_torch.core.events import NULL_LOG
+from metis_tpu_torch.core.sharding import slice_leaf
+from metis_tpu_torch.execution.mesh import (
+    DP,
+    ONE_DEVICE,
+    TP,
+    ProcessMesh,
+    batch_spec,
+    gpt_param_specs,
+)
 from metis_tpu_torch.models import _require_gpt
 from metis_tpu_torch.models.gpt import GPTConfig, init_params, next_token_loss
 
@@ -35,9 +50,20 @@ class TrainState:
 
 
 def init_params_for(gen: torch.Generator, cfg: GPTConfig,
-                    device: str | torch.device = "cuda") -> dict:
+                    device: str | torch.device = "cuda",
+                    mesh: ProcessMesh | None = None) -> dict:
+    """The seeded parameter tree, or with ``mesh`` this rank's slices of
+    it: each leaf is drawn at full size in the unsharded order and cut at
+    once, so every rank holds exactly its block of the one-device tree."""
     _require_gpt(cfg)
-    return init_params(gen, cfg, device=resolve_device(device))
+    shard = None
+    if mesh is not None:
+        specs, slots = gpt_param_specs(cfg), mesh.slots()
+
+        def shard(group, name, leaf):
+            return slice_leaf(leaf, specs[group][name], slots).contiguous()
+
+    return init_params(gen, cfg, device=resolve_device(device), shard=shard)
 
 
 def loss_fn_for(cfg: GPTConfig) -> Callable:
@@ -144,27 +170,53 @@ def train_state_from_params(params: dict, optimizer=None) -> TrainState:
 
 def build_train_state(seed: int, cfg: GPTConfig,
                       device: str | torch.device = "cuda",
-                      optimizer=None) -> TrainState:
+                      optimizer=None, mesh: ProcessMesh | None = None
+                      ) -> TrainState:
     """Initialize parameters on ``device`` from ``seed`` and the matching
-    optimizer state."""
+    optimizer state; with ``mesh``, this rank's shards of the same
+    parameters (``init_params_for``)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    return train_state_from_params(init_params_for(gen, cfg, dev), optimizer)
+    return train_state_from_params(init_params_for(gen, cfg, dev, mesh),
+                                   optimizer)
 
 
-def make_train_step(cfg: GPTConfig, attn_impl=None) -> Callable:
+def _mean_over(tensors: list[torch.Tensor], group, size: int) -> None:
+    """In place: each tensor becomes its mean over ``group``."""
+    for t in tensors:
+        dist.all_reduce(t, group=group)
+        t.div_(size)
+
+
+def make_train_step(cfg: GPTConfig, attn_impl=None,
+                    mesh: ProcessMesh | None = None) -> Callable:
     """``(state, tokens, targets) -> (state, loss)``.
 
     The reference donates the state to its jitted step; here the step
     updates the parameters and optimizer moments in place and returns the
     same state object, so no second copy of the model is ever held.  The
     loss comes back as a 0-d tensor on the device (read it with ``.item()``,
-    which waits for the step)."""
+    which waits for the step).
+
+    With ``mesh`` the step takes the full ``[gbs, seq]`` batch on every rank
+    and runs its dp index's contiguous ``gbs / dp`` rows (the reference's
+    ``P(dp, None)``); the gradients and the returned loss are means over the
+    dp group, so the loss is the global batch mean."""
     loss_fn = loss_fn_for(cfg)
+    mesh = mesh if mesh is not None else ONE_DEVICE
+    dp, dp_group, tp_group = mesh.size(DP), mesh.group(DP), mesh.group(TP)
+    slots = mesh.slots()
 
     def step(state: TrainState, tokens: torch.Tensor, targets: torch.Tensor):
-        loss = loss_fn(state.params, tokens, targets, cfg, attn_impl)
+        tokens = slice_leaf(tokens, batch_spec(), slots)
+        targets = slice_leaf(targets, batch_spec(), slots)
+        loss = loss_fn(state.params, tokens, targets, cfg, attn_impl, tp_group)
         loss.backward()
+        if dp_group is not None:
+            _mean_over([p.grad for p in param_leaves(state.params)],
+                       dp_group, dp)
+            loss = loss.detach().clone()
+            _mean_over([loss], dp_group, dp)
         state.optimizer.step()
         # free the gradients now rather than at the next step's backward
         state.optimizer.zero_grad(set_to_none=True)

@@ -23,6 +23,12 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from metis_tpu_torch.core.config import ModelSpec
+from metis_tpu_torch.models.parallel import (
+    column_parallel,
+    row_parallel,
+    vocab_parallel_cross_entropy,
+    vocab_parallel_embedding,
+)
 
 AttnFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
 # (q, k, v) -> context; all [batch, heads, seq, head_dim]
@@ -71,11 +77,18 @@ class GPTConfig:
 
 
 def init_params(gen: torch.Generator, cfg: GPTConfig,
-                device: str | torch.device = "cuda") -> dict:
+                device: str | torch.device = "cuda",
+                shard: Callable[[str, str, torch.Tensor], torch.Tensor] | None = None
+                ) -> dict:
     """Parameter tree (nested dicts of tensors on ``device``), drawn from
     ``gen`` — a ``torch.Generator`` on the same device.  Same shapes, scales
     and layout as the reference; the random numbers differ from
-    ``jax.random``'s."""
+    ``jax.random``'s.
+
+    ``shard(group, name, leaf)``, when given, replaces each leaf as soon as
+    it is drawn (a tensor-parallel rank keeps its slice): every leaf is still
+    drawn at full size in the same order, so the slices are those of the
+    unsharded tree, and no more than one full leaf is held at a time."""
     h, f, v = cfg.hidden, cfg.ffn_dim, cfg.vocab_size
     L = cfg.num_blocks
     pd = cfg.param_dtype
@@ -83,38 +96,40 @@ def init_params(gen: torch.Generator, cfg: GPTConfig,
     resid_scale = scale / math.sqrt(2 * max(L, 1))
 
     def normal(shape, std):
-        return (torch.randn(shape, generator=gen, device=device) * std).to(pd)
+        return lambda: (torch.randn(shape, generator=gen, device=device) * std).to(pd)
 
     def const(shape, value):
-        return torch.full(shape, value, dtype=pd, device=device)
+        return lambda: torch.full(shape, value, dtype=pd, device=device)
 
-    return {
-        "embed": {
-            "tok": normal((v, h), scale),
-            "pos": normal((cfg.seq_len, h), scale),
-        },
-        "blocks": {
-            "ln1_scale": const((L, h), 1.0),
-            "ln1_bias": const((L, h), 0.0),
-            # (layer, {q,k,v}, in, out): q/k/v on their own axis, as in the
-            # reference, so a tensor-parallel slice splits whole heads
-            "qkv": normal((L, 3, h, h), scale),
-            "qkv_bias": const((L, 3, h), 0.0),
-            "proj": normal((L, h, h), resid_scale),
-            "proj_bias": const((L, h), 0.0),
-            "ln2_scale": const((L, h), 1.0),
-            "ln2_bias": const((L, h), 0.0),
-            "mlp_in": normal((L, h, f), scale),
-            "mlp_in_bias": const((L, f), 0.0),
-            "mlp_out": normal((L, f, h), resid_scale),
-            "mlp_out_bias": const((L, h), 0.0),
-        },
-        "head": {
-            "ln_scale": const((h,), 1.0),
-            "ln_bias": const((h,), 0.0),
-            "out": normal((h, v), scale),
-        },
-    }
+    leaves = (
+        ("embed", "tok", normal((v, h), scale)),
+        ("embed", "pos", normal((cfg.seq_len, h), scale)),
+        ("blocks", "ln1_scale", const((L, h), 1.0)),
+        ("blocks", "ln1_bias", const((L, h), 0.0)),
+        # (layer, {q,k,v}, in, out): q/k/v on their own axis, as in the
+        # reference, so a tensor-parallel slice of the last axis holds whole
+        # heads (head j is columns [j*hd, (j+1)*hd))
+        ("blocks", "qkv", normal((L, 3, h, h), scale)),
+        ("blocks", "qkv_bias", const((L, 3, h), 0.0)),
+        ("blocks", "proj", normal((L, h, h), resid_scale)),
+        ("blocks", "proj_bias", const((L, h), 0.0)),
+        ("blocks", "ln2_scale", const((L, h), 1.0)),
+        ("blocks", "ln2_bias", const((L, h), 0.0)),
+        ("blocks", "mlp_in", normal((L, h, f), scale)),
+        ("blocks", "mlp_in_bias", const((L, f), 0.0)),
+        ("blocks", "mlp_out", normal((L, f, h), resid_scale)),
+        ("blocks", "mlp_out_bias", const((L, h), 0.0)),
+        ("head", "ln_scale", const((h,), 1.0)),
+        ("head", "ln_bias", const((h,), 0.0)),
+        ("head", "out", normal((h, v), scale)),
+    )
+    params: dict = {}
+    for group, name, draw in leaves:
+        leaf = draw()
+        if shard is not None:
+            leaf = shard(group, name, leaf)
+        params.setdefault(group, {})[name] = leaf
+    return params
 
 
 def _layer_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -150,39 +165,52 @@ def default_attention(cfg: GPTConfig) -> AttnFn:
 
 
 def block_forward(x: torch.Tensor, layer: dict, cfg: GPTConfig,
-                  attn_impl: AttnFn) -> torch.Tensor:
-    """One transformer block on [batch, seq, hidden] activations."""
-    h, nh, hd = cfg.hidden, cfg.num_heads, cfg.head_dim
-    dt = cfg.dtype
+                  attn_impl: AttnFn, tp_group=None) -> torch.Tensor:
+    """One transformer block on [batch, seq, hidden] activations.
+
+    With ``tp_group`` the layer holds this rank's Megatron shards (qkv and
+    mlp_in column-parallel, proj and mlp_out row-parallel): the rank runs
+    ``num_heads / tp`` whole heads and ``ffn / tp`` hidden units, and the
+    row-parallel partial sums cross ranks as fp32 accumulators before the
+    bias is added (the reference's products accumulate in fp32)."""
+    dt, hd = cfg.dtype, cfg.head_dim
+    nh = cfg.num_heads // _tp_size(tp_group)
 
     y = _layer_norm(x, layer["ln1_scale"], layer["ln1_bias"])
-    qkv = torch.einsum("bsh,chk->cbsk", y, layer["qkv"].to(dt))
+    qkv = column_parallel(y, layer["qkv"].to(dt), tp_group)
     qkv = (qkv.float() + layer["qkv_bias"][:, None, None, :]).to(dt)
     q, k, v = qkv[0], qkv[1], qkv[2]
 
-    def heads(t):  # [b, s, h] -> [b, nh, s, hd]
+    def heads(t):  # [b, s, nh*hd] -> [b, nh, s, hd]
         b, s, _ = t.shape
         return t.reshape(b, s, nh, hd).transpose(1, 2)
 
     ctx = attn_impl(heads(q), heads(k), heads(v))
     b, _, s, _ = ctx.shape
-    ctx = ctx.transpose(1, 2).reshape(b, s, h)
-    attn_out = torch.matmul(ctx, layer["proj"].to(dt))
-    x = x + (attn_out.float() + layer["proj_bias"]).to(dt)
+    ctx = ctx.transpose(1, 2).reshape(b, s, nh * hd)
+    attn_out = row_parallel(ctx, layer["proj"].to(dt), tp_group)
+    x = x + (attn_out + layer["proj_bias"]).to(dt)
 
     y = _layer_norm(x, layer["ln2_scale"], layer["ln2_bias"])
-    z = torch.matmul(y, layer["mlp_in"].to(dt))
+    z = column_parallel(y, layer["mlp_in"].to(dt), tp_group)
     z = F.gelu(z.float() + layer["mlp_in_bias"], approximate="tanh").to(dt)
-    z = torch.matmul(z, layer["mlp_out"].to(dt))
-    return x + (z.float() + layer["mlp_out_bias"]).to(dt)
+    z = row_parallel(z, layer["mlp_out"].to(dt), tp_group)
+    return x + (z + layer["mlp_out_bias"]).to(dt)
 
 
-def embed(params: dict, tokens: torch.Tensor, cfg: GPTConfig) -> torch.Tensor:
+def _tp_size(tp_group) -> int:
+    return 1 if tp_group is None else tp_group.size()
+
+
+def embed(params: dict, tokens: torch.Tensor, cfg: GPTConfig,
+          tp_group=None) -> torch.Tensor:
     """Embedding pseudo-layer (profile layer 0): token + position lookup.
     Gathers before casting — the same values as the reference's
-    cast-then-gather, without a bf16 copy of the whole table."""
+    cast-then-gather, without a bf16 copy of the whole table.  With
+    ``tp_group`` the table is this rank's block of the vocabulary."""
     seq = tokens.shape[1]
-    tok = F.embedding(tokens, params["embed"]["tok"]).to(cfg.dtype)
+    tok = vocab_parallel_embedding(tokens, params["embed"]["tok"],
+                                   tp_group).to(cfg.dtype)
     pos = params["embed"]["pos"][:seq].to(cfg.dtype)
     return tok + pos[None, :, :]
 
@@ -200,39 +228,43 @@ def unstack_blocks(blocks: dict) -> list[dict]:
 
 
 def run_blocks(params: dict, x: torch.Tensor, cfg: GPTConfig,
-               attn_impl: AttnFn | None = None) -> torch.Tensor:
+               attn_impl: AttnFn | None = None, tp_group=None) -> torch.Tensor:
     """Run the stacked blocks over the activations — a Python loop where
     the reference scans."""
     attn = attn_impl or default_attention(cfg)
     for layer in unstack_blocks(params["blocks"]):
         if cfg.remat:
-            x = checkpoint(block_forward, x, layer, cfg, attn, use_reentrant=False)
+            x = checkpoint(block_forward, x, layer, cfg, attn, tp_group,
+                           use_reentrant=False)
         else:
-            x = block_forward(x, layer, cfg, attn)
+            x = block_forward(x, layer, cfg, attn, tp_group)
     return x
 
 
-def head_logits(params: dict, x: torch.Tensor, cfg: GPTConfig) -> torch.Tensor:
+def head_logits(params: dict, x: torch.Tensor, cfg: GPTConfig,
+                tp_group=None) -> torch.Tensor:
     """LM-head pseudo-layer (profile layer N-1): final LN + projection,
-    fp32 logits."""
+    fp32 logits — with ``tp_group``, this rank's block of the vocabulary."""
     y = _layer_norm(x, params["head"]["ln_scale"], params["head"]["ln_bias"])
-    return torch.matmul(y, params["head"]["out"].to(cfg.dtype)).float()
+    return column_parallel(y, params["head"]["out"].to(cfg.dtype), tp_group).float()
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg: GPTConfig,
-            attn_impl: AttnFn | None = None) -> torch.Tensor:
-    """Full forward: tokens [batch, seq] -> logits [batch, seq, vocab] (fp32)."""
-    x = embed(params, tokens, cfg)
-    x = run_blocks(params, x, cfg, attn_impl)
-    return head_logits(params, x, cfg)
+            attn_impl: AttnFn | None = None, tp_group=None) -> torch.Tensor:
+    """Full forward: tokens [batch, seq] -> logits [batch, seq, vocab] (fp32;
+    with ``tp_group``, this rank's block of the vocabulary)."""
+    x = embed(params, tokens, cfg, tp_group)
+    x = run_blocks(params, x, cfg, attn_impl, tp_group)
+    return head_logits(params, x, cfg, tp_group)
 
 
 def next_token_loss(params: dict, tokens: torch.Tensor, targets: torch.Tensor,
-                    cfg: GPTConfig, attn_impl: AttnFn | None = None) -> torch.Tensor:
+                    cfg: GPTConfig, attn_impl: AttnFn | None = None,
+                    tp_group=None) -> torch.Tensor:
     """Mean cross-entropy of next-token prediction (fp32 scalar)."""
-    logits = forward(params, tokens, cfg, attn_impl)
-    return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
-                           targets.reshape(-1).long())
+    logits = forward(params, tokens, cfg, attn_impl, tp_group)
+    return vocab_parallel_cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                                        targets.reshape(-1), tp_group)
 
 
 def param_count(params: dict) -> int:

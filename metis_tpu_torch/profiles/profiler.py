@@ -18,8 +18,19 @@ during each closure (``torch.cuda.max_memory_allocated`` after
 reference's compiled arguments + temporaries + outputs.  On the CPU the
 analytic model stands in.
 
-This slice profiles ``tp = 1`` on one device; larger tps are skipped with a
-``profile_skipped`` event.  Decode-mode profiling comes with a later slice.
+``tp = 1`` runs in the calling process.  A larger tp runs as a job of tp
+ranks (``execution.dist.spawn``, one per device of the profiler's device
+list), each on its Megatron shards of the model with the collectives of
+``models/parallel.py`` (the reference profiles each tp on a (1, tp) mesh):
+every time is the maximum over the ranks, every memory row a per-rank peak
+(the maximum over ranks, as XLA's per-device analysis in the reference), and
+rank 0's result enters the store.  Before the job starts the calling process
+drops its own parameters and returns its cached blocks to the card, since
+rank 0 shares the first device with it.  A tp above the device list's length
+is skipped with a ``profile_skipped`` event.  The device list defaults to one
+device on the CPU and every visible card on CUDA; the ranks' process group
+is NCCL on CUDA and gloo on the CPU.
+Decode-mode profiling comes with a later slice.
 """
 from __future__ import annotations
 
@@ -31,13 +42,19 @@ from typing import Callable, Sequence
 
 import numpy as np
 import torch
-import torch.nn.functional as F
+import torch.distributed as dist
 
 from metis_tpu_torch.core.config import ModelSpec
 from metis_tpu_torch.core.device import resolve_device
 from metis_tpu_torch.core.errors import MetisError
 from metis_tpu_torch.core.events import NULL_LOG, EventLog
 from metis_tpu_torch.core.timing import two_point_queue_ms
+from metis_tpu_torch.execution.mesh import (
+    TP,
+    ProcessMesh,
+    gpt_param_specs,
+    mesh_dp_tp,
+)
 from metis_tpu_torch.execution.train import (
     build_optimizer,
     init_params_for,
@@ -52,6 +69,7 @@ from metis_tpu_torch.models.gpt import (
     head_logits,
     run_blocks,
 )
+from metis_tpu_torch.models.parallel import vocab_parallel_cross_entropy
 from metis_tpu_torch.profiles.store import (
     DeviceTypeMeta,
     LayerProfile,
@@ -134,7 +152,8 @@ def _leaf_copies(blocks: dict, k: int, stacked: bool = True) -> dict:
 
 
 class LayerProfiler:
-    """Profiles one GPT model shape on one device across (tp, bs)."""
+    """Profiles one GPT model shape across (tp, bs): tp 1 on ``device``,
+    larger tps on ranks over ``devices``."""
 
     def __init__(
         self,
@@ -144,20 +163,31 @@ class LayerProfiler:
         config: ProfilerConfig = ProfilerConfig(),
         dtype: torch.dtype = torch.bfloat16,
         events: EventLog = NULL_LOG,
+        devices: Sequence | None = None,
     ):
+        from metis_tpu_torch.execution import dist as mdist
+
         self.model = model
         self.device = resolve_device(device)
+        self.devices = list(devices if devices is not None
+                            else mdist.default_devices(self.device))
         self.device_type = device_type or infer_device_type(self.device)
         self.config = config
+        self.dtype = dtype
         self.cfg = config_for_model_spec(model, dtype=dtype)
         self.events = events
         self._params: dict | None = None
+        self._mesh: ProcessMesh | None = None
+
+    def _tp_group(self):
+        return self._mesh.group(TP) if self._mesh is not None else None
 
     def _model_params(self) -> dict:
-        """One seeded parameter set, shared by every measurement."""
+        """One seeded parameter set (this rank's shards on a tp rank),
+        shared by every measurement."""
         if self._params is None:
             gen = torch.Generator(device=self.device).manual_seed(self.config.seed)
-            params = init_params_for(gen, self.cfg, self.device)
+            params = init_params_for(gen, self.cfg, self.device, self._mesh)
             for leaf in param_leaves(params):
                 leaf.requires_grad_(True)
             self._params = params
@@ -168,24 +198,25 @@ class LayerProfiler:
         """(embed_fb, block_fb, head_fb, scan_fb): each runs forward plus the
         gradients of its parameters and input activations."""
         attn = resolve_attention(cfg)
+        group = self._tp_group()
 
         def embed_fb(embed_params, tokens):
-            out = embed({"embed": embed_params}, tokens, cfg).float().sum()
+            out = embed({"embed": embed_params}, tokens, cfg, group).float().sum()
             return torch.autograd.grad(out, list(embed_params.values()))
 
         def block_fb(layer, x):
-            out = block_forward(x, layer, cfg, attn).float().sum()
+            out = block_forward(x, layer, cfg, attn, group).float().sum()
             return torch.autograd.grad(out, [*layer.values(), x])
 
         def scan_fb(layers, x):
             """fwd+bwd of a k-block run — the marginal-cost probe body."""
-            out = run_blocks({"blocks": layers}, x, cfg, attn).float().sum()
+            out = run_blocks({"blocks": layers}, x, cfg, attn, group).float().sum()
             return torch.autograd.grad(out, [*layers.values(), x])
 
         def head_fb(head_params, x, targets):
-            logits = head_logits({"head": head_params}, x, cfg)
-            loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
-                                   targets.reshape(-1).long())
+            logits = head_logits({"head": head_params}, x, cfg, group)
+            loss = vocab_parallel_cross_entropy(
+                logits.reshape(-1, logits.shape[-1]), targets.reshape(-1), group)
             return torch.autograd.grad(loss, [*head_params.values(), x])
 
         return embed_fb, block_fb, head_fb, scan_fb
@@ -221,37 +252,36 @@ class LayerProfiler:
         def timed(fn, *args):
             return _median_ms(fn, args, w, it, dev)
 
-        embed_ms = timed(embed_fb, embed_p, tokens)
-        head_ms = timed(head_fb, head_p, x, tokens)
-
-        block_ms = None
-        if self.config.marginal_blocks and cfg.num_blocks >= 2:
-            # marginal block cost: 2 blocks minus 1 — per-call overhead cancels
-            layers1 = _leaf_copies(params["blocks"], 1)
-            layers2 = _leaf_copies(params["blocks"], 2)
-            t1 = timed(scan_fb, layers1, x)
-            t2 = timed(scan_fb, layers2, x)
-            if t2 > t1:
-                block_ms = t2 - t1
-                # t1 = overhead + one block, so overhead = 2*t1 - t2; bound it
-                # by the isolated block's own excess over the marginal time,
-                # and floor the adjusted pseudo-layers at 10% of their raw time
-                iso_block_ms = timed(block_fb, layer0, x)
-                overhead = max(min(2 * t1 - t2, iso_block_ms - block_ms), 0.0)
-                embed_ms = max(embed_ms - overhead, 0.1 * embed_ms)
-                head_ms = max(head_ms - overhead, 0.1 * head_ms)
-        if block_ms is None:
-            block_ms = timed(block_fb, layer0, x)
-
+        marginal = self.config.marginal_blocks and cfg.num_blocks >= 2
+        layers1 = _leaf_copies(params["blocks"], 1) if marginal else None
+        layers2 = _leaf_copies(params["blocks"], 2) if marginal else None
         # whole-model fwd+bwd — the ground truth the decomposition sums to
-        loss_fn = loss_fn_for(cfg)
+        loss_fn, group = loss_fn_for(cfg), self._tp_group()
         leaves = param_leaves(params)
 
         def full_fb(tokens):
-            return torch.autograd.grad(loss_fn(params, tokens, tokens, cfg),
-                                       leaves)
+            return torch.autograd.grad(
+                loss_fn(params, tokens, tokens, cfg, tp_group=group), leaves)
 
-        full_ms = timed(full_fb, tokens)
+        raw = [timed(embed_fb, embed_p, tokens), timed(head_fb, head_p, x, tokens),
+               timed(block_fb, layer0, x),
+               timed(scan_fb, layers1, x) if marginal else 0.0,
+               timed(scan_fb, layers2, x) if marginal else 0.0,
+               timed(full_fb, tokens)]
+        # a tp job's time is its slowest rank's
+        embed_ms, head_ms, iso_block_ms, t1, t2, full_ms = self._max_over_ranks(raw)
+
+        block_ms = iso_block_ms
+        if marginal and t2 > t1:
+            # marginal block cost: 2 blocks minus 1 — per-call overhead
+            # cancels.  t1 = overhead + one block, so overhead = 2*t1 - t2;
+            # bound it by the isolated block's own excess over the marginal
+            # time, and floor the adjusted pseudo-layers at 10% of their raw
+            # time
+            block_ms = t2 - t1
+            overhead = max(min(2 * t1 - t2, iso_block_ms - block_ms), 0.0)
+            embed_ms = max(embed_ms - overhead, 0.1 * embed_ms)
+            head_ms = max(head_ms - overhead, 0.1 * head_ms)
         raw = [embed_ms] + [block_ms] * cfg.num_blocks + [head_ms]
         scale = full_ms / sum(raw)
         times = [t * scale for t in raw]
@@ -259,7 +289,7 @@ class LayerProfiler:
         s, h, v = cfg.seq_len, cfg.hidden, cfg.vocab_size
         act_block = 10 * bs * s * h * model.dtype_bytes / tp
         act_head = bs * s * v * model.dtype_bytes / tp
-        pbytes = self._params_per_layer_bytes(params)
+        pbytes = self._params_per_layer_bytes(params, tp)
         mem_embed = self._peak_memory_mb(
             embed_fb, (embed_p, tokens), _param_bytes(embed_p) + _tensor_bytes([tokens]))
         mem_block = self._peak_memory_mb(
@@ -267,6 +297,9 @@ class LayerProfiler:
         mem_head = self._peak_memory_mb(
             head_fb, (head_p, x, tokens),
             _param_bytes(head_p) + _tensor_bytes([x, tokens]))
+        if mem_embed is not None:
+            mem_embed, mem_block, mem_head = self._max_over_ranks(
+                [mem_embed, mem_block, mem_head])
         mems = [mem_embed if mem_embed is not None
                 else _analytic_memory_mb(pbytes[0], act_block, tp)]
         mems += [mem_block if mem_block is not None
@@ -276,12 +309,28 @@ class LayerProfiler:
         return LayerProfile(layer_times_ms=tuple(times),
                             layer_memory_mb=tuple(mems), fb_sync_ms=0.0)
 
-    def _params_per_layer_bytes(self, params: dict) -> tuple[int, ...]:
+    def _max_over_ranks(self, values: list[float]) -> list[float]:
+        """Each value's maximum over the tp job's ranks (itself at tp 1)."""
+        if self._mesh is None:
+            return values
+        t = torch.tensor(values, dtype=torch.float64, device=self.device)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        return t.tolist()
+
+    def _params_per_layer_bytes(self, params: dict, tp: int = 1) -> tuple[int, ...]:
         """Parameter bytes per profiled layer (embed, blocks..., head) — the
-        ``parameters_per_layer_bytes`` contract field."""
-        embed_b = _param_bytes(params["embed"])
-        blocks_b = _param_bytes(params["blocks"]) // self.cfg.num_blocks
-        head_b = _param_bytes(params["head"])
+        ``parameters_per_layer_bytes`` contract field, counted over the whole
+        model as the reference counts global array sizes; ``params`` are the
+        shards of a ``tp`` rank (full leaves at tp 1)."""
+        specs = gpt_param_specs(self.cfg)
+
+        def global_bytes(group: str) -> int:
+            return sum(_tensor_bytes([leaf]) * (tp if TP in specs[group][name] else 1)
+                       for name, leaf in params[group].items())
+
+        embed_b = global_bytes("embed")
+        blocks_b = global_bytes("blocks") // self.cfg.num_blocks
+        head_b = global_bytes("head")
         return tuple([embed_b] + [blocks_b] * self.cfg.num_blocks + [head_b])
 
     def _profile_optimizer_ms(self) -> float:
@@ -314,34 +363,42 @@ class LayerProfiler:
     # -- public API ---------------------------------------------------------
     def run(self, tps: Sequence[int] = (1,),
             bss: Sequence[int] = (1,)) -> ProfileStore:
-        """Profile every (tp, bs) this slice can measure into a ProfileStore:
-        tp = 1 on one device; other tps are skipped with an event."""
+        """Profile every (tp, bs) the device list can measure into a
+        ProfileStore; a tp that does not divide the heads or exceeds the
+        device list is skipped with an event."""
+        n_dev = len(self.devices)
         self.events.emit(
             "profile_started", device_type=self.device_type,
-            model=self.model.name, tps=list(tps), bss=list(bss), devices=1)
+            model=self.model.name, tps=list(tps), bss=list(bss), devices=n_dev)
         entries: dict[tuple[str, int, int], LayerProfile] = {}
         t_run = time.perf_counter()
         for tp in tps:
-            if tp != 1 or self.cfg.num_heads % tp != 0:
+            if self.cfg.num_heads % tp != 0 or tp > n_dev:
                 self.events.emit(
                     "profile_skipped", device_type=self.device_type, tp=tp,
                     reason=(f"tp={tp} does not divide {self.cfg.num_heads} heads"
                             if self.cfg.num_heads % tp
-                            else f"tp={tp} exceeds 1 device(s)"))
+                            else f"tp={tp} exceeds {n_dev} device(s)"))
                 continue
-            for bs in bss:
-                t_cfg = time.perf_counter()
-                prof = self._profile_one(tp, bs)
+            if tp == 1:
+                measured = []
+                for bs in bss:
+                    t_cfg = time.perf_counter()
+                    measured.append((self._profile_one(1, bs),
+                                     time.perf_counter() - t_cfg))
+            else:
+                measured = self._profile_tp_job(tp, bss)
+            for bs, (prof, wall_s) in zip(bss, measured):
                 entries[(self.device_type, tp, bs)] = prof
                 self.events.emit(
                     "profile_measured", device_type=self.device_type,
                     tp=tp, bs=bs,
                     full_model_ms=round(sum(prof.layer_times_ms), 4),
                     max_layer_memory_mb=round(max(prof.layer_memory_mb), 2),
-                    wall_s=round(time.perf_counter() - t_cfg, 3))
+                    wall_s=round(wall_s, 3))
         if not entries:
             raise MetisError(
-                f"no (tp, bs) combination profileable on one device; "
+                f"no (tp, bs) combination profileable on {n_dev} device(s); "
                 f"requested tps={list(tps)}")
 
         pbytes = self._params_per_layer_bytes(self._model_params())
@@ -361,6 +418,38 @@ class LayerProfiler:
         type_meta = {self.device_type: DeviceTypeMeta(opt_ms, bg_ms)}
         return ProfileStore(entries, meta, type_meta)
 
+    def _profile_tp_job(self, tp: int, bss: Sequence[int]) -> list:
+        """``(LayerProfile, wall seconds)`` per bs from a job of ``tp`` ranks
+        on the first ``tp`` devices — rank 0's, which carries every rank's
+        maximum."""
+        from metis_tpu_torch.execution import dist as mdist
+
+        # rank 0 runs on the first device, beside this process: hand it the
+        # memory of the tp 1 measurements (rebuilt from the seed afterwards)
+        self._params = None
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+        devices = self.devices[:tp]
+        ranks = mdist.spawn(_profile_tp_rank, tp, mdist.default_backend(devices),
+                            devices, self.model, self.device_type, self.config,
+                            self.dtype, tp, tuple(bss))
+        return ranks[0]
+
+
+def _profile_tp_rank(rank: int, device: torch.device, model: ModelSpec,
+                     device_type: str, config: ProfilerConfig,
+                     dtype: torch.dtype, tp: int, bss: tuple) -> list:
+    """Rank body of a tp profiling job (``execution.dist.spawn``): this
+    rank's shards on a (dp 1, tp) mesh, each bs measured in step with the
+    other ranks."""
+    prof = LayerProfiler(model, device_type, device, config, dtype)
+    prof._mesh = mesh_dp_tp(1, tp)
+    out = []
+    for bs in bss:
+        t0 = time.perf_counter()
+        out.append((prof._profile_one(tp, bs), time.perf_counter() - t0))
+    return out
+
 
 def profile_model(
     model: ModelSpec,
@@ -370,10 +459,13 @@ def profile_model(
     device: str | torch.device = "cuda",
     config: ProfilerConfig = ProfilerConfig(),
     events: EventLog = NULL_LOG,
+    devices: Sequence | None = None,
 ) -> ProfileStore:
-    """One-call measured profiling (see :class:`LayerProfiler`)."""
-    return LayerProfiler(model, device_type, device, config,
-                         events=events).run(tps, bss)
+    """One-call measured profiling (see :class:`LayerProfiler`).
+    ``devices``: the ranks' devices of a tp > 1 job (default: one device on
+    the CPU, every visible card on CUDA)."""
+    return LayerProfiler(model, device_type, device, config, events=events,
+                         devices=devices).run(tps, bss)
 
 
 def profile_to_dir(

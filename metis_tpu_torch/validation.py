@@ -1,12 +1,16 @@
 """Cost-model validation: predicted vs measured step time — the port of
-``metis_tpu/validation.py`` for one device (``ValidationReport``,
-``measure_uniform_plan_ms`` at pp = 1, ``_timed_steps_ms``,
-``validate_uniform_plan``, ``validate_planner_choice``,
-``contention_calibrated`` and ``affine_loo_calibrated``).
+``metis_tpu/validation.py`` for pp = 1 plans (``ValidationReport``,
+``measure_uniform_plan_ms``, ``_timed_steps_ms``, ``validate_uniform_plan``,
+``validate_planner_choice``, ``contention_calibrated`` and
+``affine_loo_calibrated``).
 
 The measured side runs the same code production training uses
 (``execution.builder.build_executable``), so a validation failure indicts
-the cost model, not a bespoke measurement rig.  Predictions come from the
+the cost model, not a bespoke measurement rig.  A dp x tp plan runs one rank
+per device through ``execution.dist.spawn``, and rank 0's timing is the
+measurement; a plan that needs more devices than the device list holds (by
+default one on the CPU, every visible card on CUDA) raises — it is never
+shrunk to fit.  Predictions come from the
 planner: ``planner.api.plan_uniform`` ranks the plans with the ported
 ``UniformCostEstimator``, and ``validate_planner_choice`` measures the top
 of that ranking.
@@ -69,32 +73,54 @@ def measure_uniform_plan_ms(
     warmup: int = 2,
     seed: int = 0,
     dtype: torch.dtype | None = None,
+    devices: Sequence | None = None,
 ) -> float:
-    """Median wall time (ms) of one full training step of ``plan`` executed
-    on ``device`` through ``build_executable`` (pp = 1, one device)."""
-    from metis_tpu_torch.execution.builder import build_executable
-    from metis_tpu_torch.execution.mesh import PlanArtifact
+    """Median wall time (ms) of one full training step of ``plan`` (pp = 1)
+    executed through ``build_executable``: on ``device`` when the plan needs
+    one device, else on one rank per entry of ``devices`` (default: one
+    device on the CPU, every visible card on CUDA) over NCCL on CUDA, gloo
+    on the CPU."""
+    from metis_tpu_torch.execution import dist as mdist
     from metis_tpu_torch.models import config_for_model_spec
 
     dev = resolve_device(device)
-    if plan.dp * plan.pp * plan.tp != 1:
-        raise MetisError(
-            f"plan needs {plan.dp * plan.pp * plan.tp} devices; this slice "
-            "executes on one")
+    if plan.pp > 1:
+        raise NotImplementedError(
+            "pipelined plans run on the pipeline executor of a later slice")
+    need = plan.dp * plan.tp
     cfg = config_for_model_spec(
         model, **({"dtype": dtype} if dtype is not None else {}))
-    exe = build_executable(cfg, PlanArtifact.from_uniform_plan(plan), device=dev)
+    if need == 1:
+        return _measure_plan_rank(0, dev, plan, cfg, steps, warmup, seed)
+    devs = list(devices if devices is not None else mdist.default_devices(dev))
+    if need > len(devs):
+        raise MetisError(
+            f"plan needs {need} devices, have {len(devs)}; a plan is never "
+            "shrunk to fit")
+    devs = devs[:need]
+    return mdist.spawn(_measure_plan_rank, need, mdist.default_backend(devs),
+                       devs, plan, cfg, steps, warmup, seed)[0]
+
+
+def _measure_plan_rank(rank: int, device: torch.device, plan: UniformPlan,
+                       cfg, steps: int, warmup: int, seed: int) -> float:
+    """One rank of ``measure_uniform_plan_ms`` (the only one at one device)."""
+    from metis_tpu_torch.execution.builder import build_executable
+    from metis_tpu_torch.execution.mesh import PlanArtifact
+
+    exe = build_executable(cfg, PlanArtifact.from_uniform_plan(plan),
+                           device=device)
     state = exe.init(seed)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = torch.Generator(device=device).manual_seed(seed)
     tokens = torch.randint(0, cfg.vocab_size, (plan.gbs, cfg.seq_len),
-                           generator=gen, device=dev)
+                           generator=gen, device=device)
 
     def run_once():
         nonlocal state
         state, loss = exe.step(state, tokens, tokens)
         return loss
 
-    return _timed_steps_ms(run_once, dev, steps, warmup)
+    return _timed_steps_ms(run_once, device, steps, warmup)
 
 
 def _timed_steps_ms(run_once, device: torch.device, steps: int,
@@ -131,10 +157,12 @@ def validate_uniform_plan(
     steps: int = 5,
     warmup: int = 2,
     seed: int = 0,
+    devices: Sequence | None = None,
 ) -> ValidationReport:
     """Execute ``plan`` and compare against the cost model's prediction."""
     measured = measure_uniform_plan_ms(
-        plan, model, device, steps=steps, warmup=warmup, seed=seed)
+        plan, model, device, steps=steps, warmup=warmup, seed=seed,
+        devices=devices)
     return ValidationReport(
         plan=plan, predicted_ms=predicted_ms, measured_ms=measured, steps=steps)
 
@@ -228,7 +256,9 @@ def validate_planner_choice(
 
     Plans the uniform executor cannot realize (pipeline depth not dividing
     the block count evenly) are skipped, not failed, as in the reference.
-    Runs on ``device`` (the card unless the caller asks for the CPU)."""
+    Runs on ``device`` (the card unless the caller asks for the CPU); a
+    plan of several devices on one rank per visible card
+    (``measure_uniform_plan_ms``)."""
     dev = resolve_device(device)
     reports = []
     for ranked in ranked_plans:

@@ -350,7 +350,8 @@ def test_ranked_plan_artifact_builds_and_steps(port_profile):
         best, inter=dataclasses.replace(best.inter, device_groups=(2,)),
         intra=dataclasses.replace(best.intra, strategies=(
             ttypes.Strategy(dp=2, tp=1),)))
-    with pytest.raises(NotImplementedError):
+    # a dp 2 plan runs on two ranks, started by the launcher
+    with pytest.raises(MetisError, match="through the launcher"):
         build_executable(cfg, tmesh.PlanArtifact.from_ranked_plan(two),
                          device="cpu")
 

@@ -19,6 +19,7 @@ from metis_tpu.core.types import UniformPlan as JUniformPlan
 from metis_tpu.execution import mesh as jmesh
 from metis_tpu.execution import train as jtrain
 from metis_tpu.models import gpt as jgpt
+from metis_tpu_torch.core.errors import MetisError
 from metis_tpu_torch.core.events import EventLog, read_events
 from metis_tpu_torch.core.types import UniformPlan
 from metis_tpu_torch.execution import mesh as tmesh
@@ -118,13 +119,16 @@ def test_hetero_artifact_round_trips_and_is_refused(tmp_path):
         build_executable(cfg, tart, device="cpu")
 
 
-@pytest.mark.parametrize("plan", [UniformPlan(2, 1, 1, 1, 2),
-                                  UniformPlan(1, 1, 2, 1, 1),
-                                  UniformPlan(1, 2, 1, 1, 2)],
-                         ids=["dp2", "tp2", "pp2"])
-def test_multi_device_plans_raise(plan):
+@pytest.mark.parametrize("plan,error,match", [
+    (UniformPlan(2, 1, 1, 1, 2), MetisError, "through the launcher"),
+    (UniformPlan(1, 1, 2, 1, 1), MetisError, "through the launcher"),
+    (UniformPlan(1, 2, 1, 1, 2), NotImplementedError, "later slice")],
+    ids=["dp2", "tp2", "pp2"])
+def test_multi_device_plans_raise(plan, error, match):
+    """Outside a process group a dp x tp plan names the launcher that runs
+    it; pipelines are a later slice's."""
     cfg = tgpt.GPTConfig(**SHAPE, dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="later slice"):
+    with pytest.raises(error, match=match):
         build_executable(cfg, tmesh.PlanArtifact.from_uniform_plan(plan),
                          device="cpu")
 
