@@ -11,10 +11,12 @@ Phases, in order (any failure exits non-zero):
    PyTorch version at the main-path shape and at GQA, ragged-length (across
    the 128-row tile edges too), non-causal and stats-mode shapes, in bf16;
    times of each kernel, its plain version and PyTorch's SDPA as a yardstick
-   (CUDA events around a run of back-to-back calls, see ``cuda_ms``; the
-   kernels three times and SDPA five, with their spread), beside the bound
-   computed from the inputs, and the backward pair B2 + B3 back to back
-   against SDPA's whole backward;
+   (CUDA events around a run of back-to-back calls, see ``cuda_ms``; SDPA
+   as a CUDA graph's replay, see ``sdpa_ms``; the kernels three times and
+   SDPA's backward seven, with their spread), beside the bound computed
+   from the inputs, and the backward pair B2 + B3 (back to back, and as a
+   graph) against SDPA's whole backward; every grid the main paths give
+   the kernels (``PATH_CASES``) is held;
 4. slice: the flash GPT at the ``--model-size 1.5B`` preset (full width and
    depth, random weights from a seed): agreement of flash and dense
    attention on a small GPT, ``profile_model`` to a profile directory and back
@@ -41,10 +43,31 @@ Phases, in order (any failure exits non-zero):
    dp = tp = 1 run at that depth; (d) ``profile --tps 1,2`` on the one card
    skips tp 2 with a ``profile_skipped`` event and writes no tp 2 profile.
    The ranks of (b) and (c) share one card, so their step times are no
-   dp/tp speed.
+   dp/tp speed;
+7. pipeline: multi-stage plans through ``execution.dist.spawn``, each rank
+   reading its own kernel launch counts around every step: (a) the
+   one-stage hetero executor at 4 microbatches of 1 row, in this process,
+   within 0.05 of the slice's full-batch trajectory; the time per step of
+   the one-device step and of that executor at M 1 and M 4, one after
+   another (``executor_step_ms``); then on two gloo ranks
+   sharing the card, in one launch, full width and depth, 3 steps each
+   within ``PIPE_TOL`` of it: gpipe 4 + 4 blocks and 1f1b 3 + 5 on the
+   ``pipeline`` route, the 3 + 5 split tagged gpipe on the ``hetero``
+   route, interleaved 2 x 2 chunks; launches per rank per step as
+   ``flash_launches`` counts them; each rank's peak memory against the
+   hetero planner's stage estimate; (b) a hetero plan on four gloo ranks at
+   2 blocks of full width, stage 0 at dp 2 over rows (3, 1) and stage 1 at
+   tp 2, within 0.05 of the 2-block one-stage run; (c)
+   ``validate_hetero_choice`` of the top three one-card hetero plans (each
+   run with its own microbatch count), measured and predicted ms recorded,
+   with each plan also priced from the raw bs = gbs / M profile once per
+   microbatch, gated only on finite, positive measurements.  Ranks sharing one card
+   give no pp speed.
 
-The last lines are the ``kernels``, ``slice``, ``planner`` and ``dist`` JSON,
-the card's name and power limit, and ``{"ok": true, "device": {...}}``.  TF32 is off in every comparison: fp32
+The kernel phase also holds and times the pipeline's microbatch shape (b 1,
+``MICRO``).  The last lines are the ``kernels``, ``slice``, ``planner``,
+``dist`` and ``pipeline`` JSON, the card's name and power limit, and
+``{"ok": true, "device": {...}}``.  TF32 is off in every comparison: fp32
 products run in full fp32 on both sides.
 """
 from __future__ import annotations
@@ -89,15 +112,27 @@ CLUSTER_MEMORY_GB = 80
 PLAN_ERROR_PCT = 5.0
 # the gspmd route at NCCL world size 1 against the one-device step
 WORLD1_TOL = 1e-6
+# the pipeline phase's two-stage plans against the one-stage hetero
+# reference at M = 4, per step (the one-stage reference itself is held to
+# the full-batch step within TRAJ_TOL)
+PIPE_TOL = 1e-2
 SHARED_CARD = "ranks share one card; not a dp/tp speed"
 
 SEED = 0
 MAIN = dict(name="main", b=4, hq=32, hkv=32, s=1024, d=128, causal=True)
 # one rank's share of the main path at tp 2: half the heads
 TP2 = dict(name="tp2", b=4, hq=16, hkv=16, s=1024, d=128, causal=True)
+# one microbatch of the pipeline phase: gbs 4 over 4 microbatches
+MICRO = dict(name="micro", b=1, hq=32, hkv=32, s=1024, d=128, causal=True)
+# the other grids the pipeline phase gives the kernels: (b) stage 0's
+# replica of 3 rows (its other replica runs MICRO, stage 1's tp 2 ranks
+# TP2); (c) the plan of 2 microbatches of 2 rows (its others run MAIN and
+# MICRO)
+ROWS3 = dict(name="rows3", b=3, hq=32, hkv=32, s=1024, d=128, causal=True)
+MBS2 = dict(name="mbs2", b=2, hq=32, hkv=32, s=1024, d=128, causal=True)
+PATH_CASES = (MAIN, TP2, MICRO, ROWS3, MBS2)
 KERNEL_CASES = [
-    MAIN,
-    TP2,
+    *PATH_CASES,
     dict(name="gqa", b=2, hq=8, hkv=2, s=1024, d=128, causal=True),
     dict(name="ragged", b=2, hq=8, hkv=8, s=1000, d=128, causal=True),
     # one short of and one past the 128-row tiles of B1 (query) and B3 (key)
@@ -146,6 +181,21 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_of(fn, stream: torch.cuda.Stream):
+    """``fn`` captured in a CUDA graph on ``stream`` after three warm-up
+    calls there; returns the graph's replay.  Timing the replay counts the
+    device work of ``fn`` without the host's overhead per call."""
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        fn()
+    return graph.replay
 
 
 def timed_runs(fn, reps: int = 3) -> dict:
@@ -254,6 +304,10 @@ def kernel_case(case: dict, gen: torch.Generator, timed: bool) -> dict:
     del o_ref
 
     if timed:
+        def pair():
+            return (fa.fa_bwd_dq(q, k, v, do, lse, delta, **heads),
+                    fa.fa_bwd_dkv(q, k, v, do, lse, delta, **heads))
+
         pairs = b * hq * visible_pairs(s, s, causal)
         io = nbytes(m, l)
         out["timing"] = {
@@ -272,8 +326,8 @@ def kernel_case(case: dict, gen: torch.Generator, timed: bool) -> dict:
                     q, k, v, do, lse, delta, **heads), 5, 1),
                 bound=bound(8 * pairs * d, nbytes(q, k, v, do, dk, dv) + io)),
             # the port's whole backward, as SDPA's backward computes it in one call
-            "bwd_pair": timed_runs(lambda: (fa.fa_bwd_dq(q, k, v, do, lse, delta, **heads),
-                                            fa.fa_bwd_dkv(q, k, v, do, lse, delta, **heads))),
+            "bwd_pair": timed_runs(pair),
+            "bwd_pair_graphed": timed_runs(graph_of(pair, torch.cuda.Stream()), reps=7),
         }
         out["timing"].update(sdpa_ms(q, k, v, do, b, hq, s, d, causal))
     return out
@@ -281,26 +335,49 @@ def kernel_case(case: dict, gen: torch.Generator, timed: bool) -> dict:
 
 def sdpa_ms(q, k, v, do, b, h, s, d, causal) -> dict:
     """PyTorch's fused attention on the same inputs — a yardstick only; the
-    port never calls it.  The backward computes dq, dk and dv in one call."""
+    port never calls it.  The backward computes dq, dk and dv in one call.
+    Both are timed as the replay of a CUDA graph (``graph_of``), so the
+    host's overhead per call (autograd's, which is larger than the device
+    time of a b = 1 backward) is not counted; the backward also eagerly,
+    for the record.  The forward the graphed backward consumes runs on the
+    capture stream, since autograd runs a backward op on its forward's
+    stream."""
     import torch.nn.functional as F
 
-    q4, k4, v4 = (t.view(b, h, s, d).detach().requires_grad_() for t in (q, k, v))
     do4 = do.view(b, h, s, d)
-    fwd = timed_runs(lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal))
-    o4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal)
-    # five repetitions: its backward varies more between repetitions than the kernels do
-    bwd = timed_runs(lambda: torch.autograd.grad(o4, (q4, k4, v4), do4, retain_graph=True),
-                     reps=5)
-    return {"sdpa_fwd": fwd, "sdpa_bwd": bwd}
+
+    def leaves():
+        return [t.view(b, h, s, d).detach().requires_grad_() for t in (q, k, v)]
+
+    def fwd(qkv):
+        return F.scaled_dot_product_attention(*qkv, is_causal=causal)
+
+    def bwd(o4, qkv):
+        return lambda: torch.autograd.grad(o4, qkv, do4, retain_graph=True)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # the graphed calls' own leaves and forward
+        on_side = leaves()
+        o_side = fwd(on_side)
+    eager = leaves()
+    # seven repetitions of the backward: it varies more between repetitions
+    # than the kernels do
+    return {
+        "sdpa_fwd": timed_runs(graph_of(lambda: fwd(on_side), side)),
+        "sdpa_bwd": timed_runs(graph_of(bwd(o_side, on_side), side), reps=7),
+        "sdpa_bwd_eager": timed_runs(bwd(fwd(eager), eager), reps=5),
+    }
 
 
-def kernel_phase() -> tuple[dict, dict]:
-    """Every case held; returns the main case (with its timing) and the
-    per-rank tp 2 case."""
+def kernel_phase() -> tuple[dict, dict, dict]:
+    """Every case held; returns the main case (with its timing), the
+    per-rank tp 2 case and the microbatch case (timed too), and the cases
+    of every grid the main paths run (``PATH_CASES``)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     failures, held = [], {}
     for case in KERNEL_CASES:
-        res = kernel_case(case, gen, timed=case is MAIN)
+        res = kernel_case(case, gen, timed=case is MAIN or case is MICRO)
         held[case["name"]] = res
         for kname in ("fa_fwd", "fa_bwd_dq", "fa_bwd_dkv"):
             for tensor, (abs_err, rel) in res.get(kname, {}).items():
@@ -326,41 +403,56 @@ def kernel_phase() -> tuple[dict, dict]:
                 log(f"  {kname:>10} at {case['name']}: {t[kname]['ms']:.4f} ms, plain "
                     f"{t[kname]['plain_ms']:.4f} ms, {lib} {t[lib]['ms']:.4f} ms, bound "
                     f"{bound_ms:.4f} ms ({bound_by})")
-            log(f"  backward pair B2+B3: {t['bwd_pair']['ms']:.4f} ms against sdpa_bwd "
-                f"{t['sdpa_bwd']['ms']:.4f} ms")
-            for name in ("fa_fwd", "fa_bwd_dq", "fa_bwd_dkv", "bwd_pair", "sdpa_fwd",
-                         "sdpa_bwd"):
+            log(f"  backward pair B2+B3: {t['bwd_pair']['ms']:.4f} ms, as a graph "
+                f"{t['bwd_pair_graphed']['ms']:.4f} ms, against sdpa_bwd (a graph) "
+                f"{t['sdpa_bwd']['ms']:.4f} ms, eagerly {t['sdpa_bwd_eager']['ms']:.4f} ms")
+            for name in ("fa_fwd", "fa_bwd_dq", "fa_bwd_dkv", "bwd_pair",
+                         "bwd_pair_graphed", "sdpa_fwd", "sdpa_bwd", "sdpa_bwd_eager"):
                 runs = t[name]["runs"]
                 log(f"  {name:>10} runs {[round(r, 4) for r in runs]} ms, spread "
                     f"{(max(runs) - min(runs)) / t[name]['ms']:.2%} of the median")
         torch.cuda.empty_cache()
     if failures:
         raise SystemExit(f"kernel disagrees with its plain version: {failures}")
-    return held[MAIN["name"]], held[TP2["name"]]
+    return held[MAIN["name"]], held[MICRO["name"]], [held[c["name"]] for c in PATH_CASES]
 
 
-def kernel_records(main: dict, tp2: dict, launches: dict,
-                   rank_launches: dict) -> list[dict]:
-    """One record per kernel: errors over the shapes of the main paths (the
-    one-device step and one tp 2 rank), times at the main shape, launches
-    of the one-device run and of each tp 2 rank."""
-    timing = main["timing"]
-    library = {"fa_fwd": timing["sdpa_fwd"]["ms"], "fa_bwd_dq": timing["sdpa_bwd"]["ms"],
-               "fa_bwd_dkv": timing["sdpa_bwd"]["ms"]}
+def _timing_fields(case: dict, name: str) -> dict:
+    t = case["timing"]
+    library = {"fa_fwd": t["sdpa_fwd"]["ms"], "fa_bwd_dq": t["sdpa_bwd"]["ms"],
+               "fa_bwd_dkv": t["sdpa_bwd"]["ms"]}
+    bound_ms, bound_by = t[name]["bound"]
+    return {"ms": t[name]["ms"], "plain_ms": t[name]["plain_ms"],
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library[name],
+            **({} if name == "fa_fwd" else {
+                "bwd_pair_graphed_ms": t["bwd_pair_graphed"]["ms"],
+                "library_eager_ms": t["sdpa_bwd_eager"]["ms"]})}
+
+
+def kernel_records(main: dict, micro: dict, path: list[dict], launches: dict,
+                   rank_launches: dict, pipe_launches: dict) -> list[dict]:
+    """One record per kernel: errors over every grid of the main paths
+    (``PATH_CASES``), times at the main shape (and, under ``micro``, at the
+    microbatch shape; the library's time is a CUDA graph's replay, see
+    ``sdpa_ms``), launches of the one-device run, of each tp 2 rank and,
+    per step, of each rank of each two-rank plan of the pipeline phase."""
     records = []
     for name in ("fa_fwd", "fa_bwd_dq", "fa_bwd_dkv"):
-        t = timing[name]
-        errs = list(main[name].values()) + list(tp2[name].values())
-        bound_ms, bound_by = t["bound"]
+        errs = [e for case in path for e in case[name].values()]
+        micro_errs = list(micro[name].values())
         records.append({
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[name], "launches": launches[name],
             "launches_tp2_per_rank": rank_launches[name],
-            "held_at": [MAIN["name"], TP2["name"]],
+            "launches_pipeline_per_rank": pipe_launches[name],
+            "held_at": [c["name"] for c in PATH_CASES],
             "max_abs_err": max(e[0] for e in errs),
             "max_row_rel_err": max(e[1] for e in errs),
-            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library[name],
+            **_timing_fields(main, name),
+            "micro": {"shape": {k: MICRO[k] for k in ("b", "hq", "s", "d")},
+                      "max_abs_err": max(e[0] for e in micro_errs),
+                      **_timing_fields(micro, name)},
         })
     return records
 
@@ -804,6 +896,305 @@ def dist_phase(work: pathlib.Path, sliced: dict) -> dict:
     return out, rank_launches
 
 
+def flash_launches(remat_blocks: int, kept_blocks: int, M: int) -> dict:
+    """Launches of each kernel per step on one stage rank: a block
+    recomputed under stage remat runs B1 twice per microbatch (its forward,
+    then its recomputation inside the backward), a block whose graph is
+    kept (gpipe, or the unit that ends in the loss, which runs forward and
+    backward back to back) once; B2 and B3 run once per block per
+    microbatch either way."""
+    blocks = remat_blocks + kept_blocks
+    return {"fa_fwd": M * (2 * remat_blocks + kept_blocks),
+            "fa_bwd_dq": M * blocks, "fa_bwd_dkv": M * blocks}
+
+
+def stage_artifact(partition, schedule: str, microbatches: int, gbs: int,
+                   vs: int = 1) -> str:
+    from metis_tpu_torch.execution.mesh import PlanArtifact
+
+    return PlanArtifact(
+        mesh_axes=("pp", "dp", "tp"), mesh_shape=(2, 1, 1),
+        layer_partition=partition, strategies=({"dp": 1, "tp": 1},), gbs=gbs,
+        microbatches=microbatches, schedule=schedule,
+        virtual_stages=vs).to_json()
+
+
+def pipeline_legs_check(label: str, ranks: list[dict], kind: str,
+                        want: list[float], tol: float,
+                        launches: list[dict]) -> dict:
+    """Hold every rank's loss trajectory to ``want`` within ``tol``, its
+    route to ``kind`` and its launches per step to ``launches[rank]``."""
+    gaps = [abs(a - b) for r in ranks for a, b in zip(r["losses"], want)]
+    worst = max(gaps)
+    log(f"  {label}: kinds {sorted({r['kind'] for r in ranks})}, losses "
+        f"{[round(x, 5) for x in ranks[0]['losses']]} against "
+        f"{[round(x, 5) for x in want]}, largest gap {worst:.3e} (tol {tol:g})")
+    for rank, r in enumerate(ranks):
+        log(f"    rank {rank} {r['slots']} blocks {list(r['block_ids'])}: launches "
+            f"per step {r['launches']} (expected {launches[rank]}), peak memory "
+            f"{r['peak_memory_bytes'] / 1e9:.2f} GB, step ms "
+            f"{[round(x, 1) for x in r['step_ms']]} ({SHARED_CARD})")
+    if any(r["kind"] != kind for r in ranks):
+        raise SystemExit(f"{label}: not on the {kind} route")
+    if not all(math.isfinite(x) for r in ranks for x in r["losses"]):
+        raise SystemExit(f"{label}: non-finite losses")
+    if len(gaps) != len(ranks) * len(want) or worst > tol:
+        raise SystemExit(f"{label}: trajectory off by {worst:.3e} (tol {tol:g})")
+    for rank, r in enumerate(ranks):
+        for counts in r["launches"]:
+            if counts != launches[rank]:
+                raise SystemExit(f"{label}: rank {rank} launches {counts}, "
+                                 f"expected {launches[rank]}")
+    return {"largest_gap": worst, "losses": ranks[0]["losses"],
+            "launches_per_step": [r["launches"][0] for r in ranks],
+            "block_ids": [list(r["block_ids"]) for r in ranks],
+            "peak_memory_gb": [r["peak_memory_bytes"] / 1e9 for r in ranks],
+            "step_ms_shared_card": [r["step_ms"] for r in ranks]}
+
+
+def stage_memory_estimates(sliced: dict, mem_coef: float, partition,
+                           microbatches: int, gbs: int) -> dict:
+    """The hetero planner's per-stage memory estimate (``LayerBalancer.
+    stage_memory_demand``: mem_coef x the stage's profiled layer peaks at
+    the per-replica microbatch) of a two-stage plan of one card per stage,
+    at the fitted and the reference coefficient, in MB; and the profiled
+    layer rows each stage sums (the coefficient that would equal a
+    measured peak is peak / rows)."""
+    from metis_tpu_torch.balance.layers import LayerBalancer
+    from metis_tpu_torch.cluster.spec import ClusterSpec
+    from metis_tpu_torch.core.config import ModelSpec, SearchConfig
+    from metis_tpu_torch.core.types import InterStagePlan, Strategy
+    from metis_tpu_torch.profiles.store import ProfileStore
+
+    work = pathlib.Path(sliced["profile_dir"]).parent
+    cluster = ClusterSpec.from_files(*write_cluster_files(
+        work, sliced["device_type"], 1, 2))
+    store = ProfileStore.from_dir(sliced["profile_dir"])
+    model = ModelSpec(name="gpt-1.5B", num_layers=10, hidden_size=4096,
+                      sequence_length=1024, vocab_size=51200, num_heads=32,
+                      attn="flash")
+    plan = InterStagePlan(node_sequence=(sliced["device_type"],),
+                          device_groups=(1, 1), batches=microbatches, gbs=gbs)
+    types = [sliced["device_type"]]
+    out = {}
+    for coef in (mem_coef, 5.0):
+        bal = LayerBalancer(cluster, store, SearchConfig(
+            gbs=gbs, max_profiled_tp=1, max_profiled_bs=4, mem_coef=coef), model)
+        out[f"mem_coef_{coef}"] = [
+            bal.stage_memory_demand(plan, Strategy(dp=1, tp=1), types, types,
+                                    partition[s], partition[s + 1])
+            for s in range(len(partition) - 1)]
+    rows = store.get(sliced["device_type"], 1, gbs // microbatches).layer_memory_mb
+    out["layer_rows_mb"] = [sum(rows[partition[s]:partition[s + 1]])
+                            for s in range(len(partition) - 1)]
+    return out
+
+
+def executor_step_ms(cfg, batch, steps: int = 5) -> dict:
+    """Time per step (CUDA events around ``steps`` queued steps after two
+    of warm-up, host gaps included) of the one-device step over the whole
+    batch (the gspmd route on one device) and of the one-stage hetero
+    executor at M = 1 and M = 4, one after another on this card: what the
+    stage executor costs over the one-device step at the same plan, and
+    per extra microbatch."""
+    from metis_tpu_torch.execution.hetero import StageSpec, make_hetero_train_step
+    from metis_tpu_torch.execution.pipeline import microbatch_split
+    from metis_tpu_torch.execution.train import build_train_state, make_train_step
+
+    def timed(init, step, tok, tgt):
+        state = init()
+        for _ in range(2):
+            state, _ = step(state, tok, tgt)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(steps):
+            state, loss = step(state, tok, tgt)
+        end.record()
+        torch.cuda.synchronize()
+        if not math.isfinite(loss.item()):
+            raise SystemExit("non-finite loss in the executor timing")
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        return start.elapsed_time(end) / steps
+
+    tok, tgt = (t.cuda() for t in batch)
+    out = {"one_device_full_batch": timed(
+        lambda: build_train_state(SEED, cfg, "cuda"), make_train_step(cfg), tok, tgt)}
+    for M in (1, 4):
+        init_fn, step = make_hetero_train_step(
+            cfg, [StageSpec((0, cfg.num_blocks), True, True, dp=1, tp=1)],
+            device="cuda")
+        out[f"hetero_M{M}"] = timed(lambda: init_fn(SEED), step,
+                                    microbatch_split(tok, M), microbatch_split(tgt, M))
+    return out
+
+
+def pipeline_phase(work: pathlib.Path, sliced: dict, planned: dict) -> tuple[dict, dict]:
+    """Multi-stage plans on the one card (module doc, phase 7)."""
+    from metis_tpu_torch.cluster.spec import ClusterSpec
+    from metis_tpu_torch.core.config import ModelSpec, SearchConfig
+    from metis_tpu_torch.core.types import UniformPlan
+    from metis_tpu_torch.cost.estimator import EstimatorOptions, UniformCostEstimator
+    from metis_tpu_torch.cost.volume import TransformerVolume
+    from metis_tpu_torch.execution import dist as mdist
+    from metis_tpu_torch.execution.hetero import StageSpec, make_hetero_train_step
+    from metis_tpu_torch.execution.pipeline import microbatch_split
+    from metis_tpu_torch.models import config_for_model_spec
+    from metis_tpu_torch.ops import flash_attention as fa
+    from metis_tpu_torch.planner.api import plan_hetero
+    from metis_tpu_torch.profiles.store import ProfileStore
+    from metis_tpu_torch.testing import run_plans_rank
+    from metis_tpu_torch.validation import validate_hetero_choice
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = ModelSpec(name="gpt-1.5B", num_layers=10, hidden_size=4096,
+                      sequence_length=1024, vocab_size=51200, num_heads=32,
+                      attn="flash")
+    cfg = config_for_model_spec(model)
+    tokens = sliced["tokens"]
+    batch = (tokens, tokens.roll(-1, 1))
+    gbs, M, L = tokens.shape[0], 4, cfg.num_blocks
+    out = {}
+
+    def one_stage(cfg_, microbatches, steps=3):
+        """The hetero executor with a single stage, in this process."""
+        init_fn, step = make_hetero_train_step(
+            cfg_, [StageSpec((0, cfg_.num_blocks), True, True, dp=1, tp=1)],
+            device="cuda")
+        state, losses, counts = init_fn(SEED), [], []
+        tok, tgt = (microbatch_split(t.cuda(), microbatches) for t in batch)
+        for _ in range(steps):
+            fa.reset_launch_counts()
+            state, loss = step(state, tok, tgt)
+            losses.append(loss.item())
+            counts.append(dict(fa.launch_counts))
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        del state, init_fn, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        return losses, counts, peak
+
+    # (a) the one-stage reference, then the four schedules on two ranks
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    ref, counts, peak = one_stage(cfg, M)
+    gap = max(abs(a - b) for a, b in zip(ref, sliced["losses"]))
+    want = flash_launches(0, L, M)
+    log(f"  (a) one stage, M {M}: losses {[round(x, 5) for x in ref]} against the "
+        f"full-batch step's {[round(x, 5) for x in sliced['losses'][:3]]}, largest "
+        f"gap {gap:.3e} (tol {TRAJ_TOL:g}); launches {counts[0]} (expected {want}); "
+        f"peak {peak:.2f} GB ({time.perf_counter() - t0:.1f} s)")
+    if not all(math.isfinite(x) for x in ref) or gap > TRAJ_TOL:
+        raise SystemExit("the one-stage reference disagrees with the full-batch step")
+    if any(c != want for c in counts):
+        raise SystemExit(f"one-stage launches {counts}, expected {want}")
+    out["a_one_stage"] = {"losses": ref, "gap_to_full_batch": gap,
+                          "launches_per_step": counts[0], "peak_memory_gb": peak}
+    t0 = time.perf_counter()
+    out["a_step_ms"] = executor_step_ms(cfg, batch)
+    log(f"  (a) ms per step, one after another: "
+        f"{ {k: round(v, 3) for k, v in out['a_step_ms'].items()} } "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    legs = [  # label, artifact, route, launches of rank 0 and rank 1
+        ("gpipe 4 + 4", stage_artifact((0, 5, 10), "gpipe", M, gbs), "pipeline",
+         [flash_launches(0, 4, M), flash_launches(0, 4, M)]),
+        ("1f1b 3 + 5", stage_artifact((0, 4, 10), "1f1b", M, gbs), "pipeline",
+         [flash_launches(3, 0, M), flash_launches(0, 5, M)]),
+        ("gpipe 3 + 5 (hetero route)", stage_artifact((0, 4, 10), "gpipe", M, gbs),
+         "hetero", [flash_launches(3, 0, M), flash_launches(0, 5, M)]),
+        # chunks 0, 2 on rank 0 and 1, 3 on rank 1, 2 blocks each; chunk 3
+        # ends in the loss
+        ("interleaved 2 x 2", stage_artifact((), "interleaved", M, gbs, vs=2),
+         "pipeline", [flash_launches(4, 0, M), flash_launches(2, 2, M)]),
+    ]
+    t0 = time.perf_counter()
+    jobs = [dict(artifact_json=art, cfg=cfg, init=SEED, batches=[batch] * 3)
+            for _, art, _, _ in legs]
+    ranks = mdist.spawn(run_plans_rank, 2, "gloo", ["cuda:0"] * 2, jobs)
+    log(f"  (a) two gloo ranks, four plans: {time.perf_counter() - t0:.1f} s")
+    pipe_launches = {name: {} for name in want}
+    for i, (label, _, kind, launches) in enumerate(legs):
+        leg = [r[i] for r in ranks]
+        out[f"a_{label}"] = pipeline_legs_check(
+            f"(a) {label}", leg, kind, ref, PIPE_TOL, launches)
+        for name in pipe_launches:
+            pipe_launches[name][label] = [r["launches"][0][name] for r in leg]
+    mem = stage_memory_estimates(sliced, planned["mem_coef"], (0, 5, 10), M, gbs)
+    peaks_mb = [p * 1e9 / 2**20 for p in out["a_gpipe 4 + 4"]["peak_memory_gb"]]
+    needed = [round(p / r, 3) for p, r in zip(peaks_mb, mem["layer_rows_mb"])]
+    fitted = mem[f"mem_coef_{planned['mem_coef']}"]
+    log(f"  (a) gpipe 4 + 4 per-stage peaks {[round(p) for p in peaks_mb]} MB against "
+        f"the planner's stage estimates {[round(x) for x in fitted]} "
+        f"MB at mem_coef {planned['mem_coef']} and "
+        f"{[round(x) for x in mem['mem_coef_5.0']]} MB at 5.0; profiled layer rows "
+        f"{[round(x) for x in mem['layer_rows_mb']]} MB, so the measured peaks "
+        f"need mem_coef {needed}")
+    out["a_memory"] = {**mem, "peak_mb": peaks_mb, "mem_coef_needed": needed}
+
+    # (b) a hetero plan on four ranks: stage 0 dp 2 over rows (3, 1) of the
+    # 4-row microbatch, stage 1 tp 2; 2 blocks at full width
+    t0 = time.perf_counter()
+    shallow = dataclasses.replace(cfg, num_blocks=2)
+    ref2, _, _ = one_stage(shallow, 1)
+    stages = (StageSpec((0, 1), True, False, dp=2, tp=1, replica_rows=(3, 1)),
+              StageSpec((1, 2), False, True, dp=1, tp=2))
+    ranks = mdist.spawn(run_plans_rank, 4, "gloo", ["cuda:0"] * 4, [dict(
+        artifact_json=None, stages=stages, microbatches=1, cfg=shallow, init=SEED,
+        batches=[batch] * 3)])
+    out["b_hetero_rows_tp"] = pipeline_legs_check(
+        "(b) dp 2 rows (3, 1) | tp 2, 2 blocks", [r[0] for r in ranks], "hetero",
+        ref2, TRAJ_TOL, [flash_launches(1, 0, 1)] * 2 + [flash_launches(0, 1, 1)] * 2)
+    out["b_reference_losses"] = ref2
+    log(f"  (b) {time.perf_counter() - t0:.1f} s")
+
+    # (c) validate_hetero_choice on the one-card cluster
+    t0 = time.perf_counter()
+    store = ProfileStore.from_dir(sliced["profile_dir"])
+    one_card = ClusterSpec.from_files(sliced["hostfile"], sliced["clusterfile"])
+    result = plan_hetero(one_card, store, model, SearchConfig(
+        gbs=gbs, max_profiled_tp=1, max_profiled_bs=4,
+        mem_coef=planned["mem_coef"]), top_k=20)
+    reports = validate_hetero_choice(result.plans, model, device="cuda",
+                                     cluster=one_card, profiles=store, top_k=3,
+                                     steps=5)
+    # the same one-card plans priced from the raw profile at bs = gbs / M,
+    # charged once per microbatch (the estimator with its affine smoothing
+    # of the bs axis off)
+    raw = UniformCostEstimator(
+        one_card, store, TransformerVolume(model, store.model.params_per_layer_bytes),
+        EstimatorOptions(mb_affine=False))
+    rows = []
+    for r in reports:
+        M_r = r.plan_dict["batches"]
+        raw_ms = raw.get_cost(UniformPlan(dp=1, pp=1, tp=1, mbs=gbs // M_r, gbs=gbs),
+                              sliced["device_type"]).total_ms
+        raw_err = (raw_ms - r.measured_ms) / r.measured_ms * 100
+        rows.append({"batches": M_r, "num_stages": r.plan_dict["num_stages"],
+                     "measured_ms": r.measured_ms, "predicted_ms": r.predicted_ms,
+                     "error_pct": r.error_pct, "predicted_raw_profile_ms": raw_ms,
+                     "error_pct_raw_profile": raw_err})
+        log(f"  (c) hetero plan, {r.plan_dict['num_stages']} stage(s), "
+            f"{M_r} microbatch(es): measured {r.measured_ms:.3f} ms, "
+            f"predicted {r.predicted_ms:.3f} ms, error_pct {r.error_pct:.2f}; "
+            f"from the raw bs {gbs // M_r} profile {raw_ms:.3f} ms, error_pct "
+            f"{raw_err:.2f}")
+    if len(rows) != min(3, len(result.plans)) or not rows:
+        raise SystemExit(f"validate_hetero_choice gave {len(rows)} reports")
+    if not all(math.isfinite(r["measured_ms"]) and r["measured_ms"] > 0
+               for r in rows):
+        raise SystemExit(f"non-finite or non-positive measurements {rows}")
+    out["c_validate_hetero"] = rows
+    log(f"  (c) {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, pipe_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -823,7 +1214,7 @@ def main() -> int:
         log(f"  ptxas: {line}")
 
     log("kernels:")
-    main_case, tp2_case = kernel_phase()
+    main_case, micro_case, path_cases = kernel_phase()
     with tempfile.TemporaryDirectory() as tmp:
         work = pathlib.Path(tmp)
         log("slice:")
@@ -836,13 +1227,19 @@ def main() -> int:
         t0 = time.perf_counter()
         dist_out, rank_launches = dist_phase(work, result)
         log(f"  dist phase {time.perf_counter() - t0:.1f} s")
+        log("pipeline:")
+        t0 = time.perf_counter()
+        pipe_out, pipe_launches = pipeline_phase(work, result, planned)
+        log(f"  pipeline phase {time.perf_counter() - t0:.1f} s")
 
-    log(json.dumps({"kernels": kernel_records(main_case, tp2_case, result["launches"],
-                                              rank_launches)}))
+    log(json.dumps({"kernels": kernel_records(
+        main_case, micro_case, path_cases, result["launches"], rank_launches,
+        pipe_launches)}))
     hidden = ("launches", "profile_dir", "hostfile", "clusterfile", "tokens")
     log(json.dumps({"slice": {k: v for k, v in result.items() if k not in hidden}}))
     log(json.dumps({"planner": planned}))
     log(json.dumps({"dist": dist_out}))
+    log(json.dumps({"pipeline": pipe_out}))
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,8 +9,9 @@ reference's flags and output bytes:
   hetero    heterogeneous-cluster plan search (``planner.api.plan_hetero``);
   uniform   uniform Megatron-grid sweep (``planner.api.plan_uniform``);
   validate  predicted-vs-measured step time of the top uniform plans,
-            measured on the cards, a dp x tp plan one rank per card
-            (``--device cpu`` to run on the host).
+            measured on the cards, a plan of several devices (dp x tp, or
+            pp > 1 on the pipeline route with the plan's microbatch count)
+            one rank per card (``--device cpu`` to run on the host).
 
 The searches run on the host and take no device.  The reference's
 ``--platform`` (a JAX backend pin) becomes ``--device``.  ``train`` and the
@@ -263,8 +264,9 @@ def _cmd_validate(args: argparse.Namespace, profiles, model, config) -> int:
                 ledger.record_measurement(fp, r.measured_ms,
                                           source="validate")
     out = {"plans": [r.to_json_dict() for r in reports]}
-    # leave-one-out affine calibration per executor family (every
-    # calibrated error is scored by a fit that excluded that plan)
+    # leave-one-out affine calibration per executor family, gspmd (pp = 1)
+    # and pipeline (pp > 1); every calibrated error is scored by a fit that
+    # excluded that plan
     fams: dict = {}
     for r in reports:
         fams.setdefault("pipeline" if r.plan.pp > 1 else "gspmd",

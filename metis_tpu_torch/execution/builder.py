@@ -1,18 +1,32 @@
 """PlanArtifact -> executable training step — the port of
 ``metis_tpu/execution/builder.py``.
 
-This slice realizes the ``pp == 1`` routes: one device outside a process
-group (``kind="single_device"``), and the reference's GSPMD route
-(``kind="gspmd"``) inside a process group of the plan's size — Megatron
-tensor parallelism plus data-parallel gradient averaging, one rank per
-device, started by ``execution.dist.spawn``.  Pipelined plans, hetero stages
-and the strategy axes zero / sp / cp / ep raise ``NotImplementedError``
-naming the later slice.
+``build_executable`` routes a plan as the reference does
+(``plan_route``):
 
-The path is normalized to ``(init, step)`` as in the reference:
-``init(seed) -> state`` and ``step(state, tokens, targets) -> (state, loss)``
-on full-batch ``[gbs, seq]`` token tensors (each rank of a mesh runs its dp
-rows of them).
+- **gspmd** for rectangular pp = 1 plans: one device outside a process
+  group (``kind="single_device"``), or one rank per device of a process
+  group of the plan's size — Megatron tensor parallelism plus data-parallel
+  gradient means (``execution/train.py``);
+- **pipeline** (``execution/pipeline.py``) for rectangular pp > 1 plans
+  with one (dp, tp) strategy, zero = 0, cp = ep = 1 and sp off, whose
+  blocks split evenly over the stages, or unevenly under 1f1b — the
+  schedules gpipe, 1f1b and interleaved;
+- **hetero** (``execution/hetero.py``) for every other multi-stage plan:
+  non-uniform layer partitions, per-stage (dp, tp), the data balancer's
+  uneven replica rows.
+
+A multi-device plan runs one rank per device, started by
+``execution.dist.spawn``, and is built on every rank.  The strategy axes
+zero, sp, cp and ep raise ``NotImplementedError`` on every route, naming the
+ROADMAP item that brings them (§A.3 expert parallelism with the MoE family,
+§A.4 ZeRO, sequence and context parallelism).
+
+Every path is normalized to ``(init, step)`` as in the reference:
+``init(source) -> state`` from a seed, or from the full parameter tree of
+which the rank keeps its piece, and ``step(state, tokens, targets) ->
+(state, loss)`` on full-batch ``[gbs, seq]`` token tensors (each rank runs
+its rows; the multi-stage routes split them into the plan's microbatches).
 """
 from __future__ import annotations
 
@@ -24,61 +38,252 @@ import torch.distributed as dist
 
 from metis_tpu_torch.core.device import resolve_device
 from metis_tpu_torch.core.errors import MetisError
-from metis_tpu_torch.execution.mesh import DP, PP, TP, PlanArtifact, ProcessMesh
-from metis_tpu_torch.execution.train import build_train_state, make_train_step
+from metis_tpu_torch.core.events import NULL_LOG
+from metis_tpu_torch.core.sharding import slice_leaf
+from metis_tpu_torch.execution.hetero import (
+    hetero_runner,
+    plan_replica_groups,
+    plan_replica_rows,
+    stage_specs_from_plan,
+)
+from metis_tpu_torch.execution.mesh import (
+    DP,
+    PP,
+    TP,
+    ONE_DEVICE,
+    PlanArtifact,
+    ProcessMesh,
+    gpt_param_specs,
+)
+from metis_tpu_torch.execution.pipeline import (
+    microbatch_split,
+    pipeline_runner,
+    traced_steps,
+)
+from metis_tpu_torch.execution.train import (
+    make_train_step,
+    params_from,
+    train_state_from_params,
+)
 from metis_tpu_torch.models.gpt import GPTConfig
 
 
 @dataclass(frozen=True)
 class Executable:
-    """A plan realized: which path runs it, plus the normalized step API."""
+    """A plan realized: which path runs it, plus the normalized step API.
+    ``mesh`` is this rank's; ``block_ids`` the global ids of the blocks its
+    stacked block leaves hold, in order (None: all of them)."""
 
-    kind: str  # "single_device" or "gspmd"
+    kind: str  # "single_device", "gspmd", "pipeline" or "hetero"
     init: Callable
     step: Callable
     mesh: ProcessMesh | None = None
+    block_ids: tuple[int, ...] | None = None
 
 
-def build_executable(cfg: GPTConfig, artifact: PlanArtifact,
-                     device: str | torch.device = "cuda",
-                     optimizer=None) -> Executable:
-    """Route ``artifact`` to the execution path that realizes it."""
-    dev = resolve_device(device)
-    if artifact.schedule not in ("gpipe", "1f1b", "interleaved"):
-        raise ValueError(f"unknown pipeline schedule {artifact.schedule!r}")
+def pipeline_block_counts(artifact: PlanArtifact, cfg: GPTConfig,
+                          pp: int) -> tuple[int, ...] | None:
+    """Per-stage transformer-BLOCK counts implied by the artifact's
+    layer partition (profile layers include the embed/head pseudo-layers on
+    the first/last stages), or None when no partition is recorded (implicit
+    even split)."""
+    bounds = artifact.layer_partition
+    if not bounds:
+        return None
+    blocks = []
+    for i in range(len(bounds) - 1):
+        lo, hi = bounds[i], bounds[i + 1]
+        blocks.append(min(hi - 1, cfg.num_blocks) - max(lo - 1, 0))
+    return tuple(blocks)
+
+
+def _uniform_block_split(artifact: PlanArtifact, cfg: GPTConfig,
+                         pp: int) -> bool:
+    """True when the layer partition gives every stage the same BLOCK count
+    (counted in transformer blocks, not profile layers: the canonical even
+    split gives the first/last stages +1 profile layer for the embed/head
+    pseudo-layers while their block counts stay equal)."""
+    blocks = pipeline_block_counts(artifact, cfg, pp)
+    if blocks is None:
+        return cfg.num_blocks % max(pp, 1) == 0
+    return (len(set(blocks)) == 1 and blocks[0] > 0
+            and cfg.num_blocks % len(blocks) == 0)
+
+
+def _uneven_1f1b_split(artifact: PlanArtifact, cfg: GPTConfig, pp: int,
+                       schedule: str) -> tuple[int, ...] | None:
+    """An uneven block partition the pipeline route realizes under 1f1b
+    (each stage holds its own blocks); None when the plan must route
+    elsewhere."""
+    if schedule != "1f1b":
+        return None
+    blocks = pipeline_block_counts(artifact, cfg, pp)
+    if (blocks is not None and len(blocks) == pp
+            and len(set(blocks)) > 1
+            and min(blocks) >= 1 and sum(blocks) == cfg.num_blocks):
+        return blocks
+    return None
+
+
+def resolve_schedule(
+    artifact: PlanArtifact,
+    schedule: str | None = None,
+    virtual_stages: int | None = None,
+) -> tuple[str, int]:
+    """The (schedule, virtual_stages) a plan runs with: explicit arguments
+    win, else the artifact's priced values (2 chunks when an explicit
+    interleaved request meets an artifact that never recorded a vs)."""
+    if schedule is None:
+        schedule = artifact.schedule
+    if virtual_stages is None:
+        virtual_stages = (artifact.virtual_stages
+                          if artifact.virtual_stages > 1 else 2)
+    return schedule, virtual_stages
+
+
+def checkpoint_block_layout(
+    artifact: PlanArtifact,
+    cfg: GPTConfig,
+    exe_kind: str,
+    schedule: str,
+    virtual_stages: int,
+) -> str:
+    """The ``CheckpointMeta.block_layout`` string of the reference for this
+    (plan, executable, schedule): how its pipeline route orders the stacked
+    block axis (interleaved: by ``interleave_block_order``; uneven 1f1b: the
+    padded layout of ``pad_blocks_for_partition``)."""
+    if exe_kind != "pipeline":
+        return "canonical"
+    if artifact.mesh_shape and PP in artifact.mesh_axes:
+        pp = artifact.mesh_shape[artifact.mesh_axes.index(PP)]
+    else:
+        pp = 1
+    if schedule == "interleaved":
+        return f"interleaved:{pp}x{virtual_stages}"
+    counts = _uneven_1f1b_split(artifact, cfg, pp, schedule)
+    if counts is not None:
+        return f"uneven:{pp}x" + "-".join(str(c) for c in counts)
+    return "canonical"
+
+
+def _normalized(artifact: PlanArtifact) -> tuple[list[dict], int]:
+    """Per-stage strategies with the reference's defaults, and pp."""
     strategies = [dict(s) for s in artifact.strategies]
+    for s in strategies:
+        s.setdefault("cp", 1)
+        s.setdefault("ep", 1)
+        s.setdefault("zero", 0)
+        s.setdefault("sp", False)
+    # uniform artifacts carry ONE strategy with pp encoded in the mesh shape
+    # (PlanArtifact.from_uniform_plan); hetero artifacts carry one per stage
     if artifact.mesh_shape and PP in artifact.mesh_axes:
         pp = artifact.mesh_shape[artifact.mesh_axes.index(PP)]
     else:
         pp = len(strategies)
-    if not artifact.mesh_shape or pp > 1 or len(strategies) != 1:
-        raise NotImplementedError(
-            "pipelined and hetero plans run on the pipeline / hetero "
-            "executors of a later slice; this slice runs pp == 1")
+    if len(strategies) == 1 and pp > 1:
+        strategies = strategies * pp
+    return strategies, pp
+
+
+def plan_route(cfg: GPTConfig, artifact: PlanArtifact,
+               schedule: str | None = None,
+               virtual_stages: int | None = None) -> str:
+    """The route of a plan, "gspmd", "pipeline" or "hetero", by the
+    reference's rule (``metis_tpu/execution/builder.py``)."""
+    schedule, _ = resolve_schedule(artifact, schedule, virtual_stages)
+    strategies, pp = _normalized(artifact)
+    uniform = len({(s["dp"], s["tp"], s["cp"], s["ep"], s["zero"], s["sp"])
+                   for s in strategies}) == 1
     s0 = strategies[0]
-    defaults = {"cp": 1, "ep": 1, "zero": 0, "sp": False}
-    extras = {k: s0[k] for k, v in defaults.items() if s0.get(k, v) != v}
-    if extras:
-        raise NotImplementedError(
-            f"strategy axes {extras} come with later slices (context and "
-            "expert parallelism, ZeRO, sequence parallelism)")
-    if dist.is_initialized():
-        return _gspmd_executable(cfg, artifact, dev, optimizer)
-    if artifact.num_devices != 1:
-        raise MetisError(
-            f"mesh {dict(zip(artifact.mesh_axes, artifact.mesh_shape))} needs "
-            f"{artifact.num_devices} ranks; run it through the launcher "
-            "(metis_tpu_torch.execution.dist.spawn), one rank per device, "
-            "and build it on every rank")
-    return _single_device_executable(cfg, dev, optimizer)
+    if artifact.mesh_shape and pp == 1:
+        return "gspmd"
+    if (artifact.mesh_shape and uniform and s0["zero"] == 0
+            and not s0["sp"] and s0["cp"] == 1 and s0["ep"] == 1):
+        if (_uniform_block_split(artifact, cfg, pp)
+                or _uneven_1f1b_split(artifact, cfg, pp, schedule) is not None):
+            return "pipeline"
+    return "hetero"
+
+
+def _refuse_later_axes(strategies: list[dict]) -> None:
+    for s, st in enumerate(strategies):
+        if st["ep"] != 1:
+            raise NotImplementedError(
+                f"stage {s}: ep={st['ep']}: expert parallelism comes with the "
+                "MoE family (ROADMAP §A.3)")
+        extras = {k: st[k] for k in ("zero", "sp", "cp")
+                  if st[k] != {"zero": 0, "sp": False, "cp": 1}[k]}
+        if extras:
+            raise NotImplementedError(
+                f"stage {s}: strategy axes {extras}: ZeRO, sequence and "
+                "context parallelism come with a later slice (ROADMAP §A.4)")
+
+
+def build_executable(cfg: GPTConfig, artifact: PlanArtifact,
+                     device: str | torch.device = "cuda",
+                     optimizer=None, cluster=None, profiles=None,
+                     schedule: str | None = None,
+                     virtual_stages: int | None = None,
+                     events=None, overlap: bool = True) -> Executable:
+    """Route ``artifact`` to the execution path that realizes it.
+
+    ``cluster`` + ``profiles`` (optional) give mixed-type hetero stages the
+    data balancer's uneven per-replica rows.  ``schedule`` /
+    ``virtual_stages`` override the artifact's priced schedule on the
+    pipeline route (``resolve_schedule``); the hetero route is a fill and
+    drain with stage remat whatever the schedule.  ``events`` and
+    ``overlap`` (pipeline route) as in ``make_pipeline_train_step``."""
+    dev = resolve_device(device)
+    schedule, virtual_stages = resolve_schedule(artifact, schedule,
+                                                virtual_stages)
+    if schedule not in ("gpipe", "1f1b", "interleaved"):
+        raise ValueError(f"unknown pipeline schedule {schedule!r}")
+    if schedule == "interleaved" and virtual_stages < 1:
+        raise ValueError(f"virtual_stages={virtual_stages} must be >= 1")
+    strategies, pp = _normalized(artifact)
+    _refuse_later_axes(strategies)
+    route = plan_route(cfg, artifact, schedule, virtual_stages)
+    if route == "gspmd":
+        if dist.is_initialized():
+            return _gspmd_executable(cfg, artifact, dev, optimizer)
+        if artifact.num_devices != 1:
+            raise MetisError(
+                f"mesh {dict(zip(artifact.mesh_axes, artifact.mesh_shape))} "
+                f"needs {artifact.num_devices} ranks; run it through the "
+                "launcher (metis_tpu_torch.execution.dist.spawn), one rank "
+                "per device, and build it on every rank")
+        return _single_device_executable(cfg, dev, optimizer)
+    if route == "pipeline":
+        counts = (None if _uniform_block_split(artifact, cfg, pp)
+                  else _uneven_1f1b_split(artifact, cfg, pp, schedule))
+        runner = pipeline_runner(
+            cfg, artifact.build_mesh(), artifact.microbatches, dev, optimizer,
+            schedule, virtual_stages, counts, overlap)
+        init, raw_step = traced_steps(
+            runner, schedule, artifact.microbatches,
+            events if events is not None else NULL_LOG, overlap)
+        return Executable("pipeline", init,
+                          _split_steps(raw_step, artifact.microbatches),
+                          runner.mesh, runner.block_ids)
+    return _hetero_executable(cfg, artifact, strategies, dev, optimizer,
+                              cluster, profiles)
+
+
+def _split_steps(raw_step, microbatches: int) -> Callable:
+    def step(state, tokens, targets):
+        return raw_step(state, microbatch_split(tokens, microbatches),
+                        microbatch_split(targets, microbatches))
+
+    return step
 
 
 def _single_device_executable(cfg, device, optimizer) -> Executable:
-    def init(seed: int):
-        return build_train_state(seed, cfg, device=device, optimizer=optimizer)
+    def init(source):
+        return train_state_from_params(
+            params_from(source, cfg, device), optimizer)
 
     return Executable(kind="single_device", init=init,
-                      step=make_train_step(cfg))
+                      step=make_train_step(cfg), mesh=ONE_DEVICE)
 
 
 def _gspmd_executable(cfg, artifact, device, optimizer) -> Executable:
@@ -90,11 +295,54 @@ def _gspmd_executable(cfg, artifact, device, optimizer) -> Executable:
                     ("ffn units", cfg.ffn_dim)):
         if n % tp:
             raise ValueError(f"{n} {what} do not split over tp = {tp}")
+    specs, slots = gpt_param_specs(cfg), mesh.slots()
 
-    def init(seed: int):
-        return build_train_state(seed, cfg, device=device, optimizer=optimizer,
-                                 mesh=mesh)
+    def cut(group, name, leaf):
+        return slice_leaf(leaf, specs[group][name], slots).contiguous()
+
+    def init(source):
+        return train_state_from_params(
+            params_from(source, cfg, device, cut), optimizer)
 
     return Executable(kind="gspmd", init=init,
                       step=make_train_step(cfg, mesh=mesh), mesh=mesh)
 
+
+def _hetero_executable(cfg, artifact, strategies, device, optimizer, cluster,
+                       profiles) -> Executable:
+    pp = len(strategies)
+    rows = groups = None
+    if (cluster is not None and profiles is not None
+            and artifact.node_sequence):
+        # mixed-type stages: the data balancer's per-replica rows
+        from metis_tpu_torch.core.types import InterStagePlan, Strategy
+
+        inter = InterStagePlan(
+            node_sequence=tuple(artifact.node_sequence),
+            device_groups=tuple(artifact.device_groups),
+            batches=artifact.microbatches, gbs=artifact.gbs)
+        strats = [Strategy(dp=s["dp"], tp=s["tp"]) for s in strategies]
+        rows = plan_replica_rows(inter, strats, cluster, profiles)
+        groups = plan_replica_groups(inter, strats, cluster)
+    bounds = artifact.layer_partition
+    if not bounds:
+        # rectangular artifacts drop the canonical even split; rebuild it
+        per = cfg.num_profile_layers // pp
+        bounds = tuple(per * i for i in range(pp)) + (cfg.num_profile_layers,)
+    stages = stage_specs_from_plan(
+        bounds, strategies, cfg, stage_replica_rows=rows,
+        stage_replica_groups=groups)
+    return hetero_executable(cfg, stages, artifact.microbatches, device,
+                             optimizer)
+
+
+def hetero_executable(cfg: GPTConfig, stages, microbatches: int,
+                      device: str | torch.device = "cuda",
+                      optimizer=None) -> Executable:
+    """The hetero route for explicit ``StageSpec``s (``execution.hetero``),
+    splitting full batches into ``microbatches``."""
+    runner = hetero_runner(cfg, stages, resolve_device(device), optimizer)
+
+    return Executable("hetero", runner.init,
+                      _split_steps(runner.step, microbatches), runner.mesh,
+                      runner.block_ids)

@@ -9,7 +9,8 @@ collectives itself (``models/parallel.py``).  The spec trees are the
 reference's ``PartitionSpec`` trees with plain tuples of axis names (None =
 not split, ``core/sharding.py``) standing in for ``P``: column-parallel qkv /
 mlp-in, row-parallel proj / mlp-out, vocab-parallel embedding and head, the
-batch over dp.
+batch over dp.  A multi-stage plan gives each stage a contiguous range of
+ranks laid out as its own (dp, tp) grid (``stage_meshes``).
 """
 from __future__ import annotations
 
@@ -60,33 +61,75 @@ class ProcessMesh:
 ONE_DEVICE = ProcessMesh((), (), ())
 
 
-def _grid(shape: tuple[int, ...], axes: tuple[str, ...]) -> ProcessMesh:
-    """The mesh of this process inside the current process group, whose
-    size must be the grid's.  Every rank creates every axis group in the
-    same order, as ``torch.distributed.new_group`` requires."""
-    need = math.prod(shape)
+def _require_group(need: int, what: str) -> int:
+    """This process's rank, after checking that the current process group
+    has ``need`` ranks."""
     if not dist.is_initialized():
         raise MetisError(
-            f"mesh {dict(zip(axes, shape))} needs a process group of {need} "
-            "ranks; run it through the launcher "
-            "(metis_tpu_torch.execution.dist.spawn)")
-    world, rank = dist.get_world_size(), dist.get_rank()
+            f"{what} needs a process group of {need} ranks; run it through "
+            "the launcher (metis_tpu_torch.execution.dist.spawn)")
+    world = dist.get_world_size()
     if world != need:
-        raise MetisError(
-            f"mesh {dict(zip(axes, shape))} needs {need} ranks, the process "
-            f"group has {world}")
-    coords = tuple(int(c) for c in np.unravel_index(rank, shape))
-    grid = np.arange(need).reshape(shape)
+        raise MetisError(f"{what} needs {need} ranks, the process group has "
+                         f"{world}")
+    return dist.get_rank()
+
+
+def _axis_groups(shape: tuple[int, ...], axes: tuple[str, ...], base: int,
+                 rank: int) -> dict:
+    """One process group per line of the grid of ranks ``base ..`` along
+    each axis of size > 1 (every rank creates every line's group, in the
+    same order, as ``torch.distributed.new_group`` requires); returns the
+    groups of the lines that hold ``rank``."""
+    grid = base + np.arange(math.prod(shape)).reshape(shape)
     groups = {}
     for i, axis in enumerate(axes):
         if shape[i] == 1:
             continue
-        lines = np.moveaxis(grid, i, -1).reshape(-1, shape[i])
-        for line in lines:
+        for line in np.moveaxis(grid, i, -1).reshape(-1, shape[i]):
             g = dist.new_group([int(r) for r in line])
             if rank in line:
                 groups[axis] = g
-    return ProcessMesh(tuple(axes), tuple(shape), coords, groups)
+    return groups
+
+
+def _grid(shape: tuple[int, ...], axes: tuple[str, ...]) -> ProcessMesh:
+    """The mesh of this process inside the current process group, whose
+    size must be the grid's."""
+    rank = _require_group(math.prod(shape), f"mesh {dict(zip(axes, shape))}")
+    coords = tuple(int(c) for c in np.unravel_index(rank, shape))
+    return ProcessMesh(tuple(axes), tuple(shape), coords,
+                       _axis_groups(shape, axes, 0, rank))
+
+
+def stage_offsets(shapes) -> list[int]:
+    """First rank of each stage, and the world size last: stage s owns the
+    ``dp_s * tp_s`` ranks after those of the stages before it."""
+    return np.cumsum([0] + [dp * tp for dp, tp in shapes]).tolist()
+
+
+def stage_meshes(shapes) -> ProcessMesh:
+    """This process's mesh in a plan of pipeline stages with per-stage
+    ``(dp, tp)`` shapes: stage s owns a contiguous range of ranks
+    (``stage_offsets``), laid out row-major as a ``(dp_s, tp_s)`` grid.
+    Axes ``(pp, dp, tp)``, shape ``(S, dp_s, tp_s)`` of this rank's stage,
+    and its dp and tp groups; there is no pp group (stages talk point to
+    point).  Every rank creates every stage's groups, the stages it is not
+    in included, because ``new_group`` is collective.  A plan of one device
+    outside a process group gets the one-device mesh with a pp axis."""
+    shapes = [tuple(int(n) for n in sh) for sh in shapes]
+    offsets = stage_offsets(shapes)
+    if not dist.is_initialized() and offsets[-1] == 1:
+        return ProcessMesh((PP, DP, TP), (1, 1, 1), (0, 0, 0))
+    rank = _require_group(offsets[-1], f"stages {shapes}")
+    mine = None
+    for s, (dp, tp) in enumerate(shapes):
+        groups = _axis_groups((dp, tp), (DP, TP), offsets[s], rank)
+        if offsets[s] <= rank < offsets[s + 1]:
+            d, t = divmod(rank - offsets[s], tp)
+            mine = ProcessMesh((PP, DP, TP), (len(shapes), dp, tp), (s, d, t),
+                               groups)
+    return mine
 
 
 def mesh_for_uniform_plan(plan: UniformPlan) -> ProcessMesh:
@@ -200,17 +243,19 @@ class PlanArtifact:
 
     @property
     def num_devices(self) -> int:
-        return math.prod(self.mesh_shape)
+        if self.mesh_shape:
+            return math.prod(self.mesh_shape)
+        return sum(s["dp"] * s["tp"] * s.get("cp", 1) for s in self.strategies)
 
     def build_mesh(self) -> ProcessMesh:
-        """This process's mesh for a rectangular (uniform-stage) artifact,
-        inside a process group of the artifact's size.  Both layouts work:
-        ``(pp, dp, tp)`` from ``from_uniform_plan`` and ``(pp, dp, ep, sp,
-        tp)`` from ``from_ranked_plan``, trivial axes of size 1."""
+        """This process's mesh inside a process group of the artifact's
+        size.  A rectangular artifact gets its whole grid; both layouts
+        work: ``(pp, dp, tp)`` from ``from_uniform_plan`` and ``(pp, dp,
+        ep, sp, tp)`` from ``from_ranked_plan``, trivial axes of size 1.  A
+        non-rectangular one (per-stage strategies, empty mesh fields) gets
+        its stage's ``(pp, dp, tp)`` mesh from ``stage_meshes``."""
         if not self.mesh_shape:
-            raise ValueError(
-                "artifact has non-uniform stages; build per-stage meshes from "
-                "device_groups/strategies instead")
+            return stage_meshes([(s["dp"], s["tp"]) for s in self.strategies])
         return _grid(self.mesh_shape, self.mesh_axes)
 
     @staticmethod

@@ -21,6 +21,7 @@ from dataclasses import dataclass
 from functools import partial
 from typing import Callable
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -64,6 +65,30 @@ def init_params_for(gen: torch.Generator, cfg: GPTConfig,
             return slice_leaf(leaf, specs[group][name], slots).contiguous()
 
     return init_params(gen, cfg, device=resolve_device(device), shard=shard)
+
+
+def params_from(source, cfg: GPTConfig, device: torch.device,
+                cut: Callable | None = None) -> dict:
+    """A rank's parameters from ``source``: a seed (the one-device tree
+    drawn on ``device``, ``cut(group, name, leaf)`` applied to each leaf as
+    it is drawn) or the full tree, numpy arrays or tensors, each leaf cut.
+    ``cut`` returns the rank's piece of a leaf, or None for a leaf it does
+    not hold."""
+    _require_gpt(cfg)
+    if isinstance(source, int):
+        gen = torch.Generator(device=device).manual_seed(source)
+        return init_params(gen, cfg, device=device, shard=cut)
+    out: dict = {}
+    for group, sub in source.items():
+        for name, leaf in sub.items():
+            # a copy: the rank's leaves are updated in place and must not
+            # alias the caller's arrays
+            t = (leaf.detach().clone() if isinstance(leaf, torch.Tensor)
+                 else torch.from_numpy(np.array(leaf, copy=True))).to(device)
+            t = cut(group, name, t) if cut is not None else t
+            if t is not None:
+                out.setdefault(group, {})[name] = t
+    return out
 
 
 def loss_fn_for(cfg: GPTConfig) -> Callable:
@@ -179,6 +204,30 @@ def build_train_state(seed: int, cfg: GPTConfig,
     gen = torch.Generator(device=dev).manual_seed(seed)
     return train_state_from_params(init_params_for(gen, cfg, dev, mesh),
                                    optimizer)
+
+
+# Elements per chunk of the dp gradient all-reduce under the overlap
+# schedule of the manual-backward pipeline schedules (execution/pipeline.py):
+# 2^20 fp32 elements = 4 MB per collective, as in the reference.
+DP_CHUNK_ELEMS = 1 << 20
+
+
+def chunked_all_reduce(tensors: list[torch.Tensor], group) -> None:
+    """In place: each tensor becomes its sum over ``group``, reduced in
+    flat chunks of at most ``DP_CHUNK_ELEMS`` elements.  Every chunk's
+    all-reduce is posted before any is waited for, so the collectives
+    pipeline with each other; the sum is elementwise, so the result equals
+    one all-reduce per tensor.  The counterpart of the reference's
+    ``chunked_pmean``: the port's stages weight each replica's loss by its
+    share of the rows, so the dp group sums (``execution/stages.py``)."""
+    works = []
+    for t in tensors:
+        flat = t.view(-1)
+        for i in range(0, flat.numel(), DP_CHUNK_ELEMS):
+            works.append(dist.all_reduce(flat[i:i + DP_CHUNK_ELEMS],
+                                         group=group, async_op=True))
+    for w in works:
+        w.wait()
 
 
 def _mean_over(tensors: list[torch.Tensor], group, size: int) -> None:

@@ -88,7 +88,9 @@ def init_params(gen: torch.Generator, cfg: GPTConfig,
     ``shard(group, name, leaf)``, when given, replaces each leaf as soon as
     it is drawn (a tensor-parallel rank keeps its slice): every leaf is still
     drawn at full size in the same order, so the slices are those of the
-    unsharded tree, and no more than one full leaf is held at a time."""
+    unsharded tree, and no more than one full leaf is held at a time.  It
+    may return None to drop the leaf (a pipeline stage that holds no
+    embedding or head); a group left without leaves is absent."""
     h, f, v = cfg.hidden, cfg.ffn_dim, cfg.vocab_size
     L = cfg.num_blocks
     pd = cfg.param_dtype
@@ -128,8 +130,16 @@ def init_params(gen: torch.Generator, cfg: GPTConfig,
         leaf = draw()
         if shard is not None:
             leaf = shard(group, name, leaf)
-        params.setdefault(group, {})[name] = leaf
+        if leaf is not None:
+            params.setdefault(group, {})[name] = leaf
     return params
+
+
+# The leaves the forward uses only as ``leaf.to(cfg.dtype)`` (the matrices
+# of the products): a caller that runs several microbatches on the same
+# weights may cast them once (``execution/stages.py``).
+COMPUTE_DTYPE_LEAVES = {"blocks": ("qkv", "proj", "mlp_in", "mlp_out"),
+                        "head": ("out",)}
 
 
 def _layer_norm(x: torch.Tensor, scale: torch.Tensor,

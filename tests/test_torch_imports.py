@@ -64,7 +64,9 @@ def _imported_roots(path: pathlib.Path) -> set[str]:
 
 @pytest.mark.parametrize(
     "path", sorted(PACKAGE.rglob("*.py"))
-    + [ROOT / "chip_smoke.py", ROOT / "tools" / "torch_step_profile.py"],
+    + [ROOT / "chip_smoke.py", ROOT / "tools" / "torch_step_profile.py",
+       ROOT / "tools" / "torch_pipeline_cards.py",
+       ROOT / "tools" / "torch_gloo_p2p_probe.py"],
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_jax_package_import(path):
     assert not _imported_roots(path) & set(FORBIDDEN)
@@ -82,8 +84,11 @@ def _entry_points():
     from metis_tpu_torch.models.gpt import GPTConfig
     from metis_tpu_torch.profiles.profiler import infer_device_type, profile_model
     from metis_tpu_torch import cli
+    from metis_tpu_torch.execution.hetero import StageSpec, make_hetero_train_step
     from metis_tpu_torch.validation import (
+        measure_ranked_plan_ms,
         measure_uniform_plan_ms,
+        validate_hetero_choice,
         validate_planner_choice,
     )
 
@@ -104,6 +109,11 @@ def _entry_points():
         "from_numpy_tree": lambda: from_numpy_tree({"a": {"b": [1.0]}}),
         "batch_source": lambda: batch_source(ds, 2, device="cuda"),
         "validate_planner_choice": lambda: validate_planner_choice([], spec),
+        "make_hetero_train_step": lambda: make_hetero_train_step(
+            cfg, [StageSpec((0, 1), True, True, dp=1, tp=1)]),
+        "measure_ranked_plan_ms": lambda: measure_ranked_plan_ms(
+            _one_stage_ranked(), spec),
+        "validate_hetero_choice": lambda: validate_hetero_choice([], spec),
         # the device is resolved before the files are read or a plan searched
         "validate_cli": lambda: cli.main([
             "validate", "--hostfile", "hosts", "--clusterfile", "c.json",
@@ -112,10 +122,26 @@ def _entry_points():
     }
 
 
+def _one_stage_ranked():
+    from metis_tpu_torch.core.types import (
+        InterStagePlan,
+        IntraStagePlan,
+        PlanCost,
+        RankedPlan,
+        Strategy,
+    )
+
+    return RankedPlan(
+        inter=InterStagePlan(("H100",), (1,), batches=1, gbs=1),
+        intra=IntraStagePlan((Strategy(dp=1, tp=1),), (0, 3), (0.0,), 1),
+        cost=PlanCost(total_ms=1.0))
+
+
 ENTRY_POINTS = ["entry", "build_executable", "build_train_state",
                 "profile_model", "infer_device_type", "measure_uniform_plan_ms",
                 "from_numpy_tree", "batch_source", "validate_planner_choice",
-                "validate_cli"]
+                "validate_cli", "make_hetero_train_step",
+                "measure_ranked_plan_ms", "validate_hetero_choice"]
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)

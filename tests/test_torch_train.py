@@ -115,18 +115,20 @@ def test_hetero_artifact_round_trips_and_is_refused(tmp_path):
     tart = tmesh.PlanArtifact.load(path)
     assert tart.to_json() == jart.to_json()
     cfg = tgpt.GPTConfig(**SHAPE, dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="later slice"):
+    # the hetero route runs one rank per device: outside a process group
+    # it names the launcher
+    with pytest.raises(MetisError, match="through the launcher"):
         build_executable(cfg, tart, device="cpu")
 
 
 @pytest.mark.parametrize("plan,error,match", [
     (UniformPlan(2, 1, 1, 1, 2), MetisError, "through the launcher"),
     (UniformPlan(1, 1, 2, 1, 1), MetisError, "through the launcher"),
-    (UniformPlan(1, 2, 1, 1, 2), NotImplementedError, "later slice")],
+    (UniformPlan(1, 2, 1, 1, 2), MetisError, "through the launcher")],
     ids=["dp2", "tp2", "pp2"])
 def test_multi_device_plans_raise(plan, error, match):
-    """Outside a process group a dp x tp plan names the launcher that runs
-    it; pipelines are a later slice's."""
+    """Outside a process group a dp x tp plan, and a pipeline, names the
+    launcher that runs it."""
     cfg = tgpt.GPTConfig(**SHAPE, dtype=torch.float32)
     with pytest.raises(error, match=match):
         build_executable(cfg, tmesh.PlanArtifact.from_uniform_plan(plan),
