@@ -17,9 +17,9 @@ Phases, in order (any failure exits non-zero):
    from the inputs, and the backward pair B2 + B3 (back to back, and as a
    graph) against SDPA's whole backward; every grid the main paths give
    the kernels (``PATH_CASES``) is held;
-4. slice: the flash GPT at the ``--model-size 1.5B`` preset (full width and
-   depth, random weights from a seed): agreement of flash and dense
-   attention on a small GPT, ``profile_model`` to a profile directory and back
+4. slice: the flash GPT at the ``--model-size 1.5B`` preset (``GPT_15B``,
+   full width and depth, random weights from a seed): agreement of flash
+   and dense attention on a small GPT, ``profile_model`` to a profile directory and back
    through ``ProfileStore.from_dir``, 5 train steps through
    ``build_executable`` with the kernel launch counts read around every step,
    the same 5 steps with dense attention as the reference trajectory, and
@@ -64,9 +64,31 @@ Phases, in order (any failure exits non-zero):
    microbatch, gated only on finite, positive measurements.  Ranks sharing one card
    give no pp speed.
 
+8. llama: the LLaMA configuration (``LLAMA_15B``: the 1.5B preset's widths,
+   32 query heads over 8 KV heads, SwiGLU, RoPE, RMSNorm): a small
+   flash-vs-dense check on three seeds, with dense attention whose backward
+   rounds dS to bf16 as a witness; phase 4's profile, searches, 5 flash and
+   5 dense steps on fresh batches and validation (gated at
+   ``PLAN_ERROR_PCT``); tp 2 on two gloo ranks at full depth (within
+   ``TRAJ_TOL`` of one device); and a two-stage hetero plan of 4 + 4 blocks
+   at 2 microbatches on the same fresh batches against the one-stage
+   executor (losses within ``PIPE_TOL``, first-step gradient norms within
+   ``GRAD_NORM_TOL``);
+9. moe: the MoE configuration (``MOE_15B``: 2 blocks of 8 GELU experts,
+   top 2, capacity factor 1.25): phase 4's profile, 5 + 5 steps on fresh
+   batches and validation (``error_pct`` recorded, not gated), with the
+   first-block routing decisions that differ between flash and dense; the
+   flash and dense trajectories from two more seeds; the searches with
+   ``--enable-ep``; and ep 2 on two gloo ranks at gbs 8 (one 4096-token
+   routing group per rank) against one device (losses within
+   ``PIPE_TOL``, first-step gradient norms within ``GRAD_NORM_TOL``), with
+   the count of first-block routing decisions that differ and each rank's
+   peak.
+
 The kernel phase also holds and times the pipeline's microbatch shape (b 1,
-``MICRO``).  The last lines are the ``kernels``, ``slice``, ``planner``,
-``dist`` and ``pipeline`` JSON, the card's name and power limit, and
+``MICRO``) and the LLaMA grid (``LLAMA``; SDPA with ``enable_gqa``).  The last
+lines are the ``kernels``, ``slice``, ``planner``, ``dist``, ``pipeline``,
+``llama`` and ``moe`` JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.  TF32 is off in every comparison: fp32
 products run in full fp32 on both sides.
 """
@@ -101,6 +123,14 @@ KERNEL_TOL = 1e-2
 ROW_FLOOR = 1e-2
 # gradients of a small bf16 GPT, flash against dense attention, normwise per leaf
 GRAD_TOL = 1e-2
+# the same for the small LLaMA (4 query heads over 2 KV heads), whose wq
+# gradient reads about 1.05e-2 on an H100: the kernels' backward rounds dS
+# to bf16 where the dense path keeps it in fp32, and wq's gradient sums dS
+# over 512 tokens whose contributions cancel.  ``agreement_phase``'s
+# witnesses read, on three seeds, that rounding's share of each leaf and
+# how far flash and dense each are from the fp32 model.  The 1.5B
+# trajectory is held to TRAJ_TOL as the GPT's
+LLAMA_GRAD_TOL = 2e-2
 # the 1.5B loss through 8 bf16 blocks, flash against dense attention, at
 # step 0 and along the 5-step trajectory
 LOSS_TOL = 2e-2
@@ -116,9 +146,33 @@ WORLD1_TOL = 1e-6
 # reference at M = 4, per step (the one-stage reference itself is held to
 # the full-batch step within TRAJ_TOL)
 PIPE_TOL = 1e-2
+# a sharded leg's first-step gradient norms, per leaf, against the one
+# device's or the one stage's: a gradient scaled by ep, or missing a peer's
+# or a stage's part, reads 0.4 or more
+GRAD_NORM_TOL = 1e-2
 SHARED_CARD = "ranks share one card; not a dp/tp speed"
 
+# the --model-size 1.5B preset (planner/cli.py MODEL_SIZE_PRESETS) and its
+# LLaMA and MoE configurations: GQA at LLaMA-3-8B's ratio, and 8 experts,
+# top 2, at 2 blocks (8 blocks of experts are 9.55 B parameters, 153 GB of
+# fp32 state with AdamW: more than one card holds)
+GPT_15B = dict(name="gpt-1.5B", num_layers=10, hidden_size=4096,
+               sequence_length=1024, vocab_size=51200, num_heads=32, attn="flash")
+LLAMA_15B = dict(GPT_15B, name="llama-1.5B", family="llama", num_kv_heads=8)
+MOE_15B = dict(GPT_15B, name="moe-1.5B", num_layers=4, num_experts=8,
+               expert_top_k=2)
+CLI_MODEL = {
+    "gpt-1.5B": ["--model-size", "1.5B", "--attn", "flash"],
+    "llama-1.5B": ["--model-size", "1.5B", "--attn", "flash", "--family", "llama",
+                   "--num-kv-heads", "8"],
+    "moe-1.5B": ["--model-size", "1.5B", "--attn", "flash", "--num-layers", "4",
+                 "--num-experts", "8", "--expert-top-k", "2"],
+}
+
 SEED = 0
+# the weights' seeds of the MoE's and the small LLaMA's further flash-vs-dense
+# runs (the batches' are one more)
+OTHER_SEEDS = (10, 20)
 MAIN = dict(name="main", b=4, hq=32, hkv=32, s=1024, d=128, causal=True)
 # one rank's share of the main path at tp 2: half the heads
 TP2 = dict(name="tp2", b=4, hq=16, hkv=16, s=1024, d=128, causal=True)
@@ -130,7 +184,14 @@ MICRO = dict(name="micro", b=1, hq=32, hkv=32, s=1024, d=128, causal=True)
 # MICRO)
 ROWS3 = dict(name="rows3", b=3, hq=32, hkv=32, s=1024, d=128, causal=True)
 MBS2 = dict(name="mbs2", b=2, hq=32, hkv=32, s=1024, d=128, causal=True)
-PATH_CASES = (MAIN, TP2, MICRO, ROWS3, MBS2)
+# the LLaMA path: 32 query heads over 8 KV heads (B3 sums 4 members into
+# each KV head); one rank's half at tp 2; a microbatch of 2 rows of the
+# two-stage hetero plan.  The MoE path runs MAIN (also per rank at ep 2).
+LLAMA = dict(name="llama", b=4, hq=32, hkv=8, s=1024, d=128, causal=True)
+LLAMA_TP2 = dict(name="llama_tp2", b=4, hq=16, hkv=4, s=1024, d=128, causal=True)
+LLAMA_MB2 = dict(name="llama_mb2", b=2, hq=32, hkv=8, s=1024, d=128, causal=True)
+PATH_CASES = (MAIN, TP2, MICRO, ROWS3, MBS2, LLAMA, LLAMA_TP2, LLAMA_MB2)
+TIMED_CASES = (MAIN, MICRO, LLAMA)
 KERNEL_CASES = [
     *PATH_CASES,
     dict(name="gqa", b=2, hq=8, hkv=2, s=1024, d=128, causal=True),
@@ -329,13 +390,15 @@ def kernel_case(case: dict, gen: torch.Generator, timed: bool) -> dict:
             "bwd_pair": timed_runs(pair),
             "bwd_pair_graphed": timed_runs(graph_of(pair, torch.cuda.Stream()), reps=7),
         }
-        out["timing"].update(sdpa_ms(q, k, v, do, b, hq, s, d, causal))
+        out["timing"].update(sdpa_ms(q, k, v, do, b, hq, hkv, s, d, causal))
     return out
 
 
-def sdpa_ms(q, k, v, do, b, h, s, d, causal) -> dict:
+def sdpa_ms(q, k, v, do, b, h, hkv, s, d, causal) -> dict:
     """PyTorch's fused attention on the same inputs — a yardstick only; the
-    port never calls it.  The backward computes dq, dk and dv in one call.
+    port never calls it.  K and V keep their ``hkv`` heads (``enable_gqa``
+    where they are fewer than the query heads).  The backward computes dq,
+    dk and dv in one call.
     Both are timed as the replay of a CUDA graph (``graph_of``), so the
     host's overhead per call (autograd's, which is larger than the device
     time of a b = 1 backward) is not counted; the backward also eagerly,
@@ -347,10 +410,13 @@ def sdpa_ms(q, k, v, do, b, h, s, d, causal) -> dict:
     do4 = do.view(b, h, s, d)
 
     def leaves():
-        return [t.view(b, h, s, d).detach().requires_grad_() for t in (q, k, v)]
+        return [t.view(b, n, s, d).detach().requires_grad_()
+                for t, n in ((q, h), (k, hkv), (v, hkv))]
+
+    gqa = {"enable_gqa": True} if hkv != h else {}
 
     def fwd(qkv):
-        return F.scaled_dot_product_attention(*qkv, is_causal=causal)
+        return F.scaled_dot_product_attention(*qkv, is_causal=causal, **gqa)
 
     def bwd(o4, qkv):
         return lambda: torch.autograd.grad(o4, qkv, do4, retain_graph=True)
@@ -370,14 +436,14 @@ def sdpa_ms(q, k, v, do, b, h, s, d, causal) -> dict:
     }
 
 
-def kernel_phase() -> tuple[dict, dict, dict]:
-    """Every case held; returns the main case (with its timing), the
-    per-rank tp 2 case and the microbatch case (timed too), and the cases
-    of every grid the main paths run (``PATH_CASES``)."""
+def kernel_phase() -> tuple[dict, list]:
+    """Every case held; returns every case's result by name (the
+    ``TIMED_CASES`` with their timing) and the cases of every grid the main
+    paths run (``PATH_CASES``)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     failures, held = [], {}
     for case in KERNEL_CASES:
-        res = kernel_case(case, gen, timed=case is MAIN or case is MICRO)
+        res = kernel_case(case, gen, timed=case in TIMED_CASES)
         held[case["name"]] = res
         for kname in ("fa_fwd", "fa_bwd_dq", "fa_bwd_dkv"):
             for tensor, (abs_err, rel) in res.get(kname, {}).items():
@@ -414,7 +480,7 @@ def kernel_phase() -> tuple[dict, dict, dict]:
         torch.cuda.empty_cache()
     if failures:
         raise SystemExit(f"kernel disagrees with its plain version: {failures}")
-    return held[MAIN["name"]], held[MICRO["name"]], [held[c["name"]] for c in PATH_CASES]
+    return held, [held[c["name"]] for c in PATH_CASES]
 
 
 def _timing_fields(case: dict, name: str) -> dict:
@@ -430,57 +496,123 @@ def _timing_fields(case: dict, name: str) -> dict:
                 "library_eager_ms": t["sdpa_bwd_eager"]["ms"]})}
 
 
-def kernel_records(main: dict, micro: dict, path: list[dict], launches: dict,
-                   rank_launches: dict, pipe_launches: dict) -> list[dict]:
+def kernel_records(held: dict, path: list[dict], launches: dict) -> list[dict]:
     """One record per kernel: errors over every grid of the main paths
-    (``PATH_CASES``), times at the main shape (and, under ``micro``, at the
-    microbatch shape; the library's time is a CUDA graph's replay, see
-    ``sdpa_ms``), launches of the one-device run, of each tp 2 rank and,
-    per step, of each rank of each two-rank plan of the pipeline phase."""
+    (``PATH_CASES``), times at the main shape and, under ``micro`` and
+    ``gqa``, at the microbatch shape and the LLaMA grid (the library's time
+    is a CUDA graph's replay, see ``sdpa_ms``); ``launches`` is the
+    one-device GPT run's, and ``launches_<path>`` each other path's, from
+    ``launches`` ({path: {kernel: count}}, the GPT run under ``main``)."""
     records = []
     for name in ("fa_fwd", "fa_bwd_dq", "fa_bwd_dkv"):
         errs = [e for case in path for e in case[name].values()]
-        micro_errs = list(micro[name].values())
+        sub = {}
+        for key, case in (("micro", MICRO), ("gqa", LLAMA)):
+            errs_at = list(held[case["name"]][name].values())
+            sub[key] = {"shape": {k: case[k] for k in ("b", "hq", "hkv", "s", "d")},
+                        "max_abs_err": max(e[0] for e in errs_at),
+                        **_timing_fields(held[case["name"]], name)}
         records.append({
             "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES[name], "launches": launches[name],
-            "launches_tp2_per_rank": rank_launches[name],
-            "launches_pipeline_per_rank": pipe_launches[name],
+            "replaces": REPLACES[name], "launches": launches["main"][name],
+            **{f"launches_{path_name}": counts[name]
+               for path_name, counts in launches.items() if path_name != "main"},
             "held_at": [c["name"] for c in PATH_CASES],
             "max_abs_err": max(e[0] for e in errs),
             "max_row_rel_err": max(e[1] for e in errs),
-            **_timing_fields(main, name),
-            "micro": {"shape": {k: MICRO[k] for k in ("b", "hq", "s", "d")},
-                      "max_abs_err": max(e[0] for e in micro_errs),
-                      **_timing_fields(micro, name)},
+            **_timing_fields(held[MAIN["name"]], name),
+            **sub,
         })
     return records
 
 
-def agreement_phase() -> None:
-    """Flash and dense attention give the same small GPT on the card."""
-    from metis_tpu_torch.execution.train import param_leaves
-    from metis_tpu_torch.models.gpt import GPTConfig, init_params, next_token_loss
+class _RoundGradBf16(torch.autograd.Function):
+    """Identity forward; the gradient through it is rounded to bf16."""
 
-    base = GPTConfig(vocab_size=512, seq_len=256, hidden=256, num_heads=2,
-                     num_blocks=2)
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-    params = init_params(gen, base, device="cuda")
-    tokens = torch.randint(0, base.vocab_size, (2, base.seq_len), generator=gen,
-                           device="cuda")
-    results = {}
-    for attn in ("flash", "dense"):
-        cfg = dataclasses.replace(base, attn=attn)
-        leaves = [p.detach().requires_grad_() for p in param_leaves(params)]
-        loss = next_token_loss(_rebuild(params, leaves), tokens, tokens.roll(-1, 1), cfg)
-        grads = torch.autograd.grad(loss, leaves)
-        results[attn] = (loss.item(), grads)
-    (lf, gf), (ld, gd) = results["flash"], results["dense"]
-    worst = max(norm_err(a, b) for a, b in zip(gf, gd))
-    log(f"  small GPT flash vs dense: loss {lf:.5f} vs {ld:.5f} (tol {LOSS_TOL:g}), "
-        f"worst normwise grad rel err {worst:.3e} (tol {GRAD_TOL:g})")
-    if not (abs(lf - ld) <= LOSS_TOL and worst <= GRAD_TOL):
-        raise SystemExit("flash GPT disagrees with the dense GPT")
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.to(torch.bfloat16).float()
+
+
+def dense_rounded_ds(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``causal_attention`` whose backward rounds dS (the scores' gradient)
+    to bf16 before the dQ and dK products, as the kernels' backward does;
+    the plain dense path keeps it in fp32.  A witness only: it shows how far
+    that one rounding moves each gradient leaf."""
+    seq = q.shape[2]
+    scores = _RoundGradBf16.apply(torch.matmul(q.float(), k.float().transpose(-1, -2)))
+    scores = scores / math.sqrt(q.shape[-1])
+    mask = torch.ones(seq, seq, dtype=torch.bool, device=q.device).tril()
+    weights = torch.softmax(scores.masked_fill(~mask, float("-inf")), dim=-1)
+    return torch.matmul(weights.to(q.dtype), v)
+
+
+def agreement_phase(base, grad_tol: float = GRAD_TOL, seeds=(SEED,),
+                    witness: bool = False) -> dict:
+    """Flash and dense attention give the same small model of ``base``'s
+    family on the card, for each of ``seeds`` (weights and tokens): the
+    loss within ``LOSS_TOL``, every gradient leaf within ``grad_tol``
+    normwise.  With ``witness`` it also reads each leaf of the dense path
+    whose backward rounds dS to bf16 (``dense_rounded_ds``) against the
+    dense path, the share of the flash-vs-dense gap that this one rounding
+    accounts for, and of both flash and dense against the model run in
+    fp32 with dense attention: how far each bf16 path is from the exact
+    gradient."""
+    from metis_tpu_torch.execution.train import param_leaves
+    from metis_tpu_torch.models import family_ops
+
+    family = family_ops(base)
+    what = type(base).__name__
+    out = {}
+    for seed in seeds:
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        params = family.init_params(gen, base, device="cuda")
+        tokens = torch.randint(0, base.vocab_size, (2, base.seq_len), generator=gen,
+                               device="cuda")
+        runs = {"flash": (dataclasses.replace(base, attn="flash"), None),
+                "dense": (dataclasses.replace(base, attn="dense"), None)}
+        if witness:
+            runs["dense_rounded_ds"] = (runs["dense"][0], dense_rounded_ds)
+            runs["dense_fp32"] = (dataclasses.replace(base, attn="dense",
+                                                      dtype=torch.float32), None)
+        results = {}
+        for name, (cfg, attn) in runs.items():
+            leaves = [p.detach().requires_grad_() for p in param_leaves(params)]
+            loss = family.loss(_rebuild(params, leaves), tokens, tokens.roll(-1, 1),
+                               cfg, attn)
+            results[name] = (loss.item(), torch.autograd.grad(loss, leaves))
+        names = [f"{g}.{n}" for g, sub in params.items() for n in sub]
+        (lf, gf), (ld, gd) = results["flash"], results["dense"]
+        errs = {n: norm_err(a, b) for a, b, n in zip(gf, gd, names)}
+        worst = max(errs.values())
+        log(f"  small {what}, seed {seed}, flash vs dense: loss {lf:.5f} vs {ld:.5f} "
+            f"(tol {LOSS_TOL:g}), worst normwise grad rel err {worst:.3e} (tol "
+            f"{grad_tol:g}); per leaf {werrs_fmt(errs)}")
+        out[seed] = {"loss_gap": abs(lf - ld), "worst": worst,
+                     "worst_leaf": max(errs, key=errs.get)}
+        if witness:
+            leaf = out[seed]["worst_leaf"]
+            g32 = results["dense_fp32"][1]
+            for what_vs, got, want in (
+                    ("dense with dS rounded to bf16 vs dense",
+                     results["dense_rounded_ds"][1], gd),
+                    ("flash vs fp32 dense", gf, g32),
+                    ("dense vs fp32 dense", gd, g32)):
+                werrs = {n: norm_err(a, b) for a, b, n in zip(got, want, names)}
+                log(f"    {what_vs}: per leaf {werrs_fmt(werrs)}")
+                out[seed][what_vs] = {"worst": max(werrs.values()),
+                                      f"at {leaf}": werrs[leaf]}
+        if not (abs(lf - ld) <= LOSS_TOL and worst <= grad_tol):
+            raise SystemExit(f"flash {what} disagrees with the dense one (seed {seed})")
+    return out
+
+
+def werrs_fmt(errs: dict) -> dict:
+    return {n: f"{e:.2e}" for n, e in errs.items()}
 
 
 def _rebuild(tree: dict, leaves: list[torch.Tensor]) -> dict:
@@ -503,31 +635,112 @@ def write_cluster_files(work: pathlib.Path, device_type: str,
     return str(hostfile), str(clusterfile)
 
 
-def slice_phase(work: pathlib.Path) -> dict:
+def fresh_batches(cfg, gbs: int, n: int, seed: int) -> list:
+    """``n`` batches of ``(tokens, targets)`` on the card, drawn from ``seed``."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    out = []
+    for _ in range(n):
+        t = torch.randint(0, cfg.vocab_size, (gbs, cfg.seq_len), generator=gen,
+                          device="cuda")
+        out.append((t, t.roll(-1, 1)))
+    return out
+
+
+def train_run(cfg, artifact, batches, seed: int, blocks: int | None = None,
+              routing_tokens=None) -> dict:
+    """Train ``cfg`` from the weights of ``seed``, one step per batch,
+    through ``build_executable`` in this process: the losses; with
+    ``blocks`` each kernel held to ``blocks`` launches per step, and the
+    launches summed; with ``routing_tokens`` (MoE) the first block's routing
+    decisions of them before training and after the first step."""
+    from metis_tpu_torch.execution.builder import build_executable
+    from metis_tpu_torch.execution.mesh import ONE_DEVICE
+    from metis_tpu_torch.ops import flash_attention as fa
+    from metis_tpu_torch.testing import moe_routing
+
+    exe = build_executable(cfg, artifact, device="cuda")
+    state = exe.init(seed)
+    out = {"losses": [], "launches": {name: 0 for name in fa.launch_counts},
+           "routing": []}
+
+    def route():
+        out["routing"].append(moe_routing(state.params, routing_tokens, cfg,
+                                          ONE_DEVICE, torch.device("cuda")))
+
+    if routing_tokens is not None:
+        route()
+    for i, (tok, tgt) in enumerate(batches):
+        fa.reset_launch_counts()
+        state, loss = exe.step(state, tok, tgt)
+        out["losses"].append(loss.item())
+        if blocks is not None:
+            step_counts = dict(fa.launch_counts)
+            log(f"  step {i}: loss {out['losses'][-1]:.5f}  launches {step_counts}")
+            for name, n in step_counts.items():
+                if n != blocks:
+                    raise SystemExit(f"step {i}: {name} launched {n} times, "
+                                     f"expected {blocks}")
+                out["launches"][name] += n
+        if i == 0 and routing_tokens is not None:
+            route()
+    del state, exe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_trajectories(label: str, losses: list, dense_losses: list,
+                       vocab_size: int) -> float:
+    """Hold a flash trajectory to the dense one (``LOSS_TOL`` at step 0,
+    ``TRAJ_TOL`` along it) and its start to ln(vocab) within 1; returns
+    the largest gap."""
+    gaps = [abs(a - b) for a, b in zip(losses, dense_losses)]
+    log(f"  {label} losses flash {[round(x, 5) for x in losses]}")
+    log(f"  {label} losses dense {[round(x, 5) for x in dense_losses]}")
+    log(f"  {label} flash vs dense: step 0 gap {gaps[0]:.3e} (tol {LOSS_TOL:g}), "
+        f"largest gap {max(gaps):.3e} (tol {TRAJ_TOL:g})")
+    if not all(math.isfinite(x) for x in losses + dense_losses):
+        raise SystemExit(f"{label}: non-finite losses {losses} / {dense_losses}")
+    if gaps[0] > LOSS_TOL or max(gaps) > TRAJ_TOL:
+        raise SystemExit(f"{label}: the flash trajectory disagrees with dense attention")
+    if abs(losses[0] - math.log(vocab_size)) > 1.0:
+        raise SystemExit(f"{label}: losses {losses}: expected to start near ln(vocab)")
+    return max(gaps)
+
+
+def routing_differences(got: dict, want: dict) -> dict:
+    """How many of two runs' routing decisions (``moe_routing``) differ:
+    expert choices, buffer positions and drops, of ``decisions``."""
+    out = {k: int((got[k] != want[k]).sum()) for k in want}
+    out["decisions"] = int(want["expert_idx"].size)
+    return out
+
+
+def slice_phase(work: pathlib.Path, spec: dict = None, fresh: bool = False) -> dict:
+    """Profile, train (flash and dense) and validate ``spec``'s model (the
+    GPT preset by default) on the card, at mbs = gbs = 4: 5 steps on one
+    batch, or with ``fresh`` on 5 batches drawn from the seed.  On one
+    repeated batch the first AdamW step moves the LLaMA and MoE models so
+    far that the LLaMA's loss falls to about 1e-3, which leaves the later
+    steps nothing to compare, and the MoE's flash and dense trajectories
+    part by about 0.5 on an H100."""
     from metis_tpu_torch.cluster.spec import ClusterSpec
     from metis_tpu_torch.core.config import ModelSpec, SearchConfig
     from metis_tpu_torch.core.types import UniformPlan
-    from metis_tpu_torch.execution.builder import build_executable
     from metis_tpu_torch.execution.mesh import PlanArtifact
-    from metis_tpu_torch.models import config_for_model_spec
-    from metis_tpu_torch.ops import flash_attention as fa
+    from metis_tpu_torch.models import config_for_model_spec, family_ops
     from metis_tpu_torch.planner.api import plan_uniform
     from metis_tpu_torch.profiles.profiler import profile_model
     from metis_tpu_torch.profiles.store import ProfileStore
     from metis_tpu_torch.validation import validate_uniform_plan
 
-    agreement_phase()
-
-    # the --model-size 1.5B preset (planner/cli.py MODEL_SIZE_PRESETS)
-    model = ModelSpec(name="gpt-1.5B", num_layers=10, hidden_size=4096,
-                      sequence_length=1024, vocab_size=51200, num_heads=32,
-                      attn="flash")
+    model = ModelSpec(**(spec or GPT_15B))
     plan = UniformPlan(dp=1, pp=1, tp=1, mbs=4, gbs=4)
 
     t0 = time.perf_counter()
     store = profile_model(model, tps=(1,), bss=(1, 2, 4), device="cuda")
     # kept for the planner phase
-    profile_dir = work / "profiles"
+    profile_dir = work / f"profiles_{model.name}"
     store.dump_to_dir(profile_dir, {"model_name": model.name, "attn": model.attn})
     store = ProfileStore.from_dir(profile_dir)
     device_type = store.device_types[0]
@@ -546,53 +759,35 @@ def slice_phase(work: pathlib.Path) -> dict:
 
     cfg = config_for_model_spec(model)
     artifact = PlanArtifact.from_uniform_plan(plan)
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
-    tokens = torch.randint(0, cfg.vocab_size, (plan.gbs, cfg.seq_len),
-                           generator=gen, device="cuda")
-    targets = tokens.roll(-1, 1)
-    exe = build_executable(cfg, artifact, device="cuda")
-    state = exe.init(SEED)
-    losses, launches = [], {name: 0 for name in fa.launch_counts}
-    for i in range(5):
-        fa.reset_launch_counts()
-        state, loss = exe.step(state, tokens, targets)
-        losses.append(loss.item())
-        step_counts = dict(fa.launch_counts)
-        log(f"  step {i}: loss {losses[-1]:.5f}  launches {step_counts}")
-        for name, n in step_counts.items():
-            if n != cfg.num_blocks:
-                raise SystemExit(f"step {i}: {name} launched {n} times, "
-                                 f"expected {cfg.num_blocks}")
-            launches[name] += n
-    del state, exe
-    torch.cuda.empty_cache()
-
+    batches = (fresh_batches(cfg, plan.gbs, 5, SEED + 1) if fresh
+               else fresh_batches(cfg, plan.gbs, 1, SEED + 1) * 5)
+    tokens = batches[0][0]
+    # MoE: the first block's routing of the second batch, before and after
+    # the first step, through flash and through dense attention
+    routing_tokens = batches[1][0] if family_ops(cfg).moe else None
+    flash = train_run(cfg, artifact, batches, SEED, cfg.num_blocks, routing_tokens)
+    losses, launches = flash["losses"], flash["launches"]
     # the same weights and tokens trained through dense attention: the
     # reference trajectory (no kernel runs on this side)
-    dense = build_executable(dataclasses.replace(cfg, attn="dense"), artifact,
-                             device="cuda")
-    state = dense.init(SEED)
-    dense_losses = []
-    for _ in range(5):
-        state, loss = dense.step(state, tokens, targets)
-        dense_losses.append(loss.item())
-    del state, dense
-    torch.cuda.empty_cache()
+    dense = train_run(dataclasses.replace(cfg, attn="dense"), artifact, batches,
+                      SEED, routing_tokens=routing_tokens)
+    dense_losses = dense["losses"]
+    routing_differ = None
+    if routing_tokens is not None:
+        routing_differ = {
+            when: routing_differences(f, d) for when, f, d in zip(
+                ("before_training", "after_step_0"), flash["routing"],
+                dense["routing"])}
+        log(f"  first-block routing decisions differing between flash and dense: "
+            f"{routing_differ}")
 
-    gaps = [abs(a - b) for a, b in zip(losses, dense_losses)]
-    log(f"  losses flash {[round(x, 5) for x in losses]}")
-    log(f"  losses dense {[round(x, 5) for x in dense_losses]}")
-    log(f"  flash vs dense: step 0 gap {gaps[0]:.3e} (tol {LOSS_TOL:g}), "
-        f"largest gap {max(gaps):.3e} (tol {TRAJ_TOL:g})")
-    if not all(math.isfinite(x) for x in losses + dense_losses):
-        raise SystemExit(f"non-finite losses {losses} / {dense_losses}")
-    if gaps[0] > LOSS_TOL or max(gaps) > TRAJ_TOL:
-        raise SystemExit("the 1.5B flash trajectory disagrees with dense attention")
-    if abs(losses[0] - math.log(cfg.vocab_size)) > 1.0 or losses[-1] >= losses[0]:
-        raise SystemExit(f"losses {losses}: expected ~ln(vocab) falling on one batch")
+    check_trajectories(model.name, losses, dense_losses, cfg.vocab_size)
+    if losses[-1] >= losses[0]:
+        raise SystemExit(f"losses {losses}: expected falling")
 
     # the prediction is the ported estimator's, on one card of this type
     hostfile, clusterfile = write_cluster_files(work, device_type, 1, 1)
+    t0 = time.perf_counter()
     ranked = plan_uniform(ClusterSpec.from_files(hostfile, clusterfile), store,
                           model, SearchConfig(gbs=plan.gbs, max_profiled_tp=1,
                                               max_profiled_bs=plan.mbs),
@@ -603,13 +798,16 @@ def slice_phase(work: pathlib.Path) -> dict:
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     log(f"  validate: measured {report.measured_ms:.3f} ms/step, predicted "
         f"{report.predicted_ms:.3f} ms, error_pct {report.error_pct:.2f}, "
-        f"peak memory {peak_gb:.2f} GB")
+        f"peak memory {peak_gb:.2f} GB ({time.perf_counter() - t0:.1f} s)")
     return {"launches": launches, "losses": losses, "dense_losses": dense_losses,
+            "flash_dense_routing_differ": routing_differ,
             "measured_ms": report.measured_ms, "predicted_ms": report.predicted_ms,
             "error_pct": report.error_pct, "peak_memory_gb": peak_gb,
+            "profile_ms_bs4": sum(prof.layer_times_ms),
             "device_type": device_type, "profile_dir": str(profile_dir),
             "hostfile": hostfile, "clusterfile": clusterfile,
-            "tokens": tokens.cpu()}
+            "tokens": tokens.cpu(),
+            "batches": [(t.cpu(), g.cpu()) for t, g in batches]}
 
 
 def print_ranking(kind: str, rows: list[dict]) -> None:
@@ -712,9 +910,7 @@ def planner_phase(work: pathlib.Path, sliced: dict) -> dict:
     torch.cuda.empty_cache()
 
     # the best hetero plan, trained through its plan artifact
-    model = ModelSpec(name="gpt-1.5B", num_layers=10, hidden_size=4096,
-                      sequence_length=1024, vocab_size=51200, num_heads=32,
-                      attn="flash")
+    model = ModelSpec(**GPT_15B)
     one_card = ClusterSpec.from_files(sliced["hostfile"], sliced["clusterfile"])
     config = SearchConfig(gbs=gbs, max_profiled_tp=1, max_profiled_bs=4,
                           mem_coef=mem_coef)
@@ -828,9 +1024,7 @@ def dist_phase(work: pathlib.Path, sliced: dict) -> dict:
 
     gc.collect()
     torch.cuda.empty_cache()
-    model = ModelSpec(name="gpt-1.5B", num_layers=10, hidden_size=4096,
-                      sequence_length=1024, vocab_size=51200, num_heads=32,
-                      attn="flash")
+    model = ModelSpec(**GPT_15B)
     cfg = config_for_model_spec(model)
     tokens = sliced["tokens"]
     batch = (tokens, tokens.roll(-1, 1))
@@ -952,6 +1146,31 @@ def pipeline_legs_check(label: str, ranks: list[dict], kind: str,
             "step_ms_shared_card": [r["step_ms"] for r in ranks]}
 
 
+def grad_norm_check(label: str, ranks: list[dict], want: dict, split) -> dict:
+    """Hold each leaf's first-step gradient norm on the ranks (their
+    ``grads``, ``run_plan_rank(first_grads="norms")``) to ``want``, the
+    reference's, within ``GRAD_NORM_TOL`` relative: a leaf that ``split(group,
+    name)`` says the ranks hold in disjoint pieces as the root of the sum of
+    their squared norms, any other leaf on each rank that holds it.  AdamW's
+    update hides a gradient's scale; these norms do not."""
+    gaps = {}
+    for group, sub in want.items():
+        for name, ref in sub.items():
+            held = [r["grads"][group][name] for r in ranks
+                    if name in r["grads"].get(group, {})]
+            if not held:
+                raise SystemExit(f"{label}: no rank holds {group}.{name}")
+            got = [math.sqrt(sum(n * n for n in held))] if split(group, name) else held
+            gaps[f"{group}.{name}"] = max(abs(g / ref - 1) for g in got)
+    worst = max(gaps, key=gaps.get)
+    log(f"  {label}: first-step gradient norms against the reference, largest "
+        f"relative gap {gaps[worst]:.3e} at {worst} (tol {GRAD_NORM_TOL:g}); per leaf "
+        f"{ {k: f'{v:.1e}' for k, v in gaps.items()} }")
+    if gaps[worst] > GRAD_NORM_TOL:
+        raise SystemExit(f"{label}: gradient norm of {worst} off by {gaps[worst]:.3e}")
+    return {"grad_norm_gap": gaps[worst], "grad_norm_gap_leaf": worst}
+
+
 def stage_memory_estimates(sliced: dict, mem_coef: float, partition,
                            microbatches: int, gbs: int) -> dict:
     """The hetero planner's per-stage memory estimate (``LayerBalancer.
@@ -970,9 +1189,7 @@ def stage_memory_estimates(sliced: dict, mem_coef: float, partition,
     cluster = ClusterSpec.from_files(*write_cluster_files(
         work, sliced["device_type"], 1, 2))
     store = ProfileStore.from_dir(sliced["profile_dir"])
-    model = ModelSpec(name="gpt-1.5B", num_layers=10, hidden_size=4096,
-                      sequence_length=1024, vocab_size=51200, num_heads=32,
-                      attn="flash")
+    model = ModelSpec(**GPT_15B)
     plan = InterStagePlan(node_sequence=(sliced["device_type"],),
                           device_groups=(1, 1), batches=microbatches, gbs=gbs)
     types = [sliced["device_type"]]
@@ -1032,6 +1249,34 @@ def executor_step_ms(cfg, batch, steps: int = 5) -> dict:
     return out
 
 
+def one_stage(cfg, batches, microbatches: int, grad_norms: bool = False):
+    """The hetero executor with a single stage, in this process, one step
+    per batch: losses, launches per step, the peak memory, and with
+    ``grad_norms`` the norms of the gradients its first step applies
+    (``testing.capture_first_grads``), else None."""
+    from metis_tpu_torch.execution.hetero import StageSpec, make_hetero_train_step
+    from metis_tpu_torch.execution.pipeline import microbatch_split
+    from metis_tpu_torch.ops import flash_attention as fa
+    from metis_tpu_torch.testing import capture_first_grads
+
+    init_fn, step = make_hetero_train_step(
+        cfg, [StageSpec((0, cfg.num_blocks), True, True, dp=1, tp=1)],
+        device="cuda")
+    state, losses, counts = init_fn(SEED), [], []
+    norms = capture_first_grads(state, "norms") if grad_norms else None
+    for batch in batches:
+        tok, tgt = (microbatch_split(t.cuda(), microbatches) for t in batch)
+        fa.reset_launch_counts()
+        state, loss = step(state, tok, tgt)
+        losses.append(loss.item())
+        counts.append(dict(fa.launch_counts))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del state, init_fn, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses, counts, peak, norms
+
+
 def pipeline_phase(work: pathlib.Path, sliced: dict, planned: dict) -> tuple[dict, dict]:
     """Multi-stage plans on the one card (module doc, phase 7)."""
     from metis_tpu_torch.cluster.spec import ClusterSpec
@@ -1051,37 +1296,17 @@ def pipeline_phase(work: pathlib.Path, sliced: dict, planned: dict) -> tuple[dic
 
     gc.collect()
     torch.cuda.empty_cache()
-    model = ModelSpec(name="gpt-1.5B", num_layers=10, hidden_size=4096,
-                      sequence_length=1024, vocab_size=51200, num_heads=32,
-                      attn="flash")
+    model = ModelSpec(**GPT_15B)
     cfg = config_for_model_spec(model)
     tokens = sliced["tokens"]
     batch = (tokens, tokens.roll(-1, 1))
     gbs, M, L = tokens.shape[0], 4, cfg.num_blocks
     out = {}
 
-    def one_stage(cfg_, microbatches, steps=3):
-        """The hetero executor with a single stage, in this process."""
-        init_fn, step = make_hetero_train_step(
-            cfg_, [StageSpec((0, cfg_.num_blocks), True, True, dp=1, tp=1)],
-            device="cuda")
-        state, losses, counts = init_fn(SEED), [], []
-        tok, tgt = (microbatch_split(t.cuda(), microbatches) for t in batch)
-        for _ in range(steps):
-            fa.reset_launch_counts()
-            state, loss = step(state, tok, tgt)
-            losses.append(loss.item())
-            counts.append(dict(fa.launch_counts))
-        peak = torch.cuda.max_memory_allocated() / 1e9
-        del state, init_fn, step
-        gc.collect()
-        torch.cuda.empty_cache()
-        return losses, counts, peak
-
     # (a) the one-stage reference, then the four schedules on two ranks
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
-    ref, counts, peak = one_stage(cfg, M)
+    ref, counts, peak, _ = one_stage(cfg, [batch] * 3, M)
     gap = max(abs(a - b) for a, b in zip(ref, sliced["losses"]))
     want = flash_launches(0, L, M)
     log(f"  (a) one stage, M {M}: losses {[round(x, 5) for x in ref]} against the "
@@ -1140,7 +1365,7 @@ def pipeline_phase(work: pathlib.Path, sliced: dict, planned: dict) -> tuple[dic
     # 4-row microbatch, stage 1 tp 2; 2 blocks at full width
     t0 = time.perf_counter()
     shallow = dataclasses.replace(cfg, num_blocks=2)
-    ref2, _, _ = one_stage(shallow, 1)
+    ref2, _, _, _ = one_stage(shallow, [batch] * 3, 1)
     stages = (StageSpec((0, 1), True, False, dp=2, tp=1, replica_rows=(3, 1)),
               StageSpec((1, 2), False, True, dp=1, tp=2))
     ranks = mdist.spawn(run_plans_rank, 4, "gloo", ["cuda:0"] * 4, [dict(
@@ -1195,6 +1420,215 @@ def pipeline_phase(work: pathlib.Path, sliced: dict, planned: dict) -> tuple[dic
     return out, pipe_launches
 
 
+def one_card_plans(work: pathlib.Path, sliced: dict, spec: dict,
+                   extra: tuple = ()) -> dict:
+    """The ``uniform`` and ``hetero`` searches of the port's CLI on the
+    slice's one-card profile, the hetero one at the memory coefficient that
+    makes the mbs = 4 plan's demand the measured step peak (as the planner
+    phase fits it); rankings printed."""
+    from metis_tpu_torch import cli
+    from metis_tpu_torch.profiles.store import ProfileStore
+
+    store = ProfileStore.from_dir(sliced["profile_dir"])
+    rows_mb = sum(store.get(sliced["device_type"], 1, 4).layer_memory_mb)
+    mem_coef = math.ceil(sliced["peak_memory_gb"] * 1e9 / 2**20 / rows_mb * 100) / 100
+    args = ["--hostfile", sliced["hostfile"], "--clusterfile", sliced["clusterfile"],
+            "--profile-dir", sliced["profile_dir"], "--model-name", spec["name"],
+            *CLI_MODEL[spec["name"]], "--gbs", "4", "--max-tp", "1", "--max-bs", "4",
+            *extra]
+    out = {"mem_coef": mem_coef}
+    for kind, more in (("uniform", ["--include-oom"]), ("hetero", ["--mem-coef", str(mem_coef)])):
+        path = work / f"{spec['name']}_{kind}.json"
+        t0 = time.perf_counter()
+        if cli.main([kind, *args, *more, "--output", str(path)]) != 0:
+            raise SystemExit(f"{spec['name']}: {kind} search failed")
+        rows = json.loads(path.read_text())
+        log(f"  {kind} {' '.join(extra + tuple(more))}: {len(rows)} plans ranked in "
+            f"{time.perf_counter() - t0:.2f} s (host)")
+        print_ranking(kind, rows[:3])
+        if not rows or not all(math.isfinite(r["cost_ms"]) for r in rows):
+            raise SystemExit(f"{spec['name']}: the {kind} search costed no finite plan")
+        out[f"{kind}_top_ms"] = rows[0]["cost_ms"]
+        out[f"{kind}_plans"] = len(rows)
+    return out
+
+
+def launch_sums(ranks: list[dict]) -> dict:
+    """Each kernel's launches over a spawn's steps, per rank."""
+    return {name: [sum(step[name] for step in r["launches"]) for r in ranks]
+            for name in ranks[0]["launches"][0]}
+
+
+def llama_phase(work: pathlib.Path) -> tuple[dict, dict]:
+    """The LLaMA configuration (``LLAMA_15B``, 32 query heads over 8 KV
+    heads): a small flash-vs-dense check, the slice's profile, train and
+    validate (gated at ``PLAN_ERROR_PCT``), the one-card searches, tp 2 on
+    two gloo ranks at full depth, and a two-stage hetero plan (4 + 4 blocks,
+    2 microbatches) against the one-stage executor."""
+    from metis_tpu_torch.core.types import UniformPlan
+    from metis_tpu_torch.execution import dist as mdist
+    from metis_tpu_torch.execution.hetero import StageSpec
+    from metis_tpu_torch.execution.mesh import PlanArtifact
+    from metis_tpu_torch.models import config_for_model_spec
+    from metis_tpu_torch.core.config import ModelSpec
+    from metis_tpu_torch.models.llama import LlamaConfig
+    from metis_tpu_torch.testing import run_plan_rank, run_plans_rank
+
+    small = agreement_phase(
+        LlamaConfig(vocab_size=512, seq_len=256, hidden=512, num_heads=4,
+                    num_blocks=2, num_kv_heads=2),
+        LLAMA_GRAD_TOL, seeds=(SEED, *OTHER_SEEDS), witness=True)
+    sliced = slice_phase(work, LLAMA_15B, fresh=True)
+    if not abs(sliced["error_pct"]) <= PLAN_ERROR_PCT:
+        raise SystemExit(f"LLaMA: the mbs = gbs = 4 plan's error_pct "
+                         f"{sliced['error_pct']:.2f} exceeds {PLAN_ERROR_PCT}")
+    out = {k: v for k, v in sliced.items() if k not in HIDDEN}
+    out["small_flash_vs_dense"] = small
+    out["plans"] = one_card_plans(work, sliced, LLAMA_15B)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = config_for_model_spec(ModelSpec(**LLAMA_15B))
+    tokens = sliced["tokens"]
+    batch = (tokens, tokens.roll(-1, 1))
+    launches = {"llama": sliced["launches"]}
+
+    t0 = time.perf_counter()
+    art = PlanArtifact.from_uniform_plan(UniformPlan(1, 1, 2, 4, 4)).to_json()
+    ranks = mdist.spawn(run_plan_rank, 2, "gloo", ["cuda:0"] * 2, art, cfg, SEED,
+                        sliced["batches"][:3])
+    out["tp2"] = dist_legs_check(
+        "LLaMA tp 2 on two gloo ranks, full depth", ranks, sliced["losses"][:3],
+        TRAJ_TOL, cfg.num_blocks)
+    out["tp2"]["gap_to_one_device"] = out["tp2"].pop("largest_gap")
+    launches["llama_tp2_per_rank"] = launch_sums(ranks)
+    log(f"  tp 2: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    M = 2
+    # the slice's fresh batches, as the tp 2 leg: on one repeated batch the
+    # first step takes the loss to about 1e-3 and leaves nothing to compare
+    batches = sliced["batches"][:3]
+    ref, counts, _, want_norms = one_stage(cfg, batches, M, grad_norms=True)
+    if any(c != flash_launches(0, cfg.num_blocks, M) for c in counts):
+        raise SystemExit(f"LLaMA one-stage launches {counts}")
+    stages = (StageSpec((0, 4), True, False, dp=1, tp=1),
+              StageSpec((4, 8), False, True, dp=1, tp=1))
+    ranks = [r[0] for r in mdist.spawn(run_plans_rank, 2, "gloo", ["cuda:0"] * 2, [dict(
+        artifact_json=None, stages=stages, microbatches=M, cfg=cfg, init=SEED,
+        batches=batches, first_grads="norms")])]
+    out["hetero_4_4"] = pipeline_legs_check(
+        "LLaMA hetero 4 + 4, M 2, against one stage", ranks,
+        "hetero", ref, PIPE_TOL, [flash_launches(4, 0, M), flash_launches(0, 4, M)])
+    out["hetero_4_4"]["one_stage_losses"] = ref
+    # the stages hold disjoint blocks, embed on the first, head on the last
+    out["hetero_4_4"].update(grad_norm_check(
+        "LLaMA hetero 4 + 4", ranks, want_norms, lambda group, name: group == "blocks"))
+    launches["llama_hetero_per_rank"] = launch_sums(ranks)
+    log(f"  hetero 4 + 4: {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def moe_phase(work: pathlib.Path) -> tuple[dict, dict]:
+    """The MoE configuration (``MOE_15B``: 2 blocks of 8 experts, top 2):
+    the slice's profile, train and validate (error_pct recorded, not gated),
+    the one-card searches with ``--enable-ep``, and ep 2 on two gloo ranks
+    at gbs 8 (each rank one whole 4096-token routing group) against the
+    one-device step, with the count of first-block routing decisions that
+    differ between the two."""
+    import numpy as np
+
+    from metis_tpu_torch.core.config import ModelSpec
+    from metis_tpu_torch.core.types import UniformPlan
+    from metis_tpu_torch.execution import dist as mdist
+    from metis_tpu_torch.execution.builder import build_executable
+    from metis_tpu_torch.execution.mesh import ONE_DEVICE, PlanArtifact, expert_leaves
+    from metis_tpu_torch.execution.train import param_specs_for
+    from metis_tpu_torch.models import config_for_model_spec
+    from metis_tpu_torch.testing import capture_first_grads, moe_routing, run_plans_rank
+
+    sliced = slice_phase(work, MOE_15B, fresh=True)
+    out = {k: v for k, v in sliced.items() if k not in HIDDEN}
+    out["plans"] = one_card_plans(work, sliced, MOE_15B, ("--enable-ep",))
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = config_for_model_spec(ModelSpec(**MOE_15B))
+    launches = {"moe": sliced["launches"]}
+
+    # the flash and dense trajectories from two more seeds (weights and
+    # batches), with the routing decisions that differ after the first step
+    t0 = time.perf_counter()
+    one_card = PlanArtifact.from_uniform_plan(UniformPlan(1, 1, 1, 4, 4))
+    out["other_seeds"] = {}
+    for seed in OTHER_SEEDS:
+        batches = fresh_batches(cfg, 4, 5, seed + 1)
+        runs = [train_run(c, one_card, batches, seed, routing_tokens=batches[1][0])
+                for c in (cfg, dataclasses.replace(cfg, attn="dense"))]
+        gap = check_trajectories(f"seed {seed}", runs[0]["losses"], runs[1]["losses"],
+                                 cfg.vocab_size)
+        differ = routing_differences(runs[0]["routing"][1], runs[1]["routing"][1])
+        log(f"  seed {seed}: first-block routing decisions differing between "
+            f"flash and dense after step 0: {differ}")
+        out["other_seeds"][seed] = {
+            "largest_gap": gap, "losses": runs[0]["losses"],
+            "dense_losses": runs[1]["losses"], "routing_differ_after_step_0": differ}
+    log(f"  other seeds: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    gbs = 8
+    # three batches, as the slice's fresh ones (slice_phase)
+    batches = [(t.cpu(), g.cpu()) for t, g in fresh_batches(cfg, gbs, 3, SEED + 3)]
+    one = build_executable(cfg, PlanArtifact.from_uniform_plan(
+        UniformPlan(1, 1, 1, gbs, gbs)), device="cuda")
+    state = one.init(SEED)
+    want_routing = moe_routing(state.params, batches[0][0], cfg, ONE_DEVICE,
+                               torch.device("cuda"))
+    want_norms = capture_first_grads(state, "norms")
+    torch.cuda.reset_peak_memory_stats()
+    ref = []
+    for tok, tgt in batches:
+        state, loss = one.step(state, tok.cuda(), tgt.cuda())
+        ref.append(loss.item())
+    one_peak = torch.cuda.max_memory_allocated() / 1e9
+    del state, one
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  one device at gbs {gbs}: losses {[round(x, 5) for x in ref]}, peak "
+        f"{one_peak:.2f} GB")
+    art = PlanArtifact(
+        mesh_axes=("pp", "dp", "ep", "sp", "tp"), mesh_shape=(1, 1, 2, 1, 1),
+        layer_partition=(0, cfg.num_profile_layers),
+        strategies=({"dp": 2, "tp": 1, "cp": 1, "ep": 2, "zero": 0, "sp": False},),
+        gbs=gbs, microbatches=1).to_json()
+    ranks = [r[0] for r in mdist.spawn(
+        run_plans_rank, 2, "gloo", ["cuda:0"] * 2, [dict(
+            artifact_json=art, cfg=cfg, init=SEED, batches=batches,
+            routing_tokens=batches[0][0], first_grads="norms")])]
+    out["ep2"] = dist_legs_check(
+        f"MoE ep 2 on two gloo ranks, gbs {gbs}", ranks, ref, PIPE_TOL, cfg.num_blocks)
+    out["ep2"]["gap_to_one_device"] = out["ep2"].pop("largest_gap")
+    out["ep2"]["one_device_losses"] = ref
+    out["ep2"]["one_device_peak_gb"] = one_peak
+    # the ranks hold disjoint halves of the experts, and every dense leaf
+    experts = expert_leaves(param_specs_for(cfg))
+    out["ep2"].update(grad_norm_check(
+        "MoE ep 2", ranks, want_norms, lambda group, name: (group, name) in experts))
+    got = {k: np.concatenate([r["routing"][k] for r in ranks]) for k in want_routing}
+    differ = routing_differences(got, want_routing)
+    log(f"  ep 2 first-block routing decisions differing from one device: {differ}")
+    out["ep2"]["routing_differ"] = differ
+    launches["moe_ep2_per_rank"] = launch_sums(ranks)
+    log(f"  ep 2: {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+HIDDEN = ("launches", "profile_dir", "hostfile", "clusterfile", "tokens", "batches")
+PHASES = ("slice", "planner", "dist", "pipeline", "llama", "moe")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1204,6 +1638,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    from metis_tpu_torch.models.gpt import GPTConfig
     from metis_tpu_torch.ops import flash_attention as fa
 
     t0 = time.perf_counter()
@@ -1214,32 +1649,36 @@ def main() -> int:
         log(f"  ptxas: {line}")
 
     log("kernels:")
-    main_case, micro_case, path_cases = kernel_phase()
+    held, path_cases = kernel_phase()
+    results = {}
+    launches = {}
     with tempfile.TemporaryDirectory() as tmp:
         work = pathlib.Path(tmp)
-        log("slice:")
-        result = slice_phase(work)
-        log("planner:")
-        t0 = time.perf_counter()
-        planned = planner_phase(work, result)
-        log(f"  planner phase {time.perf_counter() - t0:.1f} s")
-        log("dist:")
-        t0 = time.perf_counter()
-        dist_out, rank_launches = dist_phase(work, result)
-        log(f"  dist phase {time.perf_counter() - t0:.1f} s")
-        log("pipeline:")
-        t0 = time.perf_counter()
-        pipe_out, pipe_launches = pipeline_phase(work, result, planned)
-        log(f"  pipeline phase {time.perf_counter() - t0:.1f} s")
+        for phase in PHASES:
+            log(f"{phase}:")
+            t0 = time.perf_counter()
+            if phase == "slice":
+                agreement_phase(GPTConfig(vocab_size=512, seq_len=256, hidden=256,
+                                          num_heads=2, num_blocks=2))
+                results["slice"] = slice_phase(work)
+                launches["main"] = results["slice"]["launches"]
+            elif phase == "planner":
+                results["planner"] = planner_phase(work, results["slice"])
+            elif phase == "dist":
+                results["dist"], launches["tp2_per_rank"] = dist_phase(
+                    work, results["slice"])
+            elif phase == "pipeline":
+                results["pipeline"], launches["pipeline_per_rank"] = pipeline_phase(
+                    work, results["slice"], results["planner"])
+            else:
+                results[phase], more = {"llama": llama_phase, "moe": moe_phase}[phase](work)
+                launches.update(more)
+            log(f"  {phase} phase {time.perf_counter() - t0:.1f} s")
 
-    log(json.dumps({"kernels": kernel_records(
-        main_case, micro_case, path_cases, result["launches"], rank_launches,
-        pipe_launches)}))
-    hidden = ("launches", "profile_dir", "hostfile", "clusterfile", "tokens")
-    log(json.dumps({"slice": {k: v for k, v in result.items() if k not in hidden}}))
-    log(json.dumps({"planner": planned}))
-    log(json.dumps({"dist": dist_out}))
-    log(json.dumps({"pipeline": pipe_out}))
+    log(json.dumps({"kernels": kernel_records(held, path_cases, launches)}))
+    for phase in PHASES:
+        log(json.dumps({phase: {k: v for k, v in results[phase].items()
+                                if k not in HIDDEN}}))
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,17 +7,19 @@ trees; the model and the weight conversion only cut leaves with them.
 """
 from __future__ import annotations
 
-Spec = tuple  # axis name (or None) per dimension; () = replicated
+Spec = tuple  # axis name, tuple of names or None per dimension; () = replicated
 
 
 def slice_leaf(x, spec: Spec, slots: dict[str, tuple[int, int]]):
     """This rank's block of ``x`` (a tensor or numpy array): each dimension
     whose spec names an axis of ``slots`` (``{axis: (index, size)}``) is cut
-    into ``size`` equal blocks, of which block ``index`` is kept."""
+    into ``size`` equal blocks, of which block ``index`` is kept.  A tuple
+    of axes splits the dimension over their product, the first axis
+    major."""
     for dim, axis in enumerate(spec):
-        if axis is None or axis not in slots:
+        index, size = _slot(axis, slots)
+        if size == 1:
             continue
-        index, size = slots[axis]
         if x.shape[dim] % size:
             raise ValueError(
                 f"dimension {dim} of {tuple(x.shape)} does not split over "
@@ -25,3 +27,15 @@ def slice_leaf(x, spec: Spec, slots: dict[str, tuple[int, int]]):
         step = x.shape[dim] // size
         x = x[(slice(None),) * dim + (slice(index * step, (index + 1) * step),)]
     return x
+
+
+def _slot(axis, slots: dict[str, tuple[int, int]]) -> tuple[int, int]:
+    """(index, size) of this rank along ``axis`` (a name, a tuple of names,
+    or None); axes absent from ``slots`` have size 1."""
+    if axis is None:
+        return 0, 1
+    index, size = 0, 1
+    for a in (axis if isinstance(axis, tuple) else (axis,)):
+        i, n = slots.get(a, (0, 1))
+        index, size = index * n + i, size * n
+    return index, size

@@ -17,10 +17,14 @@
   uneven replica rows.
 
 A multi-device plan runs one rank per device, started by
-``execution.dist.spawn``, and is built on every rank.  The strategy axes
-zero, sp, cp and ep raise ``NotImplementedError`` on every route, naming the
-ROADMAP item that brings them (§A.3 expert parallelism with the MoE family,
-§A.4 ZeRO, sequence and context parallelism).
+``execution.dist.spawn``, and is built on every rank.  Expert parallelism
+runs on the gspmd route, for MoE configs (dp x ep x tp, the rows over
+``(dp, ep)``); ep on a dense config raises ``ValueError`` as in the
+reference, and ep on the pipeline and hetero routes raises
+``NotImplementedError`` naming ROADMAP §A.3.  The strategy axes zero, sp and
+cp raise ``NotImplementedError`` on every route (§A.4).  The pipeline route
+runs the GPT family only, as the reference's; the hetero route runs GPT and
+LLaMA.
 
 Every path is normalized to ``(init, step)`` as in the reference:
 ``init(source) -> state`` from a seed, or from the full parameter tree of
@@ -48,23 +52,26 @@ from metis_tpu_torch.execution.hetero import (
 )
 from metis_tpu_torch.execution.mesh import (
     DP,
+    EP,
     PP,
     TP,
     ONE_DEVICE,
     PlanArtifact,
     ProcessMesh,
-    gpt_param_specs,
 )
 from metis_tpu_torch.execution.pipeline import (
+    check_family,
     microbatch_split,
     pipeline_runner,
     traced_steps,
 )
 from metis_tpu_torch.execution.train import (
     make_train_step,
+    param_specs_for,
     params_from,
     train_state_from_params,
 )
+from metis_tpu_torch.models import family_ops
 from metis_tpu_torch.models.gpt import GPTConfig
 
 
@@ -205,12 +212,14 @@ def plan_route(cfg: GPTConfig, artifact: PlanArtifact,
     return "hetero"
 
 
-def _refuse_later_axes(strategies: list[dict]) -> None:
+def _refuse_later_axes(strategies: list[dict], cfg, route: str) -> None:
     for s, st in enumerate(strategies):
-        if st["ep"] != 1:
+        if st["ep"] != 1 and route != "gspmd":
             raise NotImplementedError(
-                f"stage {s}: ep={st['ep']}: expert parallelism comes with the "
-                "MoE family (ROADMAP §A.3)")
+                f"stage {s}: ep={st['ep']} on the {route} route: expert "
+                "parallelism runs on the gspmd route only so far (ROADMAP §A.3)")
+        if st["ep"] != 1 and not family_ops(cfg).moe:
+            raise ValueError(f"stage {s}: ep={st['ep']} needs an MoE config")
         extras = {k: st[k] for k in ("zero", "sp", "cp")
                   if st[k] != {"zero": 0, "sp": False, "cp": 1}[k]}
         if extras:
@@ -241,8 +250,8 @@ def build_executable(cfg: GPTConfig, artifact: PlanArtifact,
     if schedule == "interleaved" and virtual_stages < 1:
         raise ValueError(f"virtual_stages={virtual_stages} must be >= 1")
     strategies, pp = _normalized(artifact)
-    _refuse_later_axes(strategies)
     route = plan_route(cfg, artifact, schedule, virtual_stages)
+    _refuse_later_axes(strategies, cfg, route)
     if route == "gspmd":
         if dist.is_initialized():
             return _gspmd_executable(cfg, artifact, dev, optimizer)
@@ -254,6 +263,7 @@ def build_executable(cfg: GPTConfig, artifact: PlanArtifact,
                 "per device, and build it on every rank")
         return _single_device_executable(cfg, dev, optimizer)
     if route == "pipeline":
+        check_family(cfg)
         counts = (None if _uniform_block_split(artifact, cfg, pp)
                   else _uneven_1f1b_split(artifact, cfg, pp, schedule))
         runner = pipeline_runner(
@@ -288,14 +298,19 @@ def _single_device_executable(cfg, device, optimizer) -> Executable:
 
 def _gspmd_executable(cfg, artifact, device, optimizer) -> Executable:
     mesh = artifact.build_mesh()
-    dp, tp = mesh.size(DP), mesh.size(TP)
-    if artifact.gbs % dp:
-        raise ValueError(f"gbs {artifact.gbs} does not split over dp = {dp}")
-    for what, n in (("heads", cfg.num_heads), ("vocab rows", cfg.vocab_size),
-                    ("ffn units", cfg.ffn_dim)):
-        if n % tp:
-            raise ValueError(f"{n} {what} do not split over tp = {tp}")
-    specs, slots = gpt_param_specs(cfg), mesh.slots()
+    dp, ep, tp = mesh.size(DP), mesh.size(EP), mesh.size(TP)
+    if artifact.gbs % (dp * ep):
+        raise ValueError(f"gbs {artifact.gbs} does not split over dp x ep = "
+                         f"{dp * ep}")
+    splits = [("heads", cfg.num_heads, TP), ("vocab rows", cfg.vocab_size, TP),
+              ("ffn units", cfg.ffn_dim, TP)]
+    if family_ops(cfg).moe:
+        splits.append(("experts", cfg.num_experts, EP))
+    for what, n, axis in splits:
+        if n % mesh.size(axis):
+            raise ValueError(f"{n} {what} do not split over {axis} = "
+                             f"{mesh.size(axis)}")
+    specs, slots = param_specs_for(cfg, tp), mesh.slots()
 
     def cut(group, name, leaf):
         return slice_leaf(leaf, specs[group][name], slots).contiguous()

@@ -20,7 +20,10 @@ simply run its rows, and a group given 0 rows computes nothing.  Gradients
 are the mean over the microbatches (each replica's loss carries 1 / M)
 before one AdamW step per stage.
 
-Stages with ZeRO, context or expert parallelism, and MoE configs, raise
+The GPT and LLaMA families run here (their stage pieces come from
+``models.family_ops``, as in the reference).  MoE configs (the aux loss
+threaded through the stages, ``valid_mask`` for uneven replica rows) and
+stages with ZeRO, context or expert parallelism raise
 ``NotImplementedError``: they come with later slices (ROADMAP §A.3, §A.4).
 """
 from __future__ import annotations
@@ -38,7 +41,7 @@ from metis_tpu_torch.execution.stages import (
     replica_counts,
 )
 from metis_tpu_torch.execution.train import build_optimizer
-from metis_tpu_torch.models import _require_gpt, resolve_attention
+from metis_tpu_torch.models import family_ops, resolve_attention
 from metis_tpu_torch.models.gpt import GPTConfig
 
 
@@ -113,7 +116,7 @@ def stage_specs_from_plan(
         if cp > 1 and cfg.seq_len % cp:
             raise ValueError(
                 f"stage {s}: cp={cp} must divide seq_len={cfg.seq_len}")
-        if ep > 1:
+        if ep > 1 and not family_ops(cfg).moe:
             raise ValueError(f"stage {s}: ep={ep} needs an MoE config")
         lo, hi = bounds[s], bounds[s + 1]
         rows = None
@@ -157,7 +160,11 @@ def hetero_runner(cfg: GPTConfig, stages: Sequence[StageSpec],
     runs outside one).  Boundary sends are waited for two exchanges late
     (``StageRunner``'s overlap); the dp reduction is one all-reduce per
     leaf."""
-    _require_gpt(cfg)
+    if not isinstance(cfg, GPTConfig) or family_ops(cfg).moe:
+        raise NotImplementedError(
+            "the hetero route runs the GPT family and the LLaMA family; MoE "
+            "on it (the aux loss threaded through the stages, valid_mask for "
+            "uneven replica rows) comes with a later slice (ROADMAP §A.3)")
     stages = tuple(stages)
     check_stage_axes(stages)
     dev = resolve_device(device)

@@ -173,8 +173,65 @@ def gpt_param_specs(cfg, tp_axis: str = TP) -> dict:
     }
 
 
-def batch_spec(dp_axis: str = DP, seq_axis: str | None = None) -> Spec:
-    """Spec of [batch, seq] token arrays."""
+def moe_param_specs(cfg, tp_axis: str = TP, ep_axis: str = EP) -> dict:
+    """Spec tree matching ``models.moe.init_moe_params`` (the reference's
+    ``moe_param_specs``): the expert leaves split their leading
+    ``num_experts`` axis over ``ep_axis`` and their ffn axis over tp
+    (``expert_in`` column-, ``expert_out`` row-parallel within an expert);
+    the dense leaves as ``gpt_param_specs``."""
+    t, e = tp_axis, ep_axis
+    specs = gpt_param_specs(cfg, tp_axis=tp_axis)
+    blocks = dict(specs["blocks"])
+    for key in ("mlp_in", "mlp_in_bias", "mlp_out", "mlp_out_bias"):
+        del blocks[key]
+    blocks.update({
+        "router": (None, None, None),
+        "expert_in": (None, e, None, t),
+        "expert_in_bias": (None, e, t),
+        "expert_out": (None, e, t, None),
+        "expert_out_bias": (None, e, None),
+    })
+    return {**specs, "blocks": blocks}
+
+
+def llama_param_specs(cfg, tp_axis: str = TP, tp_size: int = 1) -> dict:
+    """Spec tree matching ``models.llama.init_llama_params`` (the
+    reference's ``llama_param_specs``): wq / w_gate / w_up column-parallel,
+    wo / w_down row-parallel, norms replicated, vocab-parallel embedding and
+    head.  ``wkv`` is column-parallel only when the KV heads split evenly
+    over ``tp_size``; otherwise every rank holds all of it."""
+    from metis_tpu_torch.models.llama import kv_sharded
+
+    t = tp_axis
+    kv_t = t if kv_sharded(cfg, tp_size) else None
+    return {
+        "embed": {"tok": (t, None)},
+        "blocks": {
+            "attn_norm": (None, None),
+            "wq": (None, None, t),
+            "wkv": (None, None, None, kv_t),
+            "wo": (None, t, None),
+            "ffn_norm": (None, None),
+            "w_gate": (None, None, t),
+            "w_up": (None, None, t),
+            "w_down": (None, t, None),
+        },
+        "head": {
+            "norm": (),
+            "out": (None, t),
+        },
+    }
+
+
+def expert_leaves(specs: dict, ep_axis: str = EP) -> set[tuple[str, str]]:
+    """``(group, name)`` of the leaves a spec tree splits over ``ep_axis``."""
+    return {(group, name) for group, sub in specs.items()
+            for name, spec in sub.items() if ep_axis in spec}
+
+
+def batch_spec(dp_axis: str | tuple = DP, seq_axis: str | None = None) -> Spec:
+    """Spec of [batch, seq] token arrays (``(DP, EP)``: rows split over
+    the dp x ep ranks, dp major, as the reference's ``P((DP, EP))``)."""
     return (dp_axis, seq_axis)
 
 

@@ -20,6 +20,7 @@ their gradients point to point, at the ticks of the reference's schedules:
   groups of pp, a forward fill over every chunk unit then a reversed
   drain, remat per unit.
 
+The route runs the GPT family only (``check_family``), as the reference's.
 Loss and gradients equal the one-device model's: the loss is the mean over
 microbatches of the microbatch mean, and so are the gradients (each
 microbatch's loss carries the factor 1 / M).  ``overlap`` (default on) waits for a boundary
@@ -50,7 +51,7 @@ from metis_tpu_torch.execution.stages import (
     one_f_one_b_ticks,
     replica_counts,
 )
-from metis_tpu_torch.models import _require_gpt, resolve_attention
+from metis_tpu_torch.models import family_ops, resolve_attention
 from metis_tpu_torch.models.gpt import GPTConfig
 
 
@@ -164,13 +165,23 @@ def _units(cfg, pp: int, s: int, schedule: str, vs: int, counts):
     return [unit], list(range(off, off + per[s]))
 
 
+def check_family(cfg) -> None:
+    """The pipeline route runs the GPT family only, as the reference's
+    (its shard_map pipeline runs GPT blocks)."""
+    if family_ops(cfg).name != "gpt":
+        raise NotImplementedError(
+            f"{type(cfg).__name__} on the pipeline route: the reference's "
+            "pipeline runs GPT blocks only (ROADMAP §A.3); LLaMA runs on the "
+            "hetero and gspmd routes, MoE on the gspmd route")
+
+
 def pipeline_runner(cfg: GPTConfig, mesh: ProcessMesh, num_microbatches: int,
                     device="cuda", optimizer=None, schedule: str = "gpipe",
                     virtual_stages: int = 2, block_counts=None,
                     overlap: bool = True, attn_impl=None) -> StageRunner:
     """This rank's part of the pipeline executor on ``mesh`` (a (pp, dp,
     tp) grid, ``PlanArtifact.build_mesh``)."""
-    _require_gpt(cfg)
+    check_family(cfg)
     pp, dp, tp = mesh.size(PP), mesh.size(DP), mesh.size(TP)
     counts = _check_pipeline(cfg, pp, num_microbatches, schedule,
                              virtual_stages, block_counts)

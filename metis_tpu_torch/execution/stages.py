@@ -40,7 +40,7 @@ runs only its own stage (MPMD):
 - **Gradients.** Once per step each unit gets views of the stage's
   leaves that are leaves of their own, whose ``.grad`` is their slice of
   one fp32 accumulator per leaf, and the matrices the model uses in
-  ``cfg.dtype`` (``gpt.COMPUTE_DTYPE_LEAVES``) are cast from them once,
+  ``cfg.dtype`` (``models.family_ops(cfg).cast_leaves``) are cast from them once,
   with the cast in the graph: every microbatch's backward adds through it
   into the accumulator in place, in the order the backwards run.  The
   loss of a replica also carries the factor 1 / M, so the accumulators
@@ -76,22 +76,16 @@ from metis_tpu_torch.execution.mesh import (
     DP,
     TP,
     ProcessMesh,
-    gpt_param_specs,
     stage_offsets,
 )
 from metis_tpu_torch.execution.train import (
     TrainState,
     chunked_all_reduce,
+    param_specs_for,
     params_from,
     train_state_from_params,
 )
-from metis_tpu_torch.models.gpt import (
-    COMPUTE_DTYPE_LEAVES,
-    block_forward,
-    embed,
-    head_logits,
-    unstack_blocks,
-)
+from metis_tpu_torch.models import family_ops
 from metis_tpu_torch.models.parallel import vocab_parallel_cross_entropy
 
 FWD_TAG, BWD_TAG = 1, 2
@@ -191,13 +185,17 @@ def make_stage_fn(cfg, attn, tp_group) -> Callable:
     weight)`` takes tokens on the model's first unit and a boundary
     activation elsewhere, and returns the boundary activation, or on the
     last unit the loss (mean cross-entropy of its rows times ``weight``).
-    ``params["blocks"]`` holds the unit's blocks only."""
+    ``params["blocks"]`` holds the unit's blocks only.  The pieces are the
+    family's (``models.family_ops``)."""
+    family = family_ops(cfg)
+    embed, run_blocks, head_logits = (family.embed, family.run_blocks,
+                                      family.head_logits)
+
     def run(params, unit: Unit, first_in, targets=None, weight=1.0):
         x = (embed(params, first_in, cfg, tp_group) if unit.has_embed
              else first_in)
         if unit.hi > unit.lo:
-            for layer in unstack_blocks(params["blocks"]):
-                x = block_forward(x, layer, cfg, attn, tp_group)
+            x = run_blocks(params, x, cfg, attn, tp_group)
         if not unit.has_head:
             return x
         logits = head_logits(params, x, cfg, tp_group)
@@ -288,7 +286,8 @@ class StageRunner:
         self.chunked_dp = chunked_dp
         self.dp_group, self.tp_group = mesh.group(DP), mesh.group(TP)
         self.fn = make_stage_fn(cfg, attn, self.tp_group)
-        self.specs = gpt_param_specs(cfg)
+        self.specs = param_specs_for(cfg, mesh.size(TP))
+        self.cast_once = family_ops(cfg).cast_leaves
         self.slots = {DP: (mesh.index(DP), mesh.size(DP)),
                       TP: (mesh.index(TP), mesh.size(TP))}
         self._routes: dict = {}
@@ -332,13 +331,13 @@ class StageRunner:
         """The unit's leaves for one step: views of the stage's that are
         leaves of their own, each with its slice of the step's fp32
         accumulator as ``.grad`` (autograd adds every backward's gradient
-        into it in place), and the ``COMPUTE_DTYPE_LEAVES`` among them cast
+        into it in place), and the family's ``cast_leaves`` cast
         to ``cfg.dtype`` once, the cast in the graph of every microbatch."""
         def take(group, name, t):
             v = t.detach().requires_grad_()
             g = acc[group][name]
             v.grad = g[unit.lo:unit.hi] if group == "blocks" else g
-            if name in COMPUTE_DTYPE_LEAVES.get(group, ()):
+            if name in self.cast_once.get(group, ()):
                 return v.to(self.cfg.dtype)
             return v
 

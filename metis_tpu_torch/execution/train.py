@@ -1,6 +1,7 @@
 """Training step — the port of ``metis_tpu/execution/train.py`` for the
-GPT family without a sequence axis: one device, or one rank of a dp x tp
-process mesh (``execution/mesh.py``).
+GPT, LLaMA and MoE families without a sequence axis: one device, or one
+rank of a dp x tp process mesh, or for MoE of a dp x ep x tp one
+(``execution/mesh.py``).
 
 PyTorch runs eagerly, so the reference's jitted step becomes a plain
 function: forward, ``backward()``, ``optimizer.step()``.  The optimizer is
@@ -8,12 +9,19 @@ function: forward, ``backward()``, ``optimizer.step()``.  The optimizer is
 betas (0.9, 0.999), eps 1e-8, and decay on every leaf, biases and norms
 included (one parameter group, no exclusions).
 
-On a mesh each rank holds its Megatron shards (``gpt_param_specs``), runs its
+On a mesh each rank holds its Megatron shards (``param_specs_for``), runs its
 dp index's rows of the batch, and averages its gradients over the dp group
 before the update — what GSPMD derives from the shardings in the reference.
+With expert parallelism the rows split over dp x ep (the reference's
+``dp_axis = (DP, EP)``): the dense leaves' gradients are averaged over the
+dp x ep ranks; an expert leaf's gradient already holds its ep peers' tokens
+(they reached this rank's experts through the all-to-all, and their
+gradients came back through its backward), so it is summed over dp only
+and scaled by 1 / (dp * ep).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 import time
 from collections import deque
@@ -30,14 +38,16 @@ from metis_tpu_torch.core.events import NULL_LOG
 from metis_tpu_torch.core.sharding import slice_leaf
 from metis_tpu_torch.execution.mesh import (
     DP,
+    EP,
     ONE_DEVICE,
     TP,
     ProcessMesh,
     batch_spec,
-    gpt_param_specs,
+    expert_leaves,
 )
-from metis_tpu_torch.models import _require_gpt
-from metis_tpu_torch.models.gpt import GPTConfig, init_params, next_token_loss
+from metis_tpu_torch.models import family_ops
+from metis_tpu_torch.models.gpt import GPTConfig
+from metis_tpu_torch.models.moe import MoEConfig, _route_group_len
 
 
 @dataclass
@@ -50,21 +60,28 @@ class TrainState:
     step: int = 0
 
 
+def param_specs_for(cfg: GPTConfig, tp_size: int = 1) -> dict:
+    """The spec tree of a config's family (the reference's
+    ``param_specs_for``): MoE's expert sharding, LLaMA's layout with its KV
+    rule at ``tp_size``, else GPT's."""
+    return family_ops(cfg).specs(cfg, tp_size)
+
+
 def init_params_for(gen: torch.Generator, cfg: GPTConfig,
                     device: str | torch.device = "cuda",
                     mesh: ProcessMesh | None = None) -> dict:
     """The seeded parameter tree, or with ``mesh`` this rank's slices of
     it: each leaf is drawn at full size in the unsharded order and cut at
     once, so every rank holds exactly its block of the one-device tree."""
-    _require_gpt(cfg)
     shard = None
     if mesh is not None:
-        specs, slots = gpt_param_specs(cfg), mesh.slots()
+        specs, slots = param_specs_for(cfg, mesh.size(TP)), mesh.slots()
 
         def shard(group, name, leaf):
             return slice_leaf(leaf, specs[group][name], slots).contiguous()
 
-    return init_params(gen, cfg, device=resolve_device(device), shard=shard)
+    return family_ops(cfg).init_params(gen, cfg, device=resolve_device(device),
+                                       shard=shard)
 
 
 def params_from(source, cfg: GPTConfig, device: torch.device,
@@ -74,10 +91,9 @@ def params_from(source, cfg: GPTConfig, device: torch.device,
     it is drawn) or the full tree, numpy arrays or tensors, each leaf cut.
     ``cut`` returns the rank's piece of a leaf, or None for a leaf it does
     not hold."""
-    _require_gpt(cfg)
     if isinstance(source, int):
         gen = torch.Generator(device=device).manual_seed(source)
-        return init_params(gen, cfg, device=device, shard=cut)
+        return family_ops(cfg).init_params(gen, cfg, device=device, shard=cut)
     out: dict = {}
     for group, sub in source.items():
         for name, leaf in sub.items():
@@ -92,8 +108,24 @@ def params_from(source, cfg: GPTConfig, device: torch.device,
 
 
 def loss_fn_for(cfg: GPTConfig) -> Callable:
-    _require_gpt(cfg)
-    return next_token_loss
+    return family_ops(cfg).loss
+
+
+def aligned_routing(cfg: MoEConfig, tokens: int, ranks: int) -> MoEConfig:
+    """The config under which each of ``ranks`` ranks, holding an equal
+    share of a batch of ``tokens`` tokens, routes in the reference's groups:
+    the groups of the whole batch (``_route_group_len`` of its tokens), when
+    each rank's tokens hold whole groups.  Otherwise rank-local routing
+    would change the groups, and with them the capacity and the drops: that
+    raises."""
+    g = _route_group_len(tokens, cfg.route_group_size)
+    local = tokens // ranks
+    if tokens % ranks or local % g:
+        raise NotImplementedError(
+            f"MoE routing groups of {g} tokens over a batch of {tokens} do "
+            f"not align with {ranks} ranks' {local} tokens each; routing "
+            "groups that straddle ranks are not supported")
+    return dataclasses.replace(cfg, route_group_size=g)
 
 
 def param_leaves(params: dict) -> list[torch.Tensor]:
@@ -230,13 +262,6 @@ def chunked_all_reduce(tensors: list[torch.Tensor], group) -> None:
         w.wait()
 
 
-def _mean_over(tensors: list[torch.Tensor], group, size: int) -> None:
-    """In place: each tensor becomes its mean over ``group``."""
-    for t in tensors:
-        dist.all_reduce(t, group=group)
-        t.div_(size)
-
-
 def make_train_step(cfg: GPTConfig, attn_impl=None,
                     mesh: ProcessMesh | None = None) -> Callable:
     """``(state, tokens, targets) -> (state, loss)``.
@@ -248,24 +273,48 @@ def make_train_step(cfg: GPTConfig, attn_impl=None,
     which waits for the step).
 
     With ``mesh`` the step takes the full ``[gbs, seq]`` batch on every rank
-    and runs its dp index's contiguous ``gbs / dp`` rows (the reference's
-    ``P(dp, None)``); the gradients and the returned loss are means over the
-    dp group, so the loss is the global batch mean."""
+    and runs its contiguous ``gbs / (dp * ep)`` rows (the reference's
+    ``P(dp, None)``, or ``P((dp, ep), None)`` under expert parallelism);
+    the gradients are reduced as the module doc says, and the returned loss
+    is the global batch mean."""
     loss_fn = loss_fn_for(cfg)
     mesh = mesh if mesh is not None else ONE_DEVICE
-    dp, dp_group, tp_group = mesh.size(DP), mesh.group(DP), mesh.group(TP)
+    dp, ep = mesh.size(DP), mesh.size(EP)
+    dp_group, ep_group, tp_group = mesh.group(DP), mesh.group(EP), mesh.group(TP)
+    moe = family_ops(cfg).moe
+    if ep > 1 and not moe:
+        raise ValueError(f"ep={ep} needs an MoE config")
+    rows = batch_spec((DP, EP) if ep > 1 else DP)
+    experts = expert_leaves(param_specs_for(cfg)) if ep > 1 else set()
+    extra = {"ep_group": ep_group} if moe else {}
     slots = mesh.slots()
 
     def step(state: TrainState, tokens: torch.Tensor, targets: torch.Tensor):
-        tokens = slice_leaf(tokens, batch_spec(), slots)
-        targets = slice_leaf(targets, batch_spec(), slots)
-        loss = loss_fn(state.params, tokens, targets, cfg, attn_impl, tp_group)
+        step_cfg = (aligned_routing(cfg, tokens.numel(), dp * ep)
+                    if moe and dp * ep > 1 else cfg)
+        tokens = slice_leaf(tokens, rows, slots)
+        targets = slice_leaf(targets, rows, slots)
+        loss = loss_fn(state.params, tokens, targets, step_cfg, attn_impl,
+                       tp_group, **extra)
         loss.backward()
-        if dp_group is not None:
-            _mean_over([p.grad for p in param_leaves(state.params)],
-                       dp_group, dp)
+        if dp * ep > 1:
             loss = loss.detach().clone()
-            _mean_over([loss], dp_group, dp)
+            dense = [loss]
+            for group, sub in state.params.items():
+                for name, leaf in sub.items():
+                    if (group, name) in experts:
+                        # the ep peers' part came through the all-to-all
+                        if dp_group is not None:
+                            dist.all_reduce(leaf.grad, group=dp_group)
+                        leaf.grad.div_(dp * ep)
+                    else:
+                        dense.append(leaf.grad)
+            for group in (dp_group, ep_group):
+                if group is not None:
+                    for t in dense:
+                        dist.all_reduce(t, group=group)
+            for t in dense:
+                t.div_(dp * ep)
         state.optimizer.step()
         # free the gradients now rather than at the next step's backward
         state.optimizer.zero_grad(set_to_none=True)

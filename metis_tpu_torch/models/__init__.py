@@ -1,5 +1,11 @@
-"""Model families of the port.  This slice ports the GPT family; LLaMA and
-MoE come with a later slice and raise ``NotImplementedError`` here."""
+"""Model families of the port: GPT (``gpt``), LLaMA (``llama``) and the MoE
+GPT (``moe``), with the dispatch the executors and the profiler share, as
+in ``metis_tpu/models/__init__.py``."""
+import dataclasses
+import functools
+from collections.abc import Callable
+from dataclasses import dataclass
+
 from metis_tpu_torch.models.gpt import (
     GPTConfig,
     causal_attention,
@@ -8,51 +14,121 @@ from metis_tpu_torch.models.gpt import (
     next_token_loss,
     param_count,
 )
+from metis_tpu_torch.models.llama import (
+    LlamaConfig,
+    init_llama_params,
+    llama_forward,
+    llama_next_token_loss,
+)
+from metis_tpu_torch.models.moe import (
+    MoEConfig,
+    init_moe_params,
+    moe_forward,
+    moe_next_token_loss,
+)
 
 
-def _require_gpt(cfg) -> None:
-    if not isinstance(cfg, GPTConfig):
-        raise NotImplementedError(
-            f"{type(cfg).__name__}: only the GPT family is ported so far "
-            "(LLaMA and MoE come with a later slice)")
+@dataclass(frozen=True)
+class Family:
+    """One model family's pieces — the single dispatch point the executors,
+    the stage runtime, the profiler and the test harness read.  Signatures
+    agree across families, except that MoE's ``block``, ``run_blocks`` and
+    ``forward`` also return the aux loss, and its ``forward`` and ``loss``
+    take an ``ep_group``."""
+
+    name: str
+    embed: Callable
+    block: Callable
+    run_blocks: Callable
+    head_logits: Callable
+    forward: Callable
+    loss: Callable
+    init_params: Callable
+    attention: Callable  # cfg -> the AttnFn its ``attn`` field selects
+    specs: Callable  # (cfg, tp_size) -> the spec tree of its leaves
+    # the leaves its forward uses only as ``leaf.to(cfg.dtype)``, which a
+    # caller running several microbatches may cast once
+    cast_leaves: dict
+
+    @property
+    def moe(self) -> bool:
+        return self.name == "moe"
 
 
-def family_ops(cfg):
-    """``(embed, run_blocks, head_logits, init_params)`` of a config's model
-    family, with identical signatures across families."""
-    from metis_tpu_torch.models import gpt
+@functools.cache
+def _families() -> dict[str, Family]:
+    from metis_tpu_torch.execution import mesh
+    from metis_tpu_torch.models import gpt, llama, moe
 
-    _require_gpt(cfg)
-    return (gpt.embed, gpt.run_blocks, gpt.head_logits, gpt.init_params)
+    gpt_family = Family(
+        "gpt", gpt.embed, gpt.block_forward, gpt.run_blocks, gpt.head_logits,
+        gpt.forward, gpt.next_token_loss, gpt.init_params,
+        gpt.default_attention, lambda cfg, tp: mesh.gpt_param_specs(cfg),
+        gpt.COMPUTE_DTYPE_LEAVES)
+    return {
+        "gpt": gpt_family,
+        "llama": Family(
+            "llama", llama.llama_embed, llama.llama_block_forward,
+            llama.llama_run_blocks, llama.llama_head_logits,
+            llama.llama_forward, llama.llama_next_token_loss,
+            llama.init_llama_params, llama.default_llama_attention,
+            lambda cfg, tp: mesh.llama_param_specs(cfg, tp_size=tp),
+            llama.COMPUTE_DTYPE_LEAVES),
+        "moe": dataclasses.replace(
+            gpt_family, name="moe", block=moe.moe_block_forward,
+            run_blocks=moe.moe_run_blocks, forward=moe.moe_forward,
+            loss=moe.moe_next_token_loss, init_params=moe.init_moe_params,
+            specs=lambda cfg, tp: mesh.moe_param_specs(cfg)),
+    }
+
+
+def family_ops(cfg) -> Family:
+    """The ``Family`` of a port config (``GPTConfig`` or a subclass)."""
+    if isinstance(cfg, MoEConfig):
+        return _families()["moe"]
+    if isinstance(cfg, LlamaConfig):
+        return _families()["llama"]
+    if isinstance(cfg, GPTConfig):
+        return _families()["gpt"]
+    raise TypeError(f"{type(cfg).__name__} is not a config of the port")
 
 
 def resolve_attention(cfg):
     """The ``AttnFn`` a config's ``attn`` field selects — the one resolution
     point the profiler and the executors share, so a profile describes the
     attention that runs."""
-    from metis_tpu_torch.models import gpt
-
-    _require_gpt(cfg)
-    return gpt.default_attention(cfg)
+    return family_ops(cfg).attention(cfg)
 
 
 def config_for_model_spec(spec, **overrides):
-    """The executable config of a planner ``ModelSpec``'s model family."""
-    if spec.num_experts > 0 or spec.family != "gpt":
-        raise NotImplementedError(
-            f"model family {spec.family!r} with {spec.num_experts} experts: "
-            "only the dense GPT family is ported so far (LLaMA and MoE come "
-            "with a later slice)")
+    """The executable config of a planner ``ModelSpec``'s model family:
+    MoEConfig when the spec declares experts, LlamaConfig for
+    ``family == "llama"``, GPTConfig otherwise."""
+    if spec.num_experts > 0:
+        if spec.family == "llama":
+            raise NotImplementedError("MoE is currently GPT-family only")
+        return MoEConfig.from_model_spec(spec, **overrides)
+    if spec.family == "llama":
+        return LlamaConfig.from_model_spec(spec, **overrides)
     return GPTConfig.from_model_spec(spec, **overrides)
 
 
 __all__ = [
     "GPTConfig",
+    "LlamaConfig",
+    "MoEConfig",
+    "Family",
     "causal_attention",
     "config_for_model_spec",
     "family_ops",
     "forward",
+    "init_llama_params",
+    "init_moe_params",
     "init_params",
+    "llama_forward",
+    "llama_next_token_loss",
+    "moe_forward",
+    "moe_next_token_loss",
     "next_token_loss",
     "param_count",
     "resolve_attention",

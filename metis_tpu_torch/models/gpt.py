@@ -174,15 +174,10 @@ def default_attention(cfg: GPTConfig) -> AttnFn:
     return causal_attention
 
 
-def block_forward(x: torch.Tensor, layer: dict, cfg: GPTConfig,
-                  attn_impl: AttnFn, tp_group=None) -> torch.Tensor:
-    """One transformer block on [batch, seq, hidden] activations.
-
-    With ``tp_group`` the layer holds this rank's Megatron shards (qkv and
-    mlp_in column-parallel, proj and mlp_out row-parallel): the rank runs
-    ``num_heads / tp`` whole heads and ``ffn / tp`` hidden units, and the
-    row-parallel partial sums cross ranks as fp32 accumulators before the
-    bias is added (the reference's products accumulate in fp32)."""
+def attention_residual(x: torch.Tensor, layer: dict, cfg: GPTConfig,
+                       attn_impl: AttnFn, tp_group=None) -> torch.Tensor:
+    """The attention half of a block: ``x`` plus the attention of its layer
+    norm (the GPT and MoE blocks share it)."""
     dt, hd = cfg.dtype, cfg.head_dim
     nh = cfg.num_heads // _tp_size(tp_group)
 
@@ -199,8 +194,20 @@ def block_forward(x: torch.Tensor, layer: dict, cfg: GPTConfig,
     b, _, s, _ = ctx.shape
     ctx = ctx.transpose(1, 2).reshape(b, s, nh * hd)
     attn_out = row_parallel(ctx, layer["proj"].to(dt), tp_group)
-    x = x + (attn_out + layer["proj_bias"]).to(dt)
+    return x + (attn_out + layer["proj_bias"]).to(dt)
 
+
+def block_forward(x: torch.Tensor, layer: dict, cfg: GPTConfig,
+                  attn_impl: AttnFn, tp_group=None) -> torch.Tensor:
+    """One transformer block on [batch, seq, hidden] activations.
+
+    With ``tp_group`` the layer holds this rank's Megatron shards (qkv and
+    mlp_in column-parallel, proj and mlp_out row-parallel): the rank runs
+    ``num_heads / tp`` whole heads and ``ffn / tp`` hidden units, and the
+    row-parallel partial sums cross ranks as fp32 accumulators before the
+    bias is added (the reference's products accumulate in fp32)."""
+    dt = cfg.dtype
+    x = attention_residual(x, layer, cfg, attn_impl, tp_group)
     y = _layer_norm(x, layer["ln2_scale"], layer["ln2_bias"])
     z = column_parallel(y, layer["mlp_in"].to(dt), tp_group)
     z = F.gelu(z.float() + layer["mlp_in_bias"], approximate="tanh").to(dt)

@@ -1,4 +1,4 @@
-"""The collectives of Megatron tensor parallelism — what GSPMD inserts
+"""The collectives of Megatron tensor and expert parallelism — what GSPMD inserts
 implicitly in the reference (``metis_tpu/execution/train.py`` lets XLA place
 them from the parameter shardings of ``execution/mesh.py``).
 
@@ -24,6 +24,12 @@ model runs exactly as before.
   split over the vocabulary, with all-reduces of the row max, the sum of
   exponentials and the target logit — the ``[b, s, v]`` logits are never
   gathered.
+- ``column_parallel_f32``: ``column_parallel`` with the fp32 accumulator
+  as the result (LLaMA's SwiGLU gate and up, its head), also without a group;
+- ``copy_to_tp``: the operator f alone (the experts' replicated inputs, a
+  replicated K/V projection whose heads the ranks share out);
+- ``all_to_all``: the even all-to-all over an expert-parallel group, whose
+  backward is the inverse all-to-all (the MoE expert slots).
 
 On CUDA the fp32 partial products are ``torch.mm(..., out_dtype=float32)``
 (bf16 operands, fp32 accumulator and output); on the CPU the operands are
@@ -168,3 +174,83 @@ def vocab_parallel_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
     picked = shifted.gather(-1, local.clamp(0, rows - 1)[:, None])[:, 0]
     target_logit = reduce_from_tp(picked.masked_fill(outside, 0.0), group)
     return (sum_exp.log() - target_logit).mean()
+
+
+class _ColumnParallelF32(torch.autograd.Function):
+    """y [..., h] times w [h, n] -> fp32 [..., n]."""
+
+    @staticmethod
+    def forward(ctx, y, w, group):
+        ctx.save_for_backward(y, w)
+        ctx.group = group
+        return _mm_f32(y.reshape(-1, y.shape[-1]), w).view(*y.shape[:-1], w.shape[-1])
+
+    @staticmethod
+    def backward(ctx, grad):
+        y, w = ctx.saved_tensors
+        g = grad.reshape(-1, grad.shape[-1]).to(y.dtype)
+        grad_y = _mm_f32(g, w.t())
+        if ctx.group is not None:
+            dist.all_reduce(grad_y, group=ctx.group)
+        grad_w = torch.matmul(y.reshape(-1, y.shape[-1]).t(), g)
+        return grad_y.to(y.dtype).view(y.shape), grad_w, None
+
+
+def column_parallel_f32(y: torch.Tensor, w: torch.Tensor, group) -> torch.Tensor:
+    """``y @ w`` for this rank's columns ``w`` ([h, n]) of a column-parallel
+    weight, returned as the fp32 accumulator (the reference's
+    ``preferred_element_type=float32`` product kept in fp32, where
+    ``column_parallel`` rounds it to ``y``'s dtype).  Also without a group."""
+    return _ColumnParallelF32.apply(y, w, group)
+
+
+class _CopyToTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        out = grad.float().contiguous()
+        dist.all_reduce(out, group=ctx.group)
+        return out.to(grad.dtype), None
+
+
+def copy_to_tp(x: torch.Tensor, group) -> torch.Tensor:
+    """Megatron's operator f alone: identity forward, all-reduce (sum, in
+    fp32) of the gradient backward.  For a replicated input of which each
+    rank uses its own part (the experts' tokens under tp, a replicated K/V
+    projection whose heads the ranks share out), the rank's gradient is a
+    partial sum."""
+    return x if group is None else _CopyToTP.apply(x, group)
+
+
+def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """The even all-to-all over dim 0: chunk j of ``x`` goes to rank j of
+    ``group``, and chunk j of the result came from rank j.  Gloo takes host
+    tensors only, so CUDA tensors cross through the host there."""
+    staged = x.is_cuda and dist.get_backend(group) == dist.Backend.GLOO
+    src = (x.detach().cpu() if staged else x).contiguous()
+    out = torch.empty_like(src)
+    dist.all_to_all_single(out, src, group=group)
+    return out.to(x.device) if staged else out
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_to_all(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        # the even all-to-all sends every chunk back where it came from
+        return _all_to_all(grad, ctx.group), None
+
+
+def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """Differentiable even all-to-all over dim 0 (``x.shape[0]`` = the
+    group's size); the backward is the inverse all-to-all.  Identity
+    without a group."""
+    return x if group is None else _AllToAll.apply(x, group)

@@ -52,7 +52,6 @@ from metis_tpu_torch.core.timing import two_point_queue_ms
 from metis_tpu_torch.execution.mesh import (
     TP,
     ProcessMesh,
-    gpt_param_specs,
     mesh_dp_tp,
 )
 from metis_tpu_torch.execution.train import (
@@ -60,15 +59,14 @@ from metis_tpu_torch.execution.train import (
     init_params_for,
     loss_fn_for,
     param_leaves,
+    param_specs_for,
 )
-from metis_tpu_torch.models import config_for_model_spec, resolve_attention
-from metis_tpu_torch.models.gpt import (
-    GPTConfig,
-    block_forward,
-    embed,
-    head_logits,
-    run_blocks,
+from metis_tpu_torch.models import (
+    config_for_model_spec,
+    family_ops,
+    resolve_attention,
 )
+from metis_tpu_torch.models.gpt import GPTConfig, unstack_blocks
 from metis_tpu_torch.models.parallel import vocab_parallel_cross_entropy
 from metis_tpu_torch.profiles.store import (
     DeviceTypeMeta,
@@ -152,8 +150,9 @@ def _leaf_copies(blocks: dict, k: int, stacked: bool = True) -> dict:
 
 
 class LayerProfiler:
-    """Profiles one GPT model shape across (tp, bs): tp 1 on ``device``,
-    larger tps on ranks over ``devices``."""
+    """Profiles one model shape (GPT, LLaMA or MoE, ``config_for_model_spec``)
+    across (tp, bs): tp 1 on ``device``, larger tps on ranks over
+    ``devices``."""
 
     def __init__(
         self,
@@ -196,22 +195,40 @@ class LayerProfiler:
     # -- per-layer closures -------------------------------------------------
     def _make_layer_fns(self, cfg: GPTConfig):
         """(embed_fb, block_fb, head_fb, scan_fb): each runs forward plus the
-        gradients of its parameters and input activations."""
+        gradients of its parameters and input activations, with the
+        family's pieces (LLaMA's embedding has no positions and its head is
+        RMSNorm; an MoE block's aux loss joins the measured graph)."""
         attn = resolve_attention(cfg)
         group = self._tp_group()
+        family = family_ops(cfg)
+        embed, block, head_logits, moe = (family.embed, family.block,
+                                          family.head_logits, family.moe)
+
+        def run_block(x, layer):
+            """(output, aux loss): MoE's aux, else None."""
+            out = block(x, layer, cfg, attn, group)
+            return out if moe else (out, None)
+
+        def total(y, aux):
+            out = y.float().sum()
+            return out if aux is None else out + aux
 
         def embed_fb(embed_params, tokens):
             out = embed({"embed": embed_params}, tokens, cfg, group).float().sum()
             return torch.autograd.grad(out, list(embed_params.values()))
 
         def block_fb(layer, x):
-            out = block_forward(x, layer, cfg, attn, group).float().sum()
-            return torch.autograd.grad(out, [*layer.values(), x])
+            return torch.autograd.grad(total(*run_block(x, layer)),
+                                       [*layer.values(), x])
 
         def scan_fb(layers, x):
-            """fwd+bwd of a k-block run — the marginal-cost probe body."""
-            out = run_blocks({"blocks": layers}, x, cfg, attn, group).float().sum()
-            return torch.autograd.grad(out, [*layers.values(), x])
+            """fwd+bwd of a k-block run — the marginal-cost probe body (MoE:
+            the blocks' aux losses summed in, as the reference's scan)."""
+            y, aux = x, None
+            for layer in unstack_blocks(layers):
+                y, a = run_block(y, layer)
+                aux = a if aux is None else aux + a
+            return torch.autograd.grad(total(y, aux), [*layers.values(), x])
 
         def head_fb(head_params, x, targets):
             logits = head_logits({"head": head_params}, x, cfg, group)
@@ -322,7 +339,7 @@ class LayerProfiler:
         ``parameters_per_layer_bytes`` contract field, counted over the whole
         model as the reference counts global array sizes; ``params`` are the
         shards of a ``tp`` rank (full leaves at tp 1)."""
-        specs = gpt_param_specs(self.cfg)
+        specs = param_specs_for(self.cfg, tp)
 
         def global_bytes(group: str) -> int:
             return sum(_tensor_bytes([leaf]) * (tp if TP in specs[group][name] else 1)

@@ -19,15 +19,19 @@ import torch
 
 from metis_tpu_torch.core.sharding import slice_leaf
 from metis_tpu_torch.execution.builder import build_executable, hetero_executable
-from metis_tpu_torch.execution.mesh import TP, PlanArtifact, batch_spec
-from metis_tpu_torch.models.gpt import GPTConfig, forward
+from metis_tpu_torch.execution.mesh import DP, EP, TP, PlanArtifact, batch_spec
+from metis_tpu_torch.execution.train import aligned_routing
+from metis_tpu_torch.models import family_ops
+from metis_tpu_torch.models.gpt import GPTConfig
+from metis_tpu_torch.models.moe import MoEConfig
 from metis_tpu_torch.ops import flash_attention as fa
 
 
 def run_plan_rank(rank: int, device: torch.device, artifact_json: str | None,
                   cfg: GPTConfig, init, batches, forward_tokens=None,
                   return_params: bool = False, stages=None,
-                  microbatches: int = 1, **build) -> dict:
+                  microbatches: int = 1, routing_tokens=None,
+                  first_grads: str | None = None, **build) -> dict:
     """Rank body for ``execution.dist.spawn``: build the artifact's
     executable on this rank (``build``: keyword arguments of
     ``build_executable``, such as ``schedule`` or ``overlap``) — or, given
@@ -44,7 +48,12 @@ def run_plan_rank(rank: int, device: torch.device, artifact_json: str | None,
     ``block_ids``, the global blocks its stacked leaves hold (None: all);
     with ``forward_tokens`` (pp = 1 routes) the logits of the rank's dp
     rows of them before training (its block of the vocabulary); with
-    ``return_params`` its leaves after training."""
+    ``routing_tokens`` (MoE, pp = 1 routes) the routing decisions of its
+    rows of them in the first block before training (``moe_routing``); with
+    ``return_params`` its leaves after training; with ``first_grads`` the
+    gradients the first optimizer step applies to its leaves, reduced over
+    the plan's ranks, as ``grads`` (``"arrays"``: the leaves' gradients;
+    ``"norms"``: their L2 norms)."""
     cuda = device.type == "cuda"
     if cuda:
         torch.cuda.reset_peak_memory_stats(device)
@@ -58,11 +67,13 @@ def run_plan_rank(rank: int, device: torch.device, artifact_json: str | None,
     out: dict = {"kind": exe.kind, "slots": slots, "block_ids": exe.block_ids,
                  "losses": [], "step_ms": [], "launches": []}
     if forward_tokens is not None:
-        mine = slice_leaf(forward_tokens, batch_spec(), slots)
-        with torch.no_grad():
-            logits = forward(state.params, mine.to(device), cfg,
-                             tp_group=exe.mesh.group(TP))
-        out["logits"] = logits.cpu().numpy()
+        out["logits"] = _logits(state.params, forward_tokens, cfg, exe.mesh,
+                                device)
+    if routing_tokens is not None:
+        out["routing"] = moe_routing(state.params, routing_tokens, cfg,
+                                     exe.mesh, device)
+    if first_grads is not None:
+        out["grads"] = capture_first_grads(state, first_grads)
     for tokens, targets in batches:
         tokens, targets = tokens.to(device), targets.to(device)
         fa.reset_launch_counts()
@@ -80,6 +91,27 @@ def run_plan_rank(rank: int, device: torch.device, artifact_json: str | None,
     return out
 
 
+def capture_first_grads(state, kind: str) -> dict:
+    """A tree, filled when the first optimizer step starts (every route
+    sets each leaf's reduced ``.grad`` just before it), of the gradients or
+    their norms (``kind``: ``"arrays"`` or ``"norms"``)."""
+    if kind not in ("arrays", "norms"):
+        raise ValueError(f"first_grads={kind!r}: expected 'arrays' or 'norms'")
+    tree: dict = {}
+
+    def hook(optimizer, args, kwargs):
+        for group, sub in state.params.items():
+            for name, leaf in sub.items():
+                g = leaf.grad.detach()
+                tree.setdefault(group, {})[name] = (
+                    g.norm().item() if kind == "norms"
+                    else np.array(g.cpu(), copy=True))
+        handle.remove()
+
+    handle = state.optimizer.register_step_pre_hook(hook)
+    return tree
+
+
 def run_plans_rank(rank: int, device: torch.device, jobs: list[dict]) -> list:
     """Rank body that runs several plans in one launch, one after another,
     to share the launch's start-up: each job is the keyword arguments of
@@ -91,3 +123,53 @@ def run_plans_rank(rank: int, device: torch.device, jobs: list[dict]) -> list:
         if device.type == "cuda":
             torch.cuda.empty_cache()
     return out
+
+
+def _rank_rows(tokens: torch.Tensor, cfg: GPTConfig, mesh, device):
+    """This rank's rows of ``tokens`` on ``device``, and the config they
+    run under (an MoE's routing groups those of the whole batch)."""
+    ep, ranks = mesh.size(EP), mesh.size(DP) * mesh.size(EP)
+    if family_ops(cfg).moe and ranks > 1:
+        cfg = aligned_routing(cfg, tokens.numel(), ranks)
+    mine = slice_leaf(tokens, batch_spec((DP, EP) if ep > 1 else DP),
+                      mesh.slots()).to(device)
+    return mine, cfg
+
+
+def moe_routing(params: dict, tokens: torch.Tensor, cfg: MoEConfig, mesh,
+                device: torch.device) -> dict:
+    """The first MoE block's routing decisions (``expert_idx``,
+    ``position``, ``keep``, each ``[groups, group length, top_k]``) for this
+    rank's rows of ``tokens``, as numpy: the decisions of two runs of the
+    same weights and tokens on different meshes compare one for one."""
+    from metis_tpu_torch.models.gpt import (
+        _layer_norm, attention_residual, embed, unstack_blocks)
+    from metis_tpu_torch.models import resolve_attention
+    from metis_tpu_torch.models.moe import _route_group_len, route
+
+    mine, cfg = _rank_rows(tokens, cfg, mesh, device)
+    tp_group = mesh.group(TP)
+    with torch.no_grad():
+        layer = unstack_blocks(params["blocks"])[0]
+        x = attention_residual(embed(params, mine, cfg, tp_group), layer, cfg,
+                               resolve_attention(cfg), tp_group)
+        y = _layer_norm(x, layer["ln2_scale"], layer["ln2_bias"])
+        T = y.shape[0] * y.shape[1]
+        g = _route_group_len(T, cfg.route_group_size)
+        r = route(y.reshape(T // g, g, -1), layer["router"], cfg)
+    return {k: r[k].cpu().numpy() for k in ("expert_idx", "position", "keep")}
+
+
+def _logits(params: dict, tokens: torch.Tensor, cfg: GPTConfig, mesh,
+            device: torch.device):
+    """The family's logits of this rank's rows of ``tokens`` (its block of
+    the vocabulary), as numpy."""
+    mine, cfg = _rank_rows(tokens, cfg, mesh, device)
+    tp_group = mesh.group(TP)
+    family = family_ops(cfg)
+    extra = {"ep_group": mesh.group(EP)} if family.moe else {}
+    with torch.no_grad():
+        logits = family.forward(params, mine, cfg, tp_group=tp_group, **extra)
+    if family.moe:
+        logits, _ = logits
+    return logits.cpu().numpy()

@@ -34,6 +34,7 @@ import metis_tpu.validation as jval
 from metis_tpu.execution import hetero as jhetero
 from metis_tpu.execution import mesh as jmesh
 from metis_tpu.models import gpt as jgpt
+from metis_tpu.models import llama as jllama
 from metis_tpu.models.moe import MoEConfig
 from metis_tpu.profiles import tiny_test_model
 from metis_tpu.testing import (
@@ -61,6 +62,7 @@ from metis_tpu_torch.execution import hetero as thetero
 from metis_tpu_torch.execution import mesh as tmesh
 from metis_tpu_torch.execution.builder import build_executable
 from metis_tpu_torch.models import gpt as tgpt
+from metis_tpu_torch.models import llama as tllama
 from metis_tpu_torch.testing import run_plans_rank
 
 torch.set_num_threads(1)
@@ -283,6 +285,63 @@ def test_stage_spec_errors_match_jax(bad):
     with pytest.raises(ValueError) as got:
         thetero.stage_specs_from_plan(args[0], args[1], tcfg, args[2], args[3])
     assert str(got.value) == str(want.value)
+
+
+# -- the LLaMA family ------------------------------------------------------------
+
+# stage 0 at dp 2 over rows (3, 1), stage 1 at tp 2 with one KV head (its
+# wkv is replicated over the stage's tp ranks)
+LLAMA_SHAPE = dict(SHAPE, num_kv_heads=1)
+LLAMA_PLAN = ((0, 3, 6), [(2, 1, (3, 1), None), (1, 2, None, None)], 2)
+
+
+@pytest.fixture(scope="module")
+def llama_runs():
+    jcfg = jllama.LlamaConfig(**LLAMA_SHAPE, dtype=jnp.float32)
+    tcfg = tllama.LlamaConfig(**LLAMA_SHAPE, dtype=torch.float32)
+    params = jax.tree.map(np.asarray, jllama.init_llama_params(
+        jax.random.PRNGKey(42), jcfg))
+    rng = np.random.default_rng(0)
+    batches = [rng.integers(0, SHAPE["vocab_size"], (GBS, SHAPE["seq_len"] + 1),
+                            dtype=np.int32) for _ in range(STEPS)]
+    bounds, strategies, M = LLAMA_PLAN
+
+    def stages(pkg, cfg):
+        return pkg.stage_specs_from_plan(
+            bounds, [{"dp": dp, "tp": tp} for dp, tp, _, _ in strategies], cfg,
+            stage_replica_rows=[st[2] for st in strategies])
+
+    init_fn, step = jhetero.make_hetero_train_step(jcfg, stages(jhetero, jcfg))
+    state, jlosses = init_fn(jax.random.PRNGKey(42)), []
+    for b in batches:
+        state, loss = step(state, jnp.asarray(b[:, :-1]).reshape(M, GBS // M, -1),
+                           jnp.asarray(b[:, 1:]).reshape(M, GBS // M, -1))
+        jlosses.append(float(loss))
+    host = [(torch.from_numpy(b[:, :-1]), torch.from_numpy(b[:, 1:])) for b in batches]
+    ranks = tdist.spawn(run_plans_rank, 4, "gloo", ["cpu"] * 4, [dict(
+        artifact_json=None, stages=stages(thetero, tcfg), microbatches=M,
+        cfg=tcfg, init=params, batches=host, return_params=True)])
+    return tcfg, jlosses, [jax.tree.map(np.asarray, st[0]) for st in state], \
+        [r[0] for r in ranks]
+
+
+def test_llama_two_stage_plan_matches_jax(llama_runs):
+    """A two-stage LLaMA plan (uneven replica rows, a tp stage with a
+    replicated KV projection) against ``metis_tpu.execution.hetero``: every
+    loss and every leaf of every rank."""
+    tcfg, jlosses, jstages, ranks = llama_runs
+    assert {r["kind"] for r in ranks} == {"hetero"}
+    for r in ranks:
+        np.testing.assert_allclose(r["losses"], jlosses, **TOL)
+        stage = r["slots"]["pp"][0]
+        specs = tmesh.llama_param_specs(tcfg, tp_size=LLAMA_PLAN[1][stage][1])
+        assert set(r["params"]) == set(jstages[stage])
+        for group, sub in r["params"].items():
+            for leaf, got in sub.items():
+                want = slice_leaf(jstages[stage][group][leaf], specs[group][leaf],
+                                  r["slots"])
+                np.testing.assert_allclose(got, want, rtol=0, atol=LEAF_ATOL,
+                                           err_msg=f"{group}.{leaf} {r['slots']}")
 
 
 # -- refusals ------------------------------------------------------------------

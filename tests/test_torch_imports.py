@@ -82,6 +82,8 @@ def _entry_points():
     from metis_tpu_torch.execution.train import build_train_state
     from metis_tpu_torch.models.convert import from_numpy_tree
     from metis_tpu_torch.models.gpt import GPTConfig
+    from metis_tpu_torch.models.llama import LlamaConfig
+    from metis_tpu_torch.models.moe import MoEConfig
     from metis_tpu_torch.profiles.profiler import infer_device_type, profile_model
     from metis_tpu_torch import cli
     from metis_tpu_torch.execution.hetero import StageSpec, make_hetero_train_step
@@ -96,6 +98,7 @@ def _entry_points():
                      sequence_length=16, vocab_size=64, num_heads=2)
     cfg = GPTConfig(vocab_size=64, seq_len=16, hidden=32, num_heads=2,
                     num_blocks=1)
+    shape = dict(vocab_size=64, seq_len=16, hidden=32, num_heads=2, num_blocks=1)
     plan = UniformPlan(1, 1, 1, 1, 1)
     ds = TokenDataset.synthetic(64, 100, 16)
     return {
@@ -103,6 +106,16 @@ def _entry_points():
         "build_executable": lambda: build_executable(
             cfg, PlanArtifact.from_uniform_plan(plan)),
         "build_train_state": lambda: build_train_state(0, cfg),
+        "build_executable_llama": lambda: build_executable(
+            LlamaConfig(**shape, num_kv_heads=1), PlanArtifact.from_uniform_plan(plan)),
+        "build_executable_moe": lambda: build_executable(
+            MoEConfig(**shape, num_experts=2), PlanArtifact.from_uniform_plan(plan)),
+        "profile_model_llama": lambda: profile_model(
+            ModelSpec(name="t", num_layers=3, hidden_size=32, sequence_length=16,
+                      vocab_size=64, num_heads=2, family="llama")),
+        "profile_model_moe": lambda: profile_model(
+            ModelSpec(name="t", num_layers=3, hidden_size=32, sequence_length=16,
+                      vocab_size=64, num_heads=2, num_experts=2)),
         "profile_model": lambda: profile_model(spec),
         "infer_device_type": lambda: infer_device_type(),
         "measure_uniform_plan_ms": lambda: measure_uniform_plan_ms(plan, spec),
@@ -141,7 +154,9 @@ ENTRY_POINTS = ["entry", "build_executable", "build_train_state",
                 "profile_model", "infer_device_type", "measure_uniform_plan_ms",
                 "from_numpy_tree", "batch_source", "validate_planner_choice",
                 "validate_cli", "make_hetero_train_step",
-                "measure_ranked_plan_ms", "validate_hetero_choice"]
+                "measure_ranked_plan_ms", "validate_hetero_choice",
+                "build_executable_llama", "build_executable_moe",
+                "profile_model_llama", "profile_model_moe"]
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)

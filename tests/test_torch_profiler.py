@@ -205,3 +205,38 @@ def test_validation_report_matches_jax():
     j = JValidationReport(JUniformPlan(1, 1, 1, 4, 4), 110.0, 100.0, 5)
     assert t.to_json_dict() == j.to_json_dict()
     assert t.within(10.0) and not t.within(9.9)
+
+
+FAMILY_SPECS = {
+    "llama": dict(SPEC, name="tiny-llama", family="llama", num_kv_heads=2),
+    "moe": dict(SPEC, name="tiny-moe", num_experts=4, expert_top_k=2),
+}
+
+
+@pytest.mark.parametrize("family", list(FAMILY_SPECS))
+def test_family_profile_matches_the_jax_profilers(tmp_path, family):
+    """The LLaMA and MoE families profile through the family's closures
+    (LLaMA: no positions, an RMSNorm head; MoE: the aux loss in the block's
+    graph): the same layer rows, parameter bytes and JSON keys as the JAX
+    profiler's on the same ``ModelSpec``, read back by both stores."""
+    spec = FAMILY_SPECS[family]
+    jax_store = jprof.profile_model(JModelSpec(**spec), tps=(1,), bss=(1,),
+                                    config=jprof.ProfilerConfig(**FAST))
+    store = tprof.profile_model(ModelSpec(**spec), tps=(1,), bss=(1,),
+                                device="cpu", config=tprof.ProfilerConfig(**FAST))
+    assert store.model.num_layers == jax_store.model.num_layers == 4
+    assert store.model.params_per_layer_bytes == jax_store.model.params_per_layer_bytes
+    prof = store.get("CPU", 1, 1)
+    assert len(prof.layer_times_ms) == len(prof.layer_memory_mb) == 4
+    assert all(t > 0 for t in prof.layer_times_ms)
+    for name, st in (("port", store), ("jax", jax_store)):
+        st.dump_to_dir(tmp_path / name, {"model_name": spec["name"], "attn": "flash"})
+    (port_file,), (jax_file,) = (sorted((tmp_path / n).iterdir()) for n in ("port", "jax"))
+    assert port_file.name == jax_file.name
+
+    def keys(d):
+        return {k: keys(v) for k, v in d.items()} if isinstance(d, dict) else None
+
+    assert keys(json.loads(port_file.read_text())) == keys(json.loads(jax_file.read_text()))
+    loaded = jstore.ProfileStore.from_dir(tmp_path / "port")
+    assert loaded.get("CPU", 1, 1).layer_times_ms == prof.layer_times_ms

@@ -1,10 +1,15 @@
-"""Where one training step of the PyTorch port's flagship GPT spends its time
+"""Where one training step of the PyTorch port's 1.5B models spends its time
 on the card.
 
-    python3 tools/torch_step_profile.py [--steps 3] [--trace PATH]
+    python3 tools/torch_step_profile.py [--family gpt|llama|moe] [--steps 3]
+                                        [--trace PATH]
 
-Builds the ``--model-size 1.5B`` GPT with ``attn="flash"`` (full width and
-depth, random weights from a seed) through ``build_executable``, at the plan
+Builds the ``--model-size 1.5B`` model with ``attn="flash"`` (random weights
+from a seed) through ``build_executable``: the GPT at full width and depth,
+or its LLaMA configuration (``--family llama --num-kv-heads 8``, full width
+and depth) or MoE configuration (``--num-layers 4 --num-experts 8
+--expert-top-k 2``: 2 blocks, the depth one card holds) as chip_smoke.py
+runs them, at the plan
 dp = pp = tp = 1, mbs = gbs = 4.  After two warm-up steps it times
 ``--steps`` steps on the host clock, each closed by ``torch.cuda.synchronize``
 (untraced), then traces the same number of steps with ``torch.profiler``
@@ -41,6 +46,13 @@ GROUPS = (
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
+# ModelSpec fields of each family's 1.5B configuration beyond the GPT preset
+FAMILIES = {
+    "gpt": {},
+    "llama": {"family": "llama", "num_kv_heads": 8},
+    "moe": {"num_layers": 4, "num_experts": 8, "expert_top_k": 2},
+}
+
 
 def group_of(name: str) -> str:
     low = name.lower()
@@ -62,6 +74,7 @@ def busy_us(intervals: list[tuple[float, float]]) -> float:
 
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--family", choices=sorted(FAMILIES), default="gpt")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--trace", default=None, help="write the Chrome trace here")
     args = ap.parse_args(argv)
@@ -78,9 +91,10 @@ def main(argv: list[str] | None = None) -> int:
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
-    model = ModelSpec(name="gpt-1.5B", num_layers=10, hidden_size=4096,
-                      sequence_length=1024, vocab_size=51200, num_heads=32,
-                      attn="flash")
+    model = ModelSpec(**{**dict(
+        name=f"{args.family}-1.5B", num_layers=10, hidden_size=4096,
+        sequence_length=1024, vocab_size=51200, num_heads=32, attn="flash"),
+        **FAMILIES[args.family]})
     plan = UniformPlan(dp=1, pp=1, tp=1, mbs=4, gbs=4)
     cfg = config_for_model_spec(model)
     exe = build_executable(cfg, PlanArtifact.from_uniform_plan(plan))
@@ -126,7 +140,7 @@ def main(argv: list[str] | None = None) -> int:
     n = args.steps
     print(json.dumps({
         "card": card,
-        "model": "gpt-1.5B flash, bs 4, seq 1024",
+        "model": f"{model.name} flash, {cfg.num_blocks} blocks, bs 4, seq 1024",
         "steps": n,
         "wall_ms_per_step": wall_ms,
         "traced_wall_ms_per_step": traced_ms,
