@@ -83,13 +83,28 @@ Phases, in order (any failure exits non-zero):
    routing group per rank) against one device (losses within
    ``PIPE_TOL``, first-step gradient norms within ``GRAD_NORM_TOL``), with
    the count of first-block routing decisions that differ and each rank's
-   peak.
+   peak;
+10. context: the LLaMA at LLaMA-3-8B's 8192-token context (``LLAMA_LONG``,
+   gbs 1): one device at full depth (3 steps: step time, peak, launches);
+   at ``CONTEXT_BLOCKS`` blocks on two gloo ranks sharing the card, in one
+   launch, against one device at that depth: cp 2 ring (rank 0 launches 2
+   and rank 1 4 of each kernel per step: future blocks are skipped), cp 2
+   Ulysses, and the best-ranked cp 2 plan of the ``hetero --enable-cp
+   --max-cp 2 --enable-zero --enable-sp`` search on a 1 x 2 H100 cluster
+   from a profile at that depth (losses within ``CP_TOL``, first-step
+   gradient norms within ``GRAD_NORM_TOL``, each rank's peak);
+11. zero_sp: the GPT at 2 blocks of full width, gbs 4, on two gloo ranks
+   in one launch: tp 2 with Megatron sp against tp 2, dp 2 at ZeRO 1, 2
+   and 3 against dp 2 at ZeRO 0 (losses within ``ZERO_SP_TOL``, gradient
+   norms within ``GRAD_NORM_TOL``), each rank's peak beside the planner's
+   ZeRO relief (``cost/zero.py``).
 
 The kernel phase also holds and times the pipeline's microbatch shape (b 1,
-``MICRO``) and the LLaMA grid (``LLAMA``; SDPA with ``enable_gqa``).  The last
-lines are the ``kernels``, ``slice``, ``planner``, ``dist``, ``pipeline``,
-``llama`` and ``moe`` JSON, the card's name and power limit, and
-``{"ok": true, "device": {...}}``.  TF32 is off in every comparison: fp32
+``MICRO``), the LLaMA grid (``LLAMA``; SDPA with ``enable_gqa``) and the
+context phase's grids (``CONTEXT_CASES``: the ring's self and past blocks,
+whose stats mode has no SDPA yardstick, s 8192, and a Ulysses rank's 16
+heads).  The last lines are the ``kernels`` JSON and each phase's, the
+card's name and power limit, and ``{"ok": true, "device": {...}}``.  TF32 is off in every comparison: fp32
 products run in full fp32 on both sides.
 """
 from __future__ import annotations
@@ -190,8 +205,20 @@ MBS2 = dict(name="mbs2", b=2, hq=32, hkv=32, s=1024, d=128, causal=True)
 LLAMA = dict(name="llama", b=4, hq=32, hkv=8, s=1024, d=128, causal=True)
 LLAMA_TP2 = dict(name="llama_tp2", b=4, hq=16, hkv=4, s=1024, d=128, causal=True)
 LLAMA_MB2 = dict(name="llama_mb2", b=2, hq=32, hkv=8, s=1024, d=128, causal=True)
-PATH_CASES = (MAIN, TP2, MICRO, ROWS3, MBS2, LLAMA, LLAMA_TP2, LLAMA_MB2)
-TIMED_CASES = (MAIN, MICRO, LLAMA)
+# the context phase's grids (its LLaMA at 8192 tokens, gbs 1): a cp 2 ring
+# rank's self block (B1 in stats mode, causal) and past block (non-causal),
+# B2 and B3 of each on the logsumexp merged over both blocks, as the ring's
+# backward runs them; one device's whole sequence; a Ulysses rank's half of
+# the heads over the whole sequence, K/V expanded to the query heads
+RING_SELF = dict(name="ring_self", b=1, hq=32, hkv=8, s=4096, d=128, causal=True,
+                 stats=True, ring=True)
+RING_PAST = dict(RING_SELF, name="ring_past", causal=False)
+LONG = dict(name="long", b=1, hq=32, hkv=8, s=8192, d=128, causal=True)
+ULYSSES = dict(name="ulysses", b=1, hq=16, hkv=16, s=8192, d=128, causal=True)
+CONTEXT_CASES = (RING_SELF, RING_PAST, LONG, ULYSSES)
+PATH_CASES = (MAIN, TP2, MICRO, ROWS3, MBS2, LLAMA, LLAMA_TP2, LLAMA_MB2,
+              *CONTEXT_CASES)
+TIMED_CASES = (MAIN, MICRO, LLAMA, *CONTEXT_CASES)
 KERNEL_CASES = [
     *PATH_CASES,
     dict(name="gqa", b=2, hq=8, hkv=2, s=1024, d=128, causal=True),
@@ -322,11 +349,16 @@ def nbytes(*ts: torch.Tensor) -> int:
 
 
 def kernel_case(case: dict, gen: torch.Generator, timed: bool) -> dict:
-    """Hold B1, B2 and B3 against their plain versions at one shape."""
+    """Hold B1, B2 and B3 against their plain versions at one shape.  A
+    ``ring`` case runs B1 in stats mode, then B2 and B3 on the logsumexp and
+    delta of this block's state merged with another block's (the self block
+    with a past one, a past block with the self one), as ring attention's
+    backward does; it has no SDPA yardstick (no one call computes it)."""
     from metis_tpu_torch.ops import flash_attention as fa
 
     b, hq, hkv, s, d = case["b"], case["hq"], case["hkv"], case["s"], case["d"]
     causal, stats = case["causal"], case.get("stats", False)
+    ring = case.get("ring", False)
     heads = dict(q_heads=hq, kv_heads=hkv, causal=causal)
     dev = torch.device("cuda")
 
@@ -341,9 +373,17 @@ def kernel_case(case: dict, gen: torch.Generator, timed: bool) -> dict:
     torch.cuda.synchronize()
     errs = {"o": row_err(o, o_ref), "m": row_err(m, m_ref), "l": row_err(l, l_ref)}
     out["fa_fwd"] = errs
-    if not stats:
+    if not stats or ring:
         # the backward's inputs come from the plain forward, shared by both sides
         lse = fa.logsumexp_of(m_ref, l_ref)
+        if ring:
+            other = fa.fa_fwd_plain(q, rnd(b * hkv), rnd(b * hkv), normalize=False,
+                                    q_heads=hq, kv_heads=hkv, causal=not causal)
+            acc, m_all, l_all = fa.merge_stats(
+                (o_ref.float(), m_ref, l_ref), (other[0].float(), *other[1:]))
+            o_ref = fa.finalize_stats((acc, m_all, l_all)).to(q.dtype)
+            lse = fa.logsumexp_of(m_all, l_all)
+            del other, acc
         delta = (do.float() * o_ref.float()).sum(-1)
         dq = fa.fa_bwd_dq(q, k, v, do, lse, delta, **heads)
         dq_ref = fa.fa_bwd_dq_plain(q, k, v, do, lse, delta, **heads)
@@ -371,10 +411,12 @@ def kernel_case(case: dict, gen: torch.Generator, timed: bool) -> dict:
 
         pairs = b * hq * visible_pairs(s, s, causal)
         io = nbytes(m, l)
+        mode = dict(normalize=not stats)
         out["timing"] = {
             "fa_fwd": dict(
-                **timed_runs(lambda: fa.fa_fwd(q, k, v, **heads)),
-                plain_ms=cuda_ms(lambda: fa.fa_fwd_plain(q, k, v, **heads), 5, 1),
+                **timed_runs(lambda: fa.fa_fwd(q, k, v, **mode, **heads)),
+                plain_ms=cuda_ms(lambda: fa.fa_fwd_plain(q, k, v, **mode, **heads),
+                                 5, 1),
                 bound=bound(4 * pairs * d, nbytes(q, k, v, o) + io)),
             "fa_bwd_dq": dict(
                 **timed_runs(lambda: fa.fa_bwd_dq(q, k, v, do, lse, delta, **heads)),
@@ -390,7 +432,8 @@ def kernel_case(case: dict, gen: torch.Generator, timed: bool) -> dict:
             "bwd_pair": timed_runs(pair),
             "bwd_pair_graphed": timed_runs(graph_of(pair, torch.cuda.Stream()), reps=7),
         }
-        out["timing"].update(sdpa_ms(q, k, v, do, b, hq, hkv, s, d, causal))
+        if not ring:
+            out["timing"].update(sdpa_ms(q, k, v, do, b, hq, hkv, s, d, causal))
     return out
 
 
@@ -463,17 +506,23 @@ def kernel_phase() -> tuple[dict, list]:
                 failures.append(f"{case['name']}/control")
         if "timing" in res:
             t = res["timing"]
+            sdpa = "sdpa_fwd" in t
             for kname, lib in (("fa_fwd", "sdpa_fwd"), ("fa_bwd_dq", "sdpa_bwd"),
                                ("fa_bwd_dkv", "sdpa_bwd")):
                 bound_ms, bound_by = t[kname]["bound"]
+                lib_ms = f"{t[lib]['ms']:.4f} ms" if sdpa else "none"
                 log(f"  {kname:>10} at {case['name']}: {t[kname]['ms']:.4f} ms, plain "
-                    f"{t[kname]['plain_ms']:.4f} ms, {lib} {t[lib]['ms']:.4f} ms, bound "
+                    f"{t[kname]['plain_ms']:.4f} ms, {lib} {lib_ms}, bound "
                     f"{bound_ms:.4f} ms ({bound_by})")
-            log(f"  backward pair B2+B3: {t['bwd_pair']['ms']:.4f} ms, as a graph "
-                f"{t['bwd_pair_graphed']['ms']:.4f} ms, against sdpa_bwd (a graph) "
-                f"{t['sdpa_bwd']['ms']:.4f} ms, eagerly {t['sdpa_bwd_eager']['ms']:.4f} ms")
+            if sdpa:
+                log(f"  backward pair B2+B3: {t['bwd_pair']['ms']:.4f} ms, as a graph "
+                    f"{t['bwd_pair_graphed']['ms']:.4f} ms, against sdpa_bwd (a graph) "
+                    f"{t['sdpa_bwd']['ms']:.4f} ms, eagerly "
+                    f"{t['sdpa_bwd_eager']['ms']:.4f} ms")
             for name in ("fa_fwd", "fa_bwd_dq", "fa_bwd_dkv", "bwd_pair",
                          "bwd_pair_graphed", "sdpa_fwd", "sdpa_bwd", "sdpa_bwd_eager"):
+                if name not in t:
+                    continue
                 runs = t[name]["runs"]
                 log(f"  {name:>10} runs {[round(r, 4) for r in runs]} ms, spread "
                     f"{(max(runs) - min(runs)) / t[name]['ms']:.2%} of the median")
@@ -484,16 +533,19 @@ def kernel_phase() -> tuple[dict, list]:
 
 
 def _timing_fields(case: dict, name: str) -> dict:
+    """A kernel's times at a timed case; ``library_ms`` None where no one
+    PyTorch call computes the same function (the ring's stats mode)."""
     t = case["timing"]
-    library = {"fa_fwd": t["sdpa_fwd"]["ms"], "fa_bwd_dq": t["sdpa_bwd"]["ms"],
-               "fa_bwd_dkv": t["sdpa_bwd"]["ms"]}
+    sdpa = "sdpa_fwd" in t
+    library = ({"fa_fwd": t["sdpa_fwd"]["ms"], "fa_bwd_dq": t["sdpa_bwd"]["ms"],
+                "fa_bwd_dkv": t["sdpa_bwd"]["ms"]} if sdpa else {})
     bound_ms, bound_by = t[name]["bound"]
     return {"ms": t[name]["ms"], "plain_ms": t[name]["plain_ms"],
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library[name],
+            "library_ms": library.get(name),
             **({} if name == "fa_fwd" else {
                 "bwd_pair_graphed_ms": t["bwd_pair_graphed"]["ms"],
-                "library_eager_ms": t["sdpa_bwd_eager"]["ms"]})}
+                "library_eager_ms": t["sdpa_bwd_eager"]["ms"] if sdpa else None})}
 
 
 def kernel_records(held: dict, path: list[dict], launches: dict) -> list[dict]:
@@ -507,7 +559,8 @@ def kernel_records(held: dict, path: list[dict], launches: dict) -> list[dict]:
     for name in ("fa_fwd", "fa_bwd_dq", "fa_bwd_dkv"):
         errs = [e for case in path for e in case[name].values()]
         sub = {}
-        for key, case in (("micro", MICRO), ("gqa", LLAMA)):
+        for key, case in (("micro", MICRO), ("gqa", LLAMA),
+                          *((c["name"], c) for c in CONTEXT_CASES)):
             errs_at = list(held[case["name"]][name].values())
             sub[key] = {"shape": {k: case[k] for k in ("b", "hq", "hkv", "s", "d")},
                         "max_abs_err": max(e[0] for e in errs_at),
@@ -980,10 +1033,11 @@ def planner_phase(work: pathlib.Path, sliced: dict) -> dict:
 
 
 def dist_legs_check(label: str, ranks: list[dict], want: list[float], tol: float,
-                    blocks: int) -> dict:
+                    blocks) -> dict:
     """Hold every rank's trajectory to ``want`` within ``tol`` per step and
-    its launches to ``blocks`` of each kernel per step; print and return the
-    readings."""
+    its launches to ``blocks`` of each kernel per step (a callable: to
+    ``blocks(rank's result)``, the counts of each of its steps); print and
+    return the readings."""
     gaps = [abs(a - b) for r in ranks for a, b in zip(r["losses"], want)]
     worst = max(gaps)
     log(f"  {label}: kinds {sorted({r['kind'] for r in ranks})}, losses "
@@ -1001,11 +1055,15 @@ def dist_legs_check(label: str, ranks: list[dict], want: list[float], tol: float
     if len(gaps) != len(ranks) * len(want) or worst > tol:
         raise SystemExit(f"{label}: trajectory off by {worst:.3e} (tol {tol:g})")
     for r in ranks:
+        expect = blocks(r) if callable(blocks) else dict.fromkeys(
+            r["launches"][0], blocks)
         for counts in r["launches"]:
-            if any(n != blocks for n in counts.values()):
-                raise SystemExit(f"{label}: launches {counts}, expected {blocks} of each")
+            if counts != expect:
+                raise SystemExit(f"{label}: rank {r['slots']} launched {counts}, "
+                                 f"expected {expect}")
     return {"largest_gap": worst, "losses": [r["losses"] for r in ranks],
-            "launches_per_step": ranks[0]["launches"][0],
+            "launches_per_step": ([r["launches"][0] for r in ranks] if callable(blocks)
+                                  else ranks[0]["launches"][0]),
             "peak_memory_gb": [r.get("peak_memory_bytes", 0) / 1e9 for r in ranks],
             "step_ms_shared_card": [r["step_ms"] for r in ranks]}
 
@@ -1625,8 +1683,263 @@ def moe_phase(work: pathlib.Path) -> tuple[dict, dict]:
     return out, launches
 
 
+# the context phase's LLaMA: the 1.5B preset's LLaMA at LLaMA-3-8B's
+# 8192-token context, gbs 1; the legs whose two ranks share the card run 2
+# of its 8 blocks (two ranks at full depth would hold 2 x 37.9 GB of state)
+LLAMA_LONG = dict(LLAMA_15B, name="llama-1.5B-8k", sequence_length=8192)
+CONTEXT_BLOCKS = 2
+CONTEXT_CLI = [*CLI_MODEL["llama-1.5B"], "--seq-len", "8192", "--num-layers",
+               str(CONTEXT_BLOCKS + 2)]
+# a cp 2 leg's losses against one device at the same depth, per step (bf16
+# through 2 blocks; the ring and Ulysses change only the order of sums)
+CP_TOL = 1e-2
+# the zero_sp phase's legs against their references (dp 2 at zero 0, tp 2
+# without sp), per step: ZeRO changes no arithmetic, sp only where the
+# partial sums are reduced
+ZERO_SP_TOL = 1e-2
+
+
+def ring_launches(position: int, blocks: int) -> dict:
+    """Launches of each kernel per step on ring position ``position`` of
+    ``blocks`` blocks: its self block and its ``position`` past blocks,
+    none of the future ones."""
+    n = (position + 1) * blocks
+    return {"fa_fwd": n, "fa_bwd_dq": n, "fa_bwd_dkv": n}
+
+
+def combined_norms(ranks: list[dict], split) -> dict:
+    """The first-step gradient norms of a leg's leaves: the root of the sum
+    of the ranks' squares for a leaf ``split(group, name)`` says they hold in
+    disjoint pieces, else rank 0's."""
+    return {g: {n: math.sqrt(sum(r["grads"][g][n] ** 2 for r in ranks))
+                if split(g, n) else ranks[0]["grads"][g][n] for n in sub}
+            for g, sub in ranks[0]["grads"].items()}
+
+
+def context_phase(work: pathlib.Path) -> tuple[dict, dict]:
+    """The long-context LLaMA (``LLAMA_LONG``, 8192 tokens, gbs 1): (a) one
+    device at full depth, 3 steps; at ``CONTEXT_BLOCKS`` blocks on two gloo
+    ranks sharing the card, in one launch, each against one device at that
+    depth on the same fresh batches: (b) cp 2 ring, (c) cp 2 Ulysses, (d)
+    the best-ranked cp 2 plan of the hetero search on a 1 x 2 H100 cluster
+    (``--enable-cp --max-cp 2 --enable-zero --enable-sp``) from a profile at
+    that depth, through ``PlanArtifact.from_ranked_plan``.  Loss gaps,
+    first-step gradient norms, launches per rank per step (rank r of the
+    ring runs r + 1 blocks of each kernel per block) and each rank's peak."""
+    from metis_tpu_torch import cli
+    from metis_tpu_torch.cluster.spec import ClusterSpec
+    from metis_tpu_torch.core.config import ModelSpec, SearchConfig
+    from metis_tpu_torch.core.types import UniformPlan
+    from metis_tpu_torch.execution import dist as mdist
+    from metis_tpu_torch.execution.mesh import PlanArtifact
+    from metis_tpu_torch.models import config_for_model_spec
+    from metis_tpu_torch.planner.api import plan_hetero
+    from metis_tpu_torch.profiles.store import ProfileStore
+    from metis_tpu_torch.testing import run_plan_rank, run_plans_rank
+
+    model = ModelSpec(**LLAMA_LONG)
+    cfg = config_for_model_spec(model)
+    one = PlanArtifact.from_uniform_plan(UniformPlan(1, 1, 1, 1, 1)).to_json()
+    batches = [(t.cpu(), g.cpu()) for t, g in fresh_batches(cfg, 1, 3, SEED + 5)]
+    out, launches = {}, {}
+
+    t0 = time.perf_counter()
+    full = run_plan_rank(0, torch.device("cuda"), one, cfg, SEED, batches)
+    log(f"  (a) one device, {cfg.num_blocks} blocks, 8192 tokens: losses "
+        f"{[round(x, 5) for x in full['losses']]}, step ms "
+        f"{[round(x, 1) for x in full['step_ms']]}, launches per step "
+        f"{full['launches']}, peak {full['peak_memory_bytes'] / 1e9:.2f} GB")
+    if (not all(math.isfinite(x) for x in full["losses"])
+            or abs(full["losses"][0] - math.log(cfg.vocab_size)) > 1.0):
+        raise SystemExit(f"(a) losses {full['losses']}: expected finite, starting "
+                         "near ln(vocab)")
+    if any(c != ring_launches(0, cfg.num_blocks) for c in full["launches"]):
+        raise SystemExit(f"(a) launches {full['launches']}: expected "
+                         f"{cfg.num_blocks} of each per step")
+    out["a_one_device"] = {k: full[k] for k in ("losses", "step_ms", "launches")}
+    out["a_one_device"]["peak_memory_gb"] = full["peak_memory_bytes"] / 1e9
+    launches["context_one_device"] = full["launches"][0]
+    log(f"  (a) {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    shallow = dataclasses.replace(cfg, num_blocks=CONTEXT_BLOCKS)
+    ref = run_plan_rank(0, torch.device("cuda"), one, shallow, SEED, batches,
+                        first_grads="norms")
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  one device at {CONTEXT_BLOCKS} blocks: losses "
+        f"{[round(x, 5) for x in ref['losses']]}, peak "
+        f"{ref['peak_memory_bytes'] / 1e9:.2f} GB")
+
+    # (d) the planner on a profile at that depth
+    prof_dir = work / "profiles_llama_8k"
+    if cli.main(["profile", "--model-name", model.name, *CONTEXT_CLI,
+                 "--bss", "1,2", "--warmup", "1", "--iters", "2",
+                 "--output-dir", str(prof_dir)]) != 0:
+        raise SystemExit("profile of the long-context LLaMA failed")
+    store = ProfileStore.from_dir(prof_dir)
+    device_type = store.device_types[0]
+    rows_mb = sum(store.get(device_type, 1, 1).layer_memory_mb)
+    mem_coef = math.ceil(ref["peak_memory_bytes"] / 2**20 / rows_mb * 100) / 100
+    hostfile, clusterfile = write_cluster_files(work, device_type, 1, 2)
+    path = work / "context_hetero.json"
+    axes = ["--enable-cp", "--max-cp", "2", "--enable-zero", "--enable-sp"]
+    if cli.main(["hetero", "--hostfile", hostfile, "--clusterfile", clusterfile,
+                 "--profile-dir", str(prof_dir), "--model-name", model.name,
+                 *CONTEXT_CLI, "--gbs", "1", "--max-tp", "1", "--max-bs", "2",
+                 "--mem-coef", str(mem_coef), *axes, "--output", str(path)]) != 0:
+        raise SystemExit("the context hetero search failed")
+    rows = json.loads(path.read_text())
+    log(f"  (d) hetero {' '.join(axes)} at mem_coef {mem_coef}: {len(rows)} plans "
+        "printed")
+    print_ranking("hetero", rows[:5])
+    # every ranked plan, not only the printed ones
+    result = plan_hetero(
+        ClusterSpec.from_files(hostfile, clusterfile), store,
+        ModelSpec(**dict(LLAMA_LONG, num_layers=CONTEXT_BLOCKS + 2)),
+        SearchConfig(gbs=1, max_profiled_tp=1, max_profiled_bs=2, mem_coef=mem_coef,
+                     enable_cp=True, max_cp_degree=2, enable_zero=True,
+                     enable_sp=True))
+    if not rows or result.best.cost.total_ms != rows[0]["cost_ms"]:
+        raise SystemExit("plan_hetero disagrees with the hetero subcommand")
+    rank, chosen = next(((i, p) for i, p in enumerate(result.plans, 1)
+                         if any(s.cp == 2 for s in p.intra.strategies)), (0, None))
+    if chosen is None:
+        raise SystemExit("no ranked plan has cp 2")
+    planned = PlanArtifact.from_ranked_plan(chosen)
+    strategy = planned.strategies[0]
+    log(f"  (d) best cp 2 plan: #{rank} of {len(result.plans)}, strategies "
+        f"{list(planned.strategies)}, cost {chosen.cost.total_ms:.3f} ms, "
+        f"mesh {dict(zip(planned.mesh_axes, planned.mesh_shape))}")
+    out["d_planned"] = {"rank": rank, "plans": len(result.plans),
+                        "strategies": list(planned.strategies),
+                        "cost_ms": chosen.cost.total_ms, "mem_coef": mem_coef}
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def cp_plan(mode):
+        return PlanArtifact(
+            mesh_axes=("pp", "dp", "ep", "sp", "tp"), mesh_shape=(1, 1, 1, 2, 1),
+            layer_partition=(0, CONTEXT_BLOCKS + 2),
+            strategies=({"dp": 1, "tp": 1, "cp": 2, "ep": 1, "zero": 0,
+                         "sp": False, "cp_mode": mode},),
+            gbs=1, microbatches=1).to_json()
+
+    legs = (("b_ring", cp_plan("ring")), ("c_a2a", cp_plan("a2a")),
+            ("d_planned", planned.to_json()))
+    ranks = mdist.spawn(run_plans_rank, 2, "gloo", ["cuda:0"] * 2, [dict(
+        artifact_json=art, cfg=shallow, init=SEED, batches=batches,
+        first_grads="norms") for _, art in legs])
+    for i, (name, _) in enumerate(legs):
+        legs_ranks = [r[i] for r in ranks]
+        mode = (strategy.get("cp_mode", "ring") if name == "d_planned"
+                else name.split("_")[1])
+        expect = ((lambda r: ring_launches(r["slots"]["sp"][0], CONTEXT_BLOCKS))
+                  if mode == "ring" else CONTEXT_BLOCKS)
+        res = dist_legs_check(f"({name[0]}) {name[2:]}, cp 2 {mode} on two gloo "
+                              f"ranks, {CONTEXT_BLOCKS} blocks", legs_ranks,
+                              ref["losses"], CP_TOL, expect)
+        res.update(grad_norm_check(f"({name[0]})", legs_ranks, ref["grads"],
+                                   lambda group, n: False))
+        out.setdefault(name, {}).update(res)
+        launches[f"context_{name}_per_rank"] = launch_sums(legs_ranks)
+    out["reference_losses"] = ref["losses"]
+    out["reference_peak_gb"] = ref["peak_memory_bytes"] / 1e9
+    log(f"  (b)-(d) {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def zero_sp_phase(work: pathlib.Path, sliced: dict) -> tuple[dict, dict]:
+    """The GPT at 2 blocks of full width (the dist phase's legs (c)), gbs 4,
+    3 fresh batches, on two gloo ranks sharing the card, in one launch: tp 2
+    with sp against tp 2 without it, and dp 2 at ZeRO 1, 2 and 3 against dp
+    2 at ZeRO 0.  Loss gaps, first-step gradient norms (each leg's against
+    its reference), each rank's peak memory, and the planner's memory
+    relief for the leg (``cost/zero.py``; ``cost/sequence_parallel.py``
+    prices sp only from a tp sweep, which one card cannot profile) beside
+    the measured one."""
+    from metis_tpu_torch.core.config import ModelSpec
+    from metis_tpu_torch.cost.zero import zero_static_reduction_mb
+    from metis_tpu_torch.execution import dist as mdist
+    from metis_tpu_torch.execution.mesh import PlanArtifact
+    from metis_tpu_torch.execution.train import param_specs_for
+    from metis_tpu_torch.models import config_for_model_spec
+    from metis_tpu_torch.profiles.store import ProfileStore
+    from metis_tpu_torch.testing import run_plans_rank
+
+    cfg = dataclasses.replace(config_for_model_spec(ModelSpec(**GPT_15B)),
+                              num_blocks=2)
+    batches = [(t.cpu(), g.cpu()) for t, g in fresh_batches(cfg, 4, 3, SEED + 7)]
+
+    def plan(dp, tp, zero=0, sp=False):
+        return PlanArtifact(
+            mesh_axes=("pp", "dp", "ep", "sp", "tp"), mesh_shape=(1, dp, 1, 1, tp),
+            layer_partition=(0, cfg.num_profile_layers),
+            strategies=({"dp": dp, "tp": tp, "cp": 1, "ep": 1, "zero": zero,
+                         "sp": sp},), gbs=4, microbatches=1).to_json()
+
+    legs = {"tp2": plan(1, 2), "tp2_sp": plan(1, 2, sp=True),
+            **{f"dp2_zero{z}": plan(2, 1, zero=z) for z in range(4)}}
+    t0 = time.perf_counter()
+    ranks = mdist.spawn(run_plans_rank, 2, "gloo", ["cuda:0"] * 2, [dict(
+        artifact_json=art, cfg=cfg, init=SEED, batches=batches,
+        first_grads="norms") for art in legs.values()])
+    runs = {name: [r[i] for r in ranks] for i, name in enumerate(legs)}
+    specs = param_specs_for(cfg, 2)
+
+    def tp_split(group, name):
+        return "tp" in specs[group][name]
+
+    def zero_split(group, name):
+        return runs["dp2_zero1"][0]["zero_dims"][(group, name)] is not None
+
+    # the planner's static relief per rank at dp 2, from the slice's profile
+    # (its embed, first two blocks and head rows are this model's)
+    store = ProfileStore.from_dir(sliced["profile_dir"])
+    per_layer = store.model.params_per_layer_bytes
+    layers = [0, 1, 2, len(per_layer) - 1]
+    dtype_bytes = ModelSpec(**GPT_15B).dtype_bytes
+    peak = {name: max(r["peak_memory_bytes"] for r in rs) / 1e9
+            for name, rs in runs.items()}
+    out, launches = {}, {}
+    for name, reference in (("tp2_sp", "tp2"), *((f"dp2_zero{z}", "dp2_zero0")
+                                                  for z in (1, 2, 3))):
+        res = dist_legs_check(f"{name} on two gloo ranks, 2 blocks", runs[name],
+                              runs[reference][0]["losses"], ZERO_SP_TOL,
+                              cfg.num_blocks)
+        tp = reference == "tp2"
+        res.update(grad_norm_check(
+            name, runs[name],
+            combined_norms(runs[reference], tp_split if tp else lambda g, n: False),
+            tp_split if tp else zero_split))
+        measured = peak[reference] - peak[name]
+        planned = None
+        if not tp:
+            relief = zero_static_reduction_mb(per_layer, int(name[-1]), 2, tp=1,
+                                              dtype_bytes=dtype_bytes)
+            planned = sum(relief[i] for i in layers) * 2**20 / 1e9
+        log(f"  {name}: peak per rank {peak[name]:.2f} GB against {reference} "
+            f"{peak[reference]:.2f} GB: relief measured {measured:.2f} GB, planner "
+            + ("not priced (sp relief needs a tp sweep; one card profiles tp 1)"
+               if planned is None else f"{planned:.2f} GB"))
+        res.update({"peak_gb": peak[name], "reference": reference,
+                    "reference_peak_gb": peak[reference],
+                    "relief_measured_gb": measured, "relief_planned_gb": planned})
+        out[name] = res
+    launches["zero_sp_per_rank"] = launch_sums(runs["dp2_zero3"])
+    log(f"  zero_sp legs {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, launches
+
+
 HIDDEN = ("launches", "profile_dir", "hostfile", "clusterfile", "tokens", "batches")
-PHASES = ("slice", "planner", "dist", "pipeline", "llama", "moe")
+PHASES = ("slice", "planner", "dist", "pipeline", "llama", "moe", "context",
+          "zero_sp")
 
 
 def main() -> int:
@@ -1670,8 +1983,12 @@ def main() -> int:
             elif phase == "pipeline":
                 results["pipeline"], launches["pipeline_per_rank"] = pipeline_phase(
                     work, results["slice"], results["planner"])
+            elif phase == "zero_sp":
+                results[phase], more = zero_sp_phase(work, results["slice"])
+                launches.update(more)
             else:
-                results[phase], more = {"llama": llama_phase, "moe": moe_phase}[phase](work)
+                results[phase], more = {"llama": llama_phase, "moe": moe_phase,
+                                        "context": context_phase}[phase](work)
                 launches.update(more)
             log(f"  {phase} phase {time.perf_counter() - t0:.1f} s")
 

@@ -7,7 +7,9 @@
 - **gspmd** for rectangular pp = 1 plans: one device outside a process
   group (``kind="single_device"``), or one rank per device of a process
   group of the plan's size — Megatron tensor parallelism plus data-parallel
-  gradient means (``execution/train.py``);
+  gradient means, context parallelism (``cp``, ring or Ulysses by
+  ``cp_mode``), Megatron sequence parallelism (``sp``) and ZeRO 1-3
+  (``zero``) (``execution/train.py``);
 - **pipeline** (``execution/pipeline.py``) for rectangular pp > 1 plans
   with one (dp, tp) strategy, zero = 0, cp = ep = 1 and sp off, whose
   blocks split evenly over the stages, or unevenly under 1f1b — the
@@ -20,9 +22,10 @@ A multi-device plan runs one rank per device, started by
 ``execution.dist.spawn``, and is built on every rank.  Expert parallelism
 runs on the gspmd route, for MoE configs (dp x ep x tp, the rows over
 ``(dp, ep)``); ep on a dense config raises ``ValueError`` as in the
-reference, and ep on the pipeline and hetero routes raises
-``NotImplementedError`` naming ROADMAP §A.3.  The strategy axes zero, sp and
-cp raise ``NotImplementedError`` on every route (§A.4).  The pipeline route
+reference.  On the pipeline and hetero routes ep raises
+``NotImplementedError`` naming ROADMAP §A.3, and zero, sp and cp naming
+§A.5 (the stage half of these axes); MoE with cp or sp raises it on the
+gspmd route.  The pipeline route
 runs the GPT family only, as the reference's; the hetero route runs GPT and
 LLaMA.
 
@@ -34,6 +37,7 @@ its rows; the multi-stage routes split them into the plan's microbatches).
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Callable
 
@@ -54,6 +58,7 @@ from metis_tpu_torch.execution.mesh import (
     DP,
     EP,
     PP,
+    SP,
     TP,
     ONE_DEVICE,
     PlanArtifact,
@@ -66,6 +71,7 @@ from metis_tpu_torch.execution.pipeline import (
     traced_steps,
 )
 from metis_tpu_torch.execution.train import (
+    make_forward,
     make_train_step,
     param_specs_for,
     params_from,
@@ -79,13 +85,16 @@ from metis_tpu_torch.models.gpt import GPTConfig
 class Executable:
     """A plan realized: which path runs it, plus the normalized step API.
     ``mesh`` is this rank's; ``block_ids`` the global ids of the blocks its
-    stacked block leaves hold, in order (None: all of them)."""
+    stacked block leaves hold, in order (None: all of them); ``forward``
+    (pp = 1 routes) ``(state, tokens) -> logits`` of the rank's part of a
+    full batch (``train.make_forward``)."""
 
     kind: str  # "single_device", "gspmd", "pipeline" or "hetero"
     init: Callable
     step: Callable
     mesh: ProcessMesh | None = None
     block_ids: tuple[int, ...] | None = None
+    forward: Callable | None = None
 
 
 def pipeline_block_counts(artifact: PlanArtifact, cfg: GPTConfig,
@@ -181,6 +190,7 @@ def _normalized(artifact: PlanArtifact) -> tuple[list[dict], int]:
         s.setdefault("ep", 1)
         s.setdefault("zero", 0)
         s.setdefault("sp", False)
+        s.setdefault("cp_mode", "ring")
     # uniform artifacts carry ONE strategy with pp encoded in the mesh shape
     # (PlanArtifact.from_uniform_plan); hetero artifacts carry one per stage
     if artifact.mesh_shape and PP in artifact.mesh_axes:
@@ -222,10 +232,19 @@ def _refuse_later_axes(strategies: list[dict], cfg, route: str) -> None:
             raise ValueError(f"stage {s}: ep={st['ep']} needs an MoE config")
         extras = {k: st[k] for k in ("zero", "sp", "cp")
                   if st[k] != {"zero": 0, "sp": False, "cp": 1}[k]}
-        if extras:
+        if extras and route != "gspmd":
             raise NotImplementedError(
-                f"stage {s}: strategy axes {extras}: ZeRO, sequence and "
-                "context parallelism come with a later slice (ROADMAP §A.4)")
+                f"stage {s}: strategy axes {extras} on the {route} route: "
+                "ZeRO, sequence and context parallelism on stages come with "
+                "a later slice (ROADMAP §A.5)")
+        if st["zero"] not in (0, 1, 2, 3):
+            raise ValueError(f"stage {s}: zero={st['zero']}: expected 0-3")
+        if st["cp_mode"] not in ("ring", "a2a"):
+            raise ValueError(f"stage {s}: unknown cp_mode {st['cp_mode']!r}")
+        if family_ops(cfg).moe and (st["sp"] or st["cp"] != 1):
+            raise NotImplementedError(
+                f"stage {s}: MoE with cp={st['cp']}, sp={st['sp']}: a rank's "
+                "block of the sequence splits the routing groups (ROADMAP §A.5)")
 
 
 def build_executable(cfg: GPTConfig, artifact: PlanArtifact,
@@ -254,7 +273,8 @@ def build_executable(cfg: GPTConfig, artifact: PlanArtifact,
     _refuse_later_axes(strategies, cfg, route)
     if route == "gspmd":
         if dist.is_initialized():
-            return _gspmd_executable(cfg, artifact, dev, optimizer)
+            return _gspmd_executable(cfg, artifact, strategies[0], dev,
+                                     optimizer)
         if artifact.num_devices != 1:
             raise MetisError(
                 f"mesh {dict(zip(artifact.mesh_axes, artifact.mesh_shape))} "
@@ -293,23 +313,33 @@ def _single_device_executable(cfg, device, optimizer) -> Executable:
             params_from(source, cfg, device), optimizer)
 
     return Executable(kind="single_device", init=init,
-                      step=make_train_step(cfg), mesh=ONE_DEVICE)
+                      step=make_train_step(cfg), mesh=ONE_DEVICE,
+                      forward=make_forward(cfg))
 
 
-def _gspmd_executable(cfg, artifact, device, optimizer) -> Executable:
+def _gspmd_executable(cfg, artifact, s0, device, optimizer) -> Executable:
+    """The reference's ``_gspmd_executable``: the plan's mesh with the
+    sequence over ``SP`` when cp > 1, Megatron sp and ZeRO from its
+    strategy."""
     mesh = artifact.build_mesh()
-    dp, ep, tp = mesh.size(DP), mesh.size(EP), mesh.size(TP)
+    dp, ep, tp, cp = (mesh.size(DP), mesh.size(EP), mesh.size(TP),
+                      mesh.size(SP))
     if artifact.gbs % (dp * ep):
         raise ValueError(f"gbs {artifact.gbs} does not split over dp x ep = "
                          f"{dp * ep}")
+    sp = bool(s0["sp"]) and tp > 1
     splits = [("heads", cfg.num_heads, TP), ("vocab rows", cfg.vocab_size, TP),
-              ("ffn units", cfg.ffn_dim, TP)]
+              ("ffn units", cfg.ffn_dim, TP),
+              ("sequence positions", cfg.seq_len, (SP, TP) if sp else SP)]
+    if cp > 1 and s0["cp_mode"] == "a2a":
+        splits.append(("heads", cfg.num_heads, (TP, SP)))
     if family_ops(cfg).moe:
         splits.append(("experts", cfg.num_experts, EP))
-    for what, n, axis in splits:
-        if n % mesh.size(axis):
-            raise ValueError(f"{n} {what} do not split over {axis} = "
-                             f"{mesh.size(axis)}")
+    for what, n, axes in splits:
+        size = math.prod(mesh.size(a) for a in
+                         (axes if isinstance(axes, tuple) else (axes,)))
+        if n % size:
+            raise ValueError(f"{n} {what} do not split over {axes} = {size}")
     specs, slots = param_specs_for(cfg, tp), mesh.slots()
 
     def cut(group, name, leaf):
@@ -317,10 +347,14 @@ def _gspmd_executable(cfg, artifact, device, optimizer) -> Executable:
 
     def init(source):
         return train_state_from_params(
-            params_from(source, cfg, device, cut), optimizer)
+            params_from(source, cfg, device, cut), optimizer, s0["zero"],
+            mesh, cfg)
 
+    seq = dict(seq_axis=SP if cp > 1 else None, megatron_sp=sp,
+               cp_mode=s0["cp_mode"])
     return Executable(kind="gspmd", init=init,
-                      step=make_train_step(cfg, mesh=mesh), mesh=mesh)
+                      step=make_train_step(cfg, mesh=mesh, **seq), mesh=mesh,
+                      forward=make_forward(cfg, mesh=mesh, **seq))
 
 
 def _hetero_executable(cfg, artifact, strategies, device, optimizer, cluster,

@@ -24,7 +24,8 @@ The GPT and LLaMA families run here (their stage pieces come from
 ``models.family_ops``, as in the reference).  MoE configs (the aux loss
 threaded through the stages, ``valid_mask`` for uneven replica rows) and
 stages with ZeRO, context or expert parallelism raise
-``NotImplementedError``: they come with later slices (ROADMAP §A.3, §A.4).
+``NotImplementedError``: they come with the stage half of those axes
+(ROADMAP §A.3, §A.5); the gspmd route runs them for pp = 1 plans.
 """
 from __future__ import annotations
 
@@ -150,7 +151,7 @@ def check_stage_axes(stages: Sequence[StageSpec]) -> None:
         if spec.zero or spec.cp > 1:
             raise NotImplementedError(
                 f"stage {s}: zero={spec.zero}, cp={spec.cp}: ZeRO and context "
-                "parallelism come with a later slice (ROADMAP §A.4)")
+                "parallelism on stages come with a later slice (ROADMAP §A.5)")
 
 
 def hetero_runner(cfg: GPTConfig, stages: Sequence[StageSpec],

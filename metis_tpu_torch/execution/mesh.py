@@ -231,8 +231,51 @@ def expert_leaves(specs: dict, ep_axis: str = EP) -> set[tuple[str, str]]:
 
 def batch_spec(dp_axis: str | tuple = DP, seq_axis: str | None = None) -> Spec:
     """Spec of [batch, seq] token arrays (``(DP, EP)``: rows split over
-    the dp x ep ranks, dp major, as the reference's ``P((DP, EP))``)."""
+    the dp x ep ranks, dp major, as the reference's ``P((DP, EP))``;
+    ``seq_axis``, the context-parallel ``SP``: each rank a contiguous block
+    of the sequence)."""
     return (dp_axis, seq_axis)
+
+
+def seq_offset(mesh: ProcessMesh, seq_len: int, seq_axis: str = SP) -> int:
+    """Absolute position of the first token of this rank's block of a
+    ``seq_len`` sequence split over ``seq_axis``."""
+    return mesh.index(seq_axis) * (seq_len // mesh.size(seq_axis))
+
+
+def fsdp_wrap_specs(specs: dict, shapes: dict, dp_axis: str = DP,
+                    axis_size: int = 1) -> dict:
+    """The reference's ZeRO rule (``fsdp_wrap_specs``): each leaf of two or
+    more dims shards its largest dim that the spec leaves unsplit and that
+    divides by ``axis_size`` over ``dp_axis``; leaves of fewer dims, or
+    with no such dim, stay as they are.  ``shapes``: the leaves' shapes,
+    whole or this rank's (the unsplit dims are the same)."""
+    def wrap(spec: Spec, shape) -> Spec:
+        if len(shape) < 2:
+            return spec
+        parts = list(spec) + [None] * (len(shape) - len(spec))
+        free = [i for i in range(len(shape))
+                if parts[i] is None and shape[i] % max(axis_size, 1) == 0]
+        if not free:
+            return spec
+        parts[max(free, key=lambda j: shape[j])] = dp_axis
+        return tuple(parts)
+
+    return {group: {name: wrap(specs[group][name], tuple(shape))
+                    for name, shape in sub.items()}
+            for group, sub in shapes.items()}
+
+
+def sp_partial_leaves(specs: dict, tp_axis: str = TP) -> set[tuple[str, str]]:
+    """``(group, name)`` of the leaves whose gradient each tp rank holds
+    only a part of under Megatron sequence parallelism: the leaves the spec
+    keeps whole over tp (norms, biases after a row-parallel product, GPT's
+    positions) act on the rank's block of the sequence alone.  LLaMA's
+    replicated ``wkv`` is not among them: ``copy_to_tp`` already sums its
+    gradient over tp."""
+    return {(group, name) for group, sub in specs.items()
+            for name, spec in sub.items()
+            if tp_axis not in spec and (group, name) != ("blocks", "wkv")}
 
 
 def shard_params(params: dict, mesh: ProcessMesh, specs: dict) -> dict:

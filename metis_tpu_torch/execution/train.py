@@ -1,7 +1,7 @@
 """Training step — the port of ``metis_tpu/execution/train.py`` for the
-GPT, LLaMA and MoE families without a sequence axis: one device, or one
-rank of a dp x tp process mesh, or for MoE of a dp x ep x tp one
-(``execution/mesh.py``).
+GPT, LLaMA and MoE families: one device, or one rank of a dp x cp x tp
+process mesh, or for MoE of a dp x ep x tp one (``execution/mesh.py``),
+with Megatron sequence parallelism and ZeRO 1-3.
 
 PyTorch runs eagerly, so the reference's jitted step becomes a plain
 function: forward, ``backward()``, ``optimizer.step()``.  The optimizer is
@@ -18,14 +18,42 @@ dp x ep ranks; an expert leaf's gradient already holds its ep peers' tokens
 (they reached this rank's experts through the all-to-all, and their
 gradients came back through its backward), so it is summed over dp only
 and scaled by 1 / (dp * ep).
+
+Context parallelism (cp, the mesh's ``SP`` axis) splits the sequence: each
+rank runs its contiguous block of it at its absolute positions, attention
+runs over the cp group (ring attention or Ulysses,
+``models.resolve_attention``), and the dense gradients are averaged over
+dp x cp, each rank's loss being the mean over its equal share of the
+tokens.  Megatron sequence parallelism (``megatron_sp``, at tp > 1) keeps
+the residual stream split over tp along the sequence between the products
+(``models/parallel.py``); the leaves that act on that split stream while
+the spec keeps them whole (``mesh.sp_partial_leaves``) see only the rank's
+tokens, so their gradients are summed over tp.  With cp and sp together the
+stream's chunk on a rank is ``cp_rank * tp + tp_rank``.
+
+ZeRO (``train_state_from_params(zero=...)``) splits state over the dp
+group, the leaves and dims chosen by the reference's rule
+(``mesh.fsdp_wrap_specs``).  Levels 1 and 2 keep every parameter whole; the
+optimizer holds moments only for the rank's chunk of each wrapped leaf (a
+contiguous flat view of it, updated in place), and after the update the
+chunks are all-gathered back into the leaves.  At level 1 the gradient is
+all-reduced, at level 2 reduce-scattered to the chunk.  Level 3 stores the
+parameters as dp shards along the wrapped dim and gathers each block's
+leaves where the model reads them (``parallel.ShardedGroup``); saved-tensor
+hooks keep a gathered leaf saved for the backward as its shard, so a
+block's whole weights live only during its forward and its backward.  The
+gradients come back reduce-scattered.  As in the reference's executor, ZeRO
+shards over dp alone, also under cp (the planner prices it over dp x cp,
+ROADMAP §C).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import time
 from collections import deque
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from functools import partial
 from typing import Callable
 
@@ -40,24 +68,59 @@ from metis_tpu_torch.execution.mesh import (
     DP,
     EP,
     ONE_DEVICE,
+    SP,
     TP,
     ProcessMesh,
     batch_spec,
     expert_leaves,
+    fsdp_wrap_specs,
+    seq_offset,
+    sp_partial_leaves,
 )
-from metis_tpu_torch.models import family_ops
+from metis_tpu_torch.models import family_ops, resolve_attention
+from metis_tpu_torch.models.parallel import (
+    ShardedGroup,
+    ShardGather,
+    all_gather_dim,
+    reduce_scatter_dim,
+)
 from metis_tpu_torch.models.gpt import GPTConfig
 from metis_tpu_torch.models.moe import MoEConfig, _route_group_len
 
 
 @dataclass
+class ZeroLayout:
+    """A rank's ZeRO split over the dp ``group`` (module doc): ``dims[(group,
+    name)]`` the dim a leaf's wrapped spec splits over dp (None: held whole
+    by every rank); at levels 1 and 2 ``chunks[key]`` the flat view of the
+    rank's chunk of a wrapped leaf, which the optimizer updates; at level 3
+    ``dtypes[key]`` the dtype a leaf is gathered in."""
+
+    level: int
+    group: object
+    size: int
+    dims: dict
+    chunks: dict = field(default_factory=dict)
+    dtypes: dict = field(default_factory=dict)
+
+
+@dataclass
 class TrainState:
-    """Parameters (nested dict of leaf tensors), the optimizer that owns
-    their moments, and the count of steps taken."""
+    """Parameters (nested dict of leaf tensors; ZeRO-3's dp shards), the
+    optimizer that owns their moments, the count of steps taken and the
+    ZeRO layout (None without ZeRO)."""
 
     params: dict
     optimizer: torch.optim.Optimizer
     step: int = 0
+    zero: ZeroLayout | None = None
+
+    def opt_leaves(self) -> dict:
+        """``{(group, name): the tensor the optimizer updates}`` — the leaf,
+        or at ZeRO 1 and 2 the rank's chunk of a wrapped leaf."""
+        chunks = self.zero.chunks if self.zero is not None else {}
+        return {(g, n): chunks.get((g, n), leaf)
+                for g, sub in self.params.items() for n, leaf in sub.items()}
 
 
 def param_specs_for(cfg: GPTConfig, tp_size: int = 1) -> dict:
@@ -215,27 +278,80 @@ def build_optimizer(lr: float = 1e-4, weight_decay: float = 0.01):
                    weight_decay=weight_decay, fused=True)
 
 
-def train_state_from_params(params: dict, optimizer=None) -> TrainState:
+def train_state_from_params(params: dict, optimizer=None, zero: int = 0,
+                            mesh: ProcessMesh | None = None,
+                            cfg: GPTConfig | None = None) -> TrainState:
     """Make ``params``' leaves trainable and wrap them with a fresh optimizer
-    (one group over every leaf, as optax applies decay to all of them)."""
+    (one group over every leaf, as optax applies decay to all of them).
+    ``zero`` 1-3 with a ``mesh`` of dp > 1 splits the state over dp (module
+    doc); ``params`` are then the rank's tp shards of ``cfg``'s leaves."""
     factory = optimizer or build_optimizer()
-    leaves = param_leaves(params)
-    for leaf in leaves:
+    layout = None
+    if zero and mesh is not None and mesh.size(DP) > 1:
+        params, layout = _zero_split(params, zero, mesh, cfg)
+    for leaf in param_leaves(params):
         leaf.requires_grad_(True)
-    return TrainState(params=params, optimizer=factory(leaves))
+    state = TrainState(params=params, optimizer=None, zero=layout)
+    state.optimizer = factory(list(state.opt_leaves().values()))
+    return state
+
+
+def _zero_split(params: dict, level: int, mesh: ProcessMesh,
+                cfg: GPTConfig) -> tuple[dict, ZeroLayout]:
+    if level not in (1, 2, 3):
+        raise ValueError(f"zero={level}: expected 0, 1, 2 or 3")
+    dp, r = mesh.size(DP), mesh.index(DP)
+    shapes = {g: {n: leaf.shape for n, leaf in sub.items()}
+              for g, sub in params.items()}
+    wrapped = fsdp_wrap_specs(param_specs_for(cfg, mesh.size(TP)), shapes,
+                              DP, dp)
+    layout = ZeroLayout(level, mesh.group(DP), dp, {})
+    cast = family_ops(cfg).cast_leaves
+    out: dict = {}
+    for g, sub in params.items():
+        for n, leaf in sub.items():
+            spec = wrapped[g][n]
+            dim = spec.index(DP) if DP in spec else None
+            layout.dims[(g, n)] = dim
+            if dim is not None and level == 3:
+                block = leaf.shape[dim] // dp
+                leaf = leaf.narrow(dim, r * block, block).clone()
+                layout.dtypes[(g, n)] = (cfg.dtype if n in cast.get(g, ())
+                                         else leaf.dtype)
+            elif dim is not None:
+                block = leaf.numel() // dp
+                layout.chunks[(g, n)] = (leaf.detach().view(-1)
+                                         .narrow(0, r * block, block)
+                                         .requires_grad_(True))
+            out.setdefault(g, {})[n] = leaf
+    return out, layout
+
+
+def model_params(state: TrainState) -> tuple[dict, ShardGather | None]:
+    """The parameter tree the model reads, and at ZeRO 3 the step's
+    ``ShardGather`` (its ``hooks()`` must wrap the forward): the shards as
+    ``ShardedGroup``s, or the stored leaves."""
+    z = state.zero
+    if z is None or z.level < 3:
+        return state.params, None
+    gather = ShardGather(z.group)
+    return {g: ShardedGroup(sub, {n: z.dims[(g, n)] for n in sub},
+                            {n: z.dtypes.get((g, n)) for n in sub}, gather)
+            for g, sub in state.params.items()}, gather
 
 
 def build_train_state(seed: int, cfg: GPTConfig,
                       device: str | torch.device = "cuda",
-                      optimizer=None, mesh: ProcessMesh | None = None
-                      ) -> TrainState:
+                      optimizer=None, mesh: ProcessMesh | None = None,
+                      zero: int = 0) -> TrainState:
     """Initialize parameters on ``device`` from ``seed`` and the matching
     optimizer state; with ``mesh``, this rank's shards of the same
-    parameters (``init_params_for``)."""
+    parameters (``init_params_for``), split over dp at ZeRO ``zero``
+    (``zero_axis`` is the reference's DP, the only one it shards over)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     return train_state_from_params(init_params_for(gen, cfg, dev, mesh),
-                                   optimizer)
+                                   optimizer, zero, mesh, cfg)
 
 
 # Elements per chunk of the dp gradient all-reduce under the overlap
@@ -262,8 +378,69 @@ def chunked_all_reduce(tensors: list[torch.Tensor], group) -> None:
         w.wait()
 
 
+class _RankSlice:
+    """What a rank of ``mesh`` runs of a full ``[gbs, seq]`` batch: its rows
+    over dp (x ep) and its block of the sequence over cp, the config they
+    run under, and the model's keyword arguments."""
+
+    def __init__(self, cfg: GPTConfig, mesh: ProcessMesh, seq_axis, megatron_sp):
+        self.cfg, self.mesh = cfg, mesh
+        self.moe = family_ops(cfg).moe
+        self.ranks = mesh.size(DP) * mesh.size(EP)
+        self.cp = mesh.size(seq_axis) if seq_axis is not None else 1
+        self.sp = bool(megatron_sp) and mesh.size(TP) > 1
+        if self.moe and (self.cp > 1 or self.sp):
+            raise NotImplementedError(
+                "MoE with context or sequence parallelism: a rank's block of "
+                "the sequence splits the routing groups (ROADMAP §A.5)")
+        self.spec = batch_spec((DP, EP) if mesh.size(EP) > 1 else DP,
+                               seq_axis if self.cp > 1 else None)
+        self.slots = mesh.slots()
+
+    def __call__(self, tokens: torch.Tensor):
+        """(the rank's tokens, their config, the model's keyword args)."""
+        cfg = (aligned_routing(self.cfg, tokens.numel(), self.ranks)
+               if self.moe and self.ranks > 1 else self.cfg)
+        kw = {"ep_group": self.mesh.group(EP)} if self.moe else {}
+        if self.cp > 1 or self.sp:
+            kw.update(sp=self.sp,
+                      pos_offset=seq_offset(self.mesh, tokens.shape[1]))
+        return slice_leaf(tokens, self.spec, self.slots), cfg, kw
+
+
+def _seq_axis(mesh: ProcessMesh, seq_axis):
+    return seq_axis if seq_axis is not None and mesh.size(seq_axis) > 1 else None
+
+
+def make_forward(cfg: GPTConfig, attn_impl=None,
+                 mesh: ProcessMesh | None = None, seq_axis: str | None = None,
+                 megatron_sp: bool = False, cp_mode: str = "ring") -> Callable:
+    """``(state, tokens) -> logits`` without gradients: the logits of this
+    rank's rows and block of the sequence of the full ``[gbs, seq]``
+    ``tokens`` (its block of the vocabulary under tp; MoE's aux loss
+    dropped).  Arguments as ``make_train_step``."""
+    mesh = mesh if mesh is not None else ONE_DEVICE
+    seq_axis = _seq_axis(mesh, seq_axis)
+    rank = _RankSlice(cfg, mesh, seq_axis, megatron_sp)
+    attn = attn_impl or resolve_attention(
+        cfg, mesh.group(seq_axis) if seq_axis else None, cp_mode)
+    family = family_ops(cfg)
+
+    def forward(state: TrainState, tokens: torch.Tensor):
+        mine, run_cfg, kw = rank(tokens)
+        params, _ = model_params(state)  # no_grad saves nothing to pack
+        with torch.no_grad():
+            logits = family.forward(params, mine, run_cfg, attn,
+                                    mesh.group(TP), **kw)
+        return logits[0] if family.moe else logits
+
+    return forward
+
+
 def make_train_step(cfg: GPTConfig, attn_impl=None,
-                    mesh: ProcessMesh | None = None) -> Callable:
+                    mesh: ProcessMesh | None = None,
+                    seq_axis: str | None = None, megatron_sp: bool = False,
+                    cp_mode: str = "ring") -> Callable:
     """``(state, tokens, targets) -> (state, loss)``.
 
     The reference donates the state to its jitted step; here the step
@@ -274,51 +451,94 @@ def make_train_step(cfg: GPTConfig, attn_impl=None,
 
     With ``mesh`` the step takes the full ``[gbs, seq]`` batch on every rank
     and runs its contiguous ``gbs / (dp * ep)`` rows (the reference's
-    ``P(dp, None)``, or ``P((dp, ep), None)`` under expert parallelism);
-    the gradients are reduced as the module doc says, and the returned loss
-    is the global batch mean."""
+    ``P(dp, None)``, or ``P((dp, ep), None)`` under expert parallelism),
+    and with ``seq_axis`` (the mesh's ``SP``) its block of the sequence,
+    attention by ``cp_mode`` (``"ring"`` or ``"a2a"``); ``megatron_sp``
+    splits the residual stream over tp.  The gradients are reduced as the
+    module doc says, ZeRO's by the state's layout, and the returned loss is
+    the global batch mean."""
     loss_fn = loss_fn_for(cfg)
     mesh = mesh if mesh is not None else ONE_DEVICE
+    seq_axis = _seq_axis(mesh, seq_axis)
     dp, ep = mesh.size(DP), mesh.size(EP)
-    dp_group, ep_group, tp_group = mesh.group(DP), mesh.group(EP), mesh.group(TP)
-    moe = family_ops(cfg).moe
-    if ep > 1 and not moe:
+    if ep > 1 and not family_ops(cfg).moe:
         raise ValueError(f"ep={ep} needs an MoE config")
-    rows = batch_spec((DP, EP) if ep > 1 else DP)
-    experts = expert_leaves(param_specs_for(cfg)) if ep > 1 else set()
-    extra = {"ep_group": ep_group} if moe else {}
-    slots = mesh.slots()
+    rank = _RankSlice(cfg, mesh, seq_axis, megatron_sp)
+    cp_group = mesh.group(seq_axis) if seq_axis else None
+    attn = attn_impl or resolve_attention(cfg, cp_group, cp_mode)
+    specs = param_specs_for(cfg, mesh.size(TP))
+    experts = expert_leaves(specs) if ep > 1 else set()
+    partial_tp = sp_partial_leaves(specs) if rank.sp else set()
+    dp_group, tp_group = mesh.group(DP), mesh.group(TP)
+    # the groups a dense gradient is summed over besides dp, and the mean's
+    # divisor: each rank's loss is the mean over its share of the tokens
+    dense_groups = [g for g in (mesh.group(EP), cp_group) if g is not None]
+    ranks = dp * ep * rank.cp
+
+    def reduce_grads(state: TrainState) -> None:
+        z = state.zero
+        for (g, n), opt in state.opt_leaves().items():
+            leaf = state.params[g][n]
+            others = [] if (g, n) in experts else list(dense_groups)
+            if (g, n) in partial_tp:
+                others.append(tp_group)
+            dim = z.dims[(g, n)] if z is not None else None
+            if dim is not None and z.level == 2:
+                grad = reduce_scatter_dim(leaf.grad.view(-1), dp_group, 0)
+                leaf.grad = None
+            elif dim is not None and z.level == 3:
+                grad = leaf.grad  # reduce-scattered by gather_shard
+            else:
+                grad = leaf.grad
+                if dp_group is not None:
+                    others.append(dp_group)
+            for group in others:
+                dist.all_reduce(grad, group=group)
+            if ranks > 1:
+                grad.div_(ranks)
+            if opt is not leaf:  # ZeRO 1 and 2: the chunk's gradient
+                opt.grad = grad if z.level == 2 else _chunk_of(grad, z)
 
     def step(state: TrainState, tokens: torch.Tensor, targets: torch.Tensor):
-        step_cfg = (aligned_routing(cfg, tokens.numel(), dp * ep)
-                    if moe and dp * ep > 1 else cfg)
-        tokens = slice_leaf(tokens, rows, slots)
-        targets = slice_leaf(targets, rows, slots)
-        loss = loss_fn(state.params, tokens, targets, step_cfg, attn_impl,
-                       tp_group, **extra)
+        tokens, step_cfg, kw = rank(tokens)
+        targets, _, _ = rank(targets)
+        params, gather = model_params(state)
+        with gather.hooks() if gather is not None else contextlib.nullcontext():
+            loss = loss_fn(params, tokens, targets, step_cfg, attn, tp_group,
+                           **kw)
         loss.backward()
-        if dp * ep > 1:
+        if ranks > 1:
             loss = loss.detach().clone()
-            dense = [loss]
-            for group, sub in state.params.items():
-                for name, leaf in sub.items():
-                    if (group, name) in experts:
-                        # the ep peers' part came through the all-to-all
-                        if dp_group is not None:
-                            dist.all_reduce(leaf.grad, group=dp_group)
-                        leaf.grad.div_(dp * ep)
-                    else:
-                        dense.append(leaf.grad)
-            for group in (dp_group, ep_group):
+            for group in [dp_group, *dense_groups]:
                 if group is not None:
-                    for t in dense:
-                        dist.all_reduce(t, group=group)
-            for t in dense:
-                t.div_(dp * ep)
+                    dist.all_reduce(loss, group=group)
+            loss.div_(ranks)
+        if ranks > 1 or partial_tp:
+            reduce_grads(state)
         state.optimizer.step()
+        if state.zero is not None and state.zero.level < 3:
+            _gather_chunks(state)
         # free the gradients now rather than at the next step's backward
         state.optimizer.zero_grad(set_to_none=True)
+        for leaf in param_leaves(state.params):
+            leaf.grad = None
         state.step += 1
         return state, loss.detach()
 
     return step
+
+
+def _chunk_of(grad: torch.Tensor, z: ZeroLayout) -> torch.Tensor:
+    """This rank's flat chunk of a whole leaf's gradient (ZeRO 1)."""
+    block = grad.numel() // z.size
+    return grad.view(-1).narrow(0, dist.get_rank(z.group) * block, block)
+
+
+def _gather_chunks(state: TrainState) -> None:
+    """ZeRO 1 and 2: every wrapped leaf rebuilt from the ranks' updated
+    chunks."""
+    z = state.zero
+    with torch.no_grad():
+        for (g, n), chunk in z.chunks.items():
+            state.params[g][n].view(-1).copy_(
+                all_gather_dim(chunk.detach(), z.group, 0))

@@ -93,11 +93,26 @@ def family_ops(cfg) -> Family:
     raise TypeError(f"{type(cfg).__name__} is not a config of the port")
 
 
-def resolve_attention(cfg):
+def resolve_attention(cfg, cp_group=None, cp_mode: str = "ring"):
     """The ``AttnFn`` a config's ``attn`` field selects — the one resolution
     point the profiler and the executors share, so a profile describes the
-    attention that runs."""
-    return family_ops(cfg).attention(cfg)
+    attention that runs.  With a context-parallel ``cp_group``, the
+    attention of ``cp_mode``: ring attention over the flash kernels
+    (``"ring"``; GQA-native, ``supports_gqa``) or Ulysses (``"a2a"``; the
+    LLaMA block expands grouped K/V for it, as the reference's does)."""
+    if cp_group is None:
+        return family_ops(cfg).attention(cfg)
+    if family_ops(cfg).moe:
+        raise NotImplementedError(
+            "MoE with context parallelism: a rank's block of the sequence "
+            "splits the routing groups (ROADMAP §A.5)")
+    if cp_mode == "a2a":
+        from metis_tpu_torch.ops.ulysses import make_ulysses_attention
+        return make_ulysses_attention(cp_group)
+    if cp_mode != "ring":
+        raise ValueError(f"unknown cp_mode {cp_mode!r}")
+    from metis_tpu_torch.ops.ring_attention import make_ring_attention
+    return make_ring_attention(cp_group)
 
 
 def config_for_model_spec(spec, **overrides):

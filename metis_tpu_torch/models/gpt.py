@@ -24,6 +24,7 @@ from torch.utils.checkpoint import checkpoint
 
 from metis_tpu_torch.core.config import ModelSpec
 from metis_tpu_torch.models.parallel import (
+    ShardedGroup,
     column_parallel,
     row_parallel,
     vocab_parallel_cross_entropy,
@@ -175,14 +176,16 @@ def default_attention(cfg: GPTConfig) -> AttnFn:
 
 
 def attention_residual(x: torch.Tensor, layer: dict, cfg: GPTConfig,
-                       attn_impl: AttnFn, tp_group=None) -> torch.Tensor:
+                       attn_impl: AttnFn, tp_group=None,
+                       sp: bool = False) -> torch.Tensor:
     """The attention half of a block: ``x`` plus the attention of its layer
-    norm (the GPT and MoE blocks share it)."""
+    norm (the GPT and MoE blocks share it).  ``sp``: ``x`` is this rank's
+    block of the sequence (Megatron sequence parallelism over tp)."""
     dt, hd = cfg.dtype, cfg.head_dim
     nh = cfg.num_heads // _tp_size(tp_group)
 
     y = _layer_norm(x, layer["ln1_scale"], layer["ln1_bias"])
-    qkv = column_parallel(y, layer["qkv"].to(dt), tp_group)
+    qkv = column_parallel(y, layer["qkv"].to(dt), tp_group, sp)
     qkv = (qkv.float() + layer["qkv_bias"][:, None, None, :]).to(dt)
     q, k, v = qkv[0], qkv[1], qkv[2]
 
@@ -193,25 +196,30 @@ def attention_residual(x: torch.Tensor, layer: dict, cfg: GPTConfig,
     ctx = attn_impl(heads(q), heads(k), heads(v))
     b, _, s, _ = ctx.shape
     ctx = ctx.transpose(1, 2).reshape(b, s, nh * hd)
-    attn_out = row_parallel(ctx, layer["proj"].to(dt), tp_group)
+    attn_out = row_parallel(ctx, layer["proj"].to(dt), tp_group, sp)
     return x + (attn_out + layer["proj_bias"]).to(dt)
 
 
 def block_forward(x: torch.Tensor, layer: dict, cfg: GPTConfig,
-                  attn_impl: AttnFn, tp_group=None) -> torch.Tensor:
+                  attn_impl: AttnFn, tp_group=None,
+                  sp: bool = False) -> torch.Tensor:
     """One transformer block on [batch, seq, hidden] activations.
 
     With ``tp_group`` the layer holds this rank's Megatron shards (qkv and
     mlp_in column-parallel, proj and mlp_out row-parallel): the rank runs
     ``num_heads / tp`` whole heads and ``ffn / tp`` hidden units, and the
     row-parallel partial sums cross ranks as fp32 accumulators before the
-    bias is added (the reference's products accumulate in fp32)."""
+    bias is added (the reference's products accumulate in fp32).  With
+    ``sp`` the residual stream ``x`` stays split over tp along the sequence
+    (Megatron sequence parallelism): the layer norms and bias adds run on
+    the rank's block, the column-parallel products gather the sequence
+    first and the row-parallel ones reduce-scatter it."""
     dt = cfg.dtype
-    x = attention_residual(x, layer, cfg, attn_impl, tp_group)
+    x = attention_residual(x, layer, cfg, attn_impl, tp_group, sp)
     y = _layer_norm(x, layer["ln2_scale"], layer["ln2_bias"])
-    z = column_parallel(y, layer["mlp_in"].to(dt), tp_group)
+    z = column_parallel(y, layer["mlp_in"].to(dt), tp_group, sp)
     z = F.gelu(z.float() + layer["mlp_in_bias"], approximate="tanh").to(dt)
-    z = row_parallel(z, layer["mlp_out"].to(dt), tp_group)
+    z = row_parallel(z, layer["mlp_out"].to(dt), tp_group, sp)
     return x + (z + layer["mlp_out_bias"]).to(dt)
 
 
@@ -219,16 +227,24 @@ def _tp_size(tp_group) -> int:
     return 1 if tp_group is None else tp_group.size()
 
 
+def _tp_rank(tp_group) -> int:
+    return 0 if tp_group is None else tp_group.rank()
+
+
 def embed(params: dict, tokens: torch.Tensor, cfg: GPTConfig,
-          tp_group=None) -> torch.Tensor:
+          tp_group=None, sp: bool = False, pos_offset: int = 0) -> torch.Tensor:
     """Embedding pseudo-layer (profile layer 0): token + position lookup.
     Gathers before casting — the same values as the reference's
     cast-then-gather, without a bf16 copy of the whole table.  With
-    ``tp_group`` the table is this rank's block of the vocabulary."""
-    seq = tokens.shape[1]
-    tok = vocab_parallel_embedding(tokens, params["embed"]["tok"],
-                                   tp_group).to(cfg.dtype)
-    pos = params["embed"]["pos"][:seq].to(cfg.dtype)
+    ``tp_group`` the table is this rank's block of the vocabulary.
+    ``tokens`` start at absolute position ``pos_offset`` (a context-parallel
+    rank's block); with ``sp`` the result is this tp rank's block of their
+    sequence."""
+    tok = vocab_parallel_embedding(tokens, params["embed"]["tok"], tp_group,
+                                   sp).to(cfg.dtype)
+    seq = tok.shape[1]
+    start = pos_offset + (_tp_rank(tp_group) * seq if sp else 0)
+    pos = params["embed"]["pos"][start:start + seq].to(cfg.dtype)
     return tok + pos[None, :, :]
 
 
@@ -238,48 +254,61 @@ def unstack_blocks(blocks: dict) -> list[dict]:
     One ``unbind`` per leaf: its backward stacks the per-layer gradients
     into the leaf's gradient once.  Indexing ``leaf[i]`` per layer instead
     would give each layer's backward a zero-filled gradient of the whole
-    stack, summed L times."""
+    stack, summed L times.  A ``ShardedGroup`` (ZeRO-3 shards) gathers each
+    layer as the loop reaches it."""
+    if isinstance(blocks, ShardedGroup):
+        return blocks.layers()
     names = list(blocks)
     per_leaf = [blocks[n].unbind(0) for n in names]
     return [dict(zip(names, leaves)) for leaves in zip(*per_leaf)]
 
 
 def run_blocks(params: dict, x: torch.Tensor, cfg: GPTConfig,
-               attn_impl: AttnFn | None = None, tp_group=None) -> torch.Tensor:
+               attn_impl: AttnFn | None = None, tp_group=None,
+               sp: bool = False) -> torch.Tensor:
     """Run the stacked blocks over the activations — a Python loop where
-    the reference scans."""
+    the reference scans.  With ``sp`` the stream between blocks is this
+    rank's block of the sequence: where the reference's ``resid_fn``
+    constrains it, the port keeps it split."""
     attn = attn_impl or default_attention(cfg)
     for layer in unstack_blocks(params["blocks"]):
         if cfg.remat:
-            x = checkpoint(block_forward, x, layer, cfg, attn, tp_group,
+            x = checkpoint(block_forward, x, layer, cfg, attn, tp_group, sp,
                            use_reentrant=False)
         else:
-            x = block_forward(x, layer, cfg, attn, tp_group)
+            x = block_forward(x, layer, cfg, attn, tp_group, sp)
     return x
 
 
 def head_logits(params: dict, x: torch.Tensor, cfg: GPTConfig,
-                tp_group=None) -> torch.Tensor:
+                tp_group=None, sp: bool = False) -> torch.Tensor:
     """LM-head pseudo-layer (profile layer N-1): final LN + projection,
-    fp32 logits — with ``tp_group``, this rank's block of the vocabulary."""
+    fp32 logits — with ``tp_group``, this rank's block of the vocabulary;
+    with ``sp`` the sequence is gathered after the layer norm."""
     y = _layer_norm(x, params["head"]["ln_scale"], params["head"]["ln_bias"])
-    return column_parallel(y, params["head"]["out"].to(cfg.dtype), tp_group).float()
+    return column_parallel(y, params["head"]["out"].to(cfg.dtype), tp_group,
+                           sp).float()
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg: GPTConfig,
-            attn_impl: AttnFn | None = None, tp_group=None) -> torch.Tensor:
+            attn_impl: AttnFn | None = None, tp_group=None, sp: bool = False,
+            pos_offset: int = 0) -> torch.Tensor:
     """Full forward: tokens [batch, seq] -> logits [batch, seq, vocab] (fp32;
-    with ``tp_group``, this rank's block of the vocabulary)."""
-    x = embed(params, tokens, cfg, tp_group)
-    x = run_blocks(params, x, cfg, attn_impl, tp_group)
-    return head_logits(params, x, cfg, tp_group)
+    with ``tp_group``, this rank's block of the vocabulary).  ``sp``
+    (Megatron sequence parallelism) and ``pos_offset`` (the absolute
+    position of ``tokens[:, 0]``, a context-parallel rank's) as in
+    ``embed``."""
+    x = embed(params, tokens, cfg, tp_group, sp, pos_offset)
+    x = run_blocks(params, x, cfg, attn_impl, tp_group, sp)
+    return head_logits(params, x, cfg, tp_group, sp)
 
 
 def next_token_loss(params: dict, tokens: torch.Tensor, targets: torch.Tensor,
                     cfg: GPTConfig, attn_impl: AttnFn | None = None,
-                    tp_group=None) -> torch.Tensor:
+                    tp_group=None, sp: bool = False,
+                    pos_offset: int = 0) -> torch.Tensor:
     """Mean cross-entropy of next-token prediction (fp32 scalar)."""
-    logits = forward(params, tokens, cfg, attn_impl, tp_group)
+    logits = forward(params, tokens, cfg, attn_impl, tp_group, sp, pos_offset)
     return vocab_parallel_cross_entropy(logits.reshape(-1, logits.shape[-1]),
                                         targets.reshape(-1), tp_group)
 

@@ -184,16 +184,19 @@ def _rank_kv(wkv: torch.Tensor, cfg: LlamaConfig, tp_group) -> tuple[torch.Tenso
 
 def llama_block_forward(x: torch.Tensor, layer: dict, cfg: LlamaConfig,
                         attn_impl: AttnFn, tp_group=None,
-                        pos_offset: int = 0) -> torch.Tensor:
+                        pos_offset: int = 0, sp: bool = False) -> torch.Tensor:
     """One LLaMA block on [batch, seq, hidden] activations; with
-    ``tp_group`` the layer holds this rank's shards (module doc)."""
+    ``tp_group`` the layer holds this rank's shards (module doc).  The
+    attention's sequence starts at absolute position ``pos_offset``; with
+    ``sp`` the stream ``x`` is this tp rank's block of that sequence
+    (``gpt.block_forward``)."""
     dt, hd = cfg.dtype, cfg.head_dim
     nh = cfg.num_heads // _tp_size(tp_group)
 
     y = rms_norm(x, layer["attn_norm"])
-    q = column_parallel(y, layer["wq"].to(dt), tp_group)
+    q = column_parallel(y, layer["wq"].to(dt), tp_group, sp)
     wkv, kvh = _rank_kv(layer["wkv"].to(dt), cfg, tp_group)
-    kv = column_parallel(y, wkv, tp_group)
+    kv = column_parallel(y, wkv, tp_group, sp)
 
     def heads(t, n):  # [b, s, n*hd] -> [b, n, s, hd]
         b, s, _ = t.shape
@@ -212,22 +215,23 @@ def llama_block_forward(x: torch.Tensor, layer: dict, cfg: LlamaConfig,
     ctx = attn_impl(q, k, v)
     b, _, s, _ = ctx.shape
     ctx = ctx.transpose(1, 2).reshape(b, s, nh * hd)
-    x = x + row_parallel(ctx, layer["wo"].to(dt), tp_group).to(dt)
+    x = x + row_parallel(ctx, layer["wo"].to(dt), tp_group, sp).to(dt)
 
     y = rms_norm(x, layer["ffn_norm"])
     # silu(gate) * up on the fp32 products, rounded once after the multiply
-    gate = column_parallel_f32(y, layer["w_gate"].to(dt), tp_group)
-    up = column_parallel_f32(y, layer["w_up"].to(dt), tp_group)
+    gate = column_parallel_f32(y, layer["w_gate"].to(dt), tp_group, sp)
+    up = column_parallel_f32(y, layer["w_up"].to(dt), tp_group, sp)
     z = (F.silu(gate) * up).to(dt)
-    return x + row_parallel(z, layer["w_down"].to(dt), tp_group).to(dt)
+    return x + row_parallel(z, layer["w_down"].to(dt), tp_group, sp).to(dt)
 
 
 def llama_embed(params: dict, tokens: torch.Tensor, cfg: LlamaConfig,
-                tp_group=None) -> torch.Tensor:
+                tp_group=None, sp: bool = False) -> torch.Tensor:
     """Embedding pseudo-layer (profile layer 0): the token lookup only
-    (positions are rotary, inside the blocks)."""
-    return vocab_parallel_embedding(tokens, params["embed"]["tok"],
-                                    tp_group).to(cfg.dtype)
+    (positions are rotary, inside the blocks); with ``sp`` this tp rank's
+    block of the sequence."""
+    return vocab_parallel_embedding(tokens, params["embed"]["tok"], tp_group,
+                                    sp).to(cfg.dtype)
 
 
 def default_llama_attention(cfg: LlamaConfig) -> AttnFn:
@@ -241,38 +245,45 @@ def default_llama_attention(cfg: LlamaConfig) -> AttnFn:
 
 def llama_run_blocks(params: dict, x: torch.Tensor, cfg: LlamaConfig,
                      attn_impl: AttnFn | None = None, tp_group=None,
-                     pos_offset: int = 0) -> torch.Tensor:
+                     pos_offset: int = 0, sp: bool = False) -> torch.Tensor:
     """Run the stacked blocks — ``gpt.run_blocks``' contract."""
     attn = attn_impl or default_llama_attention(cfg)
     for layer in unstack_blocks(params["blocks"]):
         if cfg.remat:
             x = checkpoint(llama_block_forward, x, layer, cfg, attn, tp_group,
-                           pos_offset, use_reentrant=False)
+                           pos_offset, sp, use_reentrant=False)
         else:
-            x = llama_block_forward(x, layer, cfg, attn, tp_group, pos_offset)
+            x = llama_block_forward(x, layer, cfg, attn, tp_group, pos_offset,
+                                    sp)
     return x
 
 
 def llama_head_logits(params: dict, x: torch.Tensor, cfg: LlamaConfig,
-                      tp_group=None) -> torch.Tensor:
+                      tp_group=None, sp: bool = False) -> torch.Tensor:
     """LM-head pseudo-layer: final RMSNorm + projection, fp32 logits (this
-    rank's block of the vocabulary with ``tp_group``)."""
+    rank's block of the vocabulary with ``tp_group``; the sequence gathered
+    after the norm with ``sp``)."""
     y = rms_norm(x, params["head"]["norm"])
-    return column_parallel_f32(y, params["head"]["out"].to(cfg.dtype), tp_group)
+    return column_parallel_f32(y, params["head"]["out"].to(cfg.dtype), tp_group,
+                               sp)
 
 
 def llama_forward(params: dict, tokens: torch.Tensor, cfg: LlamaConfig,
-                  attn_impl: AttnFn | None = None, tp_group=None) -> torch.Tensor:
-    x = llama_embed(params, tokens, cfg, tp_group)
-    x = llama_run_blocks(params, x, cfg, attn_impl, tp_group)
-    return llama_head_logits(params, x, cfg, tp_group)
+                  attn_impl: AttnFn | None = None, tp_group=None,
+                  sp: bool = False, pos_offset: int = 0) -> torch.Tensor:
+    """``gpt.forward``'s contract."""
+    x = llama_embed(params, tokens, cfg, tp_group, sp)
+    x = llama_run_blocks(params, x, cfg, attn_impl, tp_group, pos_offset, sp)
+    return llama_head_logits(params, x, cfg, tp_group, sp)
 
 
 def llama_next_token_loss(params: dict, tokens: torch.Tensor,
                           targets: torch.Tensor, cfg: LlamaConfig,
                           attn_impl: AttnFn | None = None,
-                          tp_group=None) -> torch.Tensor:
+                          tp_group=None, sp: bool = False,
+                          pos_offset: int = 0) -> torch.Tensor:
     """Mean cross-entropy of next-token prediction (fp32 scalar)."""
-    logits = llama_forward(params, tokens, cfg, attn_impl, tp_group)
+    logits = llama_forward(params, tokens, cfg, attn_impl, tp_group, sp,
+                           pos_offset)
     return vocab_parallel_cross_entropy(logits.reshape(-1, logits.shape[-1]),
                                         targets.reshape(-1), tp_group)

@@ -13,13 +13,23 @@ from __future__ import annotations
 
 import gc
 import time
+from collections import Counter
+from unittest import mock
 
 import numpy as np
 import torch
 
 from metis_tpu_torch.core.sharding import slice_leaf
 from metis_tpu_torch.execution.builder import build_executable, hetero_executable
-from metis_tpu_torch.execution.mesh import DP, EP, TP, PlanArtifact, batch_spec
+from metis_tpu_torch.execution.mesh import (
+    DP,
+    EP,
+    SP,
+    TP,
+    PlanArtifact,
+    _grid,
+    batch_spec,
+)
 from metis_tpu_torch.execution.train import aligned_routing
 from metis_tpu_torch.models import family_ops
 from metis_tpu_torch.models.gpt import GPTConfig
@@ -47,13 +57,17 @@ def run_plan_rank(rank: int, device: torch.device, artifact_json: str | None,
     ``peak_memory_bytes`` on CUDA; ``slots``, the rank's mesh coordinates;
     ``block_ids``, the global blocks its stacked leaves hold (None: all);
     with ``forward_tokens`` (pp = 1 routes) the logits of the rank's dp
-    rows of them before training (its block of the vocabulary); with
+    rows and cp block of the sequence of them before training (its block
+    of the vocabulary); with
     ``routing_tokens`` (MoE, pp = 1 routes) the routing decisions of its
     rows of them in the first block before training (``moe_routing``); with
-    ``return_params`` its leaves after training; with ``first_grads`` the
-    gradients the first optimizer step applies to its leaves, reduced over
-    the plan's ranks, as ``grads`` (``"arrays"``: the leaves' gradients;
-    ``"norms"``: their L2 norms)."""
+    ``return_params`` its stored leaves after training (ZeRO 3: its dp
+    shards); with ``first_grads`` the gradients the first optimizer step
+    applies, reduced over the plan's ranks, as ``grads`` (``"arrays"``: the
+    gradients; ``"norms"``: their L2 norms), one per leaf: at ZeRO 1 and 2
+    a wrapped leaf's is that of the rank's flat chunk of it, at ZeRO 3 that
+    of its shard.  ``zero_dims``: ``{(group, name): the dim ZeRO splits a
+    leaf along}`` (None: not split; absent without ZeRO)."""
     cuda = device.type == "cuda"
     if cuda:
         torch.cuda.reset_peak_memory_stats(device)
@@ -66,9 +80,10 @@ def run_plan_rank(rank: int, device: torch.device, artifact_json: str | None,
     state = exe.init(init)
     out: dict = {"kind": exe.kind, "slots": slots, "block_ids": exe.block_ids,
                  "losses": [], "step_ms": [], "launches": []}
+    if state.zero is not None:
+        out["zero_dims"] = dict(state.zero.dims)
     if forward_tokens is not None:
-        out["logits"] = _logits(state.params, forward_tokens, cfg, exe.mesh,
-                                device)
+        out["logits"] = exe.forward(state, forward_tokens.to(device)).cpu().numpy()
     if routing_tokens is not None:
         out["routing"] = moe_routing(state.params, routing_tokens, cfg,
                                      exe.mesh, device)
@@ -100,12 +115,11 @@ def capture_first_grads(state, kind: str) -> dict:
     tree: dict = {}
 
     def hook(optimizer, args, kwargs):
-        for group, sub in state.params.items():
-            for name, leaf in sub.items():
-                g = leaf.grad.detach()
-                tree.setdefault(group, {})[name] = (
-                    g.norm().item() if kind == "norms"
-                    else np.array(g.cpu(), copy=True))
+        for (group, name), leaf in state.opt_leaves().items():
+            g = leaf.grad.detach()
+            tree.setdefault(group, {})[name] = (
+                g.norm().item() if kind == "norms"
+                else np.array(g.cpu(), copy=True))
         handle.remove()
 
     handle = state.optimizer.register_step_pre_hook(hook)
@@ -160,16 +174,53 @@ def moe_routing(params: dict, tokens: torch.Tensor, cfg: MoEConfig, mesh,
     return {k: r[k].cpu().numpy() for k in ("expert_idx", "position", "keep")}
 
 
-def _logits(params: dict, tokens: torch.Tensor, cfg: GPTConfig, mesh,
-            device: torch.device):
-    """The family's logits of this rank's rows of ``tokens`` (its block of
-    the vocabulary), as numpy."""
-    mine, cfg = _rank_rows(tokens, cfg, mesh, device)
-    tp_group = mesh.group(TP)
-    family = family_ops(cfg)
-    extra = {"ep_group": mesh.group(EP)} if family.moe else {}
-    with torch.no_grad():
-        logits = family.forward(params, mine, cfg, tp_group=tp_group, **extra)
-    if family.moe:
-        logits, _ = logits
-    return logits.cpu().numpy()
+def attention_rank(rank: int, device: torch.device, jobs: list[dict]) -> list:
+    """Rank body: ``_attention_job(**job)`` for each of ``jobs``."""
+    return [_attention_job(device, **job) for job in jobs]
+
+
+def _attention_job(device: torch.device, mode: str, shape, q, k, v,
+                   dout) -> dict:
+    """Context-parallel attention of ``mode`` (``"ring"``, the
+    flash ring; ``"ring_dense"``; ``"a2a"``, Ulysses) on a ``(cp, tp)``
+    grid (``shape``) of the current process group.  Each rank takes its
+    tp block of the heads and cp block of the sequence of the full ``[b, h,
+    s, d]`` host tensors ``q``, ``k``, ``v`` and the output gradient
+    ``dout``, and returns its blocks of the output and of dq, dk, dv, and
+    ``calls``: how often the ring called each kernel wrapper on this rank
+    (the wrappers count launches on the card only)."""
+    from metis_tpu_torch.models import resolve_attention
+    from metis_tpu_torch.models.gpt import GPTConfig
+    from metis_tpu_torch.ops import ring_attention
+    from metis_tpu_torch.ops.ring_attention import make_ring_attention
+
+    mesh = _grid(tuple(shape), (SP, TP))
+    spec = (None, TP, SP, None)
+
+    def mine(t):
+        return slice_leaf(t, spec, mesh.slots()).to(device).requires_grad_()
+
+    qs, ks, vs = mine(q), mine(k), mine(v)
+    if mode == "ring_dense":
+        attn = make_ring_attention(mesh.group(SP), impl="dense")
+    else:
+        cfg = GPTConfig(vocab_size=1, seq_len=q.shape[2], hidden=1,
+                        num_heads=1, num_blocks=1, attn="flash")
+        attn = resolve_attention(cfg, mesh.group(SP), mode)
+    calls: Counter = Counter()
+
+    def counted(name):
+        fn = getattr(ring_attention, name)
+
+        def call(*args, **kwargs):
+            calls[name] += 1
+            return fn(*args, **kwargs)
+        return call
+
+    names = ("flash_attention_stats", "fa_bwd_dq", "fa_bwd_dkv")
+    with mock.patch.multiple(ring_attention, **{n: counted(n) for n in names}):
+        out = attn(qs, ks, vs)
+        out.backward(slice_leaf(dout, spec, mesh.slots()).to(device))
+    host = [t.detach().cpu().numpy() for t in (out, qs.grad, ks.grad, vs.grad)]
+    return {"slots": mesh.slots(), "out": host[0], "dq": host[1],
+            "dk": host[2], "dv": host[3], "calls": dict(calls)}

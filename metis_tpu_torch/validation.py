@@ -248,7 +248,8 @@ def measure_ranked_plan_ms(
     ``profiles``) the data balancer's uneven per-replica rows — on one rank
     per device as ``measure_uniform_plan_ms``.  A plan priced with the 1f1b
     or interleaved schedule runs on the pipeline route with that schedule
-    (``_measure_scheduled_plan_ms``)."""
+    (``_measure_scheduled_plan_ms``); a one-stage plan with context or
+    sequence parallelism or ZeRO on the gspmd route."""
     from metis_tpu_torch.execution.mesh import PlanArtifact
     from metis_tpu_torch.models import config_for_model_spec
 
@@ -257,10 +258,17 @@ def measure_ranked_plan_ms(
     if getattr(ranked.intra, "schedule", "gpipe") != "gpipe":
         return _measure_scheduled_plan_ms(ranked, cfg, device, devices,
                                           steps=steps, warmup=warmup, seed=seed)
-    # an artifact without mesh fields routes to the hetero executor, which
-    # takes the data balancer's rows from ``cluster`` + ``profiles``
-    artifact = dataclasses.replace(
-        PlanArtifact.from_ranked_plan(ranked), mesh_axes=(), mesh_shape=())
+    artifact = PlanArtifact.from_ranked_plan(ranked)
+    strategies = ranked.intra.strategies
+    if not (len(strategies) == 1 and artifact.mesh_shape
+            and (strategies[0].cp > 1 or strategies[0].sp
+                 or strategies[0].zero)):
+        # an artifact without mesh fields routes to the hetero executor,
+        # which takes the data balancer's rows from ``cluster`` +
+        # ``profiles``; a one-stage plan with cp, sp or ZeRO keeps its mesh
+        # and runs on the gspmd route (the stage half of those axes is
+        # ROADMAP §A.5)
+        artifact = dataclasses.replace(artifact, mesh_axes=(), mesh_shape=())
     return _measure(artifact.to_json(), cfg, artifact.num_devices, device,
                     devices, steps, warmup, seed, cluster=cluster,
                     profiles=profiles)

@@ -347,9 +347,9 @@ def test_llama_two_stage_plan_matches_jax(llama_runs):
 # -- refusals ------------------------------------------------------------------
 
 REFUSED = {
-    "zero": ({"dp": 2, "tp": 1, "zero": 1}, "§A.4"),
-    "cp": ({"dp": 1, "tp": 1, "cp": 2}, "§A.4"),
-    "sp": ({"dp": 1, "tp": 2, "sp": True}, "§A.4"),
+    "zero": ({"dp": 2, "tp": 1, "zero": 1}, "§A.5"),
+    "cp": ({"dp": 1, "tp": 1, "cp": 2}, "§A.5"),
+    "sp": ({"dp": 1, "tp": 2, "sp": True}, "§A.5"),
     "ep": ({"dp": 2, "tp": 1, "ep": 2}, "§A.3"),
 }
 

@@ -143,9 +143,15 @@ def test_unknown_schedule_and_strategy_axes_are_refused():
     with pytest.raises(ValueError):
         build_executable(cfg, dataclasses.replace(art, schedule="zigzag"),
                          device="cpu")
-    with pytest.raises(NotImplementedError):
+    for axes in ({"zero": 4}, {"cp_mode": "zigzag"}):
+        with pytest.raises(ValueError):
+            build_executable(cfg, dataclasses.replace(
+                art, strategies=({"dp": 1, "tp": 1, **axes},)), device="cpu")
+    # ZeRO on a pipeline stage comes with the stage half (ROADMAP §A.5)
+    staged = tmesh.PlanArtifact.from_uniform_plan(UniformPlan(1, 2, 1, 2, 2))
+    with pytest.raises(NotImplementedError, match="§A.5"):
         build_executable(cfg, dataclasses.replace(
-            art, strategies=({"dp": 1, "tp": 1, "zero": 1},)), device="cpu")
+            staged, strategies=({"dp": 1, "tp": 1, "zero": 1},)), device="cpu")
 
 
 def test_executable_init_is_seeded_and_trains():
