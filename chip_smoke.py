@@ -97,7 +97,28 @@ Phases, in order (any failure exits non-zero):
    in one launch: tp 2 with Megatron sp against tp 2, dp 2 at ZeRO 1, 2
    and 3 against dp 2 at ZeRO 0 (losses within ``ZERO_SP_TOL``, gradient
    norms within ``GRAD_NORM_TOL``), each rank's peak beside the planner's
-   ZeRO relief (``cost/zero.py``).
+   ZeRO relief (``cost/zero.py``);
+12. stage_axes: multi-stage plans whose stages carry ZeRO, context or
+   expert parallelism on the hetero route, at ``STAGE_BLOCKS`` blocks of
+   full width on gloo ranks sharing the card (one spawn per rank count,
+   several plans each), 3 steps each against the one-stage executor at that
+   depth, run first in this process and freed: (a) the GPT, 1 + 1 stages of
+   dp 2, gbs 4 in one microbatch, at ZeRO 0-3 on both; (b) the 8192-token
+   LLaMA, a cp 2 ring stage feeding a cp 2 Ulysses stage, then a cp 1
+   stage; (c) the MoE at ``MOE_STAGE_BLOCKS`` (1) in ``MOE_STAGE_GROUP``
+   routing groups, stage 0 the embedding and the block at dp 2 x ep 2 over
+   rows (3, 1) (padded, masked), stage 1 the head at dp 1, with the
+   first-block routing decisions of that layout that differ from the
+   one-stage run's, in those groups and in the preset's; (d) the best-ranked plan of two stages or more with
+   zero or cp of the ``hetero --enable-cp --max-cp 2 --enable-zero`` search
+   on 1 x 4 H100 from the context phase's profile, built from the ranking
+   (``PlanArtifact.from_ranked_plan``) and measured by
+   ``validate_hetero_choice`` (not gated: the ranks share the card).
+   Losses within ``PIPE_TOL``, first-step gradient norms within
+   ``GRAD_NORM_TOL``, each rank's launches per step as its stage's blocks
+   imply (``stage_launches``), each rank's peak beside the planner's stage
+   demand.  Its grids are among ``PATH_CASES`` ((a) runs ``MBS2``, a
+   replica of (c)'s stage 0 3 rows, ``ROWS3``).
 
 The kernel phase also holds and times the pipeline's microbatch shape (b 1,
 ``MICRO``), the LLaMA grid (``LLAMA``; SDPA with ``enable_gqa``) and the
@@ -1231,37 +1252,22 @@ def grad_norm_check(label: str, ranks: list[dict], want: dict, split) -> dict:
 
 def stage_memory_estimates(sliced: dict, mem_coef: float, partition,
                            microbatches: int, gbs: int) -> dict:
-    """The hetero planner's per-stage memory estimate (``LayerBalancer.
-    stage_memory_demand``: mem_coef x the stage's profiled layer peaks at
-    the per-replica microbatch) of a two-stage plan of one card per stage,
-    at the fitted and the reference coefficient, in MB; and the profiled
-    layer rows each stage sums (the coefficient that would equal a
-    measured peak is peak / rows)."""
-    from metis_tpu_torch.balance.layers import LayerBalancer
-    from metis_tpu_torch.cluster.spec import ClusterSpec
-    from metis_tpu_torch.core.config import ModelSpec, SearchConfig
-    from metis_tpu_torch.core.types import InterStagePlan, Strategy
+    """The hetero planner's per-stage memory demand (``planner_stage_mb``)
+    of a two-stage plan of one card per stage, at the fitted and the
+    reference coefficient, in MB; and the profiled layer rows each stage
+    sums (the coefficient that would equal a measured peak is peak /
+    rows)."""
+    from metis_tpu_torch.core.types import Strategy
     from metis_tpu_torch.profiles.store import ProfileStore
 
     work = pathlib.Path(sliced["profile_dir"]).parent
-    cluster = ClusterSpec.from_files(*write_cluster_files(
-        work, sliced["device_type"], 1, 2))
+    spans = list(zip(partition[:-1], partition[1:]))
+    out = {f"mem_coef_{coef}": planner_stage_mb(
+        work, sliced["profile_dir"], GPT_15B, [Strategy(dp=1, tp=1)] * len(spans),
+        spans, gbs, microbatches, coef) for coef in (mem_coef, 5.0)}
     store = ProfileStore.from_dir(sliced["profile_dir"])
-    model = ModelSpec(**GPT_15B)
-    plan = InterStagePlan(node_sequence=(sliced["device_type"],),
-                          device_groups=(1, 1), batches=microbatches, gbs=gbs)
-    types = [sliced["device_type"]]
-    out = {}
-    for coef in (mem_coef, 5.0):
-        bal = LayerBalancer(cluster, store, SearchConfig(
-            gbs=gbs, max_profiled_tp=1, max_profiled_bs=4, mem_coef=coef), model)
-        out[f"mem_coef_{coef}"] = [
-            bal.stage_memory_demand(plan, Strategy(dp=1, tp=1), types, types,
-                                    partition[s], partition[s + 1])
-            for s in range(len(partition) - 1)]
     rows = store.get(sliced["device_type"], 1, gbs // microbatches).layer_memory_mb
-    out["layer_rows_mb"] = [sum(rows[partition[s]:partition[s + 1]])
-                            for s in range(len(partition) - 1)]
+    out["layer_rows_mb"] = [sum(rows[a:b]) for a, b in spans]
     return out
 
 
@@ -1307,11 +1313,13 @@ def executor_step_ms(cfg, batch, steps: int = 5) -> dict:
     return out
 
 
-def one_stage(cfg, batches, microbatches: int, grad_norms: bool = False):
+def one_stage(cfg, batches, microbatches: int, grad_norms: bool = False,
+              probe=None):
     """The hetero executor with a single stage, in this process, one step
     per batch: losses, launches per step, the peak memory, and with
     ``grad_norms`` the norms of the gradients its first step applies
-    (``testing.capture_first_grads``), else None."""
+    (``testing.capture_first_grads``), else None, and ``probe(state)``
+    before the first step (None without a ``probe``)."""
     from metis_tpu_torch.execution.hetero import StageSpec, make_hetero_train_step
     from metis_tpu_torch.execution.pipeline import microbatch_split
     from metis_tpu_torch.ops import flash_attention as fa
@@ -1321,6 +1329,7 @@ def one_stage(cfg, batches, microbatches: int, grad_norms: bool = False):
         cfg, [StageSpec((0, cfg.num_blocks), True, True, dp=1, tp=1)],
         device="cuda")
     state, losses, counts = init_fn(SEED), [], []
+    probed = probe(state) if probe is not None else None
     norms = capture_first_grads(state, "norms") if grad_norms else None
     for batch in batches:
         tok, tgt = (microbatch_split(t.cuda(), microbatches) for t in batch)
@@ -1332,7 +1341,7 @@ def one_stage(cfg, batches, microbatches: int, grad_norms: bool = False):
     del state, init_fn, step
     gc.collect()
     torch.cuda.empty_cache()
-    return losses, counts, peak, norms
+    return losses, counts, peak, norms, probed
 
 
 def pipeline_phase(work: pathlib.Path, sliced: dict, planned: dict) -> tuple[dict, dict]:
@@ -1364,7 +1373,7 @@ def pipeline_phase(work: pathlib.Path, sliced: dict, planned: dict) -> tuple[dic
     # (a) the one-stage reference, then the four schedules on two ranks
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
-    ref, counts, peak, _ = one_stage(cfg, [batch] * 3, M)
+    ref, counts, peak, _, _ = one_stage(cfg, [batch] * 3, M)
     gap = max(abs(a - b) for a, b in zip(ref, sliced["losses"]))
     want = flash_launches(0, L, M)
     log(f"  (a) one stage, M {M}: losses {[round(x, 5) for x in ref]} against the "
@@ -1423,7 +1432,7 @@ def pipeline_phase(work: pathlib.Path, sliced: dict, planned: dict) -> tuple[dic
     # 4-row microbatch, stage 1 tp 2; 2 blocks at full width
     t0 = time.perf_counter()
     shallow = dataclasses.replace(cfg, num_blocks=2)
-    ref2, _, _, _ = one_stage(shallow, [batch] * 3, 1)
+    ref2, *_ = one_stage(shallow, [batch] * 3, 1)
     stages = (StageSpec((0, 1), True, False, dp=2, tp=1, replica_rows=(3, 1)),
               StageSpec((1, 2), False, True, dp=1, tp=2))
     ranks = mdist.spawn(run_plans_rank, 4, "gloo", ["cuda:0"] * 4, [dict(
@@ -1566,7 +1575,7 @@ def llama_phase(work: pathlib.Path) -> tuple[dict, dict]:
     # the slice's fresh batches, as the tp 2 leg: on one repeated batch the
     # first step takes the loss to about 1e-3 and leaves nothing to compare
     batches = sliced["batches"][:3]
-    ref, counts, _, want_norms = one_stage(cfg, batches, M, grad_norms=True)
+    ref, counts, _, want_norms, _ = one_stage(cfg, batches, M, grad_norms=True)
     if any(c != flash_launches(0, cfg.num_blocks, M) for c in counts):
         raise SystemExit(f"LLaMA one-stage launches {counts}")
     stages = (StageSpec((0, 4), True, False, dp=1, tp=1),
@@ -1937,9 +1946,365 @@ def zero_sp_phase(work: pathlib.Path, sliced: dict) -> tuple[dict, dict]:
     return out, launches
 
 
+# the stage_axes phase: multi-stage plans whose stages carry ZeRO, cp or ep,
+# each model at 2 blocks of full width (several gloo ranks share the card),
+# the MoE at 1: with 2 its stage 1 rank holds a whole block of 8 experts
+# (37 GiB in use at its peak on an H100, beside 19.3 on each ep rank of
+# stage 0), past the card's 79.2 GiB with the others
+STAGE_BLOCKS = 2
+MOE_STAGE_BLOCKS = 1
+# the MoE leg's routing groups: one row.  In the preset's groups (the
+# largest divisor of the tokens <= 4096) the (3, 1) stage pads to 3 + 3 rows
+# and routes in groups of 3072 tokens where the one-stage run routes one of
+# 4096, so other tokens pass capacity: a first-step gradient norm read
+# 3.1e-2 off on an H100, as the reference's ``moe_ffn`` documents.  Its
+# count of differing decisions is still reported
+MOE_STAGE_GROUP = 1024
+
+
+def card_memory_used() -> str:
+    """The card's memory in use, as ``nvidia-smi`` reads it (every process)."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=memory.used", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+
+
+def stage_launches(blocks: int, head: bool, M: int, ring: int | None = None) -> dict:
+    """Launches of each kernel per step on a hetero stage rank of ``blocks``
+    blocks and M microbatches: B1 twice per block under stage remat, once
+    on the stage that ends in the loss; a cp ring rank at position ``ring``
+    runs its self block and ``ring`` past ones of each kernel per block."""
+    n = M * blocks * (1 if ring is None else ring + 1)
+    return {"fa_fwd": n * (1 if head else 2), "fa_bwd_dq": n, "fa_bwd_dkv": n}
+
+
+def stage_norm_check(label: str, ranks: list[dict], want: dict, specs: dict) -> dict:
+    """Hold a multi-stage leg's first-step gradient norms to ``want`` (the
+    one-stage executor's) within ``GRAD_NORM_TOL``: each leaf's norm is the
+    root of the sum of squares over the distinct pieces the ranks hold (a
+    stage's blocks, a ZeRO chunk or shard, an ep or tp block), replicas and
+    cp ranks holding copies."""
+    pieces: dict = {}
+    for r in ranks:
+        slots = r["slots"]
+        for group, sub in r["grads"].items():
+            for name, norm in sub.items():
+                spec = specs[group][name]
+                key = (slots["pp"][0],
+                       slots["dp"][0] if r.get("zero_dims", {}).get((group, name))
+                       is not None else None,
+                       slots.get("ep", (0, 1))[0] if "ep" in spec else None,
+                       slots["tp"][0] if "tp" in spec else None)
+                pieces.setdefault(group, {}).setdefault(name, {})[key] = norm
+    got = {g: {n: math.sqrt(sum(x * x for x in held.values()))
+               for n, held in sub.items()} for g, sub in pieces.items()}
+    return grad_norm_check(label, [{"grads": got}], want, lambda g, n: False)
+
+
+def planner_stage_mb(work: pathlib.Path, profile_dir, spec: dict, strategies,
+                     spans, gbs: int, M: int, mem_coef: float) -> list[float]:
+    """The hetero planner's memory demand of each stage (``LayerBalancer.
+    stage_memory_demand``: ``mem_coef`` x the stage's profiled layer rows
+    at its per-replica microbatch, less the ZeRO, cp and ep relief of its
+    strategy), MB; ``spans``: each stage's profiled layers ``[start,
+    end)``."""
+    from metis_tpu_torch.balance.layers import LayerBalancer
+    from metis_tpu_torch.cluster.spec import ClusterSpec
+    from metis_tpu_torch.core.config import ModelSpec, SearchConfig
+    from metis_tpu_torch.core.types import InterStagePlan
+    from metis_tpu_torch.profiles.store import ProfileStore
+
+    store = ProfileStore.from_dir(profile_dir)
+    t = store.device_types[0]
+    groups = tuple(s.dp * s.cp * s.tp for s in strategies)
+    cluster = ClusterSpec.from_files(*write_cluster_files(work, t, 1, sum(groups)))
+    plan = InterStagePlan(node_sequence=(t,), device_groups=groups, batches=M,
+                          gbs=gbs)
+    bal = LayerBalancer(cluster, store, SearchConfig(
+        gbs=gbs, max_profiled_tp=1, max_profiled_bs=4, mem_coef=mem_coef),
+        ModelSpec(**spec))
+    types = [t] * sum(groups)
+    return [bal.stage_memory_demand(plan, st, types[:n], types, a, b)
+            for st, n, (a, b) in zip(strategies, groups, spans)]
+
+
+def fitted_mem_coef(profile_dir, layers, bs: int, peak_bytes: int) -> float:
+    """The memory coefficient at which the profiled rows of ``layers`` at
+    ``bs`` equal a measured one-device peak (as the planner phase fits it)."""
+    from metis_tpu_torch.profiles.store import ProfileStore
+
+    store = ProfileStore.from_dir(profile_dir)
+    rows = store.get(store.device_types[0], 1, bs).layer_memory_mb
+    return math.ceil(peak_bytes / 2**20 / sum(rows[i] for i in layers) * 100) / 100
+
+
+def stage_axes_phase(work: pathlib.Path, results: dict) -> tuple[dict, dict]:
+    """Multi-stage plans whose stages carry ZeRO, context or expert
+    parallelism on the hetero route, at 2 blocks of full width on gloo
+    ranks sharing the card, 3 steps each against the one-stage executor at
+    that depth (run first in this process and freed): (a) the GPT, 1 + 1
+    stages of dp 2, gbs 4 in one microbatch, at ZeRO 0, 1, 2 and 3 on both; (b) the 8192-token
+    LLaMA, stage 0 cp 2 ring against stage 1 cp 2 Ulysses, then against
+    stage 1 cp 1; (c) the MoE at 1 block, stage 0 (the embedding and the
+    block) at dp 2 x ep 2 over rows (3, 1), stage 1 (the head) at dp 1,
+    with the first-block routing decisions that differ
+    from the one-stage layout; (d) the best-ranked plan of two stages or
+    more with zero or cp of ``hetero --enable-cp --max-cp 2 --enable-zero``
+    on 1 x 4 H100 from the context phase's profile, through
+    ``PlanArtifact.from_ranked_plan`` and ``build_executable``, and
+    ``validate_hetero_choice`` of it (measured and predicted ms, not gated:
+    the ranks share one card).  Losses within ``PIPE_TOL``, first-step
+    gradient norms within ``GRAD_NORM_TOL``, every rank's launches per step
+    as its stage's blocks imply, each rank's peak beside the planner's
+    stage demand."""
+    from metis_tpu_torch import cli
+    from metis_tpu_torch.cluster.spec import ClusterSpec
+    from metis_tpu_torch.core.config import ModelSpec, SearchConfig
+    from metis_tpu_torch.core.types import Strategy
+    from metis_tpu_torch.execution import dist as mdist
+    from metis_tpu_torch.execution.hetero import StageSpec, stage_specs_from_plan
+    from metis_tpu_torch.execution.mesh import ONE_DEVICE, PlanArtifact
+    from metis_tpu_torch.execution.train import param_specs_for
+    from metis_tpu_torch.models import config_for_model_spec
+    from metis_tpu_torch.planner.api import plan_hetero
+    from metis_tpu_torch.profiles.store import ProfileStore
+    from metis_tpu_torch.testing import moe_routing, run_plans_rank, stage_moe_routing
+
+    L = STAGE_BLOCKS
+    gpt = dataclasses.replace(config_for_model_spec(ModelSpec(**GPT_15B)),
+                              num_blocks=L)
+    llama_spec = dict(LLAMA_LONG, num_layers=L + 2)
+    llama = config_for_model_spec(ModelSpec(**llama_spec))
+    preset = dataclasses.replace(config_for_model_spec(ModelSpec(**MOE_15B)),
+                                 num_blocks=MOE_STAGE_BLOCKS)
+    # one row per routing group, so that the padded stage layout routes in
+    # the one-stage run's groups (module doc, ``MOE_STAGE_GROUP``)
+    moe = dataclasses.replace(preset, route_group_size=MOE_STAGE_GROUP)
+    host = lambda bs: [(t.cpu(), g.cpu()) for t, g in bs]  # noqa: E731
+    data = {"gpt": host(fresh_batches(gpt, 4, 3, SEED + 9)),
+            "llama": host(fresh_batches(llama, 1, 3, SEED + 11)),
+            "moe": host(fresh_batches(moe, 4, 3, SEED + 13))}
+    out, launches = {}, {}
+
+    # the references, one after another in this process
+    t0 = time.perf_counter()
+    refs = {}
+    for name, cfg, M in (("gpt", gpt, 1), ("llama", llama, 1), ("moe", moe, 1)):
+        blocks = cfg.num_blocks
+        probe = None
+        if name == "moe":
+            def probe(state):
+                """Routing decisions of the (3, 1) stage layout that differ
+                from the one-stage run's, in the leg's groups and in the
+                preset's."""
+                tok, dev = data["moe"][0][0], torch.device("cuda")
+                out = {}
+                for key, c in (("routing_differ", moe),
+                               ("routing_differ_preset_groups", preset)):
+                    one = moe_routing(state.params, tok, c, ONE_DEVICE, dev)
+                    out[key] = routing_differences(
+                        stage_moe_routing(state.params, tok, c, (3, 1), dev),
+                        {k: v.reshape(-1, c.top_k) for k, v in one.items()})
+                return out
+        torch.cuda.reset_peak_memory_stats()
+        losses, counts, peak, norms, probed = one_stage(
+            cfg, data[name], M, grad_norms=True, probe=probe)
+        refs[name] = {"losses": losses, "norms": norms, "peak": peak, "M": M,
+                      "peak_bytes": torch.cuda.max_memory_allocated()}
+        if probed is not None:
+            refs[name].update(probed)
+        want = stage_launches(blocks, True, M)
+        log(f"  one stage, {name}, {blocks} blocks, M {M}: losses "
+            f"{[round(x, 5) for x in losses]}, launches {counts[0]} (expected "
+            f"{want}), peak {peak:.2f} GB")
+        if (not all(math.isfinite(x) for x in losses)
+                or any(c != want for c in counts)):
+            raise SystemExit(f"one-stage {name} reference: losses {losses}, "
+                             f"launches {counts}")
+    log(f"  references {time.perf_counter() - t0:.1f} s")
+
+    # (d) the planner's plan, on the context phase's profile at this depth
+    t0 = time.perf_counter()
+    prof_dir = work / "profiles_llama_8k"
+    store = ProfileStore.from_dir(prof_dir)
+    device_type = store.device_types[0]
+    mem_coef = fitted_mem_coef(prof_dir, range(L + 2), 1, refs["llama"]["peak_bytes"])
+    hostfile, clusterfile = write_cluster_files(work, device_type, 1, 4)
+    cluster = ClusterSpec.from_files(hostfile, clusterfile)
+    path = work / "stage_axes_hetero.json"
+    axes = ["--enable-cp", "--max-cp", "2", "--enable-zero"]
+    if cli.main(["hetero", "--hostfile", hostfile, "--clusterfile", clusterfile,
+                 "--profile-dir", str(prof_dir), "--model-name", llama_spec["name"],
+                 *CONTEXT_CLI, "--gbs", "1", "--max-tp", "1", "--max-bs", "2",
+                 "--mem-coef", str(mem_coef), *axes, "--output", str(path)]) != 0:
+        raise SystemExit("the stage_axes hetero search failed")
+    rows = json.loads(path.read_text())
+    log(f"  (d) hetero {' '.join(axes)} on 1 x 4 {device_type} at mem_coef "
+        f"{mem_coef}: {len(rows)} plans")
+    print_ranking("hetero", rows[:5])
+    result = plan_hetero(cluster, store, ModelSpec(**llama_spec), SearchConfig(
+        gbs=1, max_profiled_tp=1, max_profiled_bs=2, mem_coef=mem_coef,
+        enable_cp=True, max_cp_degree=2, enable_zero=True))
+    if not rows or result.best.cost.total_ms != rows[0]["cost_ms"]:
+        raise SystemExit("plan_hetero disagrees with the hetero subcommand")
+    rank, chosen = next(((i, p) for i, p in enumerate(result.plans, 1)
+                         if len(p.intra.strategies) >= 2
+                         and any(s.zero or s.cp > 1 for s in p.intra.strategies)),
+                        (0, None))
+    if chosen is None:
+        raise SystemExit("no ranked plan has two stages and zero or cp")
+    planned = PlanArtifact.from_ranked_plan(chosen)
+    world_d = planned.num_devices
+    d_stages = stage_specs_from_plan(planned.layer_partition, planned.strategies, llama)
+    log(f"  (d) best plan of two stages or more with zero or cp: #{rank} of "
+        f"{len(result.plans)}, {world_d} devices, strategies "
+        f"{list(planned.strategies)}, layers {list(planned.layer_partition)}, cost "
+        f"{chosen.cost.total_ms:.3f} ms ({time.perf_counter() - t0:.1f} s)")
+    out["d_planned"] = {"rank": rank, "plans": len(result.plans),
+                        "strategies": list(planned.strategies),
+                        "layer_partition": list(planned.layer_partition),
+                        "cost_ms": chosen.cost.total_ms, "mem_coef": mem_coef,
+                        "cluster": "1 x 4", "search": axes}
+
+    def d_launches(r):
+        st = d_stages[r["slots"]["pp"][0]]
+        ring = (r["slots"]["sp"][0] if st.cp > 1 and st.cp_mode == "ring"
+                else None)
+        return stage_launches(st.num_blocks, st.has_head, planned.microbatches, ring)
+
+    # the legs: (label, world, job, reference, launches of a rank's result)
+    def stages(*specs):
+        return dict(artifact_json=None, stages=specs)
+
+    def gpt_zero(z):
+        return stages(StageSpec((0, 1), True, False, dp=2, tp=1, zero=z),
+                      StageSpec((1, 2), False, True, dp=2, tp=1, zero=z))
+
+    def ring_then(second):
+        return stages(StageSpec((0, 1), True, False, dp=1, tp=1, cp=2), second)
+
+    def by_stage(*per_stage):
+        def expect(r):
+            head, M, ring = per_stage[r["slots"]["pp"][0]]
+            return stage_launches(1, head, M, r["slots"]["sp"][0] if ring else None)
+        return expect
+
+    # (label, ranks, job, family, launches of a rank's result), one spawn
+    # per rank count in this order, the MoE's first (in fresh processes)
+    legs = [
+        ("c_moe_ep2_rows31", 3, dict(stages(
+            StageSpec((0, 1), True, False, dp=2, tp=1, ep=2, replica_rows=(3, 1)),
+            StageSpec((1, 1), False, True, dp=1, tp=1)), microbatches=1),
+         "moe", lambda r: stage_launches(1 - r["slots"]["pp"][0], False, 1)),
+        ("b_ring_cp1", 3, dict(ring_then(StageSpec((1, 2), False, True, dp=1, tp=1)),
+                               microbatches=1),
+         "llama", by_stage((False, 1, True), (True, 1, False))),
+        *((f"a_zero{z}", 4, dict(gpt_zero(z), microbatches=1), "gpt",
+           by_stage((False, 1, False), (True, 1, False))) for z in range(4)),
+        ("b_ring_a2a", 4, dict(ring_then(StageSpec(
+            (1, 2), False, True, dp=1, tp=1, cp=2, cp_mode="a2a")), microbatches=1),
+         "llama", by_stage((False, 1, True), (True, 1, False))),
+        ("d_planned", world_d, dict(artifact_json=planned.to_json()), "llama",
+         d_launches),
+    ]
+    cfgs = {"gpt": gpt, "llama": llama, "moe": moe}
+    runs = {}
+    for world in dict.fromkeys(w for _, w, *_ in legs):
+        mine = [leg for leg in legs if leg[1] == world]
+        t0 = time.perf_counter()
+        log(f"  {world} gloo ranks, {[leg[0] for leg in mine]}; card memory in use "
+            f"{card_memory_used()}, this process reserving "
+            f"{torch.cuda.memory_reserved() / 1e9:.2f} GB")
+        ranks = mdist.spawn(run_plans_rank, world, "gloo", ["cuda:0"] * world, [
+            dict(job, cfg=cfgs[fam], init=SEED, batches=data[fam],
+                 first_grads="norms") for _, _, job, fam, _ in mine])
+        log(f"  {world} gloo ranks, {len(mine)} plans: {time.perf_counter() - t0:.1f} s")
+        for i, leg in enumerate(mine):
+            runs[leg[0]] = [r[i] for r in ranks]
+
+    # each rank's peak beside the planner's stage demand
+    gpt_dir = results["slice"]["profile_dir"]
+    gpt_spans = [(0, 2), (GPT_15B["num_layers"] - 2, GPT_15B["num_layers"])]
+    gpt_coef = fitted_mem_coef(gpt_dir, [0, 1, *range(*gpt_spans[1])], 4,
+                               refs["gpt"]["peak_bytes"])
+    moe_dir = work / f"profiles_{MOE_15B['name']}"
+    # the 2-block profile's rows of this 1-block model: embed, block, head
+    moe_coef = fitted_mem_coef(moe_dir, (0, 1, 3), 4, refs["moe"]["peak_bytes"])
+    halves = [(0, 2), (2, 4)]
+    demands = {
+        **{f"a_zero{z}": planner_stage_mb(
+            work, gpt_dir, GPT_15B, [Strategy(dp=2, tp=1, zero=z)] * 2, gpt_spans,
+            4, 1, gpt_coef) for z in range(4)},
+        "b_ring_a2a": planner_stage_mb(
+            work, prof_dir, llama_spec, [Strategy(dp=1, tp=1, cp=2),
+                                         Strategy(dp=1, tp=1, cp=2, cp_mode="a2a")],
+            halves, 1, 1, mem_coef),
+        "b_ring_cp1": planner_stage_mb(
+            work, prof_dir, llama_spec, [Strategy(dp=1, tp=1, cp=2),
+                                         Strategy(dp=1, tp=1)], halves, 1, 1, mem_coef),
+        "c_moe_ep2_rows31": planner_stage_mb(
+            work, moe_dir, MOE_15B, [Strategy(dp=2, tp=1, ep=2), Strategy(dp=1, tp=1)],
+            [(0, 2), (3, 4)], 4, 1, moe_coef),
+    }
+    coefs = {"a": gpt_coef, "b": mem_coef, "c": moe_coef}
+
+    for label, _, _, fam, expect in legs:
+        ranks = runs[label]
+        ref = refs[fam]
+        res = pipeline_legs_check(f"({label[0]}) {label[2:]}", ranks, "hetero",
+                                  ref["losses"], PIPE_TOL,
+                                  [expect(r) for r in ranks])
+        res.update(stage_norm_check(f"({label[0]}) {label[2:]}", ranks, ref["norms"],
+                                    param_specs_for(cfgs[fam], 1)))
+        if label in demands:
+            res["planner_stage_mb"] = demands[label]
+            res["mem_coef"] = coefs[label[0]]
+            log(f"    peaks {[round(p, 2) for p in res['peak_memory_gb']]} GB "
+                f"beside the planner's stage demand "
+                f"{[round(x * 2**20 / 1e9, 2) for x in demands[label]]} GB at "
+                f"mem_coef {coefs[label[0]]}")
+        res["reference_losses"] = ref["losses"]
+        out[label] = {**out.get(label, {}), **res}
+        launches[f"stage_axes_{label}_per_rank"] = launch_sums(ranks)
+    zero0 = runs["a_zero0"][0]["losses"]
+    out["a_bitwise_equal_to_zero0"] = {
+        f"zero{z}": runs[f"a_zero{z}"][0]["losses"] == zero0 for z in (1, 2, 3)}
+    for key in ("routing_differ", "routing_differ_preset_groups"):
+        out["c_moe_ep2_rows31"][key] = refs["moe"][key]
+    log(f"  (a) losses equal to ZeRO 0's bit for bit: {out['a_bitwise_equal_to_zero0']}")
+    log(f"  (c) first-block routing decisions of the (3, 1) stage layout differing "
+        f"from the one-stage run's, in groups of {MOE_STAGE_GROUP} tokens: "
+        f"{refs['moe']['routing_differ']}; in the preset's groups of "
+        f"{preset.route_group_size}: {refs['moe']['routing_differ_preset_groups']}")
+
+    # (d) measured through validate_hetero_choice, the ranks sharing the card
+    from metis_tpu_torch.validation import validate_hetero_choice
+
+    t0 = time.perf_counter()
+    (report,) = validate_hetero_choice(
+        [chosen], ModelSpec(**llama_spec), device="cuda",
+        devices=["cuda:0"] * world_d, cluster=cluster, profiles=store, top_k=1,
+        steps=1, warmup=0, backend="gloo")
+    out["d_planned"].update(
+        measured_ms=report.measured_ms, predicted_ms=report.predicted_ms,
+        error_pct=report.error_pct, stage_memory_mb=report.stage_memory_mb,
+        peak_memory_mb=report.peak_memory_mb, note=SHARED_CARD)
+    log(f"  (d) validate_hetero_choice: measured {report.measured_ms:.3f} ms, "
+        f"predicted {report.predicted_ms:.3f} ms, error_pct {report.error_pct:.2f} "
+        f"({SHARED_CARD}); peaks {[round(p) for p in report.peak_memory_mb]} MB "
+        f"beside the planner's stage demand "
+        f"{[round(x) for x in report.stage_memory_mb]} MB "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if not (math.isfinite(report.measured_ms) and report.measured_ms > 0):
+        raise SystemExit(f"(d) measured {report.measured_ms} ms")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, launches
+
+
 HIDDEN = ("launches", "profile_dir", "hostfile", "clusterfile", "tokens", "batches")
 PHASES = ("slice", "planner", "dist", "pipeline", "llama", "moe", "context",
-          "zero_sp")
+          "zero_sp", "stage_axes")
 
 
 def main() -> int:
@@ -1985,6 +2350,9 @@ def main() -> int:
                     work, results["slice"], results["planner"])
             elif phase == "zero_sp":
                 results[phase], more = zero_sp_phase(work, results["slice"])
+                launches.update(more)
+            elif phase == "stage_axes":
+                results[phase], more = stage_axes_phase(work, results)
                 launches.update(more)
             else:
                 results[phase], more = {"llama": llama_phase, "moe": moe_phase,

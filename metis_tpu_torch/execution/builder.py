@@ -16,18 +16,21 @@
   schedules gpipe, 1f1b and interleaved;
 - **hetero** (``execution/hetero.py``) for every other multi-stage plan:
   non-uniform layer partitions, per-stage (dp, tp), the data balancer's
-  uneven replica rows.
+  uneven replica rows, and per-stage ZeRO 1-3, context parallelism (ring or
+  Ulysses) and expert parallelism; Megatron sp is not read there, as in
+  the reference.
 
 A multi-device plan runs one rank per device, started by
 ``execution.dist.spawn``, and is built on every rank.  Expert parallelism
-runs on the gspmd route, for MoE configs (dp x ep x tp, the rows over
-``(dp, ep)``); ep on a dense config raises ``ValueError`` as in the
-reference.  On the pipeline and hetero routes ep raises
-``NotImplementedError`` naming ROADMAP §A.3, and zero, sp and cp naming
-§A.5 (the stage half of these axes); MoE with cp or sp raises it on the
-gspmd route.  The pipeline route
-runs the GPT family only, as the reference's; the hetero route runs GPT and
-LLaMA.
+runs for MoE configs (dp x ep x tp, the rows over ``(dp, ep)``) on the
+gspmd and hetero routes; ep on a dense config raises ``ValueError`` as in
+the reference.  The refusals are the reference's (on the hetero route: cp
+on an MoE stage, a cp that does not divide the sequence, an ep that does
+not divide dp and the experts) and the port's refusal of MoE routing
+groups that straddle ranks (``train.aligned_routing``), which also refuses
+MoE with cp or sp on the gspmd route (ROADMAP §A.3).  The pipeline route
+runs the GPT family only, as the reference's; the hetero and gspmd routes
+run GPT, LLaMA and MoE.
 
 Every path is normalized to ``(init, step)`` as in the reference:
 ``init(source) -> state`` from a seed, or from the full parameter tree of
@@ -222,29 +225,24 @@ def plan_route(cfg: GPTConfig, artifact: PlanArtifact,
     return "hetero"
 
 
-def _refuse_later_axes(strategies: list[dict], cfg, route: str) -> None:
+def _check_strategies(strategies: list[dict], cfg, route: str) -> None:
+    """Values no executor knows, ep on a dense config, and on the gspmd
+    route MoE with cp or sp, whose blocks of the sequence would split the
+    routing groups.  The hetero route's own refusals are the reference's
+    (``hetero.stage_specs_from_plan``)."""
     for s, st in enumerate(strategies):
-        if st["ep"] != 1 and route != "gspmd":
-            raise NotImplementedError(
-                f"stage {s}: ep={st['ep']} on the {route} route: expert "
-                "parallelism runs on the gspmd route only so far (ROADMAP §A.3)")
         if st["ep"] != 1 and not family_ops(cfg).moe:
             raise ValueError(f"stage {s}: ep={st['ep']} needs an MoE config")
-        extras = {k: st[k] for k in ("zero", "sp", "cp")
-                  if st[k] != {"zero": 0, "sp": False, "cp": 1}[k]}
-        if extras and route != "gspmd":
-            raise NotImplementedError(
-                f"stage {s}: strategy axes {extras} on the {route} route: "
-                "ZeRO, sequence and context parallelism on stages come with "
-                "a later slice (ROADMAP §A.5)")
         if st["zero"] not in (0, 1, 2, 3):
             raise ValueError(f"stage {s}: zero={st['zero']}: expected 0-3")
         if st["cp_mode"] not in ("ring", "a2a"):
             raise ValueError(f"stage {s}: unknown cp_mode {st['cp_mode']!r}")
-        if family_ops(cfg).moe and (st["sp"] or st["cp"] != 1):
+        if (route == "gspmd" and family_ops(cfg).moe
+                and (st["sp"] or st["cp"] != 1)):
             raise NotImplementedError(
                 f"stage {s}: MoE with cp={st['cp']}, sp={st['sp']}: a rank's "
-                "block of the sequence splits the routing groups (ROADMAP §A.5)")
+                "block of the sequence would split the routing groups "
+                "(ROADMAP §A.3)")
 
 
 def build_executable(cfg: GPTConfig, artifact: PlanArtifact,
@@ -270,7 +268,7 @@ def build_executable(cfg: GPTConfig, artifact: PlanArtifact,
         raise ValueError(f"virtual_stages={virtual_stages} must be >= 1")
     strategies, pp = _normalized(artifact)
     route = plan_route(cfg, artifact, schedule, virtual_stages)
-    _refuse_later_axes(strategies, cfg, route)
+    _check_strategies(strategies, cfg, route)
     if route == "gspmd":
         if dist.is_initialized():
             return _gspmd_executable(cfg, artifact, strategies[0], dev,

@@ -2,39 +2,57 @@
 ``metis_tpu/execution/hetero.py``.
 
 The planner's flagship output — non-uniform layer partitions, per-stage
-``(dp, tp)`` strategies and the data balancer's uneven per-replica
-microbatch rows (reference ``load_balancer.py:155-179``) — runs as one
-process per device: stage s on its own range of ranks, each rank a
-Megatron ``(dp, tp)`` shard of the stage's blocks (``execution/stages.py``
-has the runtime both multi-stage executors share).
+strategies and the data balancer's uneven per-replica microbatch rows
+(reference ``load_balancer.py:155-179``) — runs as one process per device:
+stage s on its own range of ranks, laid out as the reference lays out its
+stage mesh (``mesh.StageGrid``), each rank a Megatron shard of the stage's
+blocks (``execution/stages.py`` has the runtime both multi-stage executors
+share).  Every stage strategy the reference's hetero executor runs runs
+here:
+
+- ``(dp, tp)``, the data balancer's uneven replica rows, and a stage of
+  several device-type groups (``StageSpec.replica_groups``): each replica
+  runs only its rows, so a dense stage needs no padding and no sub-meshes,
+  and a group given 0 rows computes nothing;
+- ZeRO 1, 2 and 3 over the stage's dp group (``zero``);
+- context parallelism over a stage-local sp group (``cp``), ring attention
+  or Ulysses by ``cp_mode``, each rank at its absolute positions;
+- expert parallelism inside dp (``ep``: the rows over the stage's ``(dp /
+  ep, ep)`` ranks, the experts over ep);
+- MoE: the aux loss threaded through the stages with the reference's
+  per-stage weight ``num_blocks / total_blocks``, ``valid_mask`` over the
+  padded rows of an uneven stage, and each device-type group of a mixed
+  stage routing its own tokens.
+
+As in the reference, a stage with zero, cp or ep runs its device-type
+groups as one program, and ``sp`` is not read: a hetero plan with Megatron
+sequence parallelism trains without it.
 
 As in the reference the schedule is a fill and a drain: every microbatch
 forward (each stage stores only its boundary inputs), then every backward
 in reverse microbatch order, each stage recomputing its forward inside its
 backward (stage-level remat, the GPipe activation footprint the planner's
 memory model charges); the last stage runs its forward and backward back
-to back.  Each dp replica runs only its own rows of a microbatch, so the
-uneven rows need no padding, and a stage of several device-type groups
-(``StageSpec.replica_groups``) needs no sub-meshes: a group's replicas
-simply run its rows, and a group given 0 rows computes nothing.  Gradients
-are the mean over the microbatches (each replica's loss carries 1 / M)
-before one AdamW step per stage.
+to back.  Gradients are the mean over the microbatches (each replica's
+loss carries 1 / M) before one AdamW step per stage.
 
-The GPT and LLaMA families run here (their stage pieces come from
-``models.family_ops``, as in the reference).  MoE configs (the aux loss
-threaded through the stages, ``valid_mask`` for uneven replica rows) and
-stages with ZeRO, context or expert parallelism raise
-``NotImplementedError``: they come with the stage half of those axes
-(ROADMAP §A.3, §A.5); the gspmd route runs them for pp = 1 plans.
+The GPT, LLaMA and MoE families run here (their stage pieces come from
+``models.family_ops``, as in the reference).  The refusals are the
+reference's (``stage_specs_from_plan``): cp on an MoE stage, a cp that
+does not divide the sequence, ep on a dense config or an ep that does not
+divide dp and the experts; and the port's own: MoE routing groups that
+would straddle the replicas of a stage (``train.aligned_routing``, at the
+first step).
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from functools import partial
 from typing import Sequence
 
 from metis_tpu_torch.core.device import resolve_device
-from metis_tpu_torch.execution.mesh import stage_meshes
+from metis_tpu_torch.execution.mesh import SP, StageGrid, stage_meshes
 from metis_tpu_torch.execution.stages import (
     StageRunner,
     Unit,
@@ -57,7 +75,10 @@ class StageSpec:
     per-replica microbatch rows from the data balancer (None = even split).
     ``replica_groups`` (sizes in replicas, summing to ``dp``) marks the
     device-type groups of a mixed-type stage; without ``replica_rows`` each
-    group runs ``rows * dp_g / dp`` rows, as in the reference."""
+    group runs ``rows * dp_g / dp`` rows, as in the reference, and an MoE
+    group routes its own tokens.  ``zero`` (0-3), ``ep`` (inside dp, MoE
+    only) and ``cp`` with its ``cp_mode`` (``"ring"`` or ``"a2a"``) are the
+    stage's axes (module doc)."""
 
     blocks: tuple[int, int]
     has_embed: bool
@@ -114,11 +135,7 @@ def stage_specs_from_plan(
             dp, tp, zero = strat.dp, strat.tp, strat.zero
             cp, ep = strat.cp, strat.ep
             cp_mode = strat.cp_mode
-        if cp > 1 and cfg.seq_len % cp:
-            raise ValueError(
-                f"stage {s}: cp={cp} must divide seq_len={cfg.seq_len}")
-        if ep > 1 and not family_ops(cfg).moe:
-            raise ValueError(f"stage {s}: ep={ep} needs an MoE config")
+        _check_axes(s, cfg, dp, cp, ep)
         lo, hi = bounds[s], bounds[s + 1]
         rows = None
         if stage_replica_rows is not None and stage_replica_rows[s] is not None:
@@ -142,16 +159,41 @@ def stage_specs_from_plan(
     return tuple(out)
 
 
-def check_stage_axes(stages: Sequence[StageSpec]) -> None:
-    """Refuse the strategy axes whose execution comes with later slices."""
+def _check_axes(s: int, cfg: GPTConfig, dp: int, cp: int, ep: int) -> None:
+    """The reference's refusals of a stage's axes, in its words."""
+    is_moe = family_ops(cfg).moe
+    if cp > 1 and is_moe:
+        raise NotImplementedError(
+            f"stage {s}: cp+MoE stages have no execution path "
+            "(ring attention composes with dense families)")
+    if cp > 1 and cfg.seq_len % cp:
+        raise ValueError(
+            f"stage {s}: cp={cp} must divide seq_len={cfg.seq_len}")
+    if ep > 1 and not is_moe:
+        raise ValueError(f"stage {s}: ep={ep} needs an MoE config")
+    if ep > 1 and (dp % ep or cfg.num_experts % ep):
+        raise ValueError(
+            f"stage {s}: ep={ep} must divide dp={dp} and "
+            f"num_experts={cfg.num_experts}")
+
+
+def check_stage_axes(cfg: GPTConfig, stages: Sequence[StageSpec]) -> None:
+    """Refuse what the reference refuses of explicit ``StageSpec``s
+    (``stage_specs_from_plan`` checks the planner's), and values no
+    executor knows."""
     for s, spec in enumerate(stages):
-        if spec.ep > 1:
-            raise NotImplementedError(
-                f"stage {s}: ep={spec.ep} needs the MoE family (ROADMAP §A.3)")
-        if spec.zero or spec.cp > 1:
-            raise NotImplementedError(
-                f"stage {s}: zero={spec.zero}, cp={spec.cp}: ZeRO and context "
-                "parallelism on stages come with a later slice (ROADMAP §A.5)")
+        _check_axes(s, cfg, spec.dp, spec.cp, spec.ep)
+        if spec.zero not in (0, 1, 2, 3):
+            raise ValueError(f"stage {s}: zero={spec.zero}: expected 0-3")
+        if spec.cp_mode not in ("ring", "a2a"):
+            raise ValueError(f"stage {s}: unknown cp_mode {spec.cp_mode!r}")
+
+
+def _grouped(spec: StageSpec) -> bool:
+    """Whether a stage runs its device-type groups as programs of their own
+    (the reference's per-type sub-meshes: never with zero, cp or ep)."""
+    return (spec.replica_groups is not None and len(spec.replica_groups) > 1
+            and spec.zero == 0 and spec.cp == 1 and spec.ep == 1)
 
 
 def hetero_runner(cfg: GPTConfig, stages: Sequence[StageSpec],
@@ -159,32 +201,33 @@ def hetero_runner(cfg: GPTConfig, stages: Sequence[StageSpec],
     """This rank's part of the multi-stage executor for a non-uniform hetero
     plan, inside a process group of the plan's size (a one-device plan also
     runs outside one).  Boundary sends are waited for two exchanges late
-    (``StageRunner``'s overlap); the dp reduction is one all-reduce per
-    leaf."""
-    if not isinstance(cfg, GPTConfig) or family_ops(cfg).moe:
-        raise NotImplementedError(
-            "the hetero route runs the GPT family and the LLaMA family; MoE "
-            "on it (the aux loss threaded through the stages, valid_mask for "
-            "uneven replica rows) comes with a later slice (ROADMAP §A.3)")
-    stages = tuple(stages)
-    check_stage_axes(stages)
+    (``StageRunner``'s overlap); the dp reduction is one collective per
+    leaf.  ``attn_impl`` replaces the attention of stages without cp."""
+    stages = tuple(s if _grouped(s) else dataclasses.replace(s, replica_groups=None)
+                   for s in stages)
+    check_stage_axes(cfg, stages)
     dev = resolve_device(device)
-    mesh = stage_meshes([(s.dp, s.tp) for s in stages])
+    grids = [StageGrid(s.dp, s.tp, s.cp, s.ep) for s in stages]
+    mesh = stage_meshes(grids)
     s = mesh.index("pp")
     spec, S = stages[s], len(stages)
     unit = Unit(0, spec.num_blocks, spec.has_embed, spec.has_head,
                 s - 1 if s > 0 else None, s + 1 if s < S - 1 else None)
+    if spec.cp > 1:
+        attn = resolve_attention(cfg, mesh.group(SP), spec.cp_mode)
+    else:
+        attn = attn_impl or resolve_attention(cfg)
 
     def counts(rows):
         return [replica_counts(rows, st.dp, st.replica_rows, st.replica_groups)
                 for st in stages]
 
     return StageRunner(
-        cfg, mesh, [(st.dp, st.tp) for st in stages], counts, [unit],
-        range(*spec.blocks), partial(fill_drain_ticks, S, s), remat=True,
-        device=dev, optimizer=optimizer or build_optimizer(),
-        attn=attn_impl or resolve_attention(cfg), overlap=True,
-        chunked_dp=False)
+        cfg, mesh, grids, counts, [unit], range(*spec.blocks),
+        partial(fill_drain_ticks, S, s), remat=True, device=dev,
+        optimizer=optimizer or build_optimizer(), attn=attn, overlap=True,
+        chunked_dp=False, zero=spec.zero, programs=spec.replica_groups,
+        aux_weight=spec.num_blocks / max(cfg.num_blocks, 1))
 
 
 def make_hetero_train_step(cfg: GPTConfig, stages: Sequence[StageSpec],

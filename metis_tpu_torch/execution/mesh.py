@@ -10,7 +10,7 @@ reference's ``PartitionSpec`` trees with plain tuples of axis names (None =
 not split, ``core/sharding.py``) standing in for ``P``: column-parallel qkv /
 mlp-in, row-parallel proj / mlp-out, vocab-parallel embedding and head, the
 batch over dp.  A multi-stage plan gives each stage a contiguous range of
-ranks laid out as its own (dp, tp) grid (``stage_meshes``).
+ranks laid out as its own grid (``StageGrid``, ``stage_meshes``).
 """
 from __future__ import annotations
 
@@ -102,33 +102,67 @@ def _grid(shape: tuple[int, ...], axes: tuple[str, ...]) -> ProcessMesh:
                        _axis_groups(shape, axes, 0, rank))
 
 
-def stage_offsets(shapes) -> list[int]:
+@dataclass(frozen=True)
+class StageGrid:
+    """The rank grid of one pipeline stage, as the reference lays out a
+    stage's mesh (``metis_tpu/execution/hetero.py``): ``(dp / ep, ep, tp)``
+    over axes ``(dp, ep, tp)`` with expert parallelism (ep rides inside dp:
+    the stage's dp replicas are its ``(dp, ep)`` pairs, dp major),
+    ``(dp, cp, tp)`` over ``(dp, sp, tp)`` with context parallelism, else
+    ``(dp, tp)``."""
+
+    dp: int
+    tp: int
+    cp: int = 1
+    ep: int = 1
+
+    @property
+    def devices(self) -> int:
+        return self.dp * self.cp * self.tp
+
+    @property
+    def axes(self) -> tuple[str, ...]:
+        if self.ep > 1:
+            return (DP, EP, TP)
+        return (DP, SP, TP) if self.cp > 1 else (DP, TP)
+
+    @property
+    def shape(self) -> tuple[int, ...]:
+        if self.ep > 1:
+            return (self.dp // self.ep, self.ep, self.tp)
+        return (self.dp, self.cp, self.tp) if self.cp > 1 else (self.dp, self.tp)
+
+
+def stage_offsets(grids) -> list[int]:
     """First rank of each stage, and the world size last: stage s owns the
-    ``dp_s * tp_s`` ranks after those of the stages before it."""
-    return np.cumsum([0] + [dp * tp for dp, tp in shapes]).tolist()
+    ``dp_s * cp_s * tp_s`` ranks after those of the stages before it."""
+    return np.cumsum([0] + [g.devices for g in grids]).tolist()
 
 
-def stage_meshes(shapes) -> ProcessMesh:
+def stage_meshes(grids) -> ProcessMesh:
     """This process's mesh in a plan of pipeline stages with per-stage
-    ``(dp, tp)`` shapes: stage s owns a contiguous range of ranks
-    (``stage_offsets``), laid out row-major as a ``(dp_s, tp_s)`` grid.
-    Axes ``(pp, dp, tp)``, shape ``(S, dp_s, tp_s)`` of this rank's stage,
-    and its dp and tp groups; there is no pp group (stages talk point to
-    point).  Every rank creates every stage's groups, the stages it is not
-    in included, because ``new_group`` is collective.  A plan of one device
-    outside a process group gets the one-device mesh with a pp axis."""
-    shapes = [tuple(int(n) for n in sh) for sh in shapes]
-    offsets = stage_offsets(shapes)
+    ``StageGrid``s: stage s owns a contiguous range of ranks
+    (``stage_offsets``), laid out row-major as its grid.
+    Axes ``(pp, *grid axes)``, shape ``(S, *grid shape)`` of this rank's
+    stage, and the groups of its grid's axes: stage-local, so a stage's sp
+    and ep groups hold only its own ranks; there is no pp group (stages
+    talk point to point).  Every rank creates every stage's groups, the
+    stages it is not in included, in the same order, because ``new_group``
+    is collective.  A plan of one device outside a process group gets the
+    one-device mesh with a pp axis."""
+    grids = list(grids)
+    offsets = stage_offsets(grids)
     if not dist.is_initialized() and offsets[-1] == 1:
         return ProcessMesh((PP, DP, TP), (1, 1, 1), (0, 0, 0))
-    rank = _require_group(offsets[-1], f"stages {shapes}")
+    rank = _require_group(offsets[-1], f"stages {[g.shape for g in grids]}")
     mine = None
-    for s, (dp, tp) in enumerate(shapes):
-        groups = _axis_groups((dp, tp), (DP, TP), offsets[s], rank)
+    for s, grid in enumerate(grids):
+        groups = _axis_groups(grid.shape, grid.axes, offsets[s], rank)
         if offsets[s] <= rank < offsets[s + 1]:
-            d, t = divmod(rank - offsets[s], tp)
-            mine = ProcessMesh((PP, DP, TP), (len(shapes), dp, tp), (s, d, t),
-                               groups)
+            coords = tuple(int(c) for c in
+                           np.unravel_index(rank - offsets[s], grid.shape))
+            mine = ProcessMesh((PP, *grid.axes), (len(grids), *grid.shape),
+                               (s, *coords), groups)
     return mine
 
 
@@ -353,9 +387,11 @@ class PlanArtifact:
         work: ``(pp, dp, tp)`` from ``from_uniform_plan`` and ``(pp, dp,
         ep, sp, tp)`` from ``from_ranked_plan``, trivial axes of size 1.  A
         non-rectangular one (per-stage strategies, empty mesh fields) gets
-        its stage's ``(pp, dp, tp)`` mesh from ``stage_meshes``."""
+        its stage's mesh from ``stage_meshes``."""
         if not self.mesh_shape:
-            return stage_meshes([(s["dp"], s["tp"]) for s in self.strategies])
+            return stage_meshes([StageGrid(s["dp"], s["tp"], s.get("cp", 1),
+                                           s.get("ep", 1))
+                                 for s in self.strategies])
         return _grid(self.mesh_shape, self.mesh_axes)
 
     @staticmethod

@@ -42,7 +42,7 @@ from metis_tpu_torch.core.device import resolve_device
 from metis_tpu_torch.core.events import NULL_LOG, EventLog
 from metis_tpu_torch.core.trace import Tracer
 from metis_tpu_torch.execution import train as _train
-from metis_tpu_torch.execution.mesh import DP, PP, TP, ProcessMesh
+from metis_tpu_torch.execution.mesh import DP, PP, TP, ProcessMesh, StageGrid
 from metis_tpu_torch.execution.stages import (
     StageRunner,
     Unit,
@@ -192,7 +192,7 @@ def pipeline_runner(cfg: GPTConfig, mesh: ProcessMesh, num_microbatches: int,
              "interleaved": partial(interleaved_ticks, pp, s,
                                     vs=virtual_stages)}[schedule]
     return StageRunner(
-        cfg, mesh, [(dp, tp)] * pp,
+        cfg, mesh, [StageGrid(dp, tp)] * pp,
         lambda rows: [replica_counts(rows, dp)] * pp, units, ids, ticks,
         remat=schedule != "gpipe", device=resolve_device(device),
         optimizer=optimizer or _train.build_optimizer(1e-4, weight_decay=1e-4),

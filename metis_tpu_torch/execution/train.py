@@ -187,7 +187,7 @@ def aligned_routing(cfg: MoEConfig, tokens: int, ranks: int) -> MoEConfig:
         raise NotImplementedError(
             f"MoE routing groups of {g} tokens over a batch of {tokens} do "
             f"not align with {ranks} ranks' {local} tokens each; routing "
-            "groups that straddle ranks are not supported")
+            "groups that straddle ranks are not supported (ROADMAP §A.3)")
     return dataclasses.replace(cfg, route_group_size=g)
 
 
@@ -392,7 +392,7 @@ class _RankSlice:
         if self.moe and (self.cp > 1 or self.sp):
             raise NotImplementedError(
                 "MoE with context or sequence parallelism: a rank's block of "
-                "the sequence splits the routing groups (ROADMAP §A.5)")
+                "the sequence would split the routing groups (ROADMAP §A.3)")
         self.spec = batch_spec((DP, EP) if mesh.size(EP) > 1 else DP,
                                seq_axis if self.cp > 1 else None)
         self.slots = mesh.slots()

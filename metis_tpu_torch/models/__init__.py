@@ -54,6 +54,27 @@ class Family:
     def moe(self) -> bool:
         return self.name == "moe"
 
+    def stage_embed(self, params, tokens, cfg, tp_group=None, pos_offset: int = 0):
+        """The embedding of ``tokens`` whose first position is ``pos_offset``
+        (a context-parallel rank's block; LLaMA's positions are rotary, in
+        its blocks)."""
+        if self.name == "llama":
+            return self.embed(params, tokens, cfg, tp_group)
+        return self.embed(params, tokens, cfg, tp_group, pos_offset=pos_offset)
+
+    def stage_blocks(self, params, x, cfg, attn, tp_group=None, pos_offset: int = 0,
+                     ep_group=None, valid_mask=None):
+        """``params["blocks"]`` run over ``x``, as a pipeline stage runs
+        them: ``(activations, aux loss)`` for MoE (``ep_group`` and the pad
+        rows' ``valid_mask`` as ``moe.moe_ffn``), ``(activations, None)``
+        otherwise; ``pos_offset`` as ``stage_embed``."""
+        if self.moe:
+            return self.run_blocks(params, x, cfg, attn, tp_group, ep_group,
+                                   valid_mask)
+        if self.name == "llama":
+            return self.run_blocks(params, x, cfg, attn, tp_group, pos_offset), None
+        return self.run_blocks(params, x, cfg, attn, tp_group), None
+
 
 @functools.cache
 def _families() -> dict[str, Family]:
@@ -105,7 +126,8 @@ def resolve_attention(cfg, cp_group=None, cp_mode: str = "ring"):
     if family_ops(cfg).moe:
         raise NotImplementedError(
             "MoE with context parallelism: a rank's block of the sequence "
-            "splits the routing groups (ROADMAP §A.5)")
+            "would split the routing groups, and the reference runs cp with "
+            "the dense families only")
     if cp_mode == "a2a":
         from metis_tpu_torch.ops.ulysses import make_ulysses_attention
         return make_ulysses_attention(cp_group)

@@ -3,8 +3,10 @@
 
 ``run_plan_rank`` (and ``run_plans_rank``, several plans in one launch) is
 the rank body the multi-rank tests (``tests/test_torch_dist.py``,
-``test_torch_pipeline.py``, ``test_torch_hetero.py``) and ``chip_smoke.py``'s
-dist and pipeline phases hand to ``execution.dist.spawn``.  It lives in the
+``test_torch_pipeline.py``, ``test_torch_hetero.py``,
+``test_torch_stage_axes.py`` and others) and ``chip_smoke.py``'s multi-rank
+phases hand to ``execution.dist.spawn``; its ``stages`` take every stage
+axis of the hetero route (ZeRO, cp, ep, MoE rows and groups).  It lives in the
 package because spawned ranks start from a fresh interpreter and import
 their body by name; it reads the kernels' launch counters, host step times
 and peak memory, none of which production training needs.
@@ -66,8 +68,9 @@ def run_plan_rank(rank: int, device: torch.device, artifact_json: str | None,
     applies, reduced over the plan's ranks, as ``grads`` (``"arrays"``: the
     gradients; ``"norms"``: their L2 norms), one per leaf: at ZeRO 1 and 2
     a wrapped leaf's is that of the rank's flat chunk of it, at ZeRO 3 that
-    of its shard.  ``zero_dims``: ``{(group, name): the dim ZeRO splits a
-    leaf along}`` (None: not split; absent without ZeRO)."""
+    of its shard, on the gspmd route and on a hetero stage alike.
+    ``zero_dims``: ``{(group, name): the dim ZeRO splits a leaf along}``
+    (None: not split; absent without ZeRO, or on a stage without it)."""
     cuda = device.type == "cuda"
     if cuda:
         torch.cuda.reset_peak_memory_stats(device)
@@ -150,28 +153,68 @@ def _rank_rows(tokens: torch.Tensor, cfg: GPTConfig, mesh, device):
     return mine, cfg
 
 
+def _router_input(params: dict, tokens: torch.Tensor, cfg: MoEConfig, tp_group):
+    """The first MoE block's router input of ``tokens``: the layer norm
+    after its attention half, ``[rows, seq, h]``, and the block's layer."""
+    from metis_tpu_torch.models import resolve_attention
+    from metis_tpu_torch.models.gpt import (
+        _layer_norm, attention_residual, embed, unstack_blocks)
+
+    layer = unstack_blocks(params["blocks"])[0]
+    x = attention_residual(embed(params, tokens, cfg, tp_group), layer, cfg,
+                           resolve_attention(cfg), tp_group)
+    return _layer_norm(x, layer["ln2_scale"], layer["ln2_bias"]), layer
+
+
 def moe_routing(params: dict, tokens: torch.Tensor, cfg: MoEConfig, mesh,
                 device: torch.device) -> dict:
     """The first MoE block's routing decisions (``expert_idx``,
     ``position``, ``keep``, each ``[groups, group length, top_k]``) for this
     rank's rows of ``tokens``, as numpy: the decisions of two runs of the
     same weights and tokens on different meshes compare one for one."""
-    from metis_tpu_torch.models.gpt import (
-        _layer_norm, attention_residual, embed, unstack_blocks)
-    from metis_tpu_torch.models import resolve_attention
     from metis_tpu_torch.models.moe import _route_group_len, route
 
     mine, cfg = _rank_rows(tokens, cfg, mesh, device)
-    tp_group = mesh.group(TP)
     with torch.no_grad():
-        layer = unstack_blocks(params["blocks"])[0]
-        x = attention_residual(embed(params, mine, cfg, tp_group), layer, cfg,
-                               resolve_attention(cfg), tp_group)
-        y = _layer_norm(x, layer["ln2_scale"], layer["ln2_bias"])
+        y, layer = _router_input(params, mine, cfg, mesh.group(TP))
         T = y.shape[0] * y.shape[1]
         g = _route_group_len(T, cfg.route_group_size)
         r = route(y.reshape(T // g, g, -1), layer["router"], cfg)
     return {k: r[k].cpu().numpy() for k in ("expert_idx", "position", "keep")}
+
+
+def stage_moe_routing(params: dict, tokens: torch.Tensor, cfg: MoEConfig,
+                      replica_rows, device: torch.device) -> dict:
+    """The first MoE block's routing decisions of ``tokens`` (``[rows,
+    seq]``, the whole model's ``params``) as an MoE stage whose one program
+    of replicas runs ``replica_rows`` rows routes them
+    (``execution/stages.py``): uneven rows padded to the largest count with
+    masked rows, in the groups of the padded tokens
+    (``train.aligned_routing``).  The real tokens' ``expert_idx``,
+    ``position`` and ``keep``, each ``[tokens, top_k]``, in row order."""
+    from metis_tpu_torch.models.moe import route
+
+    rows = [int(r) for r in replica_rows]
+    width, n = max(rows), len(rows)
+    with torch.no_grad():
+        y, layer = _router_input(params, tokens.to(device), cfg, None)
+        seq, h = y.shape[1], y.shape[2]
+        g = aligned_routing(cfg, n * width * seq, n).route_group_size
+        out: dict = {k: [] for k in ("expert_idx", "position", "keep")}
+        start = 0
+        for r in rows:
+            part = y.new_zeros((width, seq, h))
+            part[:r] = y[start:start + r]
+            valid = None
+            if len(set(rows)) > 1:
+                valid = torch.zeros(width * seq, device=device)
+                valid[:r * seq] = 1
+                valid = valid.reshape(-1, g)
+            dec = route(part.reshape(-1, g, h), layer["router"], cfg, valid)
+            for k in out:
+                out[k].append(dec[k].reshape(width * seq, -1)[:r * seq])
+            start += r
+    return {k: torch.cat(v).cpu().numpy() for k, v in out.items()}
 
 
 def attention_rank(rank: int, device: torch.device, jobs: list[dict]) -> list:

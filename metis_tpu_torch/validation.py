@@ -2,7 +2,8 @@
 ``metis_tpu/validation.py``: uniform plans (``measure_uniform_plan_ms``,
 ``validate_uniform_plan``, ``validate_planner_choice``), hetero plans
 (``HeteroValidationReport``, ``measure_ranked_plan_ms``,
-``validate_hetero_choice``) and the calibration fits
+``measure_ranked_plan``, ``validate_hetero_choice``) and the calibration
+fits
 (``contention_calibrated``, ``dispatch_affine_calibrated``,
 ``affine_loo_calibrated``, ``features_loo_calibrated``,
 ``select_loo_calibrated``, ``apply_frozen_fit``).
@@ -12,8 +13,10 @@ The measured side runs the same code production training uses
 validation failure indicts the cost model, not a bespoke measurement rig:
 pp = 1 uniform plans on the gspmd route, pp > 1 uniform plans on the
 pipeline route with the plan's microbatch count, hetero plans on the hetero
-executor (or, when the plan was priced with the 1f1b or interleaved
-schedule, on the pipeline route running that schedule).  A plan of several
+executor with every stage's ZeRO, cp and ep (or, when the plan was priced
+with the 1f1b or interleaved schedule, on the pipeline route running that
+schedule; a one-stage plan with cp, sp or ZeRO on the gspmd route), each
+rank's peak memory beside the planner's stage estimate.  A plan of several
 devices runs one rank per device through ``execution.dist.spawn``; its step
 is timed up to a barrier after every rank's optimizer step, so the time
 covers the whole pipeline, and rank 0 reports it.  A plan that needs more
@@ -97,32 +100,36 @@ def measure_uniform_plan_ms(
             "the uniform executor needs even stages")
     artifact = PlanArtifact.from_uniform_plan(plan)
     return _measure(artifact.to_json(), cfg, artifact.num_devices, device,
-                    devices, steps, warmup, seed)
+                    devices, steps, warmup, seed)[0][0]
 
 
 def _measure(artifact_json: str, cfg, need: int, device, devices,
-             steps: int, warmup: int, seed: int, **build) -> float:
+             steps: int, warmup: int, seed: int, backend: str | None = None,
+             **build) -> list[tuple[float, int | None]]:
     """Time ``build_executable``'s step of the artifact: in this process
-    at one device, else on ``need`` ranks, rank 0's time."""
+    at one device, else on ``need`` ranks (over ``backend``, by default
+    NCCL on CUDA and gloo on the CPU).  Per rank: its time, and its peak
+    memory in bytes on CUDA (None on the CPU)."""
     from metis_tpu_torch.execution import dist as mdist
 
     dev = resolve_device(device)
     if need == 1:
-        return _measure_plan_rank(0, dev, artifact_json, cfg, steps, warmup,
-                                  seed, build)
+        return [_measure_plan_rank(0, dev, artifact_json, cfg, steps, warmup,
+                                   seed, build)]
     devs = list(devices if devices is not None else mdist.default_devices(dev))
     if need > len(devs):
         raise MetisError(
             f"plan needs {need} devices, have {len(devs)}; a plan is never "
             "shrunk to fit")
     devs = devs[:need]
-    return mdist.spawn(_measure_plan_rank, need, mdist.default_backend(devs),
-                       devs, artifact_json, cfg, steps, warmup, seed, build)[0]
+    return mdist.spawn(_measure_plan_rank, need,
+                       backend or mdist.default_backend(devs), devs,
+                       artifact_json, cfg, steps, warmup, seed, build)
 
 
 def _measure_plan_rank(rank: int, device: torch.device, artifact_json: str,
                        cfg, steps: int, warmup: int, seed: int,
-                       build: dict) -> float:
+                       build: dict) -> tuple[float, int | None]:
     """One rank of ``_measure`` (the only one at one device)."""
     import torch.distributed as dist
 
@@ -142,7 +149,12 @@ def _measure_plan_rank(rank: int, device: torch.device, artifact_json: str,
         return loss
 
     barrier = dist.barrier if dist.is_initialized() else None
-    return _timed_steps_ms(run_once, device, steps, warmup, barrier)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    ms = _timed_steps_ms(run_once, device, steps, warmup, barrier)
+    peak = (torch.cuda.max_memory_allocated(device) if device.type == "cuda"
+            else None)
+    return ms, peak
 
 
 def _timed_steps_ms(run_once, device: torch.device, steps: int,
@@ -202,12 +214,19 @@ def validate_uniform_plan(
 
 @dataclass(frozen=True)
 class HeteroValidationReport:
-    """Predicted-vs-measured comparison for a hetero ``RankedPlan``."""
+    """Predicted-vs-measured comparison for a hetero ``RankedPlan``; on CUDA
+    also each rank's measured peak memory (``peak_memory_mb``) beside the
+    planner's memory demand of each stage (``stage_memory_mb``: the stage's
+    capacity less its ``memory_state`` headroom; for a stage of one device
+    type the demand of one replica's rows, what each of its devices holds;
+    None without a cluster)."""
 
     plan_dict: dict
     predicted_ms: float
     measured_ms: float
     steps: int
+    stage_memory_mb: tuple[float, ...] | None = None
+    peak_memory_mb: tuple[float, ...] | None = None
 
     @property
     def error_pct(self) -> float:
@@ -227,6 +246,9 @@ class HeteroValidationReport:
             "measured_ms": self.measured_ms,
             "error_pct": self.error_pct,
             "steps": self.steps,
+            **{k: list(v) for k, v in (("stage_memory_mb", self.stage_memory_mb),
+                                       ("peak_memory_mb", self.peak_memory_mb))
+               if v is not None},
         }
 
 
@@ -241,49 +263,60 @@ def measure_ranked_plan_ms(
     warmup: int = 2,
     seed: int = 0,
     dtype: torch.dtype | None = None,
+    backend: str | None = None,
 ) -> float:
     """Median wall time (ms) of one training step of a hetero ``RankedPlan``
+    (``measure_ranked_plan``)."""
+    return measure_ranked_plan(ranked, model, device, devices, cluster,
+                               profiles, steps, warmup, seed, dtype,
+                               backend)[0]
+
+
+def measure_ranked_plan(
+    ranked,
+    model: ModelSpec,
+    device: str | torch.device = "cuda",
+    devices: Sequence | None = None,
+    cluster=None,
+    profiles=None,
+    steps: int = 5,
+    warmup: int = 2,
+    seed: int = 0,
+    dtype: torch.dtype | None = None,
+    backend: str | None = None,
+) -> tuple[float, list[int | None]]:
+    """Median wall time (ms) of one training step of a hetero ``RankedPlan``
     executed by the hetero executor (``execution.hetero``) — non-uniform
-    layer partitions, per-stage (dp, tp), and (with ``cluster`` +
-    ``profiles``) the data balancer's uneven per-replica rows — on one rank
-    per device as ``measure_uniform_plan_ms``.  A plan priced with the 1f1b
-    or interleaved schedule runs on the pipeline route with that schedule
-    (``_measure_scheduled_plan_ms``); a one-stage plan with context or
-    sequence parallelism or ZeRO on the gspmd route."""
+    layer partitions, per-stage strategies with their ZeRO, cp and ep, and
+    (with ``cluster`` + ``profiles``) the data balancer's uneven
+    per-replica rows — on one rank per device as ``measure_uniform_plan_ms``
+    (``backend``: ``"gloo"`` to share a card), rank 0's time; and each
+    rank's peak memory in bytes (None on the CPU).  A plan priced with the
+    1f1b or interleaved schedule runs on the pipeline route with that
+    schedule; a one-stage plan with context or sequence parallelism or ZeRO
+    on the gspmd route."""
     from metis_tpu_torch.execution.mesh import PlanArtifact
     from metis_tpu_torch.models import config_for_model_spec
 
     cfg = config_for_model_spec(
         model, **({"dtype": dtype} if dtype is not None else {}))
-    if getattr(ranked.intra, "schedule", "gpipe") != "gpipe":
-        return _measure_scheduled_plan_ms(ranked, cfg, device, devices,
-                                          steps=steps, warmup=warmup, seed=seed)
     artifact = PlanArtifact.from_ranked_plan(ranked)
+    build: dict = {}
     strategies = ranked.intra.strategies
-    if not (len(strategies) == 1 and artifact.mesh_shape
+    if getattr(ranked.intra, "schedule", "gpipe") == "gpipe" and not (
+            len(strategies) == 1 and artifact.mesh_shape
             and (strategies[0].cp > 1 or strategies[0].sp
                  or strategies[0].zero)):
         # an artifact without mesh fields routes to the hetero executor,
         # which takes the data balancer's rows from ``cluster`` +
         # ``profiles``; a one-stage plan with cp, sp or ZeRO keeps its mesh
-        # and runs on the gspmd route (the stage half of those axes is
-        # ROADMAP §A.5)
+        # and runs on the gspmd route, as a schedule-tagged plan runs on
+        # the pipeline route its own schedule
         artifact = dataclasses.replace(artifact, mesh_axes=(), mesh_shape=())
-    return _measure(artifact.to_json(), cfg, artifact.num_devices, device,
-                    devices, steps, warmup, seed, cluster=cluster,
-                    profiles=profiles)
-
-
-def _measure_scheduled_plan_ms(ranked, cfg, device, devices, steps: int,
-                               warmup: int, seed: int) -> float:
-    """Median wall time (ms) of one training step of a schedule-tagged
-    ``RankedPlan`` through ``build_executable``, which runs the artifact's
-    own schedule and virtual stages."""
-    from metis_tpu_torch.execution.mesh import PlanArtifact
-
-    artifact = PlanArtifact.from_ranked_plan(ranked)
-    return _measure(artifact.to_json(), cfg, artifact.num_devices, device,
-                    devices, steps, warmup, seed)
+        build = dict(cluster=cluster, profiles=profiles)
+    ranks = _measure(artifact.to_json(), cfg, artifact.num_devices, device,
+                     devices, steps, warmup, seed, backend, **build)
+    return ranks[0][0], [peak for _, peak in ranks]
 
 
 def validate_hetero_choice(
@@ -296,22 +329,46 @@ def validate_hetero_choice(
     top_k: int = 1,
     steps: int = 5,
     warmup: int = 2,
+    backend: str | None = None,
 ) -> list[HeteroValidationReport]:
     """North-star error metric over the top-k hetero plans a planner run
-    would deploy; each prediction is the plan's ``cost.total_ms``.  Runs
-    on ``device`` (the card unless the caller asks for the CPU)."""
+    would deploy; each prediction is the plan's ``cost.total_ms``, each
+    rank's peak memory stands beside the planner's stage estimate (module
+    doc of ``HeteroValidationReport``).  Runs on ``device`` (the card
+    unless the caller asks for the CPU)."""
     device = resolve_device(device)
     reports = []
     for ranked in list(ranked_plans)[:top_k]:
-        measured = measure_ranked_plan_ms(
+        measured, peaks = measure_ranked_plan(
             ranked, model, device, devices, cluster=cluster,
-            profiles=profiles, steps=steps, warmup=warmup)
+            profiles=profiles, steps=steps, warmup=warmup, backend=backend)
         reports.append(HeteroValidationReport(
             plan_dict=ranked.to_json_dict(),
             predicted_ms=ranked.cost.total_ms,
             measured_ms=measured,
-            steps=steps))
+            steps=steps,
+            stage_memory_mb=_stage_memory_mb(ranked, cluster),
+            peak_memory_mb=(None if None in peaks
+                            else tuple(p / 2**20 for p in peaks))))
     return reports
+
+
+def _stage_memory_mb(ranked, cluster) -> tuple[float, ...] | None:
+    """The planner's memory demand of each stage of ``ranked`` (MB): the
+    stage's capacity on ``cluster`` less its ``memory_state`` headroom."""
+    state = ranked.intra.memory_state
+    if cluster is None or not state:
+        return None
+    from metis_tpu_torch.balance.stage_perf import rank_device_types
+
+    inter = ranked.inter
+    types = rank_device_types(cluster, inter.node_sequence)
+    out = []
+    for s, headroom in enumerate(state):
+        start, end = inter.stage_rank_range(s)
+        capacity = sum(cluster.memory_mb(t) for t in types[start:end])
+        out.append(capacity - headroom)
+    return tuple(out)
 
 
 def contention_calibrated(reports: Sequence, key=None,

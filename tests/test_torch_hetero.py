@@ -35,7 +35,6 @@ from metis_tpu.execution import hetero as jhetero
 from metis_tpu.execution import mesh as jmesh
 from metis_tpu.models import gpt as jgpt
 from metis_tpu.models import llama as jllama
-from metis_tpu.models.moe import MoEConfig
 from metis_tpu.profiles import tiny_test_model
 from metis_tpu.testing import (
     PARITY_GBS,
@@ -60,9 +59,9 @@ from metis_tpu_torch.core.types import (
 from metis_tpu_torch.execution import dist as tdist
 from metis_tpu_torch.execution import hetero as thetero
 from metis_tpu_torch.execution import mesh as tmesh
-from metis_tpu_torch.execution.builder import build_executable
 from metis_tpu_torch.models import gpt as tgpt
 from metis_tpu_torch.models import llama as tllama
+from metis_tpu_torch.models import moe as tmoe
 from metis_tpu_torch.testing import run_plans_rank
 
 torch.set_num_threads(1)
@@ -346,38 +345,6 @@ def test_llama_two_stage_plan_matches_jax(llama_runs):
 
 # -- refusals ------------------------------------------------------------------
 
-REFUSED = {
-    "zero": ({"dp": 2, "tp": 1, "zero": 1}, "§A.5"),
-    "cp": ({"dp": 1, "tp": 1, "cp": 2}, "§A.5"),
-    "sp": ({"dp": 1, "tp": 2, "sp": True}, "§A.5"),
-    "ep": ({"dp": 2, "tp": 1, "ep": 2}, "§A.3"),
-}
-
-
-@pytest.mark.parametrize("name", list(REFUSED))
-def test_later_strategy_axes_raise(name):
-    """zero, cp, sp and ep stages raise ``NotImplementedError`` naming the
-    ROADMAP item, on the pipeline and hetero routes alike, before any
-    process group is needed."""
-    strat, item = REFUSED[name]
-    tcfg = tgpt.GPTConfig(**SHAPE)
-    for art in (
-            tmesh.PlanArtifact(mesh_axes=("pp", "dp", "tp"), mesh_shape=(2, 1, 1),
-                               layer_partition=(), strategies=(strat,), gbs=8,
-                               microbatches=2),
-            tmesh.PlanArtifact(mesh_axes=(), mesh_shape=(), layer_partition=(0, 2, 6),
-                               strategies=({"dp": 1, "tp": 1}, strat), gbs=8,
-                               microbatches=2)):
-        with pytest.raises(NotImplementedError, match=item):
-            build_executable(tcfg, art, device="cpu")
-    spec = thetero.StageSpec((0, 4), True, True, dp=2, tp=1,
-                             zero=strat.get("zero", 0), cp=strat.get("cp", 1),
-                             ep=strat.get("ep", 1))
-    if name != "sp":
-        with pytest.raises(NotImplementedError, match=item):
-            thetero.make_hetero_train_step(tcfg, [spec], device="cpu")
-
-
 def test_artifact_device_groups_must_match_the_strategies():
     """``make_hetero_train_step_from_artifact`` refuses an artifact whose
     device groups disagree with its strategies, as the reference does."""
@@ -394,11 +361,15 @@ def test_artifact_device_groups_must_match_the_strategies():
 
 
 def test_moe_config_raises():
-    moe = MoEConfig(vocab_size=128, seq_len=16, hidden=32, num_heads=2,
-                    num_blocks=4, ffn_multiplier=2, num_experts=2, top_k=1)
-    with pytest.raises(NotImplementedError, match="GPT family"):
+    """MoE runs on the hetero route (``tests/test_torch_stage_axes.py``);
+    an MoE stage with cp raises what the reference raises."""
+    moe = tmoe.MoEConfig(vocab_size=128, seq_len=16, hidden=32, num_heads=2,
+                         num_blocks=4, ffn_multiplier=2, num_experts=2, top_k=1)
+    with pytest.raises(NotImplementedError, match="cp\\+MoE stages have no "
+                       "execution path"):
         thetero.make_hetero_train_step(
-            moe, [thetero.StageSpec((0, 4), True, True, dp=1, tp=1)], device="cpu")
+            moe, [thetero.StageSpec((0, 4), True, True, dp=1, tp=1, cp=2)],
+            device="cpu")
 
 
 # -- validation ----------------------------------------------------------------

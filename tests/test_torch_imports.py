@@ -88,6 +88,7 @@ def _entry_points():
     from metis_tpu_torch import cli
     from metis_tpu_torch.execution.hetero import StageSpec, make_hetero_train_step
     from metis_tpu_torch.validation import (
+        measure_ranked_plan,
         measure_ranked_plan_ms,
         measure_uniform_plan_ms,
         validate_hetero_choice,
@@ -126,6 +127,8 @@ def _entry_points():
             cfg, [StageSpec((0, 1), True, True, dp=1, tp=1)]),
         "measure_ranked_plan_ms": lambda: measure_ranked_plan_ms(
             _one_stage_ranked(), spec),
+        "measure_ranked_plan": lambda: measure_ranked_plan(
+            _one_stage_ranked(), spec),
         "validate_hetero_choice": lambda: validate_hetero_choice([], spec),
         # the device is resolved before the files are read or a plan searched
         "validate_cli": lambda: cli.main([
@@ -154,7 +157,8 @@ ENTRY_POINTS = ["entry", "build_executable", "build_train_state",
                 "profile_model", "infer_device_type", "measure_uniform_plan_ms",
                 "from_numpy_tree", "batch_source", "validate_planner_choice",
                 "validate_cli", "make_hetero_train_step",
-                "measure_ranked_plan_ms", "validate_hetero_choice",
+                "measure_ranked_plan_ms", "measure_ranked_plan",
+                "validate_hetero_choice",
                 "build_executable_llama", "build_executable_moe",
                 "profile_model_llama", "profile_model_moe"]
 

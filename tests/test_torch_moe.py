@@ -355,20 +355,31 @@ def test_ep_on_a_dense_config_and_on_stage_routes_raise():
     art = _ep_artifact(1, 2, 1)
     with pytest.raises(ValueError, match="needs an MoE config"):
         build_executable(dense, art, device="cpu")
+    # ep on stages runs on the hetero route (tests/test_torch_stage_axes.py),
+    # whose four ranks need the launcher; an ep that does not divide the
+    # experts raises as in the reference
+    from metis_tpu_torch.core.errors import MetisError
+
     _, tcfg = _cfgs()
     staged = dataclasses.replace(art, mesh_shape=(2, 1, 2, 1, 1), layer_partition=())
-    with pytest.raises(NotImplementedError, match="§A.3"):
+    with pytest.raises(MetisError, match="launcher"):
         build_executable(tcfg, staged, device="cpu")
+    _, three = _cfgs(num_experts=3)
+    with pytest.raises(ValueError, match="must divide"):
+        build_executable(three, staged, device="cpu")
 
 
 def test_pipeline_and_hetero_routes_refuse_moe():
+    """The pipeline route runs GPT blocks only, as the reference's; the
+    hetero route runs MoE but refuses it with cp, as the reference's."""
     _, tcfg = _cfgs()
     pipe = tmesh.PlanArtifact.from_uniform_plan(UniformPlan(1, 2, 1, 4, GBS))
     with pytest.raises(NotImplementedError, match="§A.3"):
         build_executable(tcfg, pipe, device="cpu")
-    with pytest.raises(NotImplementedError, match="§A.3"):
+    with pytest.raises(NotImplementedError, match="cp\\+MoE"):
         thetero.make_hetero_train_step(
-            tcfg, [thetero.StageSpec((0, 2), True, True, dp=1, tp=1)], device="cpu")
+            tcfg, [thetero.StageSpec((0, 2), True, True, dp=1, tp=1, cp=2)],
+            device="cpu")
 
 
 def test_config_for_model_spec_dispatches_like_jax():

@@ -147,9 +147,12 @@ def test_unknown_schedule_and_strategy_axes_are_refused():
         with pytest.raises(ValueError):
             build_executable(cfg, dataclasses.replace(
                 art, strategies=({"dp": 1, "tp": 1, **axes},)), device="cpu")
-    # ZeRO on a pipeline stage comes with the stage half (ROADMAP §A.5)
+    # ZeRO on a pipeline stage takes the hetero route, whose two ranks need
+    # the launcher
+    from metis_tpu_torch.core.errors import MetisError
+
     staged = tmesh.PlanArtifact.from_uniform_plan(UniformPlan(1, 2, 1, 2, 2))
-    with pytest.raises(NotImplementedError, match="§A.5"):
+    with pytest.raises(MetisError, match="launcher"):
         build_executable(cfg, dataclasses.replace(
             staged, strategies=({"dp": 1, "tp": 1, "zero": 1},)), device="cpu")
 

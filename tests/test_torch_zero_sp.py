@@ -197,12 +197,14 @@ def test_pp1_plans_route_to_gspmd(axes):
                          ids=("cp2", "zero1", "sp"))
 def test_pp2_plans_go_to_the_hetero_route_and_raise(axes):
     """A uniform pp 2 plan with any of these axes takes the hetero route,
-    as in the reference, where the stage half of the axes is not ported
-    yet."""
+    as in the reference, which runs them (``tests/test_torch_stage_axes.py``);
+    outside a process group its ranks raise for the launcher."""
+    from metis_tpu_torch.core.errors import MetisError
+
     art = tmesh.PlanArtifact.from_uniform_plan(UniformPlan(1, 2, 1, 4, GBS))
     art = dataclasses.replace(art, strategies=({"dp": 1, "tp": 1, **axes},))
     assert plan_route(_cfg(), art) == "hetero"
-    with pytest.raises(NotImplementedError, match="ROADMAP §A.5"):
+    with pytest.raises(MetisError, match="launcher"):
         build_executable(_cfg(), art, device="cpu")
 
 
