@@ -35,15 +35,15 @@ Phases, in order (any failure exits non-zero):
 6. dist: dp x tp plans through ``execution.dist.spawn`` and
    ``build_executable``'s ``gspmd`` route, each rank reading its own kernel
    launch counts around every step: (a) NCCL at world size 1, the slice's
-   5 steps, equal to the one-device trajectory within 1e-6; (b) tp 2 on two
-   gloo ranks sharing the card, full width and depth, within 0.05 of the
-   one-device trajectory, 8 launches of each kernel per rank per step, each
-   rank's peak memory; (c) dp 2 and dp 2 x tp 2 on gloo ranks sharing the
-   card at 2 blocks of full width, 3 steps, each within 0.05 of a
-   dp = tp = 1 run at that depth; (d) ``profile --tps 1,2`` on the one card
+   5 steps, equal to the one-device trajectory within 1e-6; (c) dp 2 x tp 2
+   on four gloo ranks sharing the card at ``SHALLOW_BLOCKS`` (1) block of
+   full width, 3 steps, within 0.05 of a dp = tp = 1 run at that depth
+   (tp 2 and dp 2 alone, once its legs (b) and (c), run in the zero_sp
+   phase at the same depth, held there to one device); (d) ``profile
+   --tps 1,2`` on the one card
    skips tp 2 with a ``profile_skipped`` event and writes no tp 2 profile.
-   The ranks of (b) and (c) share one card, so their step times are no
-   dp/tp speed;
+   The ranks of (c) share one card, so their step times are no dp/tp
+   speed;
 7. pipeline: multi-stage plans through ``execution.dist.spawn``, each rank
    reading its own kernel launch counts around every step: (a) the
    one-stage hetero executor at 4 microbatches of 1 row, in this process,
@@ -93,9 +93,11 @@ Phases, in order (any failure exits non-zero):
    --max-cp 2 --enable-zero --enable-sp`` search on a 1 x 2 H100 cluster
    from a profile at that depth (losses within ``CP_TOL``, first-step
    gradient norms within ``GRAD_NORM_TOL``, each rank's peak);
-11. zero_sp: the GPT at 2 blocks of full width, gbs 4, on two gloo ranks
-   in one launch: tp 2 with Megatron sp against tp 2, dp 2 at ZeRO 1, 2
-   and 3 against dp 2 at ZeRO 0 (losses within ``ZERO_SP_TOL``, gradient
+11. zero_sp: the GPT at ``SHALLOW_BLOCKS`` (1) block of full width, gbs 4, on two gloo ranks
+   in one launch: tp 2 and dp 2 against one device (within 0.05, 1 launch
+   of each kernel per rank per step), tp 2 with Megatron sp against tp 2,
+   dp 2 at ZeRO 1, 2 and 3 against dp 2 at ZeRO 0 (losses within
+   ``ZERO_SP_TOL``, gradient
    norms within ``GRAD_NORM_TOL``), each rank's peak beside the planner's
    ZeRO relief (``cost/zero.py``);
 12. stage_axes: multi-stage plans whose stages carry ZeRO, context or
@@ -119,6 +121,20 @@ Phases, in order (any failure exits non-zero):
    imply (``stage_launches``), each rank's peak beside the planner's stage
    demand.  Its grids are among ``PATH_CASES`` ((a) runs ``MBS2``, a
    replica of (c)'s stage 0 3 rows, ``ROWS3``).
+13. train (``train_phase``): (a) ``python -m metis_tpu_torch train
+   --device cuda`` on a one-card hostfile, the 1.5B preset's widths at
+   ``TRAIN_BLOCKS`` (1) block planned from its own profile: 3 steps with
+   ``--checkpoint-every 2``, 2 resumed, 5 straight; the resumed run's
+   losses and every leaf's digest bit-equal to the straight run's, save
+   and restore ms, ``mean_step_ms`` beside ``plan_cost_ms``, 1 launch of
+   each kernel per step; (b) the MoE at 1 block in the preset's 4096-token
+   routing groups, each shared by two gloo ranks: tp 2 + sp, dp 2, cp 2
+   ring and cp 2 Ulysses against one device (losses within ``PIPE_TOL``,
+   first-step gradient norms within ``GRAD_NORM_TOL``), the first-block
+   routing decisions that differ and the router's ties; (c) ``train``'s
+   rank body on pinned plans on two gloo ranks at ``TRAIN_C_WIDTH``: dp 2
+   at ZeRO 1 and a two-stage hetero plan, 2 + 2 resumed steps bit-equal
+   to 4 straight.
 
 The kernel phase also holds and times the pipeline's microbatch shape (b 1,
 ``MICRO``), the LLaMA grid (``LLAMA``; SDPA with ``enable_gqa``) and the
@@ -135,6 +151,7 @@ import gc
 import json
 import math
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -187,6 +204,10 @@ PIPE_TOL = 1e-2
 # or a stage's part, reads 0.4 or more
 GRAD_NORM_TOL = 1e-2
 SHARED_CARD = "ranks share one card; not a dp/tp speed"
+# the depth of the dist phase's legs (c) and of the zero_sp phase's: 1 block
+# of full width, which keeps the whole script near 1000 s with the train
+# phase (2 blocks before it)
+SHALLOW_BLOCKS = 1
 
 # the --model-size 1.5B preset (planner/cli.py MODEL_SIZE_PRESETS) and its
 # LLaMA and MoE configurations: GQA at LLaMA-3-8B's ratio, and 8 experts,
@@ -237,8 +258,15 @@ RING_PAST = dict(RING_SELF, name="ring_past", causal=False)
 LONG = dict(name="long", b=1, hq=32, hkv=8, s=8192, d=128, causal=True)
 ULYSSES = dict(name="ulysses", b=1, hq=16, hkv=16, s=8192, d=128, causal=True)
 CONTEXT_CASES = (RING_SELF, RING_PAST, LONG, ULYSSES)
+# the train phase's grids: its MoE's cp 2 ring ranks (b 4, 32 heads, each
+# rank a 512-token block: its self block and its past one, stats mode), and
+# leg (c)'s narrow GPT (8 heads of 128, 2 rows per dp rank or microbatch)
+TRAIN_RING_SELF = dict(name="train_ring_self", b=4, hq=32, hkv=32, s=512, d=128,
+                       causal=True, stats=True, ring=True)
+TRAIN_RING_PAST = dict(TRAIN_RING_SELF, name="train_ring_past", causal=False)
+NARROW = dict(name="narrow", b=2, hq=8, hkv=8, s=1024, d=128, causal=True)
 PATH_CASES = (MAIN, TP2, MICRO, ROWS3, MBS2, LLAMA, LLAMA_TP2, LLAMA_MB2,
-              *CONTEXT_CASES)
+              *CONTEXT_CASES, TRAIN_RING_SELF, TRAIN_RING_PAST, NARROW)
 TIMED_CASES = (MAIN, MICRO, LLAMA, *CONTEXT_CASES)
 KERNEL_CASES = [
     *PATH_CASES,
@@ -785,7 +813,8 @@ def check_trajectories(label: str, losses: list, dense_losses: list,
 def routing_differences(got: dict, want: dict) -> dict:
     """How many of two runs' routing decisions (``moe_routing``) differ:
     expert choices, buffer positions and drops, of ``decisions``."""
-    out = {k: int((got[k] != want[k]).sum()) for k in want}
+    out = {k: int((got[k] != want[k]).sum())
+           for k in ("expert_idx", "position", "keep")}
     out["decisions"] = int(want["expert_idx"].size)
     return out
 
@@ -1121,17 +1150,10 @@ def dist_phase(work: pathlib.Path, sliced: dict) -> dict:
         "(a) NCCL world 1, 1.5B", ranks, sliced["losses"], WORLD1_TOL, cfg.num_blocks)
     log(f"  (a) {time.perf_counter() - t0:.1f} s")
 
-    t0 = time.perf_counter()
-    ranks = mdist.spawn(run_plan_rank, 2, "gloo", card * 2, artifact(1, 2), cfg, SEED,
-                        [batch] * 5)
-    out["b_tp2"] = dist_legs_check(
-        "(b) tp 2 on two gloo ranks, 1.5B", ranks, sliced["losses"], TRAJ_TOL,
-        cfg.num_blocks)
-    rank_launches = {name: [sum(step[name] for step in r["launches"]) for r in ranks]
-                     for name in ranks[0]["launches"][0]}
-    log(f"  (b) {time.perf_counter() - t0:.1f} s")
-
-    shallow = dataclasses.replace(cfg, num_blocks=2)
+    # tp 2 and dp 2 alone run in the zero_sp phase (its tp2 and dp2_zero0
+    # legs, the same route and depth, held there to one device); here dp 2
+    # x tp 2 on four ranks
+    shallow = dataclasses.replace(cfg, num_blocks=SHALLOW_BLOCKS)
     exe = build_executable(shallow, PlanArtifact.from_json(artifact(1, 1)), device="cuda")
     state, ref = exe.init(SEED), []
     for _ in range(3):
@@ -1140,15 +1162,17 @@ def dist_phase(work: pathlib.Path, sliced: dict) -> dict:
     del state, exe
     gc.collect()
     torch.cuda.empty_cache()
-    log(f"  (c) reference, 2 blocks on one device: losses {[round(x, 5) for x in ref]}")
-    for dp, tp in ((2, 1), (2, 2)):
-        t0 = time.perf_counter()
-        ranks = mdist.spawn(run_plan_rank, dp * tp, "gloo", card * (dp * tp),
-                            artifact(dp, tp), shallow, SEED, [batch] * 3)
-        out[f"c_dp{dp}_tp{tp}"] = dist_legs_check(
-            f"(c) dp {dp} x tp {tp} on gloo ranks, 2 blocks", ranks, ref, TRAJ_TOL,
-            shallow.num_blocks)
-        log(f"  (c) dp {dp} x tp {tp}: {time.perf_counter() - t0:.1f} s")
+    log(f"  (c) reference, {SHALLOW_BLOCKS} block(s) on one device: losses "
+        f"{[round(x, 5) for x in ref]}")
+    t0 = time.perf_counter()
+    ranks = mdist.spawn(run_plan_rank, 4, "gloo", card * 4, artifact(2, 2), shallow,
+                        SEED, [batch] * 3)
+    out["c_dp2_tp2"] = dist_legs_check(
+        f"(c) dp 2 x tp 2 on gloo ranks, {SHALLOW_BLOCKS} block(s)", ranks, ref,
+        TRAJ_TOL, shallow.num_blocks)
+    rank_launches = {name: [sum(step[name] for step in r["launches"]) for r in ranks]
+                     for name in ranks[0]["launches"][0]}
+    log(f"  (c) dp 2 x tp 2: {time.perf_counter() - t0:.1f} s")
     out["c_reference_losses"] = ref
 
     events, prof_dir = work / "profile_events.jsonl", work / "profiles_tp"
@@ -1863,10 +1887,11 @@ def context_phase(work: pathlib.Path) -> tuple[dict, dict]:
 
 
 def zero_sp_phase(work: pathlib.Path, sliced: dict) -> tuple[dict, dict]:
-    """The GPT at 2 blocks of full width (the dist phase's legs (c)), gbs 4,
+    """The GPT at ``SHALLOW_BLOCKS`` of full width (the dist phase's legs (c)), gbs 4,
     3 fresh batches, on two gloo ranks sharing the card, in one launch: tp 2
-    with sp against tp 2 without it, and dp 2 at ZeRO 1, 2 and 3 against dp
-    2 at ZeRO 0.  Loss gaps, first-step gradient norms (each leg's against
+    and dp 2 against one device on the same batches, tp 2 with sp against
+    tp 2 without it, and dp 2 at ZeRO 1, 2 and 3 against dp 2 at ZeRO 0.
+    Loss gaps, first-step gradient norms (each leg's against
     its reference), each rank's peak memory, and the planner's memory
     relief for the leg (``cost/zero.py``; ``cost/sequence_parallel.py``
     prices sp only from a tp sweep, which one card cannot profile) beside
@@ -1874,6 +1899,7 @@ def zero_sp_phase(work: pathlib.Path, sliced: dict) -> tuple[dict, dict]:
     from metis_tpu_torch.core.config import ModelSpec
     from metis_tpu_torch.cost.zero import zero_static_reduction_mb
     from metis_tpu_torch.execution import dist as mdist
+    from metis_tpu_torch.execution.builder import build_executable
     from metis_tpu_torch.execution.mesh import PlanArtifact
     from metis_tpu_torch.execution.train import param_specs_for
     from metis_tpu_torch.models import config_for_model_spec
@@ -1881,7 +1907,7 @@ def zero_sp_phase(work: pathlib.Path, sliced: dict) -> tuple[dict, dict]:
     from metis_tpu_torch.testing import run_plans_rank
 
     cfg = dataclasses.replace(config_for_model_spec(ModelSpec(**GPT_15B)),
-                              num_blocks=2)
+                              num_blocks=SHALLOW_BLOCKS)
     batches = [(t.cpu(), g.cpu()) for t, g in fresh_batches(cfg, 4, 3, SEED + 7)]
 
     def plan(dp, tp, zero=0, sp=False):
@@ -1894,6 +1920,15 @@ def zero_sp_phase(work: pathlib.Path, sliced: dict) -> tuple[dict, dict]:
     legs = {"tp2": plan(1, 2), "tp2_sp": plan(1, 2, sp=True),
             **{f"dp2_zero{z}": plan(2, 1, zero=z) for z in range(4)}}
     t0 = time.perf_counter()
+    exe = build_executable(cfg, PlanArtifact.from_json(plan(1, 1)), device="cuda")
+    state, one = exe.init(SEED), []
+    for tok, tgt in batches:
+        state, loss = exe.step(state, tok.cuda(), tgt.cuda())
+        one.append(loss.item())
+    del state, exe
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  one device, {SHALLOW_BLOCKS} block(s): losses {[round(x, 5) for x in one]}")
     ranks = mdist.spawn(run_plans_rank, 2, "gloo", ["cuda:0"] * 2, [dict(
         artifact_json=art, cfg=cfg, init=SEED, batches=batches,
         first_grads="norms") for art in legs.values()])
@@ -1907,17 +1942,23 @@ def zero_sp_phase(work: pathlib.Path, sliced: dict) -> tuple[dict, dict]:
         return runs["dp2_zero1"][0]["zero_dims"][(group, name)] is not None
 
     # the planner's static relief per rank at dp 2, from the slice's profile
-    # (its embed, first two blocks and head rows are this model's)
+    # (its embed, first blocks and head rows are this model's)
     store = ProfileStore.from_dir(sliced["profile_dir"])
     per_layer = store.model.params_per_layer_bytes
-    layers = [0, 1, 2, len(per_layer) - 1]
+    layers = [*range(SHALLOW_BLOCKS + 1), len(per_layer) - 1]
     dtype_bytes = ModelSpec(**GPT_15B).dtype_bytes
     peak = {name: max(r["peak_memory_bytes"] for r in rs) / 1e9
             for name, rs in runs.items()}
-    out, launches = {}, {}
+    out, launches = {"one_device_losses": one}, {}
+    for name in ("tp2", "dp2_zero0"):
+        out[name] = dist_legs_check(
+            f"{name} on two gloo ranks against one device, {SHALLOW_BLOCKS} block(s)",
+            runs[name], one, TRAJ_TOL, cfg.num_blocks)
+        launches[f"{name}_per_rank"] = launch_sums(runs[name])
     for name, reference in (("tp2_sp", "tp2"), *((f"dp2_zero{z}", "dp2_zero0")
                                                   for z in (1, 2, 3))):
-        res = dist_legs_check(f"{name} on two gloo ranks, 2 blocks", runs[name],
+        res = dist_legs_check(f"{name} on two gloo ranks, {SHALLOW_BLOCKS} block(s)",
+                              runs[name],
                               runs[reference][0]["losses"], ZERO_SP_TOL,
                               cfg.num_blocks)
         tp = reference == "tp2"
@@ -2302,9 +2343,351 @@ def stage_axes_phase(work: pathlib.Path, results: dict) -> tuple[dict, dict]:
     return out, launches
 
 
+# the train phase: leg (a)'s GPT depth (the 1.5B preset's widths), the
+# multi-rank legs' (c) and the MoE legs' (b).  (a)'s four checkpoints of
+# 7.50 GB write 30 GB; to keep the phase's writes near 40 GB, (c)'s six
+# run a quarter of the preset's hidden width (``TRAIN_C_WIDTH``: 8 heads of
+# 128, its vocabulary and sequence), and each leg deletes its checkpoints
+# once they are compared
+TRAIN_BLOCKS = 1
+TRAIN_GBS = 4
+TRAIN_C_WIDTH = ["--hidden-size", "1024", "--num-heads", "8"]
+
+
+def train_cli(args: list[str], label: str, work: pathlib.Path,
+              own_process: bool) -> tuple[dict, list]:
+    """``python -m metis_tpu_torch train`` in a process of its own, or its
+    ``main`` in this one: its summary JSON and its events."""
+    from metis_tpu_torch import cli
+
+    events, summary = work / f"{label}.events.jsonl", work / f"{label}.json"
+    args = ["train", *args, "--events", str(events), "--output", str(summary)]
+    t0 = time.perf_counter()
+    if own_process:
+        proc = subprocess.run([sys.executable, "-m", "metis_tpu_torch", *args],
+                              capture_output=True, text=True,
+                              cwd=pathlib.Path(__file__).resolve().parent)
+        for line in proc.stderr.strip().splitlines()[-6:]:
+            log(f"    {label}: {line}")
+        rc = proc.returncode
+    else:
+        rc = cli.main(args)
+        gc.collect()
+        torch.cuda.empty_cache()
+    if rc != 0:
+        raise SystemExit(f"train {label} failed (rc {rc})")
+    log(f"    {label}: {time.perf_counter() - t0:.1f} s")
+    return (json.loads(summary.read_text()),
+            [json.loads(line) for line in events.read_text().splitlines()])
+
+
+def step_losses(events: list) -> dict:
+    return {e["step"]: e["loss"] for e in events if e["event"] == "train_step"}
+
+
+def dir_gb(path: pathlib.Path) -> float:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file()) / 1e9
+
+
+def resume_check(label: str, resumed: pathlib.Path, straight: pathlib.Path,
+                 losses: dict, straight_losses: dict) -> dict:
+    """Gate: the resumed run's losses and every leaf's digest bit-equal to
+    the straight run's at the last step."""
+    from metis_tpu_torch.execution.checkpoint import load_meta
+
+    got, want = load_meta(resumed), load_meta(straight)
+    equal_losses = all(losses[k] == straight_losses[k] for k in losses)
+    differ = sorted(k for k in want.digests if got.digests.get(k) != want.digests[k])
+    log(f"  {label}: step {got.step} vs {want.step}; losses {losses} against "
+        f"{ {k: straight_losses[k] for k in losses} }: "
+        f"{'bit-equal' if equal_losses else 'DIFFER'}; digests of "
+        f"{len(want.digests)} leaves, {len(differ)} differ")
+    if got.step != want.step or not equal_losses or differ or not want.digests:
+        raise SystemExit(f"{label}: the resumed run is not bit-equal to the "
+                         f"straight run ({differ[:3]})")
+    return {"step": got.step, "losses_bit_equal": True,
+            "leaves_bit_equal": len(want.digests)}
+
+
+def train_phase(work: pathlib.Path, results: dict) -> tuple[dict, dict]:
+    """``train``: (a) the 1.5B GPT's widths at ``TRAIN_BLOCKS`` blocks through
+    ``python -m metis_tpu_torch train --device cuda`` on a one-card
+    hostfile (planned from a profile at that depth): 3 steps with
+    ``--checkpoint-every 2``, 2 more resumed, 5 straight; the resumed run's
+    losses and every leaf's digest bit-equal to the straight run's at step
+    5, save / restore ms, ``mean_step_ms`` beside ``plan_cost_ms``, the
+    launches of each step.  (b) The MoE (``MOE_15B`` at 1 block, the
+    preset's 4096-token routing groups: gbs 4 x 1024 tokens is one group)
+    on two gloo ranks sharing the card, each rank holding part of the
+    group: tp 2 + sp, dp 2, cp 2 ring and cp 2 Ulysses, 3 steps each
+    against one device (losses within ``PIPE_TOL``, first-step gradient
+    norms within ``GRAD_NORM_TOL``), with the first-block routing
+    decisions that differ from the one device's and the router ties.
+    (c) ``train``'s rank body on plans pinned in the checkpoint
+    directories, two gloo ranks sharing the card (one launch for the six
+    runs, ``train_leg_c``, beside (b)'s), 1 block at ``TRAIN_C_WIDTH``: dp
+    2 at ZeRO 1 (gspmd) and a two-stage hetero plan, 2 steps with a
+    checkpoint, 2 resumed, 4 straight, gated as (a)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    out, launches = {}, {}
+    base = train_files(work, results["planner"]["mem_coef"])
+    out["a_gpt"], launches["train_a"] = train_leg_a(work, base)
+    # (c)'s launch runs beside (b)'s: both are gloo ranks sharing the card,
+    # whose times are no speed (and the host's gloo, not the card, bounds
+    # them); (a)'s times are measured alone
+    with ThreadPoolExecutor(1) as pool:
+        leg_c = pool.submit(train_leg_c, work, base)
+        legs = [train_leg_b(), leg_c.result()]
+    for more_out, more_launches in legs:
+        out.update(more_out)
+        launches.update(more_launches)
+    return out, launches
+
+
+def train_files(work: pathlib.Path, mem_coef: float) -> list[str]:
+    """The train legs' profile of the GPT at ``TRAIN_BLOCKS`` blocks (bs
+    ``TRAIN_GBS``), a one-card hostfile and clusterfile, and the
+    ``train`` arguments that plan on them."""
+    from metis_tpu_torch.core.config import ModelSpec
+    from metis_tpu_torch.profiles.profiler import profile_model
+
+    spec = dict(GPT_15B, num_layers=TRAIN_BLOCKS + 2)
+    prof_dir = work / "profiles_train"
+    store = profile_model(ModelSpec(**spec), bss=(TRAIN_GBS,), device="cuda")
+    store.dump_to_dir(prof_dir, {"model_name": spec["name"], "attn": "flash"})
+    hostfile, clusterfile = write_cluster_files(work, store.device_types[0], 1, 1)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ["--device", "cuda", "--hostfile", hostfile, "--clusterfile", clusterfile,
+            "--profile-dir", str(prof_dir), "--model-name", spec["name"],
+            *CLI_MODEL["gpt-1.5B"], "--num-layers", str(TRAIN_BLOCKS + 2),
+            "--gbs", str(TRAIN_GBS), "--max-tp", "1", "--max-bs", str(TRAIN_GBS),
+            "--mem-coef", str(mem_coef)]
+
+
+def train_leg_a(work: pathlib.Path, base: list[str]) -> tuple[dict, dict]:
+    """Leg (a) of the train phase (``train_phase``); its readings and its
+    launches."""
+    from metis_tpu_torch.core.config import ModelSpec
+    from metis_tpu_torch.models import config_for_model_spec
+
+    t0 = time.perf_counter()
+    spec = dict(GPT_15B, num_layers=TRAIN_BLOCKS + 2)
+    cfg = config_for_model_spec(ModelSpec(**spec))
+    h, f, v = cfg.hidden, cfg.ffn_dim, cfg.vocab_size
+    params = (2 * v * h + cfg.seq_len * h + 2 * h
+              + TRAIN_BLOCKS * (4 * h * h + 2 * h * f + 9 * h + f))
+    log(f"  (a) {TRAIN_BLOCKS} block(s) of the 1.5B widths: {params / 1e9:.3f} B "
+        f"parameters, {params * 12 / 1e9:.2f} GB of fp32 parameters and AdamW "
+        "moments per checkpoint")
+    ckpt, straight = work / "ckpt_a", work / "ckpt_a_straight"
+    # the first run as a user starts it; the others through the same main
+    # in this process (a process start costs ~10 s of the phase)
+    first, ev1 = train_cli([*base, "--steps", "3", "--checkpoint-every", "2",
+                            "--checkpoint-dir", str(ckpt)], "a_first3", work, True)
+    gb_first = dir_gb(ckpt)
+    second, ev2 = train_cli([*base, "--steps", "2", "--checkpoint-dir", str(ckpt)],
+                            "a_resume2", work, False)
+    third, ev3 = train_cli([*base, "--steps", "5", "--checkpoint-dir", str(straight)],
+                           "a_straight5", work, False)
+    straight_losses = step_losses(ev3)
+    res = resume_check("(a)", ckpt, straight, {**step_losses(ev1), **step_losses(ev2)},
+                       straight_losses)
+    shutil.rmtree(ckpt)
+    shutil.rmtree(straight)
+    saves = [e for ev in (ev1, ev2, ev3) for e in ev if e["event"] == "checkpoint_save"]
+    restore = [e["ms"] for e in ev2 if e["event"] == "checkpoint_restore"]
+    flush = [e["ms"] for e in ev1 if e["event"] == "checkpoint_flush"]
+    per_step = [e.get("kernel_launches", {}) for ev in (ev1, ev2, ev3) for e in ev
+                if e["event"] == "train_step"]
+    expect = dict.fromkeys(("fa_fwd", "fa_bwd_dq", "fa_bwd_dkv"), TRAIN_BLOCKS)
+    if any(step != expect for step in per_step):
+        raise SystemExit(f"(a) launches per step {per_step}, expected {expect}")
+    launches = {k: sum(step[k] for step in per_step) for k in expect}
+    res.update({
+        "blocks": TRAIN_BLOCKS, "params": params,
+        "checkpoint_gb_on_disk": gb_first,
+        "gb_written": gb_first * len(saves),
+        "saves": [{k: e[k] for k in ("step", "mode", "ms")} for e in saves],
+        "async_flush_ms": flush, "restore_ms": restore,
+        "plan_cost_ms": first["plan_cost_ms"],
+        "mean_step_ms": [first["mean_step_ms"], second["mean_step_ms"],
+                         third["mean_step_ms"]],
+        # the straight run's steps after its first: no save between them
+        "warm_step_ms": statistics.median(
+            e["step_ms"] for e in ev3 if e["event"] == "train_step" and e["step"] > 1),
+        "launches_per_step": expect, "losses": straight_losses})
+    log(f"  (a) {gb_first:.2f} GB per checkpoint on disk, {len(saves)} saves: "
+        f"{[(e['step'], e['mode'], round(e['ms'], 1)) for e in saves]} ms, async "
+        f"flush {[round(x, 1) for x in flush]} ms, restore "
+        f"{[round(x, 1) for x in restore]} ms; mean_step_ms "
+        f"{res['mean_step_ms']} (warm step {res['warm_step_ms']:.3f}) beside "
+        f"plan_cost_ms {first['plan_cost_ms']:.3f}; "
+        f"launches per step {expect} ({time.perf_counter() - t0:.1f} s)")
+    return res, launches
+
+
+def train_leg_b() -> tuple[dict, dict]:
+    """Leg (b) of the train phase (``train_phase``): the MoE in shared
+    routing groups; its readings and its launches per rank."""
+    from metis_tpu_torch.core.config import ModelSpec
+    from metis_tpu_torch.core.types import UniformPlan
+    from metis_tpu_torch.execution import dist as mdist
+    from metis_tpu_torch.execution.builder import build_executable
+    from metis_tpu_torch.execution.mesh import PlanArtifact
+    from metis_tpu_torch.execution.train import param_specs_for
+    from metis_tpu_torch.models import config_for_model_spec
+    from metis_tpu_torch.testing import (
+        capture_first_grads,
+        forward_routing,
+        run_plans_rank,
+    )
+
+    out, launches = {}, {}
+    t0 = time.perf_counter()
+    mcfg = config_for_model_spec(ModelSpec(**dict(MOE_15B, num_layers=3)))
+    batches = [(t.cpu(), g.cpu()) for t, g in fresh_batches(mcfg, TRAIN_GBS, 3, SEED + 5)]
+    one = build_executable(mcfg, PlanArtifact.from_uniform_plan(
+        UniformPlan(1, 1, 1, TRAIN_GBS, TRAIN_GBS)), device="cuda")
+    state = one.init(SEED)
+    want_routing = forward_routing(one, state, batches[0][0].cuda())
+    want_norms = capture_first_grads(state, "norms")
+    ref = []
+    for tok, tgt in batches:
+        state, loss = one.step(state, tok.cuda(), tgt.cuda())
+        ref.append(loss.item())
+    del state, one
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  (b) one device, 1 MoE block, gbs {TRAIN_GBS}: losses "
+        f"{[round(x, 5) for x in ref]}; router ties {want_routing['ties']} of "
+        f"{want_routing['expert_idx'].shape[1]} tokens")
+
+    def moe_plan(dp=1, tp=1, cp=1, sp=False, mode="ring"):
+        return PlanArtifact(
+            mesh_axes=("pp", "dp", "ep", "sp", "tp"), mesh_shape=(1, dp, 1, cp, tp),
+            layer_partition=(0, 3),
+            strategies=({"dp": dp, "tp": tp, "cp": cp, "ep": 1, "zero": 0,
+                         "sp": sp, "cp_mode": mode},),
+            gbs=TRAIN_GBS, microbatches=1).to_json()
+
+    legs = (("tp2_sp", moe_plan(tp=2, sp=True)), ("dp2", moe_plan(dp=2)),
+            ("cp2_ring", moe_plan(cp=2)), ("cp2_a2a", moe_plan(cp=2, mode="a2a")))
+    ranks = mdist.spawn(run_plans_rank, 2, "gloo", ["cuda:0"] * 2, [dict(
+        artifact_json=art, cfg=mcfg, init=SEED, batches=batches,
+        routing_tokens=batches[0][0], first_grads="norms") for _, art in legs])
+    specs = param_specs_for(mcfg, 2)
+    for i, (name, _) in enumerate(legs):
+        leg = [r[i] for r in ranks]
+        expect = ((lambda r: ring_launches(r["slots"]["sp"][0], 1))
+                  if name == "cp2_ring" else 1)
+        res = dist_legs_check(f"(b) MoE {name} on two gloo ranks, 1 block, the "
+                              "4096-token group shared", leg, ref, PIPE_TOL, expect)
+        res.update(grad_norm_check(
+            f"(b) {name}", leg, want_norms,
+            lambda g, n: name == "tp2_sp" and "tp" in specs[g][n]))
+        res["routing"] = [routing_differences(r["routing"], want_routing) for r in leg]
+        res["routing_shared"] = [r["routing"]["shared"] for r in leg]
+        res["router_ties"] = want_routing["ties"]
+        log(f"    routing decisions differing from one device, per rank: "
+            f"{res['routing']} (shared groups {res['routing_shared']})")
+        out[f"b_moe_{name}"] = res
+        launches[f"train_b_{name}_per_rank"] = launch_sums(leg)
+    log(f"  (b) {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def train_leg_c(work: pathlib.Path, base: list[str]) -> tuple[dict, dict]:
+    """Leg (c) of the train phase (``train_phase``): multi-rank resume on
+    plans pinned in the checkpoint directories.  Five of the six runs are
+    the ``train`` subcommand's jobs (``cli.train_job``) run by its rank body
+    in one launch of two gloo ranks (``testing.train_ranks``): a launch
+    costs ~10 s of the phase.  The dp 2 plan's resumed run is ``python -m
+    metis_tpu_torch train --devices cuda:0,cuda:0 --dist-backend gloo``, the
+    launcher a user calls, after that launch.  Its readings, and rank 0's
+    launches (its events)."""
+    from metis_tpu_torch import cli
+    from metis_tpu_torch.execution import dist as mdist
+    from metis_tpu_torch.execution.mesh import PlanArtifact
+    from metis_tpu_torch.testing import train_ranks
+
+    t0 = time.perf_counter()
+    pinned = {
+        "c_dp2_zero1": PlanArtifact(
+            mesh_axes=("pp", "dp", "ep", "sp", "tp"), mesh_shape=(1, 2, 1, 1, 1),
+            layer_partition=(0, TRAIN_BLOCKS + 2),
+            strategies=({"dp": 2, "tp": 1, "cp": 1, "ep": 1, "zero": 1,
+                         "sp": False},), gbs=TRAIN_GBS, microbatches=1),
+        "c_hetero_two_stage": PlanArtifact(
+            mesh_axes=(), mesh_shape=(), layer_partition=(0, 2, TRAIN_BLOCKS + 2),
+            strategies=({"dp": 1, "tp": 1}, {"dp": 1, "tp": 1}), gbs=TRAIN_GBS,
+            microbatches=2),
+    }
+    runs = (("first2", "resumed", 2), ("resume2", "resumed", 2),
+            ("straight4", "straight", 4))
+    launcher = ("c_dp2_zero1", "resume2")
+    keys, jobs = [], []
+    for name, art in pinned.items():
+        for run in ("resumed", "straight"):
+            path = work / f"{name}_{run}"
+            path.mkdir()
+            (path / "plan.json").write_text(art.to_json())
+        for label, run, steps in runs:
+            if (name, label) == launcher:
+                continue
+            keys.append((name, label))
+            jobs.append(cli.train_job([
+                *base, *TRAIN_C_WIDTH, "--steps", str(steps),
+                "--checkpoint-dir", str(work / f"{name}_{run}"),
+                "--events", str(work / f"{name}_{label}.events.jsonl")]))
+    results = [r for r in mdist.spawn(train_ranks, 2, "gloo", ["cuda:0"] * 2, jobs)]
+    if any(run["rc"] != 0 for rank in results for run in rank):
+        raise SystemExit(f"(c) a train run failed: {[r['rc'] for r in results[0]]}")
+    summaries = {key: run["summary"] for key, run in zip(keys, results[0])}
+    summaries[launcher], _ = train_cli(
+        [*base, *TRAIN_C_WIDTH, "--steps", "2", "--checkpoint-dir",
+         str(work / f"{launcher[0]}_resumed"), "--devices", "cuda:0,cuda:0",
+         "--dist-backend", "gloo"], "_".join(launcher), work, True)
+    out, launches = {}, {}
+    for name in pinned:
+        ev = {label: [json.loads(x) for x in (work / f"{name}_{label}.events.jsonl")
+                      .read_text().splitlines()] for label, _, _ in runs}
+        dirs = {run: work / f"{name}_{run}" for run in ("resumed", "straight")}
+        res = resume_check(f"({name})", dirs["resumed"], dirs["straight"],
+                           {**step_losses(ev["first2"]), **step_losses(ev["resume2"])},
+                           step_losses(ev["straight4"]))
+        res["checkpoint_gb_on_disk"] = dir_gb(dirs["straight"])
+        for path in dirs.values():
+            shutil.rmtree(path)
+        res["executable"] = summaries[name, "first2"]["executable"]
+        res["resumed_by"] = ("python -m metis_tpu_torch train --devices cuda:0,cuda:0 "
+                             "--dist-backend gloo" if name == launcher[0]
+                             else "cli.train_job in testing.train_ranks")
+        res["saves"] = [{k: e[k] for k in ("step", "mode", "ms")} for events in ev.values()
+                        for e in events if e["event"] == "checkpoint_save"]
+        res["restore_ms"] = [e["ms"] for e in ev["resume2"]
+                             if e["event"] == "checkpoint_restore"]
+        steps = [e.get("kernel_launches", {}) for events in ev.values()
+                 for e in events if e["event"] == "train_step"]
+        res["rank0_launches_per_step"] = steps[0]
+        launches[name + "_rank0"] = {k: sum(step.get(k, 0) for step in steps)
+                                     for k in ("fa_fwd", "fa_bwd_dq", "fa_bwd_dkv")}
+        if any(step != steps[0] or not all(step.values()) for step in steps):
+            raise SystemExit(f"({name}) rank 0's launches per step {steps}")
+        log(f"  ({name}) {res['executable']}: {res['checkpoint_gb_on_disk']:.2f} GB per "
+            f"checkpoint, saves {res['saves']}, restore {res['restore_ms']} ms "
+            f"({SHARED_CARD})")
+        out[name] = res
+    log(f"  (c) {time.perf_counter() - t0:.1f} s")
+    return out, launches
+
+
 HIDDEN = ("launches", "profile_dir", "hostfile", "clusterfile", "tokens", "batches")
 PHASES = ("slice", "planner", "dist", "pipeline", "llama", "moe", "context",
-          "zero_sp", "stage_axes")
+          "zero_sp", "stage_axes", "train")
 
 
 def main() -> int:
@@ -2343,7 +2726,7 @@ def main() -> int:
             elif phase == "planner":
                 results["planner"] = planner_phase(work, results["slice"])
             elif phase == "dist":
-                results["dist"], launches["tp2_per_rank"] = dist_phase(
+                results["dist"], launches["dp2_tp2_per_rank"] = dist_phase(
                     work, results["slice"])
             elif phase == "pipeline":
                 results["pipeline"], launches["pipeline_per_rank"] = pipeline_phase(
@@ -2351,8 +2734,9 @@ def main() -> int:
             elif phase == "zero_sp":
                 results[phase], more = zero_sp_phase(work, results["slice"])
                 launches.update(more)
-            elif phase == "stage_axes":
-                results[phase], more = stage_axes_phase(work, results)
+            elif phase in ("stage_axes", "train"):
+                results[phase], more = {"stage_axes": stage_axes_phase,
+                                        "train": train_phase}[phase](work, results)
                 launches.update(more)
             else:
                 results[phase], more = {"llama": llama_phase, "moe": moe_phase,

@@ -11,11 +11,17 @@ reference's flags and output bytes:
   validate  predicted-vs-measured step time of the top uniform plans,
             measured on the cards, a plan of several devices (dp x tp, or
             pp > 1 on the pipeline route with the plan's microbatch count)
-            one rank per card (``--device cpu`` to run on the host).
+            one rank per card (``--device cpu`` to run on the host);
+  train     plan and run: search the cluster (or resume on the plan a
+            checkpoint pinned), build the plan's executable, stream batches
+            through the input pipeline and train with checkpoints, a plan
+            of several devices one rank per device.
 
 The searches run on the host and take no device.  The reference's
-``--platform`` (a JAX backend pin) becomes ``--device``.  ``train`` and the
-serving, daemon and audit subcommands come with later slices.
+``--platform`` (a JAX backend pin) becomes ``--device``.  ``train``'s
+flags of later items (``--replan-on-resume``, the resilience and multi-host
+groups) parse and exit 2 naming their ROADMAP item; the serving, daemon
+and audit subcommands come with later slices.
 
   python -m metis_tpu_torch uniform --hostfile hosts --clusterfile c.json \\
       --profile-dir profiles/ --model-size 1.5B --attn flash --gbs 4
@@ -333,7 +339,368 @@ def _cmd_search(args: argparse.Namespace, profiles, model, config,
     return 0
 
 
-def main(argv: list[str] | None = None) -> int:
+# train's flags of later ROADMAP items: (flag, dest, the item)
+LATER_TRAIN_FLAGS = (
+    ("--replan-on-resume", "replan_on_resume", "§A.4 (live resharding and replan)"),
+    ("--resilient", "resilient", "§A.5 (the fault-tolerant supervisor)"),
+    ("--fault-script", "fault_script", "§A.5 (the fault-tolerant supervisor)"),
+    ("--retry-attempts", "retry_attempts", "§A.5 (the fault-tolerant supervisor)"),
+    ("--spike-factor", "spike_factor", "§A.5 (the fault-tolerant supervisor)"),
+    ("--coordinator", "coordinator", "§A.7 (multi-host training)"),
+    ("--num-processes", "num_processes", "§A.7 (multi-host training)"),
+    ("--process-id", "process_id", "§A.7 (multi-host training)"),
+    ("--slice-controller", "slice_controller", "§A.7 (multi-host training)"),
+    ("--peers", "peers", "§A.7 (multi-host training)"),
+)
+
+
+def _add_train_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--profile-dir", required=True)
+    p.add_argument("--steps", type=int, default=10,
+                   help="training steps to run")
+    p.add_argument("--schedule", choices=("gpipe", "1f1b", "interleaved"),
+                   default=None,
+                   help="pipeline schedule for rectangular pp>1 plans "
+                        "(default: the schedule the plan was priced with)")
+    p.add_argument("--virtual-stages", type=int, default=None,
+                   help="model chunks per device for --schedule "
+                        "interleaved (default: the plan's)")
+    p.add_argument("--data", default=None,
+                   help="flat token stream (.npy / raw int32 .bin, "
+                        "memmapped); default: synthetic tokens")
+    p.add_argument("--checkpoint-dir", default=None,
+                   help="save (and resume from) checkpoints here")
+    p.add_argument("--checkpoint-every", type=int, default=0,
+                   help="also checkpoint every N steps (async on the gspmd "
+                        "and pipeline routes); 0 = final only")
+    p.add_argument("--log-every", type=int, default=1,
+                   help="emit a train_step event every N steps")
+    p.add_argument("--ledger", default=None,
+                   help="cost-model accuracy ledger JSONL: record the chosen "
+                        "plan's predicted breakdown and every measured step "
+                        "(obs/ledger.py)")
+    p.add_argument("--drift-band", type=float, default=20.0,
+                   help="rolling MAPE %% that fires the drift alarm")
+    p.add_argument("--devices", default=None,
+                   help="comma-separated torch devices, one per rank of a "
+                        "plan of several devices (default: every visible "
+                        "card, or one CPU device with --device cpu); "
+                        "'cuda:0,cuda:0' puts two ranks on one card")
+    p.add_argument("--dist-backend", choices=("nccl", "gloo"), default=None,
+                   help="process-group backend of a plan of several devices "
+                        "(default: nccl on CUDA, gloo on the CPU; gloo to "
+                        "share a card)")
+    later = p.add_argument_group(
+        "later items (parsed; each exits 2 naming its ROADMAP item)")
+    for flag, dest, _ in LATER_TRAIN_FLAGS:
+        if flag in ("--replan-on-resume", "--resilient"):
+            later.add_argument(flag, dest=dest, action="store_true")
+        else:
+            later.add_argument(flag, dest=dest, default=None)
+    _add_device_arg(p, "train on")
+
+
+def train_job(argv: list[str]) -> dict:
+    """The job ``python -m metis_tpu_torch train`` with the arguments
+    ``argv`` hands each rank (``train_rank``'s), after its search or the
+    checkpoint's pinned plan: for a caller that launches the ranks
+    itself."""
+    args = _parser().parse_args(["train", *argv])
+    job = _train_job(args, _model_from_args(args), _config_from_args(args),
+                     EventLog(args.events) if args.events else NULL_LOG)
+    if isinstance(job, int):
+        raise SystemExit(job)
+    return job
+
+
+def _train_job(args: argparse.Namespace, model, config, events) -> dict | int:
+    """Plan (or pin the checkpoint's plan): the job of every rank of
+    ``train``, or the exit code of a refused run."""
+    for flag, dest, item in LATER_TRAIN_FLAGS:
+        if getattr(args, dest) not in (None, False):
+            print(f"train {flag} comes with ROADMAP {item}; this slice of "
+                  "the port does not run it", file=sys.stderr)
+            return 2
+    from metis_tpu_torch.cluster.spec import ClusterSpec
+    from metis_tpu_torch.core.device import resolve_device
+    from metis_tpu_torch.execution.checkpoint import load_plan
+    from metis_tpu_torch.execution.mesh import PlanArtifact
+    from metis_tpu_torch.planner.api import plan_hetero
+    from metis_tpu_torch.profiles.store import ProfileStore
+
+    resolve_device(args.device)  # a missing card fails before the search
+    cluster = ClusterSpec.from_files(args.hostfile, args.clusterfile)
+    profiles = ProfileStore.from_dir(args.profile_dir)
+    # resume pins the checkpoint's plan: a fresh search could pick another
+    # plan, whose state layout would not match the checkpoint
+    art = plan_cost_ms = prediction = None
+    if args.checkpoint_dir is not None:
+        art = load_plan(args.checkpoint_dir)
+        if art is not None:
+            print(f"resuming with the plan pinned by {args.checkpoint_dir} "
+                  "(search skipped)", file=sys.stderr)
+    if art is None:
+        result = plan_hetero(cluster, profiles, model, config, top_k=1,
+                             events=events)
+        if result.best is None:
+            print(f"no feasible plan ({result.num_costed} costed, "
+                  f"{result.num_pruned} pruned)", file=sys.stderr)
+            return 1
+        art = PlanArtifact.from_ranked_plan(result.best)
+        plan_cost_ms = result.best.cost.total_ms
+        bd = result.best.breakdown
+        prediction = dict(components=bd.components if bd is not None else None,
+                          stage_ms=bd.stage_execution_ms if bd is not None else ())
+    return dict(artifact=art.to_json(), model=model, args=vars(args),
+                plan_cost_ms=plan_cost_ms, prediction=prediction)
+
+
+def _run_train(args: argparse.Namespace, job: dict) -> int:
+    """``job`` on one rank per device of its plan (the one device in this
+    process); rank 0's summary to ``--output``."""
+    from metis_tpu_torch.core.device import resolve_device
+    from metis_tpu_torch.execution import dist as mdist
+    from metis_tpu_torch.execution.mesh import PlanArtifact
+
+    dev = resolve_device(args.device)
+    need = PlanArtifact.from_json(job["artifact"]).num_devices
+    if need == 1:
+        out = [train_rank(0, dev, job)]
+    else:
+        devs = ([d.strip() for d in args.devices.split(",")] if args.devices
+                else mdist.default_devices(dev))
+        if len(devs) < need:
+            print(f"the plan needs {need} devices, this run has {len(devs)} "
+                  f"({[str(d) for d in devs]}); pass --devices", file=sys.stderr)
+            return 1
+        devs = devs[:need]
+        out = mdist.spawn(train_rank, need,
+                          args.dist_backend or mdist.default_backend(devs), devs, job)
+    rc, summary = out[0]["rc"], out[0]["summary"]
+    if rc == 0:
+        _emit(args, json.dumps(summary, indent=2))
+    return rc
+
+
+def train_rank(rank: int, device, job: dict) -> dict:
+    """One rank of ``train`` (``execution.dist.spawn``'s body, or the whole
+    run on one device): build the plan's executable, resume from the
+    checkpoint when there is one, stream batches, train and checkpoint.
+    Returns ``{"rc", "summary"}``; rank 0 writes the events, the ledger
+    and the summary."""
+    import time
+
+    import numpy as np
+
+    from metis_tpu_torch.cluster.spec import ClusterSpec
+    from metis_tpu_torch.data.pipeline import (
+        TokenDataset,
+        make_input_pipeline,
+        synthetic_run_dataset,
+    )
+    from metis_tpu_torch.execution.builder import (
+        build_executable,
+        checkpoint_block_layout,
+        exec_state_to_train_state,
+        resolve_schedule,
+        train_state_to_exec_state,
+    )
+    from metis_tpu_torch.execution.checkpoint import (
+        AsyncCheckpointWriter,
+        block_layouts_compatible,
+        load_meta,
+        restore_checkpoint,
+        restore_hetero_checkpoint,
+        save_checkpoint,
+        save_hetero_checkpoint,
+    )
+    from metis_tpu_torch.execution.mesh import PlanArtifact
+    from metis_tpu_torch.execution.train import StepTimer
+    from metis_tpu_torch.models import config_for_model_spec
+    from metis_tpu_torch.ops import flash_attention as fa
+    from metis_tpu_torch.profiles.store import ProfileStore
+
+    args = argparse.Namespace(**job["args"])
+    art = PlanArtifact.from_json(job["artifact"])
+    model, plan_cost_ms = job["model"], job["plan_cost_ms"]
+    is_main = rank == 0
+    events = EventLog(args.events) if args.events and is_main else NULL_LOG
+    say = (lambda msg: print(msg, file=sys.stderr)) if is_main else (lambda msg: None)
+    cluster = ClusterSpec.from_files(args.hostfile, args.clusterfile)
+    profiles = ProfileStore.from_dir(args.profile_dir)
+    cfg = config_for_model_spec(model)
+    schedule, virtual_stages = resolve_schedule(art, args.schedule,
+                                                args.virtual_stages)
+
+    def build(sched):
+        return build_executable(cfg, art, device, cluster=cluster,
+                                profiles=profiles, schedule=sched,
+                                virtual_stages=virtual_stages, events=events)
+
+    try:
+        exe = build(schedule)
+    except ValueError as e:
+        if schedule != "interleaved" or "interleaved" not in str(e):
+            raise
+        # the chosen plan's shape decides eligibility: degrade, don't die
+        say(f"{e}; falling back to --schedule gpipe")
+        schedule = "gpipe"
+        exe = build(schedule)
+    cost_txt = (f"cost {plan_cost_ms:.1f} ms" if plan_cost_ms is not None
+                else "pinned")
+    say(f"best plan ({cost_txt}) -> {exe.kind} executable; stages "
+        f"{art.device_groups or '1'}, gbs {art.gbs} x {args.steps} steps")
+
+    if args.data:
+        tokens = (np.load(args.data, mmap_mode="r") if args.data.endswith(".npy")
+                  else np.memmap(args.data, dtype=np.int32, mode="r"))
+        dataset = TokenDataset(tokens, model.sequence_length)
+    else:
+        dataset = synthetic_run_dataset(model.vocab_size, art.gbs,
+                                        model.sequence_length)
+    can_ckpt = args.checkpoint_dir is not None
+    hetero = exe.kind == "hetero"
+    block_layout = checkpoint_block_layout(art, cfg, exe.kind, schedule,
+                                           virtual_stages)
+    state = exe.init(0)
+    start_step = 0
+    if can_ckpt:
+        try:
+            meta = load_meta(args.checkpoint_dir)
+        except FileNotFoundError:
+            meta = None
+        if meta is not None:
+            if not block_layouts_compatible(meta, block_layout):
+                say(f"checkpoint {args.checkpoint_dir} was written with block "
+                    f"layout '{meta.block_layout}' but this run uses "
+                    f"'{block_layout}' (--schedule/--virtual-stages "
+                    "changed?) — refusing to resume")
+                return {"rc": 1, "summary": None}
+            start_step = meta.step
+            t0 = time.perf_counter()
+            if hetero:
+                state = restore_hetero_checkpoint(args.checkpoint_dir, state,
+                                                  exe.mesh)
+            else:
+                state = train_state_to_exec_state(exe.kind, restore_checkpoint(
+                    args.checkpoint_dir,
+                    exec_state_to_train_state(exe.kind, state, start_step),
+                    mesh=art))
+            ms = (time.perf_counter() - t0) * 1e3
+            events.emit("checkpoint_restore", step=start_step, ms=ms)
+            say(f"resumed from {args.checkpoint_dir} at step {start_step} "
+                f"({ms:.1f} ms)")
+
+    # a resumed run continues through the data stream: one batch per
+    # completed step, skipped arithmetically
+    batches = make_input_pipeline(dataset, art.gbs, device=device, epochs=None,
+                                  skip_batches=start_step)
+    writer = AsyncCheckpointWriter() if can_ckpt and not hetero else None
+
+    def save(state, step, final):
+        t0 = time.perf_counter()
+        if hetero:
+            save_hetero_checkpoint(args.checkpoint_dir, state, step, exe.mesh,
+                                   plan=art)
+        elif final:
+            save_checkpoint(args.checkpoint_dir,
+                            exec_state_to_train_state(exe.kind, state, step),
+                            art, plan=art, block_layout=block_layout)
+        else:
+            writer.save(args.checkpoint_dir,
+                        exec_state_to_train_state(exe.kind, state, step),
+                        art, plan=art, block_layout=block_layout)
+        events.emit("checkpoint_save", step=step,
+                    mode="async" if writer is not None and not final else "sync",
+                    ms=(time.perf_counter() - t0) * 1e3)
+
+    monitor = ledger = None
+    if args.ledger and is_main:
+        from metis_tpu_torch.obs.ledger import (
+            AccuracyLedger,
+            AccuracyMonitor,
+            fingerprint_artifact,
+        )
+
+        ledger = AccuracyLedger(args.ledger)
+        fp = fingerprint_artifact(art)
+        if plan_cost_ms is not None and fp not in ledger.predictions:
+            ledger.record_prediction(fp, plan_cost_ms, model=model.name,
+                                     schedule=art.schedule,
+                                     **(job["prediction"] or {}))
+        elif fp not in ledger.predictions:
+            say(f"--ledger: pinned plan {fp} has no recorded prediction; "
+                "measurements will be unmatched until one is recorded")
+        monitor = AccuracyMonitor(ledger, fp, events=events,
+                                  band_pct=args.drift_band)
+
+    timer = StepTimer(events, tokens_per_step=art.gbs * model.sequence_length,
+                      start_step=start_step, monitor=monitor)
+    losses: list[float] = []
+    t0 = time.perf_counter()
+    try:
+        for i in range(args.steps):
+            toks, tgts = next(batches)
+            fa.reset_launch_counts()
+            state, loss = exe.step(state, toks, tgts)
+            log_this = (i == 0 or (i + 1) % args.log_every == 0
+                        or i + 1 == args.steps)
+            if log_this:
+                loss = float(loss)  # the sync that makes the step time real
+                losses.append(loss)
+            launched = {k: v for k, v in fa.launch_counts.items() if v}
+            timer.record(loss=loss if log_this else None, emit=log_this,
+                         **({"kernel_launches": launched} if launched else {}))
+            if (can_ckpt and args.checkpoint_every
+                    and (i + 1) % args.checkpoint_every == 0):
+                save(state, start_step + i + 1, final=False)
+        # measured before the flush below, which is checkpoint IO
+        elapsed = time.perf_counter() - t0
+    finally:
+        batches.close()
+        if writer is not None:
+            t1 = time.perf_counter()
+            writer.close()
+            events.emit("checkpoint_flush", ms=(time.perf_counter() - t1) * 1e3)
+    final_already_saved = bool(args.steps and args.checkpoint_every
+                               and args.steps % args.checkpoint_every == 0)
+    if can_ckpt and not final_already_saved:
+        save(state, start_step + args.steps, final=True)
+
+    summary = {
+        "executable": exe.kind,
+        "plan_cost_ms": plan_cost_ms,
+        "steps": args.steps,
+        "first_loss": losses[0] if losses else None,
+        "final_loss": losses[-1] if losses else None,
+        "mean_step_ms": (round(elapsed / args.steps * 1e3, 2)
+                         if args.steps else None),
+        "tokens_per_s": (round(art.gbs * model.sequence_length * args.steps
+                               / elapsed) if args.steps and elapsed > 0 else None),
+        "checkpoint": args.checkpoint_dir if can_ckpt else None,
+    }
+    if monitor is not None:
+        status = monitor.status()
+        summary["accuracy"] = {
+            "fingerprint": monitor.fingerprint,
+            "ledger": args.ledger,
+            "n": status.n,
+            "rolling_mape_pct": (round(status.rolling_mape_pct, 2)
+                                 if status.rolling_mape_pct is not None
+                                 else None),
+            "drift": status.in_drift,
+            "drift_alarms": status.alarms,
+        }
+        if status.in_drift:
+            say(f"cost-model drift: rolling MAPE {status.rolling_mape_pct:.1f}% "
+                f"exceeds the {args.drift_band:.1f}% band — the plan was "
+                "ranked on predictions the hardware no longer honors")
+        ledger.close()
+    events.close()
+    return {"rc": 0, "summary": summary}
+
+
+def _parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="python -m metis_tpu_torch", description=__doc__,
         formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -388,7 +755,19 @@ def main(argv: list[str] | None = None) -> int:
                             "to this accuracy ledger JSONL (obs/ledger.py)")
     _add_device_arg(p_val, "execute the validated plans on")
 
-    args = parser.parse_args(argv)
+    p_train = sub.add_parser(
+        "train", help="plan and run: search the cluster, build the plan's "
+                      "executable, stream batches through the input "
+                      "pipeline, train with checkpoints")
+    _add_cluster_args(p_train)
+    _add_model_args(p_train)
+    _add_search_args(p_train)
+    _add_train_args(p_train)
+    return parser
+
+
+def main(argv: list[str] | None = None) -> int:
+    args = _parser().parse_args(argv)
     if args.command == "profile":
         return _cmd_profile(args)
     if args.command == "validate":
@@ -399,12 +778,15 @@ def main(argv: list[str] | None = None) -> int:
 
     from metis_tpu_torch.profiles.store import ProfileStore
 
-    profiles = ProfileStore.from_dir(args.profile_dir)
     model = _model_from_args(args)
     config = _config_from_args(args)
+    events = EventLog(args.events) if args.events else NULL_LOG
+    if args.command == "train":
+        job = _train_job(args, model, config, events)
+        return job if isinstance(job, int) else _run_train(args, job)
+    profiles = ProfileStore.from_dir(args.profile_dir)
     if args.command == "validate":
         return _cmd_validate(args, profiles, model, config)
-    events = EventLog(args.events) if args.events else NULL_LOG
     return _cmd_search(args, profiles, model, config, events)
 
 

@@ -26,9 +26,9 @@ runs for MoE configs (dp x ep x tp, the rows over ``(dp, ep)``) on the
 gspmd and hetero routes; ep on a dense config raises ``ValueError`` as in
 the reference.  The refusals are the reference's (on the hetero route: cp
 on an MoE stage, a cp that does not divide the sequence, an ep that does
-not divide dp and the experts) and the port's refusal of MoE routing
-groups that straddle ranks (``train.aligned_routing``), which also refuses
-MoE with cp or sp on the gspmd route (ROADMAP §A.3).  The pipeline route
+not divide dp and the experts).  MoE routes in the reference's groups on
+both routes, whatever rows and block of the sequence a rank holds
+(``models.moe.SharedGroups``).  The pipeline route
 runs the GPT family only, as the reference's; the hetero and gspmd routes
 run GPT, LLaMA and MoE.
 
@@ -74,6 +74,7 @@ from metis_tpu_torch.execution.pipeline import (
     traced_steps,
 )
 from metis_tpu_torch.execution.train import (
+    TrainState,
     make_forward,
     make_train_step,
     param_specs_for,
@@ -160,6 +161,28 @@ def resolve_schedule(
     return schedule, virtual_stages
 
 
+def exec_state_to_train_state(kind: str, state, step: int) -> TrainState:
+    """Adapt an executable's state to the checkpointable ``TrainState``
+    with ``step``: the port's gspmd, single-device and pipeline states are
+    ``TrainState``s already (the reference's pipeline state is a
+    ``(params, opt_state)`` pair).  Hetero states checkpoint through
+    ``save_hetero_checkpoint``, as in the reference."""
+    if kind == "hetero":
+        raise ValueError(
+            "hetero state lists checkpoint via save_hetero_checkpoint, "
+            "not TrainState")
+    state.step = int(step)
+    return state
+
+
+def train_state_to_exec_state(kind: str, ts: TrainState):
+    """Inverse of ``exec_state_to_train_state`` — the (restored)
+    ``TrainState`` in the shape ``Executable.step`` consumes."""
+    if kind == "hetero":
+        raise ValueError("hetero state lists do not adapt to TrainState")
+    return ts
+
+
 def checkpoint_block_layout(
     artifact: PlanArtifact,
     cfg: GPTConfig,
@@ -225,10 +248,9 @@ def plan_route(cfg: GPTConfig, artifact: PlanArtifact,
     return "hetero"
 
 
-def _check_strategies(strategies: list[dict], cfg, route: str) -> None:
-    """Values no executor knows, ep on a dense config, and on the gspmd
-    route MoE with cp or sp, whose blocks of the sequence would split the
-    routing groups.  The hetero route's own refusals are the reference's
+def _check_strategies(strategies: list[dict], cfg) -> None:
+    """Values no executor knows, and ep on a dense config.  The hetero
+    route's own refusals are the reference's
     (``hetero.stage_specs_from_plan``)."""
     for s, st in enumerate(strategies):
         if st["ep"] != 1 and not family_ops(cfg).moe:
@@ -237,12 +259,6 @@ def _check_strategies(strategies: list[dict], cfg, route: str) -> None:
             raise ValueError(f"stage {s}: zero={st['zero']}: expected 0-3")
         if st["cp_mode"] not in ("ring", "a2a"):
             raise ValueError(f"stage {s}: unknown cp_mode {st['cp_mode']!r}")
-        if (route == "gspmd" and family_ops(cfg).moe
-                and (st["sp"] or st["cp"] != 1)):
-            raise NotImplementedError(
-                f"stage {s}: MoE with cp={st['cp']}, sp={st['sp']}: a rank's "
-                "block of the sequence would split the routing groups "
-                "(ROADMAP §A.3)")
 
 
 def build_executable(cfg: GPTConfig, artifact: PlanArtifact,
@@ -268,7 +284,7 @@ def build_executable(cfg: GPTConfig, artifact: PlanArtifact,
         raise ValueError(f"virtual_stages={virtual_stages} must be >= 1")
     strategies, pp = _normalized(artifact)
     route = plan_route(cfg, artifact, schedule, virtual_stages)
-    _check_strategies(strategies, cfg, route)
+    _check_strategies(strategies, cfg)
     if route == "gspmd":
         if dist.is_initialized():
             return _gspmd_executable(cfg, artifact, strategies[0], dev,

@@ -40,9 +40,8 @@ The GPT, LLaMA and MoE families run here (their stage pieces come from
 ``models.family_ops``, as in the reference).  The refusals are the
 reference's (``stage_specs_from_plan``): cp on an MoE stage, a cp that
 does not divide the sequence, ep on a dense config or an ep that does not
-divide dp and the experts; and the port's own: MoE routing groups that
-would straddle the replicas of a stage (``train.aligned_routing``, at the
-first step).
+divide dp and the experts.  MoE routing groups that straddle the
+replicas of a stage are shared by them (``execution/stages.py``).
 """
 from __future__ import annotations
 

@@ -300,16 +300,23 @@ def fsdp_wrap_specs(specs: dict, shapes: dict, dp_axis: str = DP,
             for group, sub in shapes.items()}
 
 
+# leaves kept whole over tp that every tp rank applies to the whole
+# sequence under sp: LLaMA's replicated ``wkv`` (``copy_to_tp`` sums its
+# gradient), and the MoE FFN's router and output bias (the FFN gathers the
+# sequence first, ``moe.moe_ffn``)
+_SP_WHOLE_SEQUENCE = {("blocks", "wkv"), ("blocks", "router"),
+                      ("blocks", "expert_out_bias")}
+
+
 def sp_partial_leaves(specs: dict, tp_axis: str = TP) -> set[tuple[str, str]]:
     """``(group, name)`` of the leaves whose gradient each tp rank holds
     only a part of under Megatron sequence parallelism: the leaves the spec
     keeps whole over tp (norms, biases after a row-parallel product, GPT's
-    positions) act on the rank's block of the sequence alone.  LLaMA's
-    replicated ``wkv`` is not among them: ``copy_to_tp`` already sums its
-    gradient over tp."""
+    positions) act on the rank's block of the sequence alone, except those
+    of ``_SP_WHOLE_SEQUENCE``."""
     return {(group, name) for group, sub in specs.items()
             for name, spec in sub.items()
-            if tp_axis not in spec and (group, name) != ("blocks", "wkv")}
+            if tp_axis not in spec and (group, name) not in _SP_WHOLE_SEQUENCE}
 
 
 def shard_params(params: dict, mesh: ProcessMesh, specs: dict) -> dict:

@@ -171,8 +171,8 @@ def check_family(cfg) -> None:
     if family_ops(cfg).name != "gpt":
         raise NotImplementedError(
             f"{type(cfg).__name__} on the pipeline route: the reference's "
-            "pipeline runs GPT blocks only (ROADMAP §A.3); LLaMA runs on the "
-            "hetero and gspmd routes, MoE on the gspmd route")
+            "pipeline runs GPT blocks only (ROADMAP §C); LLaMA and MoE run on "
+            "the hetero and gspmd routes")
 
 
 def pipeline_runner(cfg: GPTConfig, mesh: ProcessMesh, num_microbatches: int,

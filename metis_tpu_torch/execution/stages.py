@@ -33,10 +33,13 @@ runs only its own stage (MPMD):
   duplicates of its row 0, masked out of routing, capacity and the aux
   statistics (``valid_mask``), the reference's ``_pad_maps`` layout.  The
   routing groups are those of the program's padded tokens
-  (``train.aligned_routing``, which raises where a group would straddle
-  replicas).  A non-head unit returns ``(x, aux)``; its backward seeds the
-  aux cotangent with ``aux_loss_coef * aux_weight`` times the rank's share,
-  the reference's ``aux_seed``, so no aux value crosses a boundary.
+  (``train.aligned_routing``); where a group straddles replicas, the
+  replicas share it (``models.moe.SharedGroups``: gathered over the ep
+  group, then the dp group, each replica padded to the stage's widest
+  program for the gather).  A non-head unit returns ``(x, aux)``; its
+  backward seeds the aux cotangent with ``aux_loss_coef * aux_weight``
+  times the rank's share, the reference's ``aux_seed``, so no aux value
+  crosses a boundary.
 - **Boundaries.** A unit's output rows (and blocks of the sequence) go to
   the ranks of the next unit that run them, and their gradients come back
   the same way, point to point (``_route``): a cp 2 stage feeding a cp 1
@@ -245,8 +248,9 @@ class StageStep:
     routing groups those of the rank's program), the absolute position of
     its first token, the rows it computes (``rows``: its ``real`` rows,
     padded on an uneven MoE program), the pad mask of those rows (None:
-    every row real) and the weight of its loss, its share of the step's
-    tokens."""
+    every row real), the weight of its loss, its share of the step's
+    tokens, and the MoE routing groups it shares with other replicas
+    (None: its groups are its own)."""
 
     cfg: object
     pos_offset: int
@@ -254,6 +258,7 @@ class StageStep:
     real: int
     weight: float
     valid: torch.Tensor | None = None
+    shared: object = None  # models.moe.SharedGroups, or None
 
 
 def make_stage_fn(cfg, attn, tp_group, ep_group=None,
@@ -275,7 +280,8 @@ def make_stage_fn(cfg, attn, tp_group, ep_group=None,
         aux = None
         if unit.hi > unit.lo:
             x, aux = family.stage_blocks(params, x, c, attn, tp_group,
-                                         step.pos_offset, ep_group, step.valid)
+                                         step.pos_offset, ep_group, step.valid,
+                                         step.shared)
         if family.moe and aux is None:  # no router on an embed-only stage
             aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if not unit.has_head:
@@ -428,12 +434,50 @@ class StageRunner:
         width = max(counts) if padded else real
         if not width:
             return step
-        cfg = aligned_routing(self.cfg, (hi - lo) * width * (s1 - s0), hi - lo)
-        valid = None
+        seq = s1 - s0
+        cfg, local = aligned_routing(self.cfg, (hi - lo) * width * seq,
+                                     width * seq)
+        valid = shared = None
         if padded:
             valid = torch.zeros(width, device=self.device)
             valid[:real] = 1
-        return StageStep(cfg, s0, width, real, step.weight, valid)
+        if not local:
+            shared = self._shared_groups(lay, lo, hi, width, seq,
+                                         cfg.route_group_size)
+        return StageStep(cfg, s0, width, real, step.weight, valid, shared)
+
+    def _shared_groups(self, lay: StageLayout, lo: int, hi: int, width: int,
+                       seq: int, g: int):
+        """The ``SharedGroups`` of this rank's replica, whose program of
+        replicas ``lo .. hi`` runs ``width`` (padded) rows of ``seq`` tokens
+        in groups of ``g`` that straddle replicas: gathered over the ep
+        group (the replica's ep peers, contiguous in the program), then, if
+        those tokens do not hold whole groups, over the dp group, which
+        gathers every replica of the stage, each padded to the stage's
+        largest row count."""
+        from metis_tpu_torch.models.moe import SharedGroups
+
+        ep, e = self.mesh.size(EP), self.mesh.index(EP)
+        counts = [lay.rows(d)[1] - lay.rows(d)[0] for d in range(lay.dp)]
+        gathers, first, n, pad = [], self.replica - e, 1, width
+        if ep > 1:
+            gathers.append((self.ep_group, 0))
+            n = ep
+        if ep == 1 or (ep * width * seq) % g:
+            gathers.append((self.dp_group, 0))
+            first, n, pad = 0, lay.dp, max(counts)
+        reps = [q for q in range(first, first + n) if lo <= q < hi]
+        rows = torch.cat([(q - first) * pad + torch.arange(width) for q in reps])
+        block = (rows[:, None] * seq + torch.arange(seq)[None, :]).reshape(-1)
+        valid = None
+        if any(counts[q] != width for q in reps):
+            valid = torch.cat([(torch.arange(width) < counts[q]).float()
+                               .repeat_interleave(seq) for q in reps])
+            valid = valid.to(self.device)
+        mine = reps.index(self.replica) * width * seq
+        return SharedGroups(
+            tuple(gathers), torch.arange(mine, mine + width * seq).to(self.device),
+            pad - width, block.to(self.device), valid)
 
     # -- parameters --------------------------------------------------------
     def cut(self, group: str, name: str, leaf: torch.Tensor):

@@ -16,8 +16,11 @@ With expert parallelism the rows split over dp x ep (the reference's
 ``dp_axis = (DP, EP)``): the dense leaves' gradients are averaged over the
 dp x ep ranks; an expert leaf's gradient already holds its ep peers' tokens
 (they reached this rank's experts through the all-to-all, and their
-gradients came back through its backward), so it is summed over dp only
-and scaled by 1 / (dp * ep).
+gradients came back through its backward), so it is summed over dp (and
+cp) only and scaled by 1 / (dp * ep * cp).  MoE routes in the groups of
+the whole batch: where a group straddles ranks (rows over dp x ep, the
+sequence over cp), the ranks that hold it share it
+(``routing_layout``, ``models.moe.SharedGroups``).
 
 Context parallelism (cp, the mesh's ``SP`` axis) splits the sequence: each
 rank runs its contiguous block of it at its absolute positions, attention
@@ -85,7 +88,7 @@ from metis_tpu_torch.models.parallel import (
     reduce_scatter_dim,
 )
 from metis_tpu_torch.models.gpt import GPTConfig
-from metis_tpu_torch.models.moe import MoEConfig, _route_group_len
+from metis_tpu_torch.models.moe import MoEConfig, SharedGroups, _route_group_len
 
 
 @dataclass
@@ -174,21 +177,43 @@ def loss_fn_for(cfg: GPTConfig) -> Callable:
     return family_ops(cfg).loss
 
 
-def aligned_routing(cfg: MoEConfig, tokens: int, ranks: int) -> MoEConfig:
-    """The config under which each of ``ranks`` ranks, holding an equal
-    share of a batch of ``tokens`` tokens, routes in the reference's groups:
-    the groups of the whole batch (``_route_group_len`` of its tokens), when
-    each rank's tokens hold whole groups.  Otherwise rank-local routing
-    would change the groups, and with them the capacity and the drops: that
-    raises."""
+def aligned_routing(cfg: MoEConfig, tokens: int,
+                    run: int) -> tuple[MoEConfig, bool]:
+    """The config under which a rank routes its part of a batch of
+    ``tokens`` tokens in the reference's groups (the groups of the whole
+    batch, ``_route_group_len`` of its tokens), and whether those groups
+    are the rank's own: whether the group length divides ``run``, the
+    length of each contiguous run of the batch's flattened tokens the rank
+    holds.  Where it does not, the rank shares its groups with the ranks
+    that hold the rest of them (``models.moe.SharedGroups``)."""
     g = _route_group_len(tokens, cfg.route_group_size)
-    local = tokens // ranks
-    if tokens % ranks or local % g:
-        raise NotImplementedError(
-            f"MoE routing groups of {g} tokens over a batch of {tokens} do "
-            f"not align with {ranks} ranks' {local} tokens each; routing "
-            "groups that straddle ranks are not supported (ROADMAP §A.3)")
-    return dataclasses.replace(cfg, route_group_size=g)
+    return dataclasses.replace(cfg, route_group_size=g), run % g == 0
+
+
+def routing_layout(mesh: ProcessMesh, seq_axis, rows: int, seq: int, g: int,
+                   device) -> SharedGroups:
+    """The ``SharedGroups`` of a rank of a gspmd ``mesh`` holding ``rows``
+    rows of ``seq``-token rows (its block of the sequence over
+    ``seq_axis``), in groups of ``g`` tokens that straddle ranks: the
+    sequence is gathered over cp first, then the rows over ep and then dp
+    (the rows' order, dp major), each only while the tokens gathered do not
+    hold whole groups.  The block is every token gathered."""
+    cp = mesh.size(seq_axis) if seq_axis is not None else 1
+    width, col0, row0, gathers = seq // cp, 0, 0, []
+    if cp > 1:
+        gathers.append((mesh.group(seq_axis), 1))
+        col0, width = mesh.index(seq_axis) * width, seq
+    block = rows
+    for axis in (EP, DP):
+        if (block * width) % g == 0:
+            break
+        if mesh.size(axis) > 1:
+            gathers.append((mesh.group(axis), 0))
+            row0 += mesh.index(axis) * block
+            block *= mesh.size(axis)
+    r = torch.arange(row0, row0 + rows, device=device)
+    c = torch.arange(col0, col0 + seq // cp, device=device)
+    return SharedGroups(tuple(gathers), (r[:, None] * width + c[None, :]).reshape(-1))
 
 
 def param_leaves(params: dict) -> list[torch.Tensor]:
@@ -203,13 +228,16 @@ class StepTimer:
     elapsed, and tokens/sec from ``tokens_per_step``.  Kernels launch
     asynchronously, so a step's wall time is honest only when the caller
     synchronizes (``loss.item()`` does); between syncs the per-step times
-    are launch times."""
+    are launch times.  ``monitor`` (an ``obs.ledger.AccuracyMonitor``)
+    scores every synced step (``loss`` given) against the plan's
+    prediction."""
 
     def __init__(self, events=None, tokens_per_step: int = 0,
-                 start_step: int = 0):
+                 start_step: int = 0, monitor=None):
         self.events = events if events is not None else NULL_LOG
         self.tokens_per_step = tokens_per_step
         self.step_idx = start_step
+        self.monitor = monitor
         self._clock = time.perf_counter
         self._t0 = self._clock()
         self._last = self._t0
@@ -231,6 +259,8 @@ class StepTimer:
         rec.update(fields)
         if emit:
             self.events.emit("train_step", **rec)
+        if self.monitor is not None and loss is not None:
+            self.monitor.observe(step_ms, step=self.step_idx)
         return rec
 
 
@@ -381,27 +411,43 @@ def chunked_all_reduce(tensors: list[torch.Tensor], group) -> None:
 class _RankSlice:
     """What a rank of ``mesh`` runs of a full ``[gbs, seq]`` batch: its rows
     over dp (x ep) and its block of the sequence over cp, the config they
-    run under, and the model's keyword arguments."""
+    run under, and the model's keyword arguments (MoE: the routing groups
+    it shares, where its tokens do not hold whole groups)."""
 
     def __init__(self, cfg: GPTConfig, mesh: ProcessMesh, seq_axis, megatron_sp):
-        self.cfg, self.mesh = cfg, mesh
+        self.cfg, self.mesh, self.seq_axis = cfg, mesh, seq_axis
         self.moe = family_ops(cfg).moe
         self.ranks = mesh.size(DP) * mesh.size(EP)
         self.cp = mesh.size(seq_axis) if seq_axis is not None else 1
         self.sp = bool(megatron_sp) and mesh.size(TP) > 1
-        if self.moe and (self.cp > 1 or self.sp):
-            raise NotImplementedError(
-                "MoE with context or sequence parallelism: a rank's block of "
-                "the sequence would split the routing groups (ROADMAP §A.3)")
         self.spec = batch_spec((DP, EP) if mesh.size(EP) > 1 else DP,
                                seq_axis if self.cp > 1 else None)
         self.slots = mesh.slots()
+        self._routing: dict = {}
+
+    def routing(self, shape, device) -> tuple[GPTConfig, dict]:
+        """The config and MoE keyword arguments of a ``[gbs, seq]`` batch."""
+        key = (tuple(shape), str(device))
+        if key not in self._routing:
+            cfg, kw = self.cfg, {"ep_group": self.mesh.group(EP)}
+            gbs, seq = shape
+            if self.ranks * self.cp > 1:
+                rows = gbs // self.ranks
+                run = rows * seq if self.cp == 1 else seq // self.cp
+                cfg, local = aligned_routing(self.cfg, gbs * seq, run)
+                if not local:
+                    kw["shared"] = routing_layout(
+                        self.mesh, self.seq_axis, rows, seq,
+                        cfg.route_group_size, device)
+            self._routing[key] = cfg, kw
+        return self._routing[key]
 
     def __call__(self, tokens: torch.Tensor):
         """(the rank's tokens, their config, the model's keyword args)."""
-        cfg = (aligned_routing(self.cfg, tokens.numel(), self.ranks)
-               if self.moe and self.ranks > 1 else self.cfg)
-        kw = {"ep_group": self.mesh.group(EP)} if self.moe else {}
+        cfg, kw = self.cfg, {}
+        if self.moe:
+            cfg, moe_kw = self.routing(tokens.shape, tokens.device)
+            kw.update(moe_kw)
         if self.cp > 1 or self.sp:
             kw.update(sp=self.sp,
                       pos_offset=seq_offset(self.mesh, tokens.shape[1]))
@@ -479,7 +525,8 @@ def make_train_step(cfg: GPTConfig, attn_impl=None,
         z = state.zero
         for (g, n), opt in state.opt_leaves().items():
             leaf = state.params[g][n]
-            others = [] if (g, n) in experts else list(dense_groups)
+            others = ([cp_group] if cp_group is not None else []) \
+                if (g, n) in experts else list(dense_groups)
             if (g, n) in partial_tp:
                 others.append(tp_group)
             dim = z.dims[(g, n)] if z is not None else None

@@ -63,14 +63,15 @@ class Family:
         return self.embed(params, tokens, cfg, tp_group, pos_offset=pos_offset)
 
     def stage_blocks(self, params, x, cfg, attn, tp_group=None, pos_offset: int = 0,
-                     ep_group=None, valid_mask=None):
+                     ep_group=None, valid_mask=None, shared=None):
         """``params["blocks"]`` run over ``x``, as a pipeline stage runs
-        them: ``(activations, aux loss)`` for MoE (``ep_group`` and the pad
-        rows' ``valid_mask`` as ``moe.moe_ffn``), ``(activations, None)``
-        otherwise; ``pos_offset`` as ``stage_embed``."""
+        them: ``(activations, aux loss)`` for MoE (``ep_group``, the pad
+        rows' ``valid_mask`` and the ``shared`` routing groups as
+        ``moe.moe_ffn``), ``(activations, None)`` otherwise; ``pos_offset``
+        as ``stage_embed``."""
         if self.moe:
             return self.run_blocks(params, x, cfg, attn, tp_group, ep_group,
-                                   valid_mask)
+                                   valid_mask, shared=shared)
         if self.name == "llama":
             return self.run_blocks(params, x, cfg, attn, tp_group, pos_offset), None
         return self.run_blocks(params, x, cfg, attn, tp_group), None
@@ -120,14 +121,11 @@ def resolve_attention(cfg, cp_group=None, cp_mode: str = "ring"):
     attention that runs.  With a context-parallel ``cp_group``, the
     attention of ``cp_mode``: ring attention over the flash kernels
     (``"ring"``; GQA-native, ``supports_gqa``) or Ulysses (``"a2a"``; the
-    LLaMA block expands grouped K/V for it, as the reference's does)."""
+    LLaMA block expands grouped K/V for it, as the reference's does).  MoE
+    takes either, as GPT: its routing groups follow the batch, not the
+    rank's block of the sequence (``moe.SharedGroups``)."""
     if cp_group is None:
         return family_ops(cfg).attention(cfg)
-    if family_ops(cfg).moe:
-        raise NotImplementedError(
-            "MoE with context parallelism: a rank's block of the sequence "
-            "would split the routing groups, and the reference runs cp with "
-            "the dense families only")
     if cp_mode == "a2a":
         from metis_tpu_torch.ops.ulysses import make_ulysses_attention
         return make_ulysses_attention(cp_group)

@@ -43,7 +43,13 @@ model runs exactly as before.
   (the embedding's) reduce-scatter forward and all-gather backward;
 - ``gather_shard``: ZeRO-3's all-gather of a dp shard forward,
   reduce-scatter of the gradient backward; ``ShardedGroup`` is a parameter
-  group whose leaves it gathers where the model reads them.
+  group whose leaves it gathers where the model reads them.  MoE routing
+  groups that several ranks share gather their tokens with it too;
+- ``gather_from_sp`` / ``split_to_sp``: the tp ranks' sequence blocks
+  gathered for a computation every tp rank repeats in full (the MoE FFN
+  under sp), backward each rank's block of the (whole, equal) gradient; and
+  the rank's block of such a result, backward the blocks' gradients
+  gathered.
 
 The sequence is dim 1 of every ``[b, s, h]`` activation.  Gloo takes
 point-to-point and gather / scatter collectives of host tensors only, so
@@ -74,6 +80,30 @@ def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.is_cuda and a.dtype != torch.float32:
         return torch.mm(a, b, out_dtype=torch.float32)
     return torch.mm(a.float(), b.float())
+
+
+class _BmmF32(torch.autograd.Function):
+    """Batched ``x @ w`` ([e, n, k] x [e, k, m]) with the fp32 accumulator as
+    the result; the backward's products in the operands' dtype."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        if x.is_cuda and x.dtype != torch.float32:
+            return torch.bmm(x, w, out_dtype=torch.float32)
+        return torch.bmm(x.float(), w.float())
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, w = ctx.saved_tensors
+        g = grad.to(x.dtype)
+        return torch.bmm(g, w.transpose(1, 2)), torch.bmm(x.transpose(1, 2), g)
+
+
+def bmm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``torch.bmm`` kept in fp32: a row-parallel expert's partial products,
+    summed over tp before they are rounded once (as ``row_parallel``)."""
+    return _BmmF32.apply(x, w)
 
 
 class _ReduceFromTP(torch.autograd.Function):
@@ -378,6 +408,47 @@ def reduce_scatter_to_sp(x: torch.Tensor, group) -> torch.Tensor:
     this rank's block of their sum (reduce-scatter); backward, the
     all-gather."""
     return _ReduceScatterToSP.apply(x, group)
+
+
+class _GatherFromSP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_gather_dim(x, group, 1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _sp_block(grad, ctx.group), None
+
+
+class _SplitToSP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _sp_block(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_gather_dim(grad, ctx.group, 1), None
+
+
+def _sp_block(x: torch.Tensor, group) -> torch.Tensor:
+    n = x.shape[1] // group.size()
+    return x.narrow(1, dist.get_rank(group) * n, n).contiguous()
+
+
+def gather_from_sp(x: torch.Tensor, group) -> torch.Tensor:
+    """Megatron sp: this rank's sequence block -> the whole sequence, for
+    a computation every tp rank then repeats in full; backward, the rank's
+    block of the gradient (each rank holds all of it)."""
+    return _GatherFromSP.apply(x, group)
+
+
+def split_to_sp(x: torch.Tensor, group) -> torch.Tensor:
+    """The inverse of ``gather_from_sp``: this rank's sequence block of a
+    result every tp rank holds whole; backward, the blocks' gradients
+    gathered, so each rank sees the whole gradient."""
+    return _SplitToSP.apply(x, group)
 
 
 # --------------------------------------------------------------------------

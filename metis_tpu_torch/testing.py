@@ -62,7 +62,7 @@ def run_plan_rank(rank: int, device: torch.device, artifact_json: str | None,
     rows and cp block of the sequence of them before training (its block
     of the vocabulary); with
     ``routing_tokens`` (MoE, pp = 1 routes) the routing decisions of its
-    rows of them in the first block before training (``moe_routing``); with
+    rows of them in the first block before training (``forward_routing``); with
     ``return_params`` its stored leaves after training (ZeRO 3: its dp
     shards); with ``first_grads`` the gradients the first optimizer step
     applies, reduced over the plan's ranks, as ``grads`` (``"arrays"``: the
@@ -88,8 +88,7 @@ def run_plan_rank(rank: int, device: torch.device, artifact_json: str | None,
     if forward_tokens is not None:
         out["logits"] = exe.forward(state, forward_tokens.to(device)).cpu().numpy()
     if routing_tokens is not None:
-        out["routing"] = moe_routing(state.params, routing_tokens, cfg,
-                                     exe.mesh, device)
+        out["routing"] = forward_routing(exe, state, routing_tokens.to(device))
     if first_grads is not None:
         out["grads"] = capture_first_grads(state, first_grads)
     for tokens, targets in batches:
@@ -106,6 +105,64 @@ def run_plan_rank(rank: int, device: torch.device, artifact_json: str | None,
         out["params"] = {g: {n: np.array(t.detach().cpu(), copy=True)
                              for n, t in sub.items()}
                          for g, sub in state.params.items()}
+    return out
+
+
+def resume_rank(rank: int, device: torch.device, artifact_json: str | None,
+                cfg: GPTConfig, batches, split: int, directory: str,
+                stages=None, microbatches: int = 1) -> dict:
+    """Rank body for ``execution.dist.spawn``: train ``batches`` straight
+    from seed 0, and again with a checkpoint after ``split`` steps
+    (``execution.checkpoint``; the hetero pair on the hetero route),
+    restored into a fresh state from seed 1 before the rest.  Returns both
+    runs' ``losses`` and ``params`` (host arrays), the ``step`` restored and
+    the checkpoint's ``meta`` (``CheckpointMeta``)."""
+    from metis_tpu_torch.execution import checkpoint as ckpt
+
+    if stages is not None:
+        exe = hetero_executable(cfg, stages, microbatches, device)
+        art = None
+    else:
+        art = PlanArtifact.from_json(artifact_json)
+        exe = build_executable(cfg, art, device)
+
+    def run(state, part):
+        losses = []
+        for tokens, targets in part:
+            state, loss = exe.step(state, tokens.to(device), targets.to(device))
+            losses.append(loss.item())
+        return state, losses
+
+    def host(state):
+        return {g: {n: np.array(t.detach().cpu(), copy=True) for n, t in sub.items()}
+                for g, sub in state.params.items()}
+
+    straight, want = run(exe.init(0), batches)
+    state, got = run(exe.init(0), batches[:split])
+    if exe.kind == "hetero":
+        ckpt.save_hetero_checkpoint(directory, state, split, exe.mesh)
+        resumed = ckpt.restore_hetero_checkpoint(directory, exe.init(1), exe.mesh)
+    else:
+        ckpt.save_checkpoint(directory, state, art)
+        resumed = ckpt.restore_checkpoint(directory, exe.init(1), mesh=art)
+    step = resumed.step
+    resumed, rest = run(resumed, batches[split:])
+    return {"losses": (want, got + rest), "params": (host(straight), host(resumed)),
+            "step": step, "meta": ckpt.load_meta(directory), "slots": exe.mesh.slots()}
+
+
+def train_ranks(rank: int, device: torch.device, jobs: list[dict]) -> list:
+    """Rank body: the ``train`` subcommand's rank body (``cli.train_rank``)
+    for each of ``jobs`` (``cli.train_job``'s) in turn, one launch for
+    several runs; each run's ``{"rc", "summary"}``."""
+    from metis_tpu_torch.cli import train_rank
+
+    out = []
+    for job in jobs:
+        out.append(train_rank(rank, device, job))
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
     return out
 
 
@@ -147,7 +204,7 @@ def _rank_rows(tokens: torch.Tensor, cfg: GPTConfig, mesh, device):
     run under (an MoE's routing groups those of the whole batch)."""
     ep, ranks = mesh.size(EP), mesh.size(DP) * mesh.size(EP)
     if family_ops(cfg).moe and ranks > 1:
-        cfg = aligned_routing(cfg, tokens.numel(), ranks)
+        cfg, _ = aligned_routing(cfg, tokens.numel(), tokens.numel() // ranks)
     mine = slice_leaf(tokens, batch_spec((DP, EP) if ep > 1 else DP),
                       mesh.slots()).to(device)
     return mine, cfg
@@ -164,6 +221,42 @@ def _router_input(params: dict, tokens: torch.Tensor, cfg: MoEConfig, tp_group):
     x = attention_residual(embed(params, tokens, cfg, tp_group), layer, cfg,
                            resolve_attention(cfg), tp_group)
     return _layer_norm(x, layer["ln2_scale"], layer["ln2_bias"]), layer
+
+
+def forward_routing(exe, state, tokens: torch.Tensor) -> dict:
+    """The first MoE block's routing decisions as ``exe.forward`` of the
+    full batch ``tokens`` makes them on this rank (``expert_idx``,
+    ``position``, ``keep``, each ``[groups, group length, top_k]``, as
+    numpy): the groups of the rank's own tokens, or, where it shares its
+    groups with other ranks (``shared`` true), those of the tokens it
+    gathered; ``ties``, how many of those tokens' top ``k + 1`` router
+    probabilities hold two equal values (where two runs may choose
+    differently)."""
+    from metis_tpu_torch.models import moe
+
+    route, ffn = moe.route_logits, moe.moe_ffn
+    first: dict = {}
+
+    def record_route(*args, **kwargs):
+        r = route(*args, **kwargs)
+        if "keep" not in first:
+            first.update({k: r[k].cpu().numpy()
+                          for k in ("expert_idx", "position", "keep")})
+            k = r["expert_idx"].shape[-1]
+            top = r["probs"].topk(min(k + 1, r["probs"].shape[-1]), -1).values
+            first["ties"] = int((top[..., 1:] == top[..., :-1]).any(-1).sum())
+        return r
+
+    def record_ffn(*args, **kwargs):
+        # moe_block_forward passes every argument by position
+        first.setdefault("shared", (args[7] if len(args) > 7
+                                    else kwargs.get("shared")) is not None)
+        return ffn(*args, **kwargs)
+
+    with mock.patch.object(moe, "route_logits", record_route), \
+            mock.patch.object(moe, "moe_ffn", record_ffn):
+        exe.forward(state, tokens)
+    return first
 
 
 def moe_routing(params: dict, tokens: torch.Tensor, cfg: MoEConfig, mesh,
@@ -199,7 +292,7 @@ def stage_moe_routing(params: dict, tokens: torch.Tensor, cfg: MoEConfig,
     with torch.no_grad():
         y, layer = _router_input(params, tokens.to(device), cfg, None)
         seq, h = y.shape[1], y.shape[2]
-        g = aligned_routing(cfg, n * width * seq, n).route_group_size
+        g = aligned_routing(cfg, n * width * seq, width * seq)[0].route_group_size
         out: dict = {k: [] for k in ("expert_idx", "position", "keep")}
         start = 0
         for r in rows:

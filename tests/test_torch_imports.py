@@ -66,6 +66,7 @@ def _imported_roots(path: pathlib.Path) -> set[str]:
     "path", sorted(PACKAGE.rglob("*.py"))
     + [ROOT / "chip_smoke.py", ROOT / "tools" / "torch_step_profile.py",
        ROOT / "tools" / "torch_pipeline_cards.py",
+       ROOT / "tools" / "torch_nccl_cards.py",
        ROOT / "tools" / "torch_gloo_p2p_probe.py"],
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_jax_package_import(path):
@@ -135,6 +136,10 @@ def _entry_points():
             "validate", "--hostfile", "hosts", "--clusterfile", "c.json",
             "--profile-dir", "profiles", "--model-size", "1.5B",
             "--gbs", "4"]),
+        "train_cli": lambda: cli.main([
+            "train", "--hostfile", "hosts", "--clusterfile", "c.json",
+            "--profile-dir", "profiles", "--model-size", "1.5B",
+            "--gbs", "4"]),
     }
 
 
@@ -156,7 +161,7 @@ def _one_stage_ranked():
 ENTRY_POINTS = ["entry", "build_executable", "build_train_state",
                 "profile_model", "infer_device_type", "measure_uniform_plan_ms",
                 "from_numpy_tree", "batch_source", "validate_planner_choice",
-                "validate_cli", "make_hetero_train_step",
+                "validate_cli", "train_cli", "make_hetero_train_step",
                 "measure_ranked_plan_ms", "measure_ranked_plan",
                 "validate_hetero_choice",
                 "build_executable_llama", "build_executable_moe",

@@ -333,10 +333,11 @@ def test_remaining_refusals_match_jax(name):
 
 
 def test_routing_groups_that_straddle_replicas_raise():
-    """The port's own refusal: an MoE stage whose routing groups would
-    straddle its replicas (here rows (3, 1) padded to 3 + 3 rows of 16
-    tokens, in groups of 32) raises naming ROADMAP §A.3; groups of 16 fit
-    one row each."""
+    """An MoE stage whose routing groups straddle its replicas (here rows
+    (3, 1) padded to 3 + 3 rows of 16 tokens, in groups of 32) no longer
+    raises: each replica shares the groups, gathering the program's padded
+    tokens over the dp group, its own the first 48 of them, the pad rows
+    masked.  Groups of 16 fit one row each and stay the replica's own."""
     cfg = tmoe.MoEConfig(**dict(MOE, route_group_size=32), dtype=torch.float32)
     mesh = tmesh.ProcessMesh(("pp", "dp", "tp"), (1, 2, 1), (0, 0, 0))
 
@@ -347,11 +348,16 @@ def test_routing_groups_that_straddle_replicas_raise():
                            False)
 
     lay = StageLayout(0, 2, 1, 1, (0, 3, 4), MOE["seq_len"])
-    with pytest.raises(NotImplementedError, match="§A.3"):
-        runner(cfg)._step_of(lay, 1, 4)
+    step = runner(cfg)._step_of(lay, 1, 4)
+    assert (step.rows, step.real, step.cfg.route_group_size) == (3, 3, 32)
+    shared = step.shared
+    assert [dim for _, dim in shared.gathers] == [0] and shared.pad_rows == 0
+    assert shared.local.tolist() == list(range(48))
+    assert shared.block.tolist() == list(range(96))
+    assert shared.valid.tolist() == [1.0] * 64 + [0.0] * 32
     step = runner(dataclasses.replace(cfg, route_group_size=16))._step_of(lay, 1, 4)
     assert (step.rows, step.real, step.cfg.route_group_size) == (3, 3, 16)
-    assert step.valid.tolist() == [1.0, 1.0, 1.0]
+    assert step.valid.tolist() == [1.0, 1.0, 1.0] and step.shared is None
 
 
 def test_uniform_pp2_artifacts_with_zero_or_cp_leave_the_pipeline_route():

@@ -211,10 +211,15 @@ def test_pp2_plans_go_to_the_hetero_route_and_raise(axes):
 @pytest.mark.parametrize("axes", [dict(cp=2), dict(tp=2, sp=True)],
                          ids=("cp", "sp"))
 def test_moe_with_cp_or_sp_raises(axes):
-    """A rank's block of the sequence would split MoE's routing groups."""
+    """MoE with cp or sp takes the gspmd route, as in the reference, which
+    trains it (``tests/test_torch_moe_routing.py``); outside a process
+    group its ranks raise only for the launcher."""
+    from metis_tpu_torch.core.errors import MetisError
+
     cfg = tmoe.MoEConfig(**MOE_SHAPE, dtype=torch.float32)
     art = tmesh.PlanArtifact.from_json(port_plan(gbs=GBS, **axes))
-    with pytest.raises(NotImplementedError, match="routing groups"):
+    assert plan_route(cfg, art) == "gspmd"
+    with pytest.raises(MetisError, match="launcher"):
         build_executable(cfg, art, device="cpu")
 
 

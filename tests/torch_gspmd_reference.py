@@ -48,11 +48,11 @@ def reference_start(jcfg, batch) -> dict:
 
 
 def reference_run(jcfg, batches, dp=1, cp=1, tp=1, sp=False, zero=0,
-                  cp_mode="ring") -> dict:
+                  cp_mode="ring", ep=1) -> dict:
     """The reference's plan trained on ``batches`` (``[gbs, seq + 1]`` int
-    arrays) on a ``(dp, ep, sp, tp)`` mesh: ``losses`` and ``final``, every leaf
-    after the steps."""
-    mesh = Mesh(np.array(jax.devices()[:dp * cp * tp]).reshape(dp, 1, cp, tp),
+    arrays) on a ``(dp, ep, sp, tp)`` mesh (the rows over ``(dp, ep)`` when
+    ep > 1): ``losses`` and ``final``, every leaf after the steps."""
+    mesh = Mesh(np.array(jax.devices()[:dp * ep * cp * tp]).reshape(dp, ep, cp, tp),
                 (DP, EP, SP, TP))
     opt = jtrain.build_optimizer()
     state, _ = jtrain.build_train_state(
@@ -60,7 +60,7 @@ def reference_run(jcfg, batches, dp=1, cp=1, tp=1, sp=False, zero=0,
         ep_axis=EP if isinstance(jcfg, MoEConfig) else None, zero=zero)
     step = jtrain.make_train_step(
         jcfg, mesh, optimizer=opt, seq_axis=SP if cp > 1 else None,
-        megatron_sp=sp, cp_mode=cp_mode)
+        dp_axis=(DP, EP) if ep > 1 else DP, megatron_sp=sp, cp_mode=cp_mode)
     losses = []
     for b in batches:
         state, loss = step(state, b[:, :-1], b[:, 1:])
@@ -69,12 +69,13 @@ def reference_run(jcfg, batches, dp=1, cp=1, tp=1, sp=False, zero=0,
 
 
 def port_plan(dp=1, cp=1, tp=1, sp=False, zero=0, cp_mode="ring",
-              gbs=8, num_blocks=2) -> str:
-    """The port's artifact JSON of the same plan."""
+              gbs=8, num_blocks=2, ep=1) -> str:
+    """The port's artifact JSON of the same plan (the planner's ``dp``
+    counts the dp x ep replicas, as its MoE plans do)."""
     return tmesh.PlanArtifact(
-        mesh_axes=("pp", "dp", "ep", "sp", "tp"), mesh_shape=(1, dp, 1, cp, tp),
+        mesh_axes=("pp", "dp", "ep", "sp", "tp"), mesh_shape=(1, dp, ep, cp, tp),
         layer_partition=(0, num_blocks + 2),
-        strategies=({"dp": dp, "tp": tp, "cp": cp, "ep": 1, "zero": zero,
+        strategies=({"dp": dp * ep, "tp": tp, "cp": cp, "ep": ep, "zero": zero,
                      "sp": sp, "cp_mode": cp_mode},),
         gbs=gbs, microbatches=1).to_json()
 
