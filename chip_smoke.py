@@ -34,10 +34,11 @@ Phases, in order (any failure exits non-zero):
    profile (host search time, candidate counts, top three);
 6. dist: dp x tp plans through ``execution.dist.spawn`` and
    ``build_executable``'s ``gspmd`` route, each rank reading its own kernel
-   launch counts around every step: (a) NCCL at world size 1, the slice's
-   5 steps, equal to the one-device trajectory within 1e-6; (c) dp 2 x tp 2
-   on four gloo ranks sharing the card at ``SHALLOW_BLOCKS`` (1) block of
-   full width, 3 steps, within 0.05 of a dp = tp = 1 run at that depth
+   launch counts around every step: (a) NCCL at world size 1 at
+   ``SHALLOW_BLOCKS`` (1) block of full width, 3 steps, equal to one
+   device's trajectory at that depth within 1e-6; (c) dp 2 x tp 2
+   on four gloo ranks sharing the card at that depth, 3 steps, within
+   0.05 of the same one-device run
    (tp 2 and dp 2 alone, once its legs (b) and (c), run in the zero_sp
    phase at the same depth, held there to one device); (d) ``profile
    --tps 1,2`` on the one card
@@ -69,10 +70,11 @@ Phases, in order (any failure exits non-zero):
    flash-vs-dense check on three seeds, with dense attention whose backward
    rounds dS to bf16 as a witness; phase 4's profile, searches, 5 flash and
    5 dense steps on fresh batches and validation (gated at
-   ``PLAN_ERROR_PCT``); tp 2 on two gloo ranks at full depth (within
-   ``TRAJ_TOL`` of one device); and a two-stage hetero plan of 4 + 4 blocks
-   at 2 microbatches on the same fresh batches against the one-stage
-   executor (losses within ``PIPE_TOL``, first-step gradient norms within
+   ``PLAN_ERROR_PCT``); tp 2 on two gloo ranks at ``SHALLOW_BLOCKS`` (within
+   ``TRAJ_TOL`` of one device at that depth); and a two-stage hetero plan
+   of 1 + 1 blocks (``LLAMA_STAGE_BLOCKS``) at 2 microbatches on the same
+   fresh batches against the one-stage executor at that depth (losses
+   within ``PIPE_TOL``, first-step gradient norms within
    ``GRAD_NORM_TOL``);
 9. moe: the MoE configuration (``MOE_15B``: 2 blocks of 8 GELU experts,
    top 2, capacity factor 1.25): phase 4's profile, 5 + 5 steps on fresh
@@ -135,6 +137,18 @@ Phases, in order (any failure exits non-zero):
    rank body on pinned plans on two gloo ranks at ``TRAIN_C_WIDTH``: dp 2
    at ZeRO 1 and a two-stage hetero plan, 2 + 2 resumed steps bit-equal
    to 4 straight.
+14. reshard (``reshard_phase``): (a) at the train phase's widths and
+   depth, ``train`` on a pinned dp 2 + ZeRO 1 plan on two gloo ranks for 3
+   steps with a checkpoint, then ``train --replan-on-resume --device
+   cuda`` on the one-card cluster: resharded onto one device at step 3,
+   its one-device digests equal to the checkpoint's, its 2 steps within
+   ``TRAJ_TOL`` of the dp 2 plan continued from the same checkpoint; the
+   save, the cross-mesh restore and the GB it reads; (b) at
+   ``TRAIN_C_WIDTH`` on two gloo ranks, ``execute_reshard`` dp 2 + ZeRO 1
+   -> tp 2 -> one device (rank 1 only sends), each verified and its next
+   step bit-equal to the step after a checkpoint restore onto the same
+   plan, ``stall_ms`` beside ``price_migration_ms`` at 100 GB/s ((b) runs
+   beside (a)'s first run).
 
 The kernel phase also holds and times the pipeline's microbatch shape (b 1,
 ``MICRO``), the LLaMA grid (``LLAMA``; SDPA with ``enable_gqa``) and the
@@ -204,10 +218,14 @@ PIPE_TOL = 1e-2
 # or a stage's part, reads 0.4 or more
 GRAD_NORM_TOL = 1e-2
 SHARED_CARD = "ranks share one card; not a dp/tp speed"
-# the depth of the dist phase's legs (c) and of the zero_sp phase's: 1 block
-# of full width, which keeps the whole script near 1000 s with the train
-# phase (2 blocks before it)
+# the depth of the dist phase's legs (a) and (c), of the zero_sp phase's
+# and of the llama phase's tp 2 leg: 1 block of full width, which keeps the
+# whole script near 1000 s with the train and reshard phases (2 blocks, and
+# full depth for (a) and the LLaMA's tp 2, before them)
 SHALLOW_BLOCKS = 1
+# the llama phase's two-stage hetero plan, 1 + 1 blocks (4 + 4 before the
+# reshard phase came)
+LLAMA_STAGE_BLOCKS = 2
 
 # the --model-size 1.5B preset (planner/cli.py MODEL_SIZE_PRESETS) and its
 # LLaMA and MoE configurations: GQA at LLaMA-3-8B's ratio, and 8 experts,
@@ -265,8 +283,13 @@ TRAIN_RING_SELF = dict(name="train_ring_self", b=4, hq=32, hkv=32, s=512, d=128,
                        causal=True, stats=True, ring=True)
 TRAIN_RING_PAST = dict(TRAIN_RING_SELF, name="train_ring_past", causal=False)
 NARROW = dict(name="narrow", b=2, hq=8, hkv=8, s=1024, d=128, causal=True)
+# the reshard phase's leg (b), the same narrow GPT on one device (b 4, 8
+# heads) and at tp 2 (4 heads per rank); its leg (a) runs MBS2 and MAIN
+NARROW_ONE = dict(NARROW, name="narrow_one", b=4)
+NARROW_TP2 = dict(NARROW, name="narrow_tp2", b=4, hq=4, hkv=4)
 PATH_CASES = (MAIN, TP2, MICRO, ROWS3, MBS2, LLAMA, LLAMA_TP2, LLAMA_MB2,
-              *CONTEXT_CASES, TRAIN_RING_SELF, TRAIN_RING_PAST, NARROW)
+              *CONTEXT_CASES, TRAIN_RING_SELF, TRAIN_RING_PAST, NARROW,
+              NARROW_ONE, NARROW_TP2)
 TIMED_CASES = (MAIN, MICRO, LLAMA, *CONTEXT_CASES)
 KERNEL_CASES = [
     *PATH_CASES,
@@ -1143,16 +1166,10 @@ def dist_phase(work: pathlib.Path, sliced: dict) -> dict:
         return PlanArtifact.from_uniform_plan(UniformPlan(dp, 1, tp, gbs // dp, gbs)).to_json()
 
     out = {}
-    t0 = time.perf_counter()
-    ranks = mdist.spawn(run_plan_rank, 1, "nccl", card, artifact(1, 1), cfg, SEED,
-                        [batch] * 5)
-    out["a_nccl_world1"] = dist_legs_check(
-        "(a) NCCL world 1, 1.5B", ranks, sliced["losses"], WORLD1_TOL, cfg.num_blocks)
-    log(f"  (a) {time.perf_counter() - t0:.1f} s")
-
-    # tp 2 and dp 2 alone run in the zero_sp phase (its tp2 and dp2_zero0
-    # legs, the same route and depth, held there to one device); here dp 2
-    # x tp 2 on four ranks
+    # the reference of (a) and (c): one device at SHALLOW_BLOCKS.  tp 2 and
+    # dp 2 alone run in the zero_sp phase (its tp2 and dp2_zero0 legs, the
+    # same route and depth, held there to one device); here dp 2 x tp 2 on
+    # four ranks
     shallow = dataclasses.replace(cfg, num_blocks=SHALLOW_BLOCKS)
     exe = build_executable(shallow, PlanArtifact.from_json(artifact(1, 1)), device="cuda")
     state, ref = exe.init(SEED), []
@@ -1162,8 +1179,15 @@ def dist_phase(work: pathlib.Path, sliced: dict) -> dict:
     del state, exe
     gc.collect()
     torch.cuda.empty_cache()
-    log(f"  (c) reference, {SHALLOW_BLOCKS} block(s) on one device: losses "
+    log(f"  reference, {SHALLOW_BLOCKS} block(s) on one device: losses "
         f"{[round(x, 5) for x in ref]}")
+    t0 = time.perf_counter()
+    ranks = mdist.spawn(run_plan_rank, 1, "nccl", card, artifact(1, 1), shallow, SEED,
+                        [batch] * 3)
+    out["a_nccl_world1"] = dist_legs_check(
+        f"(a) NCCL world 1, {SHALLOW_BLOCKS} block(s)", ranks, ref, WORLD1_TOL,
+        shallow.num_blocks)
+    log(f"  (a) {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     ranks = mdist.spawn(run_plan_rank, 4, "gloo", card * 4, artifact(2, 2), shallow,
                         SEED, [batch] * 3)
@@ -1554,8 +1578,9 @@ def llama_phase(work: pathlib.Path) -> tuple[dict, dict]:
     """The LLaMA configuration (``LLAMA_15B``, 32 query heads over 8 KV
     heads): a small flash-vs-dense check, the slice's profile, train and
     validate (gated at ``PLAN_ERROR_PCT``), the one-card searches, tp 2 on
-    two gloo ranks at full depth, and a two-stage hetero plan (4 + 4 blocks,
-    2 microbatches) against the one-stage executor."""
+    two gloo ranks at ``SHALLOW_BLOCKS`` against one device at that depth,
+    and a two-stage hetero plan of ``LLAMA_STAGE_BLOCKS`` blocks (1 + 1, 2
+    microbatches) against the one-stage executor at that depth."""
     from metis_tpu_torch.core.types import UniformPlan
     from metis_tpu_torch.execution import dist as mdist
     from metis_tpu_torch.execution.hetero import StageSpec
@@ -1584,13 +1609,21 @@ def llama_phase(work: pathlib.Path) -> tuple[dict, dict]:
     launches = {"llama": sliced["launches"]}
 
     t0 = time.perf_counter()
+    # tp 2 at SHALLOW_BLOCKS, held to one device at that depth (tp 2 of the
+    # GPT ran at full depth across cards, PERF.md §6)
+    shallow = config_for_model_spec(ModelSpec(**dict(
+        LLAMA_15B, num_layers=SHALLOW_BLOCKS + 2)))
+    want = train_run(shallow, PlanArtifact.from_uniform_plan(UniformPlan(1, 1, 1, 4, 4)),
+                     [(t.cuda(), g.cuda()) for t, g in sliced["batches"][:3]],
+                     SEED)["losses"]
     art = PlanArtifact.from_uniform_plan(UniformPlan(1, 1, 2, 4, 4)).to_json()
-    ranks = mdist.spawn(run_plan_rank, 2, "gloo", ["cuda:0"] * 2, art, cfg, SEED,
+    ranks = mdist.spawn(run_plan_rank, 2, "gloo", ["cuda:0"] * 2, art, shallow, SEED,
                         sliced["batches"][:3])
     out["tp2"] = dist_legs_check(
-        "LLaMA tp 2 on two gloo ranks, full depth", ranks, sliced["losses"][:3],
-        TRAJ_TOL, cfg.num_blocks)
+        f"LLaMA tp 2 on two gloo ranks, {SHALLOW_BLOCKS} block(s)", ranks, want,
+        TRAJ_TOL, shallow.num_blocks)
     out["tp2"]["gap_to_one_device"] = out["tp2"].pop("largest_gap")
+    out["tp2"]["one_device_losses"] = want
     launches["llama_tp2_per_rank"] = launch_sums(ranks)
     log(f"  tp 2: {time.perf_counter() - t0:.1f} s")
 
@@ -1599,23 +1632,27 @@ def llama_phase(work: pathlib.Path) -> tuple[dict, dict]:
     # the slice's fresh batches, as the tp 2 leg: on one repeated batch the
     # first step takes the loss to about 1e-3 and leaves nothing to compare
     batches = sliced["batches"][:3]
-    ref, counts, _, want_norms, _ = one_stage(cfg, batches, M, grad_norms=True)
-    if any(c != flash_launches(0, cfg.num_blocks, M) for c in counts):
+    half = LLAMA_STAGE_BLOCKS // 2
+    staged = config_for_model_spec(ModelSpec(**dict(
+        LLAMA_15B, num_layers=LLAMA_STAGE_BLOCKS + 2)))
+    ref, counts, _, want_norms, _ = one_stage(staged, batches, M, grad_norms=True)
+    if any(c != flash_launches(0, staged.num_blocks, M) for c in counts):
         raise SystemExit(f"LLaMA one-stage launches {counts}")
-    stages = (StageSpec((0, 4), True, False, dp=1, tp=1),
-              StageSpec((4, 8), False, True, dp=1, tp=1))
+    stages = (StageSpec((0, half), True, False, dp=1, tp=1),
+              StageSpec((half, 2 * half), False, True, dp=1, tp=1))
     ranks = [r[0] for r in mdist.spawn(run_plans_rank, 2, "gloo", ["cuda:0"] * 2, [dict(
-        artifact_json=None, stages=stages, microbatches=M, cfg=cfg, init=SEED,
+        artifact_json=None, stages=stages, microbatches=M, cfg=staged, init=SEED,
         batches=batches, first_grads="norms")])]
-    out["hetero_4_4"] = pipeline_legs_check(
-        "LLaMA hetero 4 + 4, M 2, against one stage", ranks,
-        "hetero", ref, PIPE_TOL, [flash_launches(4, 0, M), flash_launches(0, 4, M)])
-    out["hetero_4_4"]["one_stage_losses"] = ref
+    label = f"LLaMA hetero {half} + {half}"
+    out["hetero"] = pipeline_legs_check(
+        f"{label}, M 2, against one stage", ranks,
+        "hetero", ref, PIPE_TOL, [flash_launches(half, 0, M), flash_launches(0, half, M)])
+    out["hetero"]["one_stage_losses"] = ref
     # the stages hold disjoint blocks, embed on the first, head on the last
-    out["hetero_4_4"].update(grad_norm_check(
-        "LLaMA hetero 4 + 4", ranks, want_norms, lambda group, name: group == "blocks"))
+    out["hetero"].update(grad_norm_check(
+        label, ranks, want_norms, lambda group, name: group == "blocks"))
     launches["llama_hetero_per_rank"] = launch_sums(ranks)
-    log(f"  hetero 4 + 4: {time.perf_counter() - t0:.1f} s")
+    log(f"  {label}: {time.perf_counter() - t0:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()
     return out, launches
@@ -2432,6 +2469,7 @@ def train_phase(work: pathlib.Path, results: dict) -> tuple[dict, dict]:
 
     out, launches = {}, {}
     base = train_files(work, results["planner"]["mem_coef"])
+    out["base"] = base  # the reshard phase plans on the same files
     out["a_gpt"], launches["train_a"] = train_leg_a(work, base)
     # (c)'s launch runs beside (b)'s: both are gloo ranks sharing the card,
     # whose times are no speed (and the host's gloo, not the card, bounds
@@ -2685,9 +2723,218 @@ def train_leg_c(work: pathlib.Path, base: list[str]) -> tuple[dict, dict]:
     return out, launches
 
 
-HIDDEN = ("launches", "profile_dir", "hostfile", "clusterfile", "tokens", "batches")
+# the reshard phase: (a)'s pinned plan, and (b)'s plans at TRAIN_C_WIDTH:
+# dp 2 at ZeRO 1, then tp 2, then one device
+def pinned_plan(dp: int = 1, tp: int = 1, zero: int = 0):
+    from metis_tpu_torch.execution.mesh import PlanArtifact
+
+    return PlanArtifact(
+        mesh_axes=("pp", "dp", "ep", "sp", "tp"), mesh_shape=(1, dp, 1, 1, tp),
+        layer_partition=(0, TRAIN_BLOCKS + 2),
+        strategies=({"dp": dp, "tp": tp, "cp": 1, "ep": 1, "zero": zero,
+                     "sp": False},), gbs=TRAIN_GBS, microbatches=1)
+
+
+def hardlink_copy(src: pathlib.Path, dst: pathlib.Path) -> None:
+    """A copy of a checkpoint directory that shares its files (a save
+    writes new files and renames directories, so neither copy changes the
+    other's files)."""
+    shutil.copytree(src, dst, copy_function=lambda a, b: pathlib.Path(b).hardlink_to(a))
+
+
+def reshard_phase(work: pathlib.Path, results: dict) -> tuple[dict, dict]:
+    """``reshard``: (a) the train phase's GPT (the 1.5B widths at
+    ``TRAIN_BLOCKS`` block): ``python -m metis_tpu_torch train --devices
+    cuda:0,cuda:0 --dist-backend gloo`` on a pinned dp 2 + ZeRO 1 plan for
+    3 steps with a checkpoint, then ``train --replan-on-resume --device
+    cuda`` on the one-card cluster for 2 more: the restore resharded onto
+    one device at step 3 (the data stream from batch 3, steps 4 and 5);
+    its state's one-device digests equal to the checkpoint's assembled
+    ones (the same restore in this process); its losses within
+    ``TRAJ_TOL`` of the dp 2 plan continued from the same checkpoint on
+    the same batches of the data stream (on two gloo ranks, beside that
+    restore); the save (beside leg (b)), the cross-mesh restore and its GB
+    read.  (b) At
+    ``TRAIN_C_WIDTH``, one launch of two gloo ranks
+    (``testing.live_reshard_rank``): dp 2 + ZeRO 1, 2 steps, resharded
+    live onto tp 2 and a step taken, then tp 2 onto one device (rank 1
+    only sends) and a step: each verified, each step bit-equal (loss and
+    one-device digests) to the same step after a checkpoint restore onto
+    the same plan; the ``ReshardReport`` beside ``price_migration_ms`` at
+    100 GB/s and the save + restore ms."""
+    # the train phase deletes its checkpoints once compared; anything left
+    # of them would crowd the machine's disk
+    for path in work.glob("*ckpt*"):
+        shutil.rmtree(path, ignore_errors=True)
+    return reshard_leg_a(work, results["train"]["base"],
+                         beside=lambda: reshard_leg_b(work))
+
+
+def reshard_leg_a(work: pathlib.Path, base: list[str],
+                  beside=None) -> tuple[dict, dict]:
+    """Leg (a) of the reshard phase (``reshard_phase``); its readings and
+    its launches, with those of ``beside`` (a leg run beside its first
+    run)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from metis_tpu_torch.core.config import ModelSpec
+    from metis_tpu_torch.data.pipeline import make_input_pipeline, synthetic_run_dataset
+    from metis_tpu_torch.execution import checkpoint as ckpt
+    from metis_tpu_torch.execution import dist as mdist
+    from metis_tpu_torch.execution import reshard
+    from metis_tpu_torch.execution.builder import build_executable
+    from metis_tpu_torch.models import config_for_model_spec
+    from metis_tpu_torch.testing import elastic_rank
+
+    out, launches = {}, {}
+    t0 = time.perf_counter()
+    # the checkpoint at step 3, for the replanned run, for dp 2's own
+    # continuation and for the digests (each run saves into its own)
+    a, cont, at3 = work / "reshard_a", work / "reshard_a_dp2", work / "reshard_a_step3"
+    a.mkdir()
+    (a / "plan.json").write_text(pinned_plan(dp=2, zero=1).to_json())
+    on_two = ["--devices", "cuda:0,cuda:0", "--dist-backend", "gloo"]
+    # the first run (its save not alone on the card) beside ``beside``
+    with ThreadPoolExecutor(1) as pool:
+        b_run = pool.submit(beside) if beside is not None else None
+        _, ev1 = train_cli([*base, "--steps", "3", "--checkpoint-dir", str(a), *on_two],
+                           "reshard_a_dp2_first3", work, True)
+        more = b_run.result() if b_run is not None else ({}, {})
+    gb = dir_gb(a)
+    hardlink_copy(a, cont)
+    hardlink_copy(a, at3)
+    summary, ev2 = train_cli([*base, "--steps", "2", "--checkpoint-dir", str(a),
+                              "--replan-on-resume"], "reshard_a_replan2", work, False)
+    restore = [e for e in ev2 if e["event"] == "checkpoint_restore"]
+    steps = sorted(step_losses(ev2))
+    if (summary["executable"] != "single_device" or len(restore) != 1
+            or restore[0]["step"] != 3 or not restore[0]["resharded"]
+            or steps != [4, 5]):
+        raise SystemExit(f"(a) the replanned run: {summary['executable']}, restore "
+                         f"{restore}, steps {steps}")
+    # beside one another, neither timed: dp 2's own continuation from the
+    # same checkpoint (restored onto its plan and trained on the data
+    # stream's batches 3 and 4, ``testing.elastic_rank``) and the same
+    # restore in this process, whose state's one-device digests are held
+    # to the checkpoint's assembled ones
+    spec = dict(GPT_15B, num_layers=TRAIN_BLOCKS + 2)
+    cfg = config_for_model_spec(ModelSpec(**spec))
+    stream = make_input_pipeline(synthetic_run_dataset(
+        cfg.vocab_size, TRAIN_GBS, cfg.seq_len), TRAIN_GBS, device="cpu",
+        skip_batches=3)
+    batches = [next(stream) for _ in range(2)]
+    stream.close()
+    with ThreadPoolExecutor(1) as pool:
+        cont_run = pool.submit(mdist.spawn, elastic_rank, 2, "gloo", ["cuda:0"] * 2, [
+            dict(cfg=cfg, artifact=pinned_plan(dp=2, zero=1).to_json(),
+                 init=SEED + 1, restore=str(cont), batches=batches, digests=False)])
+        one = build_executable(cfg, pinned_plan(), "cuda")
+        state = ckpt.restore_checkpoint(at3, one.init(SEED + 1))
+        got = reshard.logical_digests(state)
+        del state, one
+        gc.collect()
+        torch.cuda.empty_cache()
+        want = ckpt.logical_digests(at3)
+        cont_res = cont_run.result()[0][0]
+    differ = sorted(k for k in want if got.get(k) != want[k])
+    if differ or set(got) != set(want) or len(want) < 3:
+        raise SystemExit(f"(a) the restored one-device digests differ: {differ[:3]}")
+    if cont_res["step"] != 3:
+        raise SystemExit(f"(a) dp 2's continuation restored step {cont_res['step']}")
+    replan_losses, dp2_losses = step_losses(ev2), dict(zip((4, 5), cont_res["losses"]))
+    gap = max(abs(replan_losses[k] - dp2_losses[k]) for k in (4, 5))
+    if gap > TRAJ_TOL or not all(math.isfinite(x) for x in replan_losses.values()):
+        raise SystemExit(f"(a) resumed on one device {replan_losses} against dp 2 "
+                         f"{dp2_losses}: gap {gap:.3e} (tol {TRAJ_TOL:g})")
+    saves = [e for e in ev1 if e["event"] == "checkpoint_save"]
+    per_step = [e.get("kernel_launches", {}) for ev in (ev1, ev2) for e in ev
+                if e["event"] == "train_step"]
+    expect = dict.fromkeys(("fa_fwd", "fa_bwd_dq", "fa_bwd_dkv"), TRAIN_BLOCKS)
+    if any(step != expect for step in per_step):
+        raise SystemExit(f"(a) launches per step {per_step}, expected {expect}")
+    launches["reshard_a"] = {k: sum(step[k] for step in per_step) for k in expect}
+    out["a_replan"] = {
+        "checkpoint_gb_on_disk": gb, "save_ms": [e["ms"] for e in saves],
+        "restore_ms": restore[0]["ms"], "restore_gb_read": restore[0]["bytes_read"] / 1e9,
+        "leaves_digest_equal": len(want),
+        "step": restore[0]["step"], "steps": steps, "losses_one_device": replan_losses,
+        "losses_dp2": dp2_losses, "largest_gap": gap,
+        "plan_cost_ms": summary["plan_cost_ms"], "launches_per_step": expect}
+    log(f"  (a) dp 2 + ZeRO 1 -> one device at step 3: {gb:.2f} GB on disk, save "
+        f"{[round(e['ms'], 1) for e in saves]} ms (beside (b)), cross-mesh restore "
+        f"{restore[0]['ms']:.1f} ms reading {restore[0]['bytes_read'] / 1e9:.2f} GB; "
+        f"{len(want)} one-device digests equal; "
+        f"steps {steps} losses {replan_losses} against dp 2's {dp2_losses}: gap "
+        f"{gap:.3e} (tol {TRAJ_TOL:g}) ({time.perf_counter() - t0:.1f} s)")
+    for path in (a, cont, at3):
+        shutil.rmtree(path)
+    out.update(more[0])
+    launches.update(more[1])
+    return out, launches
+
+
+def reshard_leg_b(work: pathlib.Path) -> tuple[dict, dict]:
+    """Leg (b) of the reshard phase (``reshard_phase``), live at a quarter
+    of the width; its readings and its launches per rank."""
+    from metis_tpu_torch.core.config import ModelSpec
+    from metis_tpu_torch.cost.volume import TransformerVolume
+    from metis_tpu_torch.execution import dist as mdist
+    from metis_tpu_torch.execution import reshard
+    from metis_tpu_torch.models import config_for_model_spec, family_ops
+    from metis_tpu_torch.testing import live_reshard_rank
+
+    out, launches = {}, {}
+    t0 = time.perf_counter()
+    qspec = dict(GPT_15B, num_layers=TRAIN_BLOCKS + 2, hidden_size=1024, num_heads=8)
+    qcfg = config_for_model_spec(ModelSpec(**qspec))
+    batches = [(t.cpu(), g.cpu()) for t, g in fresh_batches(qcfg, TRAIN_GBS, 3, SEED + 7)]
+    plans = [pinned_plan(dp=2, zero=1), pinned_plan(tp=2), pinned_plan()]
+    (work / "reshard_b").mkdir()
+    ranks = mdist.spawn(live_reshard_rank, 2, "gloo", ["cuda:0"] * 2, qcfg, batches,
+                        [p.to_json() for p in plans], str(work / "reshard_b"))
+    shutil.rmtree(work / "reshard_b")
+    full = family_ops(qcfg).init_params(None, qcfg, device="meta")
+    nbytes = {g: sum(t.numel() * t.element_size() for t in sub.values())
+              for g, sub in full.items()}
+    volume = TransformerVolume(ModelSpec(**qspec), tuple(
+        [nbytes["embed"]] + [nbytes["blocks"] // qcfg.num_blocks] * qcfg.num_blocks
+        + [nbytes["head"]]))
+    names = ("dp2_zero1_to_tp2", "tp2_to_one")
+    for i, name in enumerate(names):
+        legs = [r["legs"][i] for r in ranks]
+        rep = legs[0]["report"]
+        losses = legs[0]["losses"]
+        old, new = (reshard.stage_layout(plans[i], qcfg.num_profile_layers),
+                    reshard.stage_layout(plans[i + 1], qcfg.num_profile_layers))
+        price = reshard.price_migration_ms(old, new, volume, 100.0)
+        equal = (losses[0] == losses[1]
+                 and all(l["digests"][0] == l["digests"][1] for l in legs))
+        log(f"  (b) {name}: {rep}; priced {price:.3f} ms at 100 GB/s against "
+            f"stall {rep.stall_ms:.1f} ms (beside (a)'s first run); checkpoint save "
+            f"{max(l['save_ms'] for l in legs):.1f} + restore "
+            f"{max(l['restore_ms'] for l in legs):.1f} ms; the step after it "
+            f"{losses[0]!r}, after the restore {losses[1]!r}: "
+            f"{'bit-equal' if equal else 'DIFFER'} ({SHARED_CARD})")
+        if not rep.verified or not equal or len(legs[0]["digests"][0]) < 3:
+            raise SystemExit(f"(b) {name}: the live reshard's step is not the "
+                             "restored one's")
+        launches[f"reshard_b_{name}_per_rank"] = launch_sums(
+            [{"launches": [l["launches"]]} for l in legs])
+        out[f"b_{name}"] = {
+            "leaves": rep.leaves, "moved": rep.moved, "moved_bytes": rep.moved_bytes,
+            "stall_ms": rep.stall_ms, "phases_ms": rep.phases_ms,
+            "verified": rep.verified, "price_migration_ms_100gbps": price,
+            "save_ms": [l["save_ms"] for l in legs],
+            "restore_ms": [l["restore_ms"] for l in legs],
+            "losses_bit_equal": True, "launches_rank0": legs[0]["launches"]}
+    log(f"  (b) {time.perf_counter() - t0:.1f} s")
+    return out, launches
+
+
+HIDDEN = ("launches", "profile_dir", "hostfile", "clusterfile", "tokens", "batches",
+          "base")
 PHASES = ("slice", "planner", "dist", "pipeline", "llama", "moe", "context",
-          "zero_sp", "stage_axes", "train")
+          "zero_sp", "stage_axes", "train", "reshard")
 
 
 def main() -> int:
@@ -2734,9 +2981,10 @@ def main() -> int:
             elif phase == "zero_sp":
                 results[phase], more = zero_sp_phase(work, results["slice"])
                 launches.update(more)
-            elif phase in ("stage_axes", "train"):
+            elif phase in ("stage_axes", "train", "reshard"):
                 results[phase], more = {"stage_axes": stage_axes_phase,
-                                        "train": train_phase}[phase](work, results)
+                                        "train": train_phase,
+                                        "reshard": reshard_phase}[phase](work, results)
                 launches.update(more)
             else:
                 results[phase], more = {"llama": llama_phase, "moe": moe_phase,

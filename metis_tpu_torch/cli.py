@@ -13,15 +13,17 @@ reference's flags and output bytes:
             pp > 1 on the pipeline route with the plan's microbatch count)
             one rank per card (``--device cpu`` to run on the host);
   train     plan and run: search the cluster (or resume on the plan a
-            checkpoint pinned), build the plan's executable, stream batches
-            through the input pipeline and train with checkpoints, a plan
-            of several devices one rank per device.
+            checkpoint pinned; with ``--replan-on-resume`` search the
+            cluster as it is now and restore the checkpoint onto the new
+            plan), build the plan's executable, stream batches through the
+            input pipeline and train with checkpoints, a plan of several
+            devices one rank per device.
 
 The searches run on the host and take no device.  The reference's
 ``--platform`` (a JAX backend pin) becomes ``--device``.  ``train``'s
-flags of later items (``--replan-on-resume``, the resilience and multi-host
-groups) parse and exit 2 naming their ROADMAP item; the serving, daemon
-and audit subcommands come with later slices.
+flags of later items (the resilience and multi-host groups) parse and exit
+2 naming their ROADMAP item; the serving, daemon and audit subcommands
+come with later slices.
 
   python -m metis_tpu_torch uniform --hostfile hosts --clusterfile c.json \\
       --profile-dir profiles/ --model-size 1.5B --attn flash --gbs 4
@@ -34,6 +36,7 @@ import json
 import sys
 
 from metis_tpu_torch.core.config import ModelSpec, SearchConfig
+from metis_tpu_torch.core.errors import MetisError
 from metis_tpu_torch.core.events import NULL_LOG, EventLog
 
 # --model-size presets (copied from metis_tpu/planner/cli.py): shape defaults
@@ -341,7 +344,6 @@ def _cmd_search(args: argparse.Namespace, profiles, model, config,
 
 # train's flags of later ROADMAP items: (flag, dest, the item)
 LATER_TRAIN_FLAGS = (
-    ("--replan-on-resume", "replan_on_resume", "§A.4 (live resharding and replan)"),
     ("--resilient", "resilient", "§A.5 (the fault-tolerant supervisor)"),
     ("--fault-script", "fault_script", "§A.5 (the fault-tolerant supervisor)"),
     ("--retry-attempts", "retry_attempts", "§A.5 (the fault-tolerant supervisor)"),
@@ -370,6 +372,12 @@ def _add_train_args(p: argparse.ArgumentParser) -> None:
                         "memmapped); default: synthetic tokens")
     p.add_argument("--checkpoint-dir", default=None,
                    help="save (and resume from) checkpoints here")
+    p.add_argument("--replan-on-resume", action="store_true",
+                   help="elastic recovery: ignore the checkpoint's pinned "
+                        "plan, search the CURRENT cluster fresh, and restore "
+                        "the training state onto the new plan (resharded "
+                        "through the checkpoint's slice maps) — resume after "
+                        "losing or gaining devices")
     p.add_argument("--checkpoint-every", type=int, default=0,
                    help="also checkpoint every N steps (async on the gspmd "
                         "and pipeline routes); 0 = final only")
@@ -393,7 +401,7 @@ def _add_train_args(p: argparse.ArgumentParser) -> None:
     later = p.add_argument_group(
         "later items (parsed; each exits 2 naming its ROADMAP item)")
     for flag, dest, _ in LATER_TRAIN_FLAGS:
-        if flag in ("--replan-on-resume", "--resilient"):
+        if flag == "--resilient":
             later.add_argument(flag, dest=dest, action="store_true")
         else:
             later.add_argument(flag, dest=dest, default=None)
@@ -434,9 +442,18 @@ def _train_job(args: argparse.Namespace, model, config, events) -> dict | int:
     # resume pins the checkpoint's plan: a fresh search could pick another
     # plan, whose state layout would not match the checkpoint
     art = plan_cost_ms = prediction = None
+    replanned = False
     if args.checkpoint_dir is not None:
         art = load_plan(args.checkpoint_dir)
-        if art is not None:
+        if art is not None and args.replan_on_resume:
+            # elastic recovery: the pinned plan may need devices that are
+            # gone; search the cluster as it is and restore onto the new
+            # plan through the checkpoint's slice maps
+            print("--replan-on-resume: ignoring the pinned plan, searching "
+                  "the current cluster", file=sys.stderr)
+            art = None
+            replanned = True
+        elif art is not None:
             print(f"resuming with the plan pinned by {args.checkpoint_dir} "
                   "(search skipped)", file=sys.stderr)
     if art is None:
@@ -452,7 +469,8 @@ def _train_job(args: argparse.Namespace, model, config, events) -> dict | int:
         prediction = dict(components=bd.components if bd is not None else None,
                           stage_ms=bd.stage_execution_ms if bd is not None else ())
     return dict(artifact=art.to_json(), model=model, args=vars(args),
-                plan_cost_ms=plan_cost_ms, prediction=prediction)
+                plan_cost_ms=plan_cost_ms, prediction=prediction,
+                replanned=replanned)
 
 
 def _run_train(args: argparse.Namespace, job: dict) -> int:
@@ -578,16 +596,29 @@ def train_rank(rank: int, device, job: dict) -> dict:
                 return {"rc": 1, "summary": None}
             start_step = meta.step
             t0 = time.perf_counter()
-            if hetero:
-                state = restore_hetero_checkpoint(args.checkpoint_dir, state,
-                                                  exe.mesh)
-            else:
-                state = train_state_to_exec_state(exe.kind, restore_checkpoint(
-                    args.checkpoint_dir,
-                    exec_state_to_train_state(exe.kind, state, start_step),
-                    mesh=art))
+            stats: dict = {}
+            try:
+                if hetero:
+                    state = restore_hetero_checkpoint(args.checkpoint_dir,
+                                                      state, exe.mesh, stats)
+                else:
+                    state = train_state_to_exec_state(exe.kind, restore_checkpoint(
+                        args.checkpoint_dir,
+                        exec_state_to_train_state(exe.kind, state, start_step),
+                        mesh=art, stats=stats))
+            except MetisError as e:
+                if not job.get("replanned"):
+                    raise
+                # the slice maps reshard across meshes, not across state
+                # structures (another route family, stage partition or
+                # model): the reference refuses the same restores
+                say("--replan-on-resume: the checkpoint's state structure "
+                    f"does not fit the re-planned {exe.kind} executable (the "
+                    "old plan likely routed to a different executor family) "
+                    f"— {type(e).__name__}: {e}")
+                return {"rc": 1, "summary": None}
             ms = (time.perf_counter() - t0) * 1e3
-            events.emit("checkpoint_restore", step=start_step, ms=ms)
+            events.emit("checkpoint_restore", step=start_step, ms=ms, **stats)
             say(f"resumed from {args.checkpoint_dir} at step {start_step} "
                 f"({ms:.1f} ms)")
 

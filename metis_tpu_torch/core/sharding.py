@@ -39,3 +39,21 @@ def _slot(axis, slots: dict[str, tuple[int, int]]) -> tuple[int, int]:
         i, n = slots.get(a, (0, 1))
         index, size = index * n + i, size * n
     return index, size
+
+
+def leaf_box(shape, spec: Spec, slots: dict[str, tuple[int, int]]) -> list:
+    """The ``[start, stop)`` per dimension of the block of a ``shape``-shaped
+    array that ``slice_leaf(x, spec, slots)`` keeps, in the array's
+    coordinates."""
+    box = [[0, int(n)] for n in shape]
+    for dim, axis in enumerate(spec):
+        index, size = _slot(axis, slots)
+        if size == 1:
+            continue
+        if shape[dim] % size:
+            raise ValueError(
+                f"dimension {dim} of {tuple(shape)} does not split over "
+                f"{axis} = {size}")
+        step = shape[dim] // size
+        box[dim] = [index * step, (index + 1) * step]
+    return box

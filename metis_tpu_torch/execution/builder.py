@@ -37,12 +37,24 @@ Every path is normalized to ``(init, step)`` as in the reference:
 which the rank keeps its piece, and ``step(state, tokens, targets) ->
 (state, loss)`` on full-batch ``[gbs, seq]`` token tensors (each rank runs
 its rows; the multi-stage routes split them into the plan's microbatches).
+
+**Slice maps.** ``slice_map`` says which part of the one-device state a
+rank's state holds, leaf by leaf, built from the same specs the executors
+cut with (``param_specs_for``, ``mesh.fsdp_wrap_specs`` and the stages'
+block ids); ``rank_slice_map`` gives it for any rank of a plan, and
+``init`` attaches this rank's to the state (``TrainState.layout``).
+Checkpoints record it per rank file and restore onto another plan by it
+(``execution/checkpoint.py``); the live reshard moves state by it
+(``execution/reshard.py``).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 from typing import Callable
+
+import numpy as np
 
 import torch
 import torch.distributed as dist
@@ -50,8 +62,9 @@ import torch.distributed as dist
 from metis_tpu_torch.core.device import resolve_device
 from metis_tpu_torch.core.errors import MetisError
 from metis_tpu_torch.core.events import NULL_LOG
-from metis_tpu_torch.core.sharding import slice_leaf
+from metis_tpu_torch.core.sharding import leaf_box, slice_leaf
 from metis_tpu_torch.execution.hetero import (
+    StageSpec,
     hetero_runner,
     plan_replica_groups,
     plan_replica_rows,
@@ -66,8 +79,12 @@ from metis_tpu_torch.execution.mesh import (
     ONE_DEVICE,
     PlanArtifact,
     ProcessMesh,
+    StageGrid,
+    fsdp_wrap_specs,
+    stage_offsets,
 )
 from metis_tpu_torch.execution.pipeline import (
+    _units,
     check_family,
     microbatch_split,
     pipeline_runner,
@@ -91,7 +108,8 @@ class Executable:
     ``mesh`` is this rank's; ``block_ids`` the global ids of the blocks its
     stacked block leaves hold, in order (None: all of them); ``forward``
     (pp = 1 routes) ``(state, tokens) -> logits`` of the rank's part of a
-    full batch (``train.make_forward``)."""
+    full batch (``train.make_forward``); ``layout`` this rank's slice map
+    (``slice_map``), which ``init`` attaches to the state."""
 
     kind: str  # "single_device", "gspmd", "pipeline" or "hetero"
     init: Callable
@@ -99,6 +117,7 @@ class Executable:
     mesh: ProcessMesh | None = None
     block_ids: tuple[int, ...] | None = None
     forward: Callable | None = None
+    layout: dict | None = None
 
 
 def pipeline_block_counts(artifact: PlanArtifact, cfg: GPTConfig,
@@ -266,7 +285,7 @@ def build_executable(cfg: GPTConfig, artifact: PlanArtifact,
                      optimizer=None, cluster=None, profiles=None,
                      schedule: str | None = None,
                      virtual_stages: int | None = None,
-                     events=None, overlap: bool = True) -> Executable:
+                     events=None, overlap: bool = True) -> Executable | None:
     """Route ``artifact`` to the execution path that realizes it.
 
     ``cluster`` + ``profiles`` (optional) give mixed-type hetero stages the
@@ -274,7 +293,11 @@ def build_executable(cfg: GPTConfig, artifact: PlanArtifact,
     ``virtual_stages`` override the artifact's priced schedule on the
     pipeline route (``resolve_schedule``); the hetero route is a fill and
     drain with stage remat whatever the schedule.  ``events`` and
-    ``overlap`` (pipeline route) as in ``make_pipeline_train_step``."""
+    ``overlap`` (pipeline route) as in ``make_pipeline_train_step``.
+    On the gspmd and pipeline routes a process group larger than the plan
+    runs it on its first ranks; the others take part in creating the
+    plan's groups and get None (the live reshard's destination,
+    ``execution/reshard.py``)."""
     dev = resolve_device(device)
     schedule, virtual_stages = resolve_schedule(artifact, schedule,
                                                 virtual_stages)
@@ -287,30 +310,56 @@ def build_executable(cfg: GPTConfig, artifact: PlanArtifact,
     _check_strategies(strategies, cfg)
     if route == "gspmd":
         if dist.is_initialized():
-            return _gspmd_executable(cfg, artifact, strategies[0], dev,
-                                     optimizer)
-        if artifact.num_devices != 1:
+            exe = _gspmd_executable(cfg, artifact, strategies[0], dev,
+                                    optimizer)
+        elif artifact.num_devices != 1:
             raise MetisError(
                 f"mesh {dict(zip(artifact.mesh_axes, artifact.mesh_shape))} "
                 f"needs {artifact.num_devices} ranks; run it through the "
                 "launcher (metis_tpu_torch.execution.dist.spawn), one rank "
                 "per device, and build it on every rank")
-        return _single_device_executable(cfg, dev, optimizer)
-    if route == "pipeline":
+        else:
+            exe = _single_device_executable(cfg, dev, optimizer)
+    elif route == "pipeline":
         check_family(cfg)
         counts = (None if _uniform_block_split(artifact, cfg, pp)
                   else _uneven_1f1b_split(artifact, cfg, pp, schedule))
+        mesh = artifact.build_mesh()
+        if mesh is None:
+            return None
         runner = pipeline_runner(
-            cfg, artifact.build_mesh(), artifact.microbatches, dev, optimizer,
+            cfg, mesh, artifact.microbatches, dev, optimizer,
             schedule, virtual_stages, counts, overlap)
         init, raw_step = traced_steps(
             runner, schedule, artifact.microbatches,
             events if events is not None else NULL_LOG, overlap)
-        return Executable("pipeline", init,
-                          _split_steps(raw_step, artifact.microbatches),
-                          runner.mesh, runner.block_ids)
-    return _hetero_executable(cfg, artifact, strategies, dev, optimizer,
-                              cluster, profiles)
+        exe = Executable("pipeline", init,
+                         _split_steps(raw_step, artifact.microbatches),
+                         runner.mesh, runner.block_ids)
+    else:
+        return hetero_executable(
+            cfg, _stage_specs(cfg, artifact, strategies, cluster, profiles),
+            artifact.microbatches, dev, optimizer)
+    if exe is None:
+        return None
+    return _with_layout(exe, rank_slice_map(artifact, cfg, exe.kind, schedule,
+                                            virtual_stages, _rank()))
+
+
+def _rank() -> int:
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _with_layout(exe: Executable, layout: dict) -> Executable:
+    """``exe`` whose ``init`` attaches ``layout`` to the states it makes."""
+    init = exe.init
+
+    def init_with_layout(source):
+        state = init(source)
+        state.layout = layout
+        return state
+
+    return dataclasses.replace(exe, init=init_with_layout, layout=layout)
 
 
 def _split_steps(raw_step, microbatches: int) -> Callable:
@@ -331,11 +380,13 @@ def _single_device_executable(cfg, device, optimizer) -> Executable:
                       forward=make_forward(cfg))
 
 
-def _gspmd_executable(cfg, artifact, s0, device, optimizer) -> Executable:
+def _gspmd_executable(cfg, artifact, s0, device, optimizer) -> Executable | None:
     """The reference's ``_gspmd_executable``: the plan's mesh with the
     sequence over ``SP`` when cp > 1, Megatron sp and ZeRO from its
-    strategy."""
+    strategy.  None on a rank outside the plan (``PlanArtifact.build_mesh``)."""
     mesh = artifact.build_mesh()
+    if mesh is None:
+        return None
     dp, ep, tp, cp = (mesh.size(DP), mesh.size(EP), mesh.size(TP),
                       mesh.size(SP))
     if artifact.gbs % (dp * ep):
@@ -371,8 +422,9 @@ def _gspmd_executable(cfg, artifact, s0, device, optimizer) -> Executable:
                       forward=make_forward(cfg, mesh=mesh, **seq))
 
 
-def _hetero_executable(cfg, artifact, strategies, device, optimizer, cluster,
-                       profiles) -> Executable:
+def _stage_specs(cfg, artifact, strategies, cluster=None,
+                 profiles=None) -> tuple[StageSpec, ...]:
+    """The hetero route's ``StageSpec``s of ``artifact``."""
     pp = len(strategies)
     rows = groups = None
     if (cluster is not None and profiles is not None
@@ -392,11 +444,9 @@ def _hetero_executable(cfg, artifact, strategies, device, optimizer, cluster,
         # rectangular artifacts drop the canonical even split; rebuild it
         per = cfg.num_profile_layers // pp
         bounds = tuple(per * i for i in range(pp)) + (cfg.num_profile_layers,)
-    stages = stage_specs_from_plan(
+    return stage_specs_from_plan(
         bounds, strategies, cfg, stage_replica_rows=rows,
         stage_replica_groups=groups)
-    return hetero_executable(cfg, stages, artifact.microbatches, device,
-                             optimizer)
 
 
 def hetero_executable(cfg: GPTConfig, stages, microbatches: int,
@@ -406,6 +456,115 @@ def hetero_executable(cfg: GPTConfig, stages, microbatches: int,
     splitting full batches into ``microbatches``."""
     runner = hetero_runner(cfg, stages, resolve_device(device), optimizer)
 
-    return Executable("hetero", runner.init,
-                      _split_steps(runner.step, microbatches), runner.mesh,
-                      runner.block_ids)
+    exe = Executable("hetero", runner.init,
+                     _split_steps(runner.step, microbatches), runner.mesh,
+                     runner.block_ids)
+    return _with_layout(exe, stage_slice_map(cfg, stages, _rank()))
+
+
+# -- slice maps ---------------------------------------------------------------
+
+def slice_map(cfg: GPTConfig, slots: dict, kind: str, *,
+              block_ids=None, embed: bool = True, head: bool = True,
+              zero: int = 0, block_layout: str = "canonical",
+              stages=None, world: int = 1, rank: int = 0) -> dict:
+    """The slice map of a rank that holds, of the one-device state of
+    ``cfg``, the blocks ``block_ids`` (None: all of them, in order), the
+    embedding and head if ``embed`` / ``head``, each leaf cut by the
+    family's spec at the rank's mesh ``slots`` (``{axis: (index, size)}``)
+    and split over dp at ZeRO ``zero`` as ``train.train_state_from_params``
+    splits it.
+
+    A plain dict (it is written into each checkpoint rank file):
+    ``kind`` (the executable's), ``block_layout``, ``stages`` (the hetero
+    route's ``[lo, hi)`` block range per stage, else None), the plan's
+    ``world`` size, ``rank`` and ``leaves``: ``"group/name"`` -> ``shape``
+    and ``dtype`` of the one-device leaf, ``ids`` (the global block ids
+    along dim 0, in the rank's order, or None), ``box`` (the ``[start,
+    stop)`` per dim of the leaf it holds; dim 0 is given by ``ids`` when
+    set) and ``flat`` (at ZeRO 1 and 2 the ``[start, stop)`` of the
+    flattened box that its AdamW moments cover, else None)."""
+    tp = slots.get(TP, (0, 1))[1]
+    specs = param_specs_for(cfg, tp)
+    leaves, local = {}, {}
+    for group, sub in family_ops(cfg).init_params(None, cfg, device="meta").items():
+        if (group == "embed" and not embed) or (group == "head" and not head):
+            continue
+        for name, t in sub.items():
+            ids = ([int(b) for b in block_ids]
+                   if group == "blocks" and block_ids is not None else None)
+            box = leaf_box(tuple(t.shape), specs[group][name], slots)
+            leaves[f"{group}/{name}"] = {
+                "shape": list(t.shape), "dtype": str(t.dtype).removeprefix("torch."),
+                "ids": ids, "box": box, "flat": None}
+            extent = [e - s for s, e in box]
+            if ids is not None:
+                extent[0] = len(ids)
+            local.setdefault(group, {})[name] = tuple(extent)
+    r, dp = slots.get(DP, (0, 1))
+    if zero and dp > 1:
+        wrapped = fsdp_wrap_specs(specs, local, DP, dp)
+        for group, sub in local.items():
+            for name, extent in sub.items():
+                spec, e = wrapped[group][name], leaves[f"{group}/{name}"]
+                if DP not in spec:
+                    continue
+                dim = spec.index(DP)
+                if zero == 3:
+                    block = extent[dim] // dp
+                    if dim == 0 and e["ids"] is not None:
+                        e["ids"] = e["ids"][r * block:(r + 1) * block]
+                    else:
+                        lo = e["box"][dim][0] + r * block
+                        e["box"][dim] = [lo, lo + block]
+                else:
+                    block = math.prod(extent) // dp
+                    e["flat"] = [r * block, (r + 1) * block]
+    return {"kind": kind, "block_layout": block_layout,
+            "stages": [list(b) for b in stages] if stages is not None else None,
+            "world": int(world), "rank": int(rank), "leaves": leaves}
+
+
+def _slots(axes, shape, index: int) -> dict:
+    coords = np.unravel_index(index, tuple(shape)) if shape else ()
+    return {a: (int(c), int(n)) for a, c, n in zip(axes, coords, shape)}
+
+
+def rank_slice_map(artifact: PlanArtifact, cfg: GPTConfig, kind: str,
+                   schedule: str = "gpipe", virtual_stages: int = 1,
+                   rank: int = 0) -> dict:
+    """The slice map of ``rank`` of ``artifact``'s executable of ``kind``
+    (``Executable.kind``) under ``schedule`` / ``virtual_stages``: its mesh
+    coordinates as ``PlanArtifact.build_mesh`` lays the ranks out, its
+    blocks as the pipeline or hetero route assigns them."""
+    strategies, pp = _normalized(artifact)
+    if kind == "hetero":
+        return stage_slice_map(cfg, _stage_specs(cfg, artifact, strategies), rank)
+    world = artifact.num_devices
+    slots = _slots(artifact.mesh_axes, artifact.mesh_shape, rank)
+    layout = checkpoint_block_layout(artifact, cfg, kind, schedule, virtual_stages)
+    if kind != "pipeline":
+        return slice_map(cfg, slots, kind, zero=strategies[0]["zero"],
+                         world=world, rank=rank)
+    counts = (None if _uniform_block_split(artifact, cfg, pp)
+              else _uneven_1f1b_split(artifact, cfg, pp, schedule))
+    units, ids = _units(cfg, pp, slots[PP][0], schedule, virtual_stages, counts)
+    return slice_map(cfg, slots, kind, block_ids=ids,
+                     embed=any(u.has_embed for u in units),
+                     head=any(u.has_head for u in units),
+                     block_layout=layout, world=world, rank=rank)
+
+
+def stage_slice_map(cfg: GPTConfig, stages, rank: int = 0) -> dict:
+    """The slice map of ``rank`` of the hetero route's ``stages``
+    (``StageSpec``s), its ranks laid out as ``mesh.stage_meshes`` lays
+    them."""
+    grids = [StageGrid(st.dp, st.tp, st.cp, st.ep) for st in stages]
+    offsets = stage_offsets(grids)
+    s = int(np.searchsorted(offsets, rank, side="right")) - 1
+    st, grid = stages[s], grids[s]
+    slots = _slots(grid.axes, grid.shape, rank - offsets[s])
+    return slice_map(cfg, slots, "hetero", block_ids=range(*st.blocks),
+                     embed=st.has_embed, head=st.has_head, zero=st.zero,
+                     stages=[st.blocks for st in stages], world=offsets[-1],
+                     rank=rank)

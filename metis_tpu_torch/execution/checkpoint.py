@@ -7,8 +7,10 @@ What a checkpoint directory of the port holds:
 - ``state/rank{r:05d}.pt``: rank ``r``'s own state, ``torch.save`` of CPU
   tensors, read back with ``weights_only=True``: its parameters (at ZeRO 3
   its shards), its optimizer's ``state_dict`` (the AdamW moments; at ZeRO 1
-  and 2 those of its flat chunks) and the step.  On the hetero route it is
-  the rank's stage's state.
+  and 2 those of its flat chunks), the step, and its slice map
+  (``layout``: ``builder.slice_map``, plus ``opt``, the leaf of each of
+  the optimizer's tensors in order).  On the hetero route it is the
+  rank's stage's state.
 - ``meta.json`` (``CheckpointMeta``, byte for byte the reference's JSON)
   and ``plan.json`` (the ``PlanArtifact``), written by rank 0.
 - **Digests.** ``CheckpointMeta.digests`` maps a leaf's path to sha256 over
@@ -24,10 +26,25 @@ What a checkpoint directory of the port holds:
 - ``mesh_axes`` / ``mesh_shape``: the plan artifact's, and ``("stage",)``
   / ``(n,)`` on the hetero route, as the reference writes them.
 
-**Restore scope.** A checkpoint restores onto the same plan on the same
-world size: each rank reads its own file.  Another mesh or world size
-raises ``MetisError``; resharding on read, which the reference gets from
-orbax, is ROADMAP §A.4's work.
+**Restore scope.** Onto the plan that wrote it, on as many ranks, each
+rank reads its own file.  Onto another plan, as the reference's orbax
+reshards on read, each rank fills each of its tensors from the parts of
+the one-device leaf that the old ranks' slice maps say they hold
+(``assemble``): one leaf at a time, every source tensor read through
+``mmap`` and verified against its digest first (one whose digest the meta
+lacks is corrupt), a part held by several
+old ranks (dp replicas, a leaf kept whole over tp) read from the lowest,
+the flat ZeRO 1 and 2 chunks of the moments joined, the moments' AdamW
+step carried with them.  What restores is what the reference restores:
+the gspmd and pipeline routes' one tree of state onto any dp, tp, ep, cp,
+sp, ZeRO and pp at a compatible block layout (a one-device plan
+included), the hetero route's per-stage state onto the same stages and
+layer partition.  Everything else raises ``MetisError`` before any state
+is touched: the hetero route against the others, another stage partition
+or block layout, another model.  A checkpoint without slice maps (one
+written before they were) restores onto its own plan only, into a state
+built as the saved one was: its optimizer state goes by position, each
+moment's shape checked against its parameter's.
 
 **Crash safety.** A save writes into a ``.tmp`` sibling and swaps it in,
 parking the previous checkpoint at ``.prev`` during the swap (kept with
@@ -43,6 +60,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+import math
 import os
 import shutil
 import threading
@@ -199,13 +217,17 @@ def _host(obj):
 def _snapshot(state: TrainState, step: int | None = None,
               stage: int | None = None) -> dict:
     """What a rank writes (module doc), copied to host memory: ``params``,
-    ``optimizer`` (its ``state_dict``), ``step``, and on the hetero route
-    the rank's ``stage``."""
+    ``optimizer`` (its ``state_dict``), ``step``, on the hetero route the
+    rank's ``stage``, and the state's slice map as ``layout``."""
     snap = {"params": _host(state.params),
             "optimizer": _host(state.optimizer.state_dict()),
             "step": int(state.step if step is None else step)}
     if stage is not None:
         snap["stage"] = stage
+    if state.layout is not None:
+        # the slice map, and the leaf of each of the optimizer's tensors
+        snap["layout"] = {**state.layout,
+                          "opt": [f"{g}/{n}" for g, n in state.opt_leaves()]}
     return snap
 
 
@@ -458,7 +480,8 @@ def _load_meta_if_present(directory: Path) -> CheckpointMeta | None:
 
 
 def _check_scope(directory: Path, meta: CheckpointMeta | None, mesh) -> None:
-    """Refuse a checkpoint of another mesh or world size (module doc)."""
+    """Refuse a checkpoint of another mesh or world size where no slice map
+    says how to reshard it (module doc)."""
     _, world = _world()
     files = sorted((directory / _STATE_DIR).glob("rank*.pt"))
     want = None if mesh is None else _mesh_axes_shape(mesh)
@@ -467,27 +490,23 @@ def _check_scope(directory: Path, meta: CheckpointMeta | None, mesh) -> None:
                                and got != want):
         raise MetisError(
             f"checkpoint {directory} was written by {len(files)} rank(s) on "
-            f"mesh {got}; this run has {world} rank(s) on mesh {want}.  The "
-            "port restores onto the same plan only; resharding onto another "
-            "mesh is ROADMAP §A.4")
+            f"mesh {got}; this run has {world} rank(s) on mesh {want}, and "
+            "the checkpoint or the state has no slice map (a checkpoint that "
+            "predates the slice map restores onto its own plan only)")
 
 
-def _restore_verified(directory: Path, mesh) -> dict:
-    """This rank's snapshot from ``directory``, verified against the
-    digests its meta recorded.  ``FileNotFoundError`` when the directory
-    holds no checkpoint; ``CheckpointCorruptError`` for anything
-    unreadable or a digest that disagrees."""
-    if not (directory / _STATE_DIR).exists():
-        raise FileNotFoundError(f"no checkpoint state at {directory / _STATE_DIR}")
-    meta = _load_meta_if_present(directory)
-    _check_scope(directory, meta, mesh)
-    rank, world = _world()
+def _load_snap(path: Path, mmap: bool = False) -> dict:
     try:
-        snap = torch.load(_rank_file(directory, rank), map_location="cpu",
-                          weights_only=True)
+        return torch.load(path, map_location="cpu", weights_only=True,
+                          mmap=mmap)
     except Exception as e:
         raise CheckpointCorruptError(
-            f"checkpoint {directory} is unreadable: {type(e).__name__}: {e}") from e
+            f"checkpoint {path.parent.parent} is unreadable: "
+            f"{type(e).__name__}: {e}") from e
+
+
+def _verify_snap(directory: Path, meta: CheckpointMeta | None, snap: dict,
+                 rank: int, world: int) -> None:
     if meta is not None and meta.digests:
         actual = tree_digests(_digest_tree(snap), _rank_prefix(rank, world))
         bad = sorted(k for k, v in actual.items() if meta.digests.get(k) != v)
@@ -497,6 +516,21 @@ def _restore_verified(directory: Path, mesh) -> dict:
                 f"checkpoint {directory}: content digest mismatch for "
                 f"{len(bad)} leaf/leaves ({shown}) — the checkpoint on disk "
                 "is corrupt")
+
+
+def _restore_verified(directory: Path, mesh) -> dict:
+    """This rank's snapshot from ``directory``, verified against the
+    digests its meta recorded (the restore onto the same plan).
+    ``FileNotFoundError`` when the directory holds no checkpoint;
+    ``CheckpointCorruptError`` for anything unreadable or a digest that
+    disagrees."""
+    if not (directory / _STATE_DIR).exists():
+        raise FileNotFoundError(f"no checkpoint state at {directory / _STATE_DIR}")
+    meta = _load_meta_if_present(directory)
+    _check_scope(directory, meta, mesh)
+    rank, world = _world()
+    snap = _load_snap(_rank_file(directory, rank))
+    _verify_snap(directory, meta, snap, rank, world)
     return snap
 
 
@@ -512,22 +546,23 @@ def _restore_candidates(directory: str | Path) -> list[Path]:
     return out
 
 
-def _restore_with_fallback(directory: str | Path, mesh) -> dict:
-    """Digest-verified restore with fallback: if the newest generation is
-    corrupt on any rank (an unreadable file or a digest mismatch) and a
-    ``.prev`` generation is retained, every rank restores that instead.
-    Only when every generation fails does an error propagate; a missing
-    checkpoint stays ``FileNotFoundError``, but corruption anywhere wins
-    over a missing fallback."""
+def _with_fallback(directory: str | Path, restore):
+    """``restore(generation)`` of the newest generation that every rank
+    reads without corruption: if the newest is corrupt on any rank (an
+    unreadable file or a digest mismatch) and a ``.prev`` generation is
+    retained, every rank restores that instead.  Only when every
+    generation fails does an error propagate; a missing checkpoint stays
+    ``FileNotFoundError``, but corruption anywhere wins over a missing
+    fallback."""
     errors: list[Exception] = []
     for cand in _restore_candidates(directory):
-        snap, err = None, None
+        out, err = None, None
         try:
-            snap = _restore_verified(cand, mesh)
+            out = restore(cand)
         except (CheckpointCorruptError, FileNotFoundError) as e:
             err = e
         if not any(_gather(err is not None)):
-            return snap
+            return out
         errors.append(err or CheckpointCorruptError(
             f"checkpoint {cand} is corrupt on another rank"))
     for e in errors:
@@ -560,6 +595,310 @@ def block_layouts_compatible(meta: CheckpointMeta, expected: str) -> bool:
     return False
 
 
+# -- restore onto another plan -------------------------------------------------
+
+#: the AdamW moments of a leaf, as ``torch.optim.AdamW`` names them
+MOMENTS = ("exp_avg", "exp_avg_sq")
+
+
+def _family(kind: str) -> str:
+    """The state family of an executable kind: one device is a gspmd
+    plan of one rank."""
+    return "gspmd" if kind == "single_device" else kind
+
+
+def _key_parts(key: str) -> tuple[str, str]:
+    group, name = key.split("/")
+    return group, name
+
+
+def _schema(layouts) -> dict:
+    """``{leaf: (shape, dtype)}`` over the ranks' slice maps."""
+    out = {}
+    for lay in layouts:
+        if lay is not None:
+            for key, e in lay["leaves"].items():
+                out[key] = (tuple(e["shape"]), e["dtype"])
+    return out
+
+
+def _rows(e: dict):
+    """The one-device rows along dim 0 that an entry's tensor holds."""
+    if e["ids"] is not None:
+        return list(e["ids"])
+    return range(*e["box"][0])
+
+
+def extent(e: dict) -> tuple[int, ...]:
+    """The shape of the tensor a slice-map entry describes (its box; the
+    moments of a ``flat`` entry are the flattened box's ``flat`` part)."""
+    ext = [b - a for a, b in e["box"]]
+    if e["ids"] is not None:
+        ext[0] = len(e["ids"])
+    return tuple(ext)
+
+
+def overlap(dst: dict, src: dict):
+    """``(dst index, src index, elements)`` of the part of the one-device
+    leaf that both entries' boxes hold (indices into their tensors), or
+    None.  Dim 0 may be a block id list; flat parts are not read."""
+    if not dst["box"]:
+        return (), (), 1
+    d0, s0 = _rows(dst), _rows(src)
+    if isinstance(d0, range) and isinstance(s0, range):
+        lo, hi = max(d0.start, s0.start), min(d0.stop, s0.stop)
+        if lo >= hi:
+            return None
+        di, si, n = [slice(lo - d0.start, hi - d0.start)], [slice(lo - s0.start, hi - s0.start)], hi - lo
+    else:
+        pos = {g: i for i, g in enumerate(s0)}
+        pairs = [(i, pos[g]) for i, g in enumerate(d0) if g in pos]
+        if not pairs:
+            return None
+        di, si, n = [_index([a for a, _ in pairs])], [_index([b for _, b in pairs])], len(pairs)
+    for (a, b), (c, d) in zip(dst["box"][1:], src["box"][1:]):
+        lo, hi = max(a, c), min(b, d)
+        if lo >= hi:
+            return None
+        di.append(slice(lo - a, hi - a))
+        si.append(slice(lo - c, hi - c))
+        n *= hi - lo
+    return tuple(di), tuple(si), n
+
+
+def _index(idx: list[int]):
+    """A slice where ``idx`` is a run, else an index tensor."""
+    if idx == list(range(idx[0], idx[0] + len(idx))):
+        return slice(idx[0], idx[0] + len(idx))
+    return torch.tensor(idx, dtype=torch.long)
+
+
+def _whole(pieces: list) -> list:
+    """``(entry, tensor)`` pieces with every flat chunk of one box joined
+    into the box's tensor (``flat`` entries are the ZeRO 1 and 2 moments'
+    chunks of the ranks of one dp group)."""
+    out, chunks = [], {}
+    for e, t in pieces:
+        if e.get("flat") is None:
+            out.append((e, t))
+        else:
+            key = (None if e["ids"] is None else tuple(e["ids"]),
+                   tuple(map(tuple, e["box"])))
+            chunks.setdefault(key, (e, []))[1].append((e["flat"][0], t))
+    for e, parts in chunks.values():
+        parts.sort(key=lambda p: p[0])
+        flat = torch.cat([t.reshape(-1) for _, t in parts])
+        if flat.numel() != math.prod(extent(e)):
+            raise MetisError(f"the flat chunks of a {extent(e)} box cover "
+                             f"{flat.numel()} elements")
+        out.append(({**e, "flat": None}, flat.reshape(extent(e))))
+    return out
+
+
+def assemble(dst: dict, pieces: list, dtype: torch.dtype,
+             device="cpu") -> torch.Tensor:
+    """The tensor a slice-map entry ``dst`` describes, filled from
+    ``pieces``: ``(entry, tensor)`` of disjoint parts of the same one-device
+    leaf (flat chunks joined first).  Raises ``MetisError`` unless they
+    cover all of it."""
+    out = torch.empty(extent(dst), dtype=dtype, device=device)
+    filled = 0
+    for e, t in _whole([(e, t.to(device)) for e, t in pieces]):
+        ov = overlap(dst, e)
+        if ov is not None:
+            out[ov[0]] = t[ov[1]]
+            filled += ov[2]
+    if filled != out.numel():
+        raise MetisError(f"the pieces cover {filled} of the {out.numel()} "
+                         f"elements of a {tuple(out.shape)} slice")
+    if dst.get("flat") is not None:
+        out = out.reshape(-1)[dst["flat"][0]:dst["flat"][1]]
+    return out
+
+
+def owners(layouts, key: str, moment: bool) -> list[tuple[int, dict]]:
+    """``(rank, entry)`` of the distinct pieces of leaf ``key`` that the
+    ranks' slice maps hold, each read from the lowest rank holding it
+    (dp replicas, leaves kept whole over tp).  ``moment``: the AdamW
+    moments' pieces (flat chunks at ZeRO 1 and 2); else the parameter's."""
+    seen, out = set(), []
+    for r, lay in enumerate(layouts):
+        e = lay["leaves"].get(key) if lay is not None else None
+        if e is None:
+            continue
+        e = e if moment else {**e, "flat": None}
+        sig = (None if e["ids"] is None else tuple(e["ids"]),
+               tuple(map(tuple, e["box"])),
+               None if e["flat"] is None else tuple(e["flat"]))
+        if sig not in seen:
+            seen.add(sig)
+            out.append((r, e))
+    return out
+
+
+def full_entry(shape) -> dict:
+    """The slice-map entry of a whole one-device leaf."""
+    return {"shape": list(shape), "ids": None,
+            "box": [[0, int(n)] for n in shape], "flat": None}
+
+
+class _Generation:
+    """A checkpoint generation's rank files, read lazily (``torch.load``
+    with ``mmap``), each tensor verified against its digest the first time
+    it is read."""
+
+    def __init__(self, directory: Path):
+        if not (directory / _STATE_DIR).exists():
+            raise FileNotFoundError(f"no checkpoint state at {directory / _STATE_DIR}")
+        self.directory = directory
+        self.meta = _load_meta_if_present(directory)
+        files = sorted((directory / _STATE_DIR).glob("rank*.pt"))
+        self.snaps = [_load_snap(f, mmap=True) for f in files]
+        self.world = len(files)
+        self.layouts = [snap.get("layout") for snap in self.snaps]
+        self.bytes_read = 0
+        self._verified: set = set()
+
+    def _read(self, r: int, path: str, t: torch.Tensor) -> torch.Tensor:
+        key = _rank_prefix(r, self.world)
+        if "stage" in self.snaps[r]:
+            key += f"['stages'][{self.snaps[r]['stage']}]"
+        key += path
+        if key not in self._verified:
+            if self.meta is not None and self.meta.digests:
+                want = self.meta.digests.get(key)
+                if want is None:
+                    raise CheckpointCorruptError(
+                        f"checkpoint {self.directory}: its meta records no "
+                        f"digest for {key} — the checkpoint on disk is corrupt")
+                if leaf_digest(t) != want:
+                    raise CheckpointCorruptError(
+                        f"checkpoint {self.directory}: content digest mismatch "
+                        f"for {key} — the checkpoint on disk is corrupt")
+            self._verified.add(key)
+            self.bytes_read += t.numel() * t.element_size()
+        return t
+
+    def param(self, r: int, key: str) -> torch.Tensor:
+        g, n = _key_parts(key)
+        return self._read(r, f"['params']['{g}']['{n}']",
+                          self.snaps[r]["params"][g][n])
+
+    def opt(self, r: int, key: str) -> dict | None:
+        """Rank ``r``'s AdamW state of leaf ``key`` (``step``, ``exp_avg``,
+        ``exp_avg_sq``), None before the first step."""
+        i = self.layouts[r]["opt"].index(key)
+        st = self.snaps[r]["optimizer"]["state"].get(i)
+        if st is None:
+            return None
+        return {k: self._read(r, f"['opt_state'][{i}]['{k}']", v)
+                for k, v in st.items()}
+
+    def leaf(self, key: str, dst: dict, what: str, dtype) -> torch.Tensor | None:
+        """The ``dst`` part of leaf ``key``'s parameter (``what`` "param")
+        or of one of its moments ("exp_avg", "exp_avg_sq"); None for a
+        moment before the first step."""
+        pieces = []
+        for r, e in owners(self.layouts, key, what != "param"):
+            if what == "param":
+                pieces.append((e, self.param(r, key)))
+                continue
+            st = self.opt(r, key)
+            if st is None:
+                return None
+            pieces.append((e, st[what]))
+        return assemble(dst, pieces, dtype)
+
+    def opt_step(self, key: str):
+        r, _ = owners(self.layouts, key, True)[0]
+        st = self.opt(r, key)
+        return None if st is None else st["step"]
+
+
+def logical_path(key: str, what: str = "param") -> str:
+    """The digest path of a one-device leaf: ``['params'][g][n]``, or of
+    its AdamW state ``['opt_state'][g][n][what]`` (``what`` a moment or
+    ``"step"``)."""
+    g, n = _key_parts(key)
+    if what == "param":
+        return f"['params']['{g}']['{n}']"
+    return f"['opt_state']['{g}']['{n}']['{what}']"
+
+
+def logical_digests(directory: str | Path) -> dict[str, str]:
+    """``leaf_digest`` of every leaf of the one-device state a checkpoint
+    holds, assembled leaf by leaf through its slice maps (the reference's
+    formula; paths ``logical_path``'s and ``['step']``): what any plan
+    restored from it holds, whatever plan wrote it."""
+    gen = _Generation(_resolve_dir(directory))
+    if any(lay is None for lay in gen.layouts):
+        raise MetisError(f"checkpoint {directory} predates the slice map")
+    out = {}
+    for key, (shape, dtype) in _schema(gen.layouts).items():
+        whole = full_entry(shape)
+        out[logical_path(key)] = leaf_digest(
+            gen.leaf(key, whole, "param", getattr(torch, dtype)))
+        for m in MOMENTS:
+            t = gen.leaf(key, whole, m, getattr(torch, dtype))
+            if t is not None:
+                out[logical_path(key, m)] = leaf_digest(t)
+        step = gen.opt_step(key)
+        if step is not None:
+            out[logical_path(key, "step")] = leaf_digest(step)
+    out["['step']"] = leaf_digest(np.asarray(int(gen.snaps[0]["step"]), np.int32))
+    return out
+
+
+def _check_restorable(gen: _Generation, dsts: list) -> None:
+    """Refuse, before any state is touched, what the reference refuses to
+    restore: another route's state (hetero against the others), another
+    stage partition, another block layout, another state schema."""
+    src = gen.layouts[0]
+    dst = next(d for d in dsts if d is not None)
+    fs, fd = _family(src["kind"]), _family(dst["kind"])
+    where = f"checkpoint {gen.directory}"
+    if fs != fd and "hetero" in (fs, fd):
+        raise MetisError(
+            f"{where} holds {src['kind']} state; the {dst['kind']} plan's state "
+            "has another structure (per-stage state against one tree), which "
+            "the reference does not restore across either")
+    if fs == "hetero" and src["stages"] != dst["stages"]:
+        raise MetisError(
+            f"{where} holds the stages {src['stages']} (block ranges); the "
+            f"plan has {dst['stages']}: another stage partition")
+    if fs != "hetero" and not block_layouts_compatible(gen.meta, dst["block_layout"]):
+        raise MetisError(
+            f"{where} was written with block layout "
+            f"'{gen.meta.block_layout}', the plan uses "
+            f"'{dst['block_layout']}': another block layout")
+    if _schema(gen.layouts) != _schema(dsts):
+        raise MetisError(
+            f"{where}: the state structure does not fit the plan's (leaves, "
+            "shapes or dtypes differ: another model)")
+
+
+def _load_resharded(gen: _Generation, state: TrainState) -> TrainState:
+    """Fill ``state`` (this rank's fresh state of another plan) from the
+    generation's rank files through their slice maps, one leaf at a time:
+    its parameters, its AdamW moments and their step, the step."""
+    leaves = state.layout["leaves"]
+    opt_state = {}
+    with torch.no_grad():
+        for i, ((g, n), opt_leaf) in enumerate(state.opt_leaves().items()):
+            key, leaf = f"{g}/{n}", state.params[g][n]
+            e = leaves[key]
+            leaf.copy_(gen.leaf(key, {**e, "flat": None}, "param", leaf.dtype))
+            st = {k: gen.leaf(key, e, k, opt_leaf.dtype) for k in MOMENTS}
+            if st["exp_avg"] is not None:
+                st["step"] = gen.opt_step(key).clone()
+                opt_state[i] = st
+    state.optimizer.load_state_dict(
+        {"state": opt_state,
+         "param_groups": state.optimizer.state_dict()["param_groups"]})
+    state.step = int(gen.snaps[0]["step"])
+    return state
+
+
 def _load_into(state: TrainState, snap: dict) -> TrainState:
     """Copy a snapshot into ``state`` (a fresh state of the same plan on
     this rank) in place: the parameters, the optimizer's moments, the
@@ -571,24 +910,100 @@ def _load_into(state: TrainState, snap: dict) -> TrainState:
                 if saved.shape != leaf.shape:
                     raise MetisError(
                         f"checkpoint leaf {g}.{n} has shape {tuple(saved.shape)}, "
-                        f"this rank holds {tuple(leaf.shape)}: another plan "
-                        "(resharding is ROADMAP §A.4)")
+                        f"this rank holds {tuple(leaf.shape)}: another plan, "
+                        "and the checkpoint or the state has no slice map")
                 # ZeRO 1 and 2's chunks are views of the leaves: they follow
                 leaf.copy_(saved)
-    state.optimizer.load_state_dict(snap["optimizer"])
+    opt = snap["optimizer"]
+    saved_keys = snap.get("layout", {}).get("opt")
+    if saved_keys is None:
+        # by position: a state that orders its leaves otherwise would take
+        # another leaf's moments, which the shapes catch where they differ
+        for j, ((g, n), leaf) in enumerate(state.opt_leaves().items()):
+            saved = opt["state"].get(j, {}).get("exp_avg")
+            if saved is not None and saved.shape != leaf.shape:
+                raise MetisError(
+                    f"checkpoint optimizer state {j} has shape "
+                    f"{tuple(saved.shape)}, this state's parameter {g}.{n} "
+                    f"has {tuple(leaf.shape)}: a checkpoint without slice "
+                    "maps restores into a state built as the saved one was")
+    else:
+        # the optimizer's state is by position: put each leaf's where this
+        # state's optimizer holds the leaf (a state made from a full tree
+        # orders its leaves as the tree does)
+        index = {k: i for i, k in enumerate(saved_keys)}
+        opt = {**opt, "state": {
+            j: opt["state"][index[f"{g}/{n}"]]
+            for j, (g, n) in enumerate(state.opt_leaves())
+            if index[f"{g}/{n}"] in opt["state"]}}
+    state.optimizer.load_state_dict(opt)
     state.step = int(snap["step"])
     return state
 
 
-def restore_checkpoint(directory: str | Path, reference_state: TrainState,
+def _snap_bytes(snap: dict) -> int:
+    return sum(t.numel() * t.element_size()
+               for tree in (snap["params"], snap["optimizer"]["state"])
+               for _, t in _flatten(tree) if isinstance(t, torch.Tensor))
+
+
+def _restore(directory: str | Path, state: TrainState | None, mesh,
+             stage: int | None, stats: dict | None) -> TrainState | None:
+    """Restore into ``state`` (this rank's fresh state of the plan to
+    resume on; None on a rank outside that plan, which only takes part in
+    the ranks' agreement): from this rank's own file when the checkpoint
+    was written by the same plan on the same ranks, or when either side
+    has no slice map (``mesh``, and on the hetero route this rank's
+    ``stage``, are then checked against the checkpoint's); else through
+    the slice maps (module doc).  ``stats``, when given, is filled with
+    ``resharded`` (read through the maps) and ``bytes_read`` (of the
+    checkpoint's tensors).  Every rank of the process group calls it."""
+    stats = {} if stats is None else stats
+    dst = state.layout if state is not None else None
+    dsts = _gather(dst)
+
+    def restore(cand: Path):
+        gen = _Generation(cand)
+        no_maps = (any(s is None for s in gen.layouts)
+                   or all(d is None for d in dsts))
+        same = (not no_maps and gen.world == len(dsts)
+                and all(d is not None and {**s, "opt": None} == {**d, "opt": None}
+                        for s, d in zip(gen.layouts, dsts)))
+        if same or (no_maps and state is not None):
+            snap = _restore_verified(cand, mesh)
+            if snap.get("stage") != stage:
+                raise MetisError(
+                    f"checkpoint {cand}: this rank's file holds stage "
+                    f"{snap.get('stage')}, the rank runs stage {stage} (None: "
+                    "not the hetero route, whose checkpoints "
+                    "restore_hetero_checkpoint restores)")
+            stats.update(resharded=False, bytes_read=_snap_bytes(snap))
+            return _load_into(state, snap)
+        if no_maps:
+            raise MetisError(
+                f"checkpoint {cand} predates the slice map, or the plan's "
+                "state has none: it restores onto the plan that wrote it only")
+        _check_restorable(gen, dsts)
+        if state is None:
+            return None
+        out = _load_resharded(gen, state)
+        stats.update(resharded=True, bytes_read=gen.bytes_read)
+        return out
+
+    return _with_fallback(directory, restore)
+
+
+def restore_checkpoint(directory: str | Path, reference_state: TrainState | None,
                        expected_block_layout: str | None = None,
-                       mesh=None) -> TrainState:
-    """Restore this rank's state into ``reference_state`` (a fresh state of
-    the same plan, ``Executable.init``), in place, and return it.
-    ``expected_block_layout``: refuse a checkpoint whose recorded layout
-    differs.  ``mesh`` (the plan artifact, or an ``(axes, shape)`` pair):
-    refuse a checkpoint written on another mesh.  Digest-verified, with
-    the ``.prev`` fallback."""
+                       mesh=None, stats: dict | None = None) -> TrainState | None:
+    """Restore this rank's state into ``reference_state`` (a fresh state,
+    ``Executable.init``, of the plan that wrote the checkpoint or of
+    another one; None on a rank outside the plan), in place, and return
+    it.  ``expected_block_layout``: refuse a checkpoint whose recorded
+    layout differs.  ``mesh`` (the plan artifact, or an ``(axes, shape)``
+    pair): refuse a checkpoint written on another mesh when the slice maps
+    cannot reshard it.  ``stats``: filled as ``_restore`` says.
+    Digest-verified, with the ``.prev`` fallback."""
     if expected_block_layout is not None:
         meta = load_meta(directory)
         if not block_layouts_compatible(meta, expected_block_layout):
@@ -597,11 +1012,7 @@ def restore_checkpoint(directory: str | Path, reference_state: TrainState,
                 f"'{meta.block_layout}', expected '{expected_block_layout}' "
                 "— refusing to restore (a layout mismatch silently "
                 "scrambles the stacked block axis)")
-    snap = _restore_with_fallback(directory, mesh)
-    if "stage" in snap:
-        raise MetisError(f"checkpoint {directory} holds hetero stage state; "
-                         "use restore_hetero_checkpoint")
-    return _load_into(reference_state, snap)
+    return _restore(directory, reference_state, mesh, None, stats)
 
 
 # -- hetero (per-stage) checkpoints ----------------------------------------------
@@ -621,15 +1032,15 @@ def save_hetero_checkpoint(directory: str | Path, state: TrainState, step: int,
 
 
 def restore_hetero_checkpoint(directory: str | Path,
-                              reference_state: TrainState,
-                              mesh) -> TrainState:
+                              reference_state: TrainState | None,
+                              mesh, stats: dict | None = None) -> TrainState | None:
     """Restore this rank's stage state into ``reference_state`` (a fresh
-    state of the same plan), in place.  Digest-verified, with the
-    ``.prev`` fallback."""
-    snap = _restore_with_fallback(directory, (("stage",), (mesh.size("pp"),)))
-    if snap.get("stage") != mesh.index("pp"):
-        raise MetisError(
-            f"checkpoint {directory}: this rank's file holds stage "
-            f"{snap.get('stage')}, the rank runs stage {mesh.index('pp')} "
-            "(another plan; resharding is ROADMAP §A.4)")
-    return _load_into(reference_state, snap)
+    state of the hetero plan that wrote the checkpoint, or of one with the
+    same stages and layer partition; None on a rank outside the plan), in
+    place.  ``mesh``: the rank's ``ProcessMesh``; ``stats`` as
+    ``restore_checkpoint``'s.  Digest-verified, with the ``.prev``
+    fallback."""
+    if reference_state is None:
+        return _restore(directory, None, None, None, stats)
+    return _restore(directory, reference_state,
+                    (("stage",), (mesh.size("pp"),)), mesh.index("pp"), stats)

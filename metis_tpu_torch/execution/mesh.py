@@ -28,6 +28,10 @@ from metis_tpu_torch.core.sharding import Spec, slice_leaf
 from metis_tpu_torch.core.types import UniformPlan
 
 PP, DP, TP, SP, EP = "pp", "dp", "tp", "sp", "ep"
+# the group of all of a plan's ranks where the plan takes only the first
+# ranks of the process group (``ProcessMesh.group(PLAN)``; None: the
+# whole process group)
+PLAN = "plan"
 
 
 @dataclass(frozen=True)
@@ -63,13 +67,14 @@ ONE_DEVICE = ProcessMesh((), (), ())
 
 def _require_group(need: int, what: str) -> int:
     """This process's rank, after checking that the current process group
-    has ``need`` ranks."""
+    has at least ``need`` ranks (a grid of fewer ranks than the group runs
+    on its first ``need``: ``_grid``)."""
     if not dist.is_initialized():
         raise MetisError(
             f"{what} needs a process group of {need} ranks; run it through "
             "the launcher (metis_tpu_torch.execution.dist.spawn)")
     world = dist.get_world_size()
-    if world != need:
+    if world < need:
         raise MetisError(f"{what} needs {need} ranks, the process group has "
                          f"{world}")
     return dist.get_rank()
@@ -93,13 +98,22 @@ def _axis_groups(shape: tuple[int, ...], axes: tuple[str, ...], base: int,
     return groups
 
 
-def _grid(shape: tuple[int, ...], axes: tuple[str, ...]) -> ProcessMesh:
-    """The mesh of this process inside the current process group, whose
-    size must be the grid's."""
-    rank = _require_group(math.prod(shape), f"mesh {dict(zip(axes, shape))}")
+def _grid(shape: tuple[int, ...], axes: tuple[str, ...]) -> ProcessMesh | None:
+    """The mesh of this process inside the current process group.  A group
+    larger than the grid runs it on its first ranks (the live reshard's
+    destination, ``execution/reshard.py``): a rank outside it gets None,
+    after taking part in creating the grid's groups, which is
+    collective."""
+    need = math.prod(shape)
+    rank = _require_group(need, f"mesh {dict(zip(axes, shape))}")
+    groups = _axis_groups(shape, axes, 0, rank)
+    if dist.get_world_size() > need:
+        plan = dist.new_group(list(range(need)))
+        if rank >= need:
+            return None
+        groups[PLAN] = plan
     coords = tuple(int(c) for c in np.unravel_index(rank, shape))
-    return ProcessMesh(tuple(axes), tuple(shape), coords,
-                       _axis_groups(shape, axes, 0, rank))
+    return ProcessMesh(tuple(axes), tuple(shape), coords, groups)
 
 
 @dataclass(frozen=True)
@@ -154,7 +168,12 @@ def stage_meshes(grids) -> ProcessMesh:
     offsets = stage_offsets(grids)
     if not dist.is_initialized() and offsets[-1] == 1:
         return ProcessMesh((PP, DP, TP), (1, 1, 1), (0, 0, 0))
-    rank = _require_group(offsets[-1], f"stages {[g.shape for g in grids]}")
+    what = f"stages {[g.shape for g in grids]}"
+    rank = _require_group(offsets[-1], what)
+    if dist.get_world_size() != offsets[-1]:
+        raise MetisError(f"{what} take the whole process group: they need "
+                         f"{offsets[-1]} ranks, the group has "
+                         f"{dist.get_world_size()}")
     mine = None
     for s, grid in enumerate(grids):
         groups = _axis_groups(grid.shape, grid.axes, offsets[s], rank)
@@ -388,13 +407,14 @@ class PlanArtifact:
             return math.prod(self.mesh_shape)
         return sum(s["dp"] * s["tp"] * s.get("cp", 1) for s in self.strategies)
 
-    def build_mesh(self) -> ProcessMesh:
+    def build_mesh(self) -> ProcessMesh | None:
         """This process's mesh inside a process group of the artifact's
         size.  A rectangular artifact gets its whole grid; both layouts
         work: ``(pp, dp, tp)`` from ``from_uniform_plan`` and ``(pp, dp,
-        ep, sp, tp)`` from ``from_ranked_plan``, trivial axes of size 1.  A
-        non-rectangular one (per-stage strategies, empty mesh fields) gets
-        its stage's mesh from ``stage_meshes``."""
+        ep, sp, tp)`` from ``from_ranked_plan``, trivial axes of size 1; a
+        larger group runs the grid on its first ranks and the others get
+        None (``_grid``).  A non-rectangular one (per-stage strategies,
+        empty mesh fields) gets its stage's mesh from ``stage_meshes``."""
         if not self.mesh_shape:
             return stage_meshes([StageGrid(s["dp"], s["tp"], s.get("cp", 1),
                                            s.get("ep", 1))

@@ -107,6 +107,7 @@ from metis_tpu_torch.core.sharding import slice_leaf
 from metis_tpu_torch.execution.mesh import (
     DP,
     EP,
+    PLAN,
     SP,
     TP,
     ProcessMesh,
@@ -676,11 +677,11 @@ class StageRunner:
         for leaf in param_leaves(params):
             leaf.grad = None
         state.step += 1
-        if dist.is_initialized() and dist.get_world_size() > 1:
+        if stage_offsets(self.grids)[-1] > 1:
             # each replica's tp rank 0 (every cp rank) holds its share
             if self.mesh.index(TP):
                 loss_sum.zero_()
-            dist.all_reduce(loss_sum)
+            dist.all_reduce(loss_sum, group=self.mesh.group(PLAN))
         return state, loss_sum
 
     def _reduce(self, state: TrainState, acc: dict) -> None:

@@ -110,13 +110,16 @@ class ZeroLayout:
 @dataclass
 class TrainState:
     """Parameters (nested dict of leaf tensors; ZeRO-3's dp shards), the
-    optimizer that owns their moments, the count of steps taken and the
-    ZeRO layout (None without ZeRO)."""
+    optimizer that owns their moments, the count of steps taken, the ZeRO
+    layout (None without ZeRO) and the slice map of the plan the state
+    was built for (``builder.slice_map``; None for a state built outside
+    an ``Executable``)."""
 
     params: dict
     optimizer: torch.optim.Optimizer
     step: int = 0
     zero: ZeroLayout | None = None
+    layout: dict | None = None
 
     def opt_leaves(self) -> dict:
         """``{(group, name): the tensor the optimizer updates}`` — the leaf,

@@ -52,8 +52,9 @@ model runs exactly as before.
   gathered.
 
 The sequence is dim 1 of every ``[b, s, h]`` activation.  Gloo takes
-point-to-point and gather / scatter collectives of host tensors only, so
-CUDA tensors cross through the host there (``_staged``).
+point-to-point and all-to-all transfers of host tensors only, so CUDA
+tensors cross through the host there (``_staged``); its gathers and
+scatters go through its all-reduce, which takes CUDA tensors.
 
 On CUDA the fp32 partial products are ``torch.mm(..., out_dtype=float32)``
 (bf16 operands, fp32 accumulator and output); on the CPU the operands are
@@ -351,22 +352,21 @@ def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
 
 def all_gather_dim(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     """The group's blocks of ``x`` concatenated along ``dim``, in the
-    group's rank order (contiguous).  Gloo uses the list form, which every
-    gloo build has."""
+    group's rank order (contiguous).  Gloo sums, as bytes, a zeroed buffer
+    holding this rank's block: its all-reduce takes CUDA tensors (its
+    gathers take host tensors only) and the byte sum passes every bit
+    pattern through unchanged."""
     n = group.size()
     src = x.movedim(dim, 0).contiguous()
-    staged = _staged(x, group)
-    if staged:
-        src = src.cpu()
+    out = src.new_empty((n * src.shape[0],) + tuple(src.shape[1:]))
     if dist.get_backend(group) == dist.Backend.GLOO:
-        parts = [torch.empty_like(src) for _ in range(n)]
-        dist.all_gather(parts, src, group=group)
-        out = torch.cat(parts)
+        block = src.shape[0]
+        r = dist.get_rank(group)
+        out.zero_()
+        out[r * block:(r + 1) * block] = src
+        dist.all_reduce(out.view(-1).view(torch.uint8), group=group)
     else:
-        out = src.new_empty((n * src.shape[0],) + tuple(src.shape[1:]))
         dist.all_gather_into_tensor(out, src, group=group)
-    if staged:
-        out = out.to(x.device)
     return out.movedim(0, dim).contiguous()
 
 
@@ -375,9 +375,6 @@ def reduce_scatter_dim(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     (contiguous).  Gloo sums with an all-reduce and keeps the block."""
     n, r = group.size(), dist.get_rank(group)
     src = x.movedim(dim, 0).contiguous()
-    staged = _staged(x, group)
-    if staged:
-        src = src.cpu()
     block = src.shape[0] // n
     if dist.get_backend(group) == dist.Backend.GLOO:
         if src.data_ptr() == x.data_ptr():
@@ -387,8 +384,6 @@ def reduce_scatter_dim(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     else:
         out = src.new_empty((block,) + tuple(src.shape[1:]))
         dist.reduce_scatter_tensor(out, src, group=group)
-    if staged:
-        out = out.to(x.device)
     return out.movedim(0, dim).contiguous()
 
 

@@ -151,6 +151,214 @@ def resume_rank(rank: int, device: torch.device, artifact_json: str | None,
             "step": step, "meta": ckpt.load_meta(directory), "slots": exe.mesh.slots()}
 
 
+def elastic_rank(rank: int, device: torch.device, jobs: list[dict]) -> list[dict]:
+    """Rank body for ``execution.dist.spawn``: the ``jobs`` in turn, each a
+    plan of the launch's ranks for the model ``cfg`` (``artifact`` JSON, or
+    hetero ``stages`` over ``microbatches``; an artifact may take the first
+    ranks only, the others passing None) that is initialized from ``init``,
+    restored from the checkpoint ``restore`` when given, trained on
+    ``batches`` and checkpointed to ``save`` when given (the artifact as
+    the plan).
+
+    Returns, per job: ``kind``; ``refused`` (the ``MetisError`` of a
+    refused restore, the job then stopping there); ``step`` after the
+    restore; ``digests``, the one-device digests of the state after the
+    restore (``reshard.logical_digests``; not with ``digests=False``),
+    ``losses``."""
+    from metis_tpu_torch.core.errors import MetisError
+    from metis_tpu_torch.execution import checkpoint as ckpt
+    from metis_tpu_torch.execution.reshard import logical_digests
+
+    out = []
+    for job in jobs:
+        art, cfg = None, job["cfg"]
+        if job.get("stages") is not None:
+            exe = hetero_executable(cfg, job["stages"], job.get("microbatches", 1),
+                                    device)
+        else:
+            art = PlanArtifact.from_json(job["artifact"])
+            exe = build_executable(cfg, art, device)
+        state = exe.init(job.get("init", 0)) if exe is not None else None
+        res = {"kind": exe.kind if exe is not None else None, "refused": None,
+               "losses": []}
+        out.append(res)
+        if job.get("restore"):
+            try:
+                if job.get("stages") is not None:
+                    state = ckpt.restore_hetero_checkpoint(job["restore"], state,
+                                                           exe.mesh)
+                else:
+                    state = ckpt.restore_checkpoint(job["restore"], state)
+            except MetisError as e:
+                res["refused"] = str(e)
+                continue
+            if job.get("digests", True):
+                res["digests"] = logical_digests(state)
+        if exe is None:
+            continue
+        res["step"] = state.step
+        for tokens, targets in job.get("batches", ()):
+            state, loss = exe.step(state, tokens.to(device), targets.to(device))
+            res["losses"].append(loss.item())
+        if job.get("save"):
+            if exe.kind == "hetero":
+                ckpt.save_hetero_checkpoint(job["save"], state, state.step,
+                                            exe.mesh)
+            else:
+                ckpt.save_checkpoint(job["save"], state, art, plan=art)
+    return out
+
+
+def reshard_rank(rank: int, device: torch.device, cfg: GPTConfig, init,
+                 batches, source: str, targets: list[str],
+                 other_cfg: GPTConfig | None = None) -> dict:
+    """Rank body for ``execution.dist.spawn``: the live reshard's cases
+    (``execution/reshard.py``).  Train plan ``source`` (artifact JSON, on
+    every rank of the launch) from ``init`` on ``batches[:2]``; reshard it
+    onto each of ``targets`` (artifact JSONs, on the launch's first ranks;
+    the others only send) and train each on ``batches[2:]``: its
+    ``ReshardReport``, ``losses``, the one-device digests of the source
+    and of the resharded state (``reshard.logical_digests``) and the
+    ``moved`` tensors of ``plan_reshard``.  Then the drills on the first
+    target: an injected ``reshard_send`` (its events), an injected
+    ``reshard_verify`` and, given ``other_cfg``, a state of another model
+    (the errors, and the source's digests after each), and the
+    ``moved`` tensors onto a fresh state of ``source`` itself."""
+    from metis_tpu_torch.execution import reshard
+    from metis_tpu_torch.resilience import FaultInjector
+
+    class Events:
+        def __init__(self):
+            self.seen = []
+
+        def emit(self, event, **fields):
+            self.seen.append((event, fields))
+
+    exe = build_executable(cfg, PlanArtifact.from_json(source), device)
+    state = exe.init(init)
+    for tokens, targets_ in batches[:2]:
+        state, _ = exe.step(state, tokens.to(device), targets_.to(device))
+    out = {"source_digests": reshard.logical_digests(state), "targets": []}
+
+    def fresh(artifact_json, model=cfg):
+        dst = build_executable(model, PlanArtifact.from_json(artifact_json),
+                               device)
+        return dst, (dst.init(1) if dst is not None else None)
+
+    for target in targets:
+        dst, ref = fresh(target)
+        moved = reshard.plan_reshard(state, ref)[0]
+        events = Events()
+        new, report = reshard.execute_reshard(state, ref, step=2, events=events)
+        res = {"report": report, "moved": moved, "losses": [],
+               "digests": reshard.logical_digests(new),
+               "events": [e for e, _ in events.seen]}
+        if dst is not None:
+            for tokens, targets_ in batches[2:]:
+                new, loss = dst.step(new, tokens.to(device), targets_.to(device))
+                res["losses"].append(loss.item())
+        out["targets"].append(res)
+        del new, ref
+        gc.collect()
+    drills = {}
+    events = Events()
+    _, ref = fresh(targets[0])
+    _, report = reshard.execute_reshard(
+        state, ref, step=2, events=events, sleep=lambda s: None,
+        faults=FaultInjector("reshard_send@2x2") if rank == 0 else FaultInjector())
+    drills["send"] = {"report": report, "events": [e for e, _ in events.seen]}
+    cases = [("verify", targets[0], cfg, FaultInjector("reshard_verify@2"))]
+    if other_cfg is not None:
+        cases.append(("schema", targets[0], other_cfg, FaultInjector()))
+    for name, target, model, faults in cases:
+        _, ref = fresh(target, model)
+        try:
+            reshard.execute_reshard(state, ref, step=2, faults=faults)
+            drills[name] = {"error": None}
+        except Exception as e:  # noqa: BLE001 — the drill reports it
+            drills[name] = {"error": f"{type(e).__name__}: {e}"}
+        drills[name]["source_digests"] = reshard.logical_digests(state)
+    drills["resident"] = reshard.plan_reshard(state, fresh(source)[1])
+    out["drills"] = drills
+    return out
+
+
+def _state_digests(state) -> dict | None:
+    """The digests of what a checkpoint would write of a rank's state (None
+    on a rank outside the plan)."""
+    from metis_tpu_torch.execution import checkpoint as ckpt
+
+    if state is None:
+        return None
+    return ckpt.tree_digests(ckpt._digest_tree(ckpt._snapshot(state)))
+
+
+def live_reshard_rank(rank: int, device: torch.device, cfg: GPTConfig,
+                      batches, plans: list[str], directory: str) -> dict:
+    """Rank body for ``execution.dist.spawn``: a live reshard held against
+    a checkpoint restore.  Train ``plans[0]`` (artifact JSON, every rank)
+    on ``batches[:2]``; then for each next plan (on the launch's first
+    ranks; the others only send): checkpoint the current state, reshard it
+    live onto the plan (``execute_reshard``) and take a step on
+    ``batches[2]``, restore the checkpoint onto a fresh state of the plan
+    and take the same step.  Returns per leg the ``report``, both steps'
+    ``losses`` and the ``digests`` of the rank's state after them (the
+    same plan, so the same tensors on each rank: ``checkpoint.tree_digests``
+    of what a checkpoint would write), the save and restore ms and the
+    kernels' launches of the live step; the next leg starts from the live
+    state."""
+    from metis_tpu_torch.execution import checkpoint as ckpt
+    from metis_tpu_torch.execution import reshard
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    art = PlanArtifact.from_json(plans[0])
+    exe = build_executable(cfg, art, device)
+    state = exe.init(0)
+    for tokens, targets in batches[:2]:
+        state, loss = exe.step(state, tokens.to(device), targets.to(device))
+    loss.item()
+    tokens, targets = (t.to(device) for t in batches[2])
+    out = {"legs": []}
+    for i, plan in enumerate(plans[1:]):
+        path = f"{directory}/leg{i}"
+        t0 = time.perf_counter()
+        ckpt.save_checkpoint(path, state, art)
+        leg = {"save_ms": (time.perf_counter() - t0) * 1e3}
+        art = PlanArtifact.from_json(plan)
+        dst = build_executable(cfg, art, device)
+        live, leg["report"] = reshard.execute_reshard(
+            state, dst.init(1) if dst is not None else None, step=state.step)
+        del state
+        gc.collect()
+        fa.reset_launch_counts()
+        if dst is not None:
+            live, loss = dst.step(live, tokens, targets)
+            leg["losses"] = [loss.item()]
+        leg["launches"] = dict(fa.launch_counts)
+        leg["digests"] = [_state_digests(live)]
+        fresh = dst.init(1) if dst is not None else None
+        sync()
+        t0 = time.perf_counter()
+        leg["restore_stats"] = {}
+        restored = ckpt.restore_checkpoint(path, fresh, stats=leg["restore_stats"])
+        sync()
+        leg["restore_ms"] = (time.perf_counter() - t0) * 1e3
+        if dst is not None:
+            restored, loss = dst.step(restored, tokens, targets)
+            leg["losses"].append(loss.item())
+        leg["digests"].append(_state_digests(restored))
+        del restored, fresh
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        out["legs"].append(leg)
+        state = live
+    return out
+
+
 def train_ranks(rank: int, device: torch.device, jobs: list[dict]) -> list:
     """Rank body: the ``train`` subcommand's rank body (``cli.train_rank``)
     for each of ``jobs`` (``cli.train_job``'s) in turn, one launch for

@@ -1,12 +1,14 @@
 """Checkpoints of the port (``metis_tpu_torch/execution/checkpoint.py``)
-against the JAX package's: the cases of ``tests/test_checkpoint.py`` that
-need no resharding, on one device and on gloo ranks (dp 2 at ZeRO 1, tp 2,
-a two-stage hetero plan), plus the contracts shared with the reference:
-``CheckpointMeta``'s JSON byte for byte both ways, and a one-device
-checkpoint's ``params`` and ``step`` digests equal to the reference's on
-the same numpy parameters.  Resume is held bit for bit: losses and every
-leaf of a run checkpointed and restored mid-way equal an uninterrupted
-run's exactly.
+against the JAX package's: the cases of ``tests/test_checkpoint.py`` on
+one device and on gloo ranks (dp 2 at ZeRO 1, tp 2, a two-stage hetero
+plan), one restore onto another mesh, the format before slice maps, plus
+the contracts shared with the reference: ``CheckpointMeta``'s JSON byte
+for byte both ways, and a one-device checkpoint's ``params`` and ``step``
+digests equal to the reference's on the same numpy parameters.  Resume is
+held bit for bit: losses and every leaf of a run checkpointed and
+restored mid-way equal an uninterrupted run's exactly.  The pairs of
+plans against the reference's orbax restore are in
+``tests/test_torch_checkpoint_elastic*.py``.
 """
 import json
 import shutil
@@ -32,8 +34,16 @@ from metis_tpu_torch.execution import dist as tdist
 from metis_tpu_torch.execution import hetero as thetero
 from metis_tpu_torch.execution.builder import build_executable
 from metis_tpu_torch.execution.mesh import PlanArtifact
+from metis_tpu_torch.execution.reshard import logical_digests
 from metis_tpu_torch.models import gpt as tgpt
-from metis_tpu_torch.testing import resume_rank
+from metis_tpu_torch.testing import elastic_rank, resume_rank
+from tests.torch_elastic_reference import (
+    batches,
+    configs,
+    gspmd,
+    params,
+    torch_batches,
+)
 
 torch.set_num_threads(1)
 
@@ -202,14 +212,30 @@ class TestTrainStateCheckpoint:
         assert tckpt.load_plan(tmp_path / "ckpt") == ONE
         assert tckpt.load_plan(tmp_path / "no-such-ckpt") is None
 
-    def test_restore_onto_another_mesh_raises(self, tmp_path):
-        """The port restores onto the same plan only: another mesh is
-        resharding, ROADMAP §A.4."""
-        exe = _exe()
-        tckpt.save_checkpoint(tmp_path / "ckpt", exe.init(0), ONE)
+    def test_restore_onto_another_mesh(self, tmp_path):
+        """A one-device checkpoint restores onto dp 2 at ZeRO 1 on two gloo
+        ranks (the reference's orbax reshards on read): the restored state
+        is the checkpoint's one-device state bit for bit, at its step, and
+        trains on as the one device does."""
+        exe, batches = _exe(), _batches()
+        _, want = _run(exe, exe.init(0), batches)
+        state, _ = _run(exe, exe.init(0), batches[:2])
+        tckpt.save_checkpoint(tmp_path / "ckpt", state, ONE)
         other = PlanArtifact.from_uniform_plan(UniformPlan(2, 1, 1, GBS // 2, GBS))
-        with pytest.raises(MetisError, match="§A.4"):
-            tckpt.restore_checkpoint(tmp_path / "ckpt", exe.init(1), mesh=other)
+        other = PlanArtifact(**{**other.__dict__, "strategies": (
+            {"dp": 2, "tp": 1, "zero": 1},)})
+        ranks = tdist.spawn(elastic_rank, 2, "gloo", ["cpu"] * 2, [dict(
+            cfg=_cfg(), artifact=other.to_json(), init=1,
+            restore=str(tmp_path / "ckpt"), batches=batches[2:])])
+        saved = tckpt.logical_digests(tmp_path / "ckpt")
+        for (r,) in ranks:
+            assert r["kind"] == "gspmd" and r["step"] == 2
+            assert r["digests"] == saved
+            np.testing.assert_allclose(r["losses"], want[2:], rtol=1e-4, atol=2e-5)
+        # with no slice map on the state, only the plan that wrote it
+        bare = tckpt.TrainState(params=state.params, optimizer=state.optimizer)
+        with pytest.raises(MetisError, match="slice map"):
+            tckpt.restore_checkpoint(tmp_path / "ckpt", bare, mesh=other)
 
     def test_restore_refuses_another_block_layout(self, tmp_path):
         exe = _exe()
@@ -347,3 +373,100 @@ def test_exec_state_adapters(kind):
     ts = exec_state_to_train_state(kind, state, 3)
     assert ts is state and ts.step == 3
     assert train_state_to_exec_state(kind, ts) is state
+
+
+# -- the format before slice maps ---------------------------------------------
+
+def _strip_maps(directory):
+    """Rewrite a checkpoint in the format before slice maps (the digests
+    cover no map, so they still hold)."""
+    for f in (directory / "state").glob("rank*.pt"):
+        snap = torch.load(f, weights_only=True)
+        snap.pop("layout")
+        torch.save(snap, f)
+
+
+def test_checkpoint_without_slice_maps(tmp_path):
+    """A checkpoint of the format before slice maps restores onto the plan
+    that wrote it bit for bit (the resumed run equals a straight one), is
+    refused into a state whose leaves are in another order, and is refused
+    onto another plan, naming the map."""
+    jcfg, cfg = configs("gpt")
+    host = torch_batches(batches())
+    exe = build_executable(cfg, gspmd(), device="cpu")
+    init = params(jcfg)
+    state = exe.init(init)
+    want = [exe.step(state, t, g)[1].item() for t, g in host]
+    state = exe.init(init)
+    for t, g in host[:2]:
+        state, _ = exe.step(state, t, g)
+    tckpt.save_checkpoint(tmp_path / "one", state, gspmd())
+    _strip_maps(tmp_path / "one")
+    # that format's optimizer state is by position: restore into a state
+    # made as the saved one was
+    resumed = tckpt.restore_checkpoint(tmp_path / "one", exe.init(init),
+                                       mesh=gspmd())
+    assert resumed.step == 2
+    assert [exe.step(resumed, t, g)[1].item() for t, g in host[2:]] == want[2:]
+    # a state made from the seed orders its leaves otherwise: refused, where
+    # a restore by position would feed moments to the wrong parameters
+    with pytest.raises(MetisError, match="built as the saved one was"):
+        tckpt.restore_checkpoint(tmp_path / "one", exe.init(1), mesh=gspmd())
+
+    # onto another plan: dp 2 at ZeRO 1's checkpoint onto one device
+    old = tmp_path / "dp2_zero1"
+    tdist.spawn(elastic_rank, 2, "gloo", ["cpu"] * 2, [dict(
+        cfg=cfg, artifact=gspmd(dp=2, zero=1).to_json(), init=0,
+        save=str(old))])
+    _strip_maps(old)
+    with pytest.raises(MetisError, match="predates the slice map"):
+        tckpt.restore_checkpoint(old, exe.init(1), mesh=gspmd())
+
+
+# -- verification on the restore onto another plan ------------------------------
+
+def _corrupt_moment(directory, rank, leaf="blocks/qkv"):
+    """Change one element of a rank file's ``exp_avg`` of ``leaf`` (its
+    digest in the meta stays the old one)."""
+    f = directory / "state" / f"rank{rank:05d}.pt"
+    snap = torch.load(f, weights_only=True)
+    snap["optimizer"]["state"][snap["layout"]["opt"].index(leaf)][
+        "exp_avg"].view(-1)[0] += 1.0
+    torch.save(snap, f)
+
+
+def test_restore_onto_another_plan_verifies_every_source(tmp_path):
+    """dp 2 at ZeRO 1 onto one device reads each rank's moment chunks:
+    one changed in rank 1's file makes the restore fall back to the
+    retained ``.prev`` generation (step 1), and raise without it; a meta
+    that records no digest for a tensor read raises too."""
+    jcfg, cfg = configs("gpt")
+    host, init = torch_batches(batches()), params(jcfg)
+    plan = gspmd(dp=2, zero=1).to_json()
+    tdist.spawn(elastic_rank, 2, "gloo", ["cpu"] * 2, [
+        dict(cfg=cfg, artifact=plan, init=init, batches=host[:1],
+             save=str(tmp_path / "step1")),
+        dict(cfg=cfg, artifact=plan, init=init, batches=host[:2],
+             save=str(tmp_path / "ckpt"))])
+    # a save drops the .prev it parks unless told to keep it
+    (tmp_path / "step1").rename(tmp_path / "ckpt.prev")
+    shutil.copytree(tmp_path / "ckpt", tmp_path / "bare")
+    prev = tckpt.logical_digests(tmp_path / "ckpt.prev")
+    exe = build_executable(cfg, gspmd(), device="cpu")
+    _corrupt_moment(tmp_path / "ckpt", 1)
+    stats = {}
+    state = tckpt.restore_checkpoint(tmp_path / "ckpt", exe.init(init),
+                                     stats=stats)
+    assert stats["resharded"] and state.step == 1
+    assert logical_digests(state) == prev
+    shutil.rmtree(tmp_path / "ckpt.prev")
+    with pytest.raises(CheckpointCorruptError, match="digest mismatch"):
+        tckpt.restore_checkpoint(tmp_path / "ckpt", exe.init(init))
+    # a tensor the meta records no digest for
+    meta = tckpt.load_meta(tmp_path / "bare")
+    meta.digests.pop(next(k for k in meta.digests
+                          if k.startswith("rank00001['opt_state']")))
+    (tmp_path / "bare" / "meta.json").write_text(meta.to_json())
+    with pytest.raises(CheckpointCorruptError, match="records no digest"):
+        tckpt.restore_checkpoint(tmp_path / "bare", exe.init(init))
+

@@ -3,8 +3,9 @@ the CPU (``--device cpu``): the reference's ``tests/test_cli.py`` cases of
 its ``train`` (end to end with resume; refusing a block-layout mismatch on
 resume), resume held bit for bit against a straight run on one device and
 on gloo ranks (a pinned dp 2 plan at ZeRO 1, and a pinned two-stage hetero
-plan), ``--ledger``, and the flags of later ROADMAP items, which exit 2
-naming their item."""
+plan), ``--ledger``, ``--replan-on-resume`` (the reference's elastic
+resume onto fewer devices, and its refusal across route families), and
+the flags of later ROADMAP items, which exit 2 naming their item."""
 import json
 
 import pytest
@@ -112,7 +113,7 @@ def test_train_ledger_records_prediction_and_steps(fixture_dir, tmp_path):
                          ids=[f for f, _, _ in LATER_TRAIN_FLAGS])
 def test_later_flags_exit_2_naming_their_item(fixture_dir, tmp_path, capsys,
                                               flag, dest, item):
-    value = [] if flag in ("--replan-on-resume", "--resilient") else ["1"]
+    value = [] if flag == "--resilient" else ["1"]
     rc = main([*_base(fixture_dir, tmp_path / "ckpt", tmp_path / "o.json"),
                flag, *value])
     assert rc == 2
@@ -165,3 +166,60 @@ def test_gloo_ranks_resume_bit_for_bit(fixture_dir, tmp_path, name):
     assert {k[:9] for k in got.digests} == {"rank00000", "rank00001"}
     if name == "hetero_two_stage":
         assert (got.mesh_axes, got.mesh_shape) == (("stage",), (2,))
+
+
+def _pinned(tmp_path, name, art):
+    ckpt = tmp_path / name
+    ckpt.mkdir()
+    (ckpt / "plan.json").write_text(art.to_json())
+    return ckpt
+
+
+def test_train_replan_on_resume_elastic(fixture_dir, tmp_path, capsys):
+    """Elastic recovery through the CLI, as the reference's
+    ``test_train_replan_on_resume_elastic``: train a pinned dp 2 plan at
+    ZeRO 1 on two gloo ranks, then resume with ``--replan-on-resume`` on
+    the fixture's one-card cluster — a fresh search picks one device and
+    the state is restored onto it through the checkpoint's slice maps.
+    The resumed run starts at the saved step, continues the data stream
+    (its losses are the dp 2 run's own continuation's, within the
+    trajectory tolerance) and pins its new plan."""
+    from metis_tpu_torch.execution.checkpoint import load_plan
+
+    art = PINNED["dp2_zero1"]
+    ckpt, straight = _pinned(tmp_path, "ckpt", art), _pinned(tmp_path, "straight", art)
+    out = tmp_path / "out.json"
+    ranks = ["--devices", "cpu,cpu"]
+    assert main([*_base(fixture_dir, ckpt, out), *ranks, "--steps", "2"]) == 0
+    assert main([*_base(fixture_dir, ckpt, out), "--steps", "2",
+                 "--replan-on-resume"]) == 0
+    resumed = _summary(out)
+    err = capsys.readouterr().err
+    assert "--replan-on-resume: ignoring the pinned plan" in err
+    assert "resumed from" in err and "at step 2" in err
+    assert resumed["executable"] == "single_device"
+    assert resumed["plan_cost_ms"] > 0  # searched, not pinned
+    assert load_meta(ckpt).step == 4
+    assert load_plan(ckpt).num_devices == 1
+    assert main([*_base(fixture_dir, straight, out), *ranks, "--steps", "4"]) == 0
+    want = _summary(out)
+    assert resumed["final_loss"] == pytest.approx(want["final_loss"], rel=1e-4,
+                                                  abs=2e-5)
+
+
+def test_train_replan_on_resume_refuses_another_route(fixture_dir, tmp_path,
+                                                     capsys):
+    """A two-stage hetero checkpoint does not restore onto the one-device
+    plan the search picks (per-stage state against one tree): the
+    reference's message, exit 1, the checkpoint left as it was."""
+    ckpt = _pinned(tmp_path, "ckpt", PINNED["hetero_two_stage"])
+    out = tmp_path / "out.json"
+    assert main([*_base(fixture_dir, ckpt, out), "--devices", "cpu,cpu",
+                 "--steps", "1"]) == 0
+    before = load_meta(ckpt)
+    capsys.readouterr()
+    assert main([*_base(fixture_dir, ckpt, out), "--steps", "1",
+                 "--replan-on-resume"]) == 1
+    assert "state structure does not fit the re-planned single_device" in \
+        capsys.readouterr().err
+    assert load_meta(ckpt) == before

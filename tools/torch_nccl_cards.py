@@ -21,6 +21,17 @@ plans on gloo ranks sharing one card).  With two or more:
 5. ``profile --tps 1,2,4`` (``1,2`` with two cards) of the 2-block GPT at
    bs 4: the tp > 1 profiles, each layer's ms.
 
+    python3 tools/torch_nccl_cards.py --reshard
+
+runs instead, on four cards, the bandwidth of 1. and a live reshard over
+NCCL (``execution/reshard.py``, ``testing.live_reshard_rank``): the GPT at
+the 1.5B preset's widths, 1 block, gbs 4, 2 steps at dp 4 + ZeRO 1,
+resharded onto dp 2 x tp 2 and a step taken, bit-equal (loss and every
+rank's state) to the same step after a checkpoint restore onto dp 2 x
+tp 2;
+its ``stall_ms`` beside ``price_migration_ms`` at the all-reduce bus
+bandwidth just measured, and the checkpoint's save and restore ms.
+
 The last line is one JSON object with every reading.
 """
 from __future__ import annotations
@@ -139,6 +150,55 @@ def report(label: str, got: dict, ref: dict) -> dict:
     return {**got, "gap_to_one_device": gap, "warm_step_ms": warm}
 
 
+def reshard_leg(cards: list[str], bus_gb_s: float) -> dict:
+    """dp 4 -> dp 2 x tp 2 live over NCCL against a checkpoint restore
+    (module doc)."""
+    import chip_smoke
+    from metis_tpu_torch.core.config import ModelSpec
+    from metis_tpu_torch.cost.volume import TransformerVolume
+    from metis_tpu_torch.execution import dist as mdist
+    from metis_tpu_torch.execution import reshard
+    from metis_tpu_torch.execution.mesh import PlanArtifact
+    from metis_tpu_torch.models import config_for_model_spec, family_ops
+    from metis_tpu_torch.testing import live_reshard_rank
+
+    # 1 block at ZeRO 1 keeps the four ranks' checkpoint near 15 GB
+    spec = dict(chip_smoke.GPT_15B, num_layers=3)
+    cfg = config_for_model_spec(ModelSpec(**spec))
+    plans = [PlanArtifact.from_json(plan(dp=4, zero=1, blocks=1)),
+             PlanArtifact.from_json(plan(dp=2, tp=2, blocks=1))]
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = mdist.spawn(live_reshard_rank, 4, "nccl", cards[:4], cfg,
+                            batches_for(cfg, GBS), [p.to_json() for p in plans], tmp)
+    leg = ranks[0]["legs"][0]
+    rep = leg["report"]
+    full = family_ops(cfg).init_params(None, cfg, device="meta")
+    nbytes = {g: sum(t.numel() * t.element_size() for t in sub.values())
+              for g, sub in full.items()}
+    volume = TransformerVolume(ModelSpec(**spec), tuple(
+        [nbytes["embed"]] + [nbytes["blocks"] // cfg.num_blocks] * cfg.num_blocks
+        + [nbytes["head"]]))
+    layouts = [reshard.stage_layout(p, cfg.num_profile_layers) for p in plans]
+    price = reshard.price_migration_ms(*layouts, volume, bus_gb_s)
+    equal = (leg["losses"][0] == leg["losses"][1]
+             and all(r["legs"][0]["digests"][0] == r["legs"][0]["digests"][1]
+                     for r in ranks))
+    print(f"reshard dp 4 + ZeRO 1 -> dp 2 x tp 2 over NCCL, 1 block: {rep}; priced "
+          f"{price:.3f} ms at {bus_gb_s:.1f} GB/s; checkpoint save "
+          f"{max(r['legs'][0]['save_ms'] for r in ranks):.1f} + restore "
+          f"{max(r['legs'][0]['restore_ms'] for r in ranks):.1f} ms; the step after "
+          f"it {leg['losses'][0]!r}, after the restore {leg['losses'][1]!r}: "
+          f"{'bit-equal' if equal else 'DIFFER'}; launches per rank "
+          f"{[r['legs'][0]['launches'] for r in ranks]}", flush=True)
+    if not rep.verified or not equal:
+        raise SystemExit("the live reshard's step is not the restored one's")
+    return {"report": rep.__dict__, "price_migration_ms": price, "bus_gb_s": bus_gb_s,
+            "save_ms": [r["legs"][0]["save_ms"] for r in ranks],
+            "restore_ms": [r["legs"][0]["restore_ms"] for r in ranks],
+            "losses": leg["losses"], "bit_equal": equal,
+            "launches": [r["legs"][0]["launches"] for r in ranks]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("torch_nccl_cards: CUDA is not available", file=sys.stderr)
@@ -164,6 +224,10 @@ def main() -> int:
     fa.kernel_library()
     cards = [f"cuda:{i}" for i in range(count)]
     worlds = [2, 4] if count >= 4 else [2]
+    if "--reshard" in sys.argv[1:]:
+        if count < 4:
+            raise SystemExit("--reshard needs four cards")
+        worlds = [4]
 
     t0 = time.perf_counter()
     out["bandwidth"] = {}
@@ -172,6 +236,12 @@ def main() -> int:
         out["bandwidth"][world] = ranks[0]
         print(f"NCCL over {world} cards, 256 MiB fp32: {ranks[0]}", flush=True)
     print(f"  bandwidth {time.perf_counter() - t0:.1f} s", flush=True)
+    if "--reshard" in sys.argv[1:]:
+        t0 = time.perf_counter()
+        out["reshard"] = reshard_leg(cards, out["bandwidth"][4]["all_reduce"]["busbw_gb_s"])
+        print(f"  reshard {time.perf_counter() - t0:.1f} s", flush=True)
+        print(json.dumps(out, default=str))
+        return 0
 
     t0 = time.perf_counter()
     cfg = config_for_model_spec(ModelSpec(**dict(chip_smoke.GPT_15B, num_layers=4)))
