@@ -32,7 +32,7 @@ Phases, in order (any failure exits non-zero):
    ``PlanArtifact.from_ranked_plan`` with the kernel launch counts read
    around every step, and ``plan_hetero`` on 2 nodes x 8 H100 from the same
    profile (host search time, candidate counts, top three);
-6. dist: dp x tp plans through ``execution.dist.spawn`` and
+6. dist: dp x tp plans through ``execution.dist`` (a rank pool) and
    ``build_executable``'s ``gspmd`` route, each rank reading its own kernel
    launch counts around every step: (a) NCCL at world size 1 at
    ``SHALLOW_BLOCKS`` (1) block of full width, 3 steps, equal to one
@@ -45,13 +45,13 @@ Phases, in order (any failure exits non-zero):
    skips tp 2 with a ``profile_skipped`` event and writes no tp 2 profile.
    The ranks of (c) share one card, so their step times are no dp/tp
    speed;
-7. pipeline: multi-stage plans through ``execution.dist.spawn``, each rank
+7. pipeline: multi-stage plans through ``execution.dist`` (a rank pool), each rank
    reading its own kernel launch counts around every step: (a) the
    one-stage hetero executor at 4 microbatches of 1 row, in this process,
    within 0.05 of the slice's full-batch trajectory; the time per step of
    the one-device step and of that executor at M 1 and M 4, one after
    another (``executor_step_ms``); then on two gloo ranks
-   sharing the card, in one launch, full width and depth, 3 steps each
+   sharing the card, in one job, full width and depth, 3 steps each
    within ``PIPE_TOL`` of it: gpipe 4 + 4 blocks and 1f1b 3 + 5 on the
    ``pipeline`` route, the 3 + 5 split tagged gpipe on the ``hetero``
    route, interleaved 2 x 2 chunks; launches per rank per step as
@@ -96,7 +96,7 @@ Phases, in order (any failure exits non-zero):
    from a profile at that depth (losses within ``CP_TOL``, first-step
    gradient norms within ``GRAD_NORM_TOL``, each rank's peak);
 11. zero_sp: the GPT at ``SHALLOW_BLOCKS`` (1) block of full width, gbs 4, on two gloo ranks
-   in one launch: tp 2 and dp 2 against one device (within 0.05, 1 launch
+   in one job: tp 2 and dp 2 against one device (within 0.05, 1 launch
    of each kernel per rank per step), tp 2 with Megatron sp against tp 2,
    dp 2 at ZeRO 1, 2 and 3 against dp 2 at ZeRO 0 (losses within
    ``ZERO_SP_TOL``, gradient
@@ -104,7 +104,7 @@ Phases, in order (any failure exits non-zero):
    ZeRO relief (``cost/zero.py``);
 12. stage_axes: multi-stage plans whose stages carry ZeRO, context or
    expert parallelism on the hetero route, at ``STAGE_BLOCKS`` blocks of
-   full width on gloo ranks sharing the card (one spawn per rank count,
+   full width on gloo ranks sharing the card (one job per rank count,
    several plans each), 3 steps each against the one-stage executor at that
    depth, run first in this process and freed: (a) the GPT, 1 + 1 stages of
    dp 2, gbs 4 in one microbatch, at ZeRO 0-3 on both; (b) the 8192-token
@@ -137,18 +137,38 @@ Phases, in order (any failure exits non-zero):
    rank body on pinned plans on two gloo ranks at ``TRAIN_C_WIDTH``: dp 2
    at ZeRO 1 and a two-stage hetero plan, 2 + 2 resumed steps bit-equal
    to 4 straight.
-14. reshard (``reshard_phase``): (a) at the train phase's widths and
-   depth, ``train`` on a pinned dp 2 + ZeRO 1 plan on two gloo ranks for 3
-   steps with a checkpoint, then ``train --replan-on-resume --device
-   cuda`` on the one-card cluster: resharded onto one device at step 3,
-   its one-device digests equal to the checkpoint's, its 2 steps within
-   ``TRAJ_TOL`` of the dp 2 plan continued from the same checkpoint; the
-   save, the cross-mesh restore and the GB it reads; (b) at
-   ``TRAIN_C_WIDTH`` on two gloo ranks, ``execute_reshard`` dp 2 + ZeRO 1
-   -> tp 2 -> one device (rank 1 only sends), each verified and its next
-   step bit-equal to the step after a checkpoint restore onto the same
-   plan, ``stall_ms`` beside ``price_migration_ms`` at 100 GB/s ((b) runs
-   beside (a)'s first run).
+14. reshard (``reshard_phase``): at ``TRAIN_C_WIDTH`` on two gloo ranks,
+   ``execute_reshard`` dp 2 + ZeRO 1 -> tp 2 -> one device (rank 1 only
+   sends), each verified and its next step bit-equal to the step after a
+   checkpoint restore onto the same plan, ``stall_ms`` beside
+   ``price_migration_ms`` at 100 GB/s;
+15. chaos (``chaos_phase``): the fault-tolerant supervisor through the
+   port's CLI, each run in a process of its own.  First (a) at the train
+   phase's widths and depth, ``chaos --fault-script
+   checkpoint_write@2x2,device_loss@4`` on two gloo ranks sharing the card,
+   a cluster of two one-card nodes, the dp 2 + ZeRO 1 plan pinned: two
+   retried checkpoint writes, the device loss absorbed by a live reshard
+   onto the searched one-card plan at step 4, with ``recover_s``,
+   ``stall_ms`` beside ``price_migration_ms`` and the save ms.  Then,
+   beside one another: the restore onto another plan of (a)'s step-4
+   checkpoint (``replan_leg``): ``train --replan-on-resume --device cuda``
+   on the one-card cluster, resharded onto one device at step 4, its
+   one-device digests equal to the checkpoint's, its 2 steps within
+   ``TRAJ_TOL`` of the dp 2 plan continued from the same checkpoint and
+   bit-equal to (a)'s steps 5-6, the cross-mesh restore's ms and the GB
+   it reads; at ``TRAIN_C_WIDTH``, (b) ``device_loss@4,
+   reshard_verify@4,loss_nan@5``: the migration falls back to the restore,
+   the NaN rolls back to step 4, the final loss equal to the run without
+   ``loss_nan``; and (c) ``train --resilient`` on one device sent a real
+   SIGTERM after its second step: drained with a checkpoint of its step,
+   then resumed to the end bit-equal to an uninterrupted run.  Every
+   supervised step launches each kernel once (``kernel_launches`` of the
+   ``train_step`` events).
+
+Ranks run in pools (``execution.dist.RankPool``, ``on_ranks``): one per
+world size and backend, all started at the dist phase (their ranks boot
+while its first legs run) and each stopped after the last phase that uses
+it; the ``timing`` line counts the launches and each phase's seconds.
 
 The kernel phase also holds and times the pipeline's microbatch shape (b 1,
 ``MICRO``), the LLaMA grid (``LLAMA``; SDPA with ``enable_gqa``) and the
@@ -166,6 +186,7 @@ import json
 import math
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -312,6 +333,39 @@ REPLACES = {
     "fa_bwd_dq": "metis_tpu/ops/flash_attention.py:137",
     "fa_bwd_dkv": "metis_tpu/ops/flash_attention.py:186",
 }
+
+
+#: the script's rank pools (``on_ranks``), one per (world, backend), all
+#: started at the dist phase and each closed after the last phase that
+#: runs one
+POOLS: dict = {}
+POOL_LAST_PHASE = {(1, "nccl"): "dist", (3, "gloo"): "stage_axes",
+                   (4, "gloo"): "stage_axes", (2, "gloo"): "chaos"}
+
+
+def start_pools() -> None:
+    """Start every pool of ``POOL_LAST_PHASE`` (``execution.dist.RankPool``:
+    its ranks boot in the background, the first job waits for them)."""
+    from metis_tpu_torch.execution import dist as mdist
+
+    for world, backend in POOL_LAST_PHASE:
+        if (world, backend) not in POOLS:
+            POOLS[world, backend] = mdist.RankPool(world, backend, ["cuda:0"] * world)
+    log(f"  rank pools started: {sorted(POOLS)}")
+
+
+def on_ranks(fn, world: int, backend: str, *args) -> list:
+    """``fn(rank, device, *args)`` on ``world`` ranks sharing ``cuda:0``
+    (``execution.dist.RankPool``: what ``dist.spawn`` gives, without a
+    launch per job); the results in rank order."""
+    return POOLS[world, backend].run(fn, *args)
+
+
+def close_pools(phase: str | None = None) -> None:
+    """Stop the pools whose last phase is ``phase`` (None: every pool)."""
+    for key, pool in POOLS.items():
+        if phase is None or POOL_LAST_PHASE.get(key) == phase:
+            pool.close()
 
 
 def log(msg: str) -> None:
@@ -1147,7 +1201,6 @@ def dist_phase(work: pathlib.Path, sliced: dict) -> dict:
     from metis_tpu_torch import cli
     from metis_tpu_torch.core.config import ModelSpec
     from metis_tpu_torch.core.types import UniformPlan
-    from metis_tpu_torch.execution import dist as mdist
     from metis_tpu_torch.execution.builder import build_executable
     from metis_tpu_torch.execution.mesh import PlanArtifact
     from metis_tpu_torch.models import config_for_model_spec
@@ -1160,7 +1213,6 @@ def dist_phase(work: pathlib.Path, sliced: dict) -> dict:
     tokens = sliced["tokens"]
     batch = (tokens, tokens.roll(-1, 1))
     gbs = tokens.shape[0]
-    card = ["cuda:0"]
 
     def artifact(dp, tp):
         return PlanArtifact.from_uniform_plan(UniformPlan(dp, 1, tp, gbs // dp, gbs)).to_json()
@@ -1182,14 +1234,14 @@ def dist_phase(work: pathlib.Path, sliced: dict) -> dict:
     log(f"  reference, {SHALLOW_BLOCKS} block(s) on one device: losses "
         f"{[round(x, 5) for x in ref]}")
     t0 = time.perf_counter()
-    ranks = mdist.spawn(run_plan_rank, 1, "nccl", card, artifact(1, 1), shallow, SEED,
+    ranks = on_ranks(run_plan_rank, 1, "nccl", artifact(1, 1), shallow, SEED,
                         [batch] * 3)
     out["a_nccl_world1"] = dist_legs_check(
         f"(a) NCCL world 1, {SHALLOW_BLOCKS} block(s)", ranks, ref, WORLD1_TOL,
         shallow.num_blocks)
     log(f"  (a) {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    ranks = mdist.spawn(run_plan_rank, 4, "gloo", card * 4, artifact(2, 2), shallow,
+    ranks = on_ranks(run_plan_rank, 4, "gloo", artifact(2, 2), shallow,
                         SEED, [batch] * 3)
     out["c_dp2_tp2"] = dist_legs_check(
         f"(c) dp 2 x tp 2 on gloo ranks, {SHALLOW_BLOCKS} block(s)", ranks, ref,
@@ -1399,7 +1451,6 @@ def pipeline_phase(work: pathlib.Path, sliced: dict, planned: dict) -> tuple[dic
     from metis_tpu_torch.core.types import UniformPlan
     from metis_tpu_torch.cost.estimator import EstimatorOptions, UniformCostEstimator
     from metis_tpu_torch.cost.volume import TransformerVolume
-    from metis_tpu_torch.execution import dist as mdist
     from metis_tpu_torch.execution.hetero import StageSpec, make_hetero_train_step
     from metis_tpu_torch.execution.pipeline import microbatch_split
     from metis_tpu_torch.models import config_for_model_spec
@@ -1455,7 +1506,7 @@ def pipeline_phase(work: pathlib.Path, sliced: dict, planned: dict) -> tuple[dic
     t0 = time.perf_counter()
     jobs = [dict(artifact_json=art, cfg=cfg, init=SEED, batches=[batch] * 3)
             for _, art, _, _ in legs]
-    ranks = mdist.spawn(run_plans_rank, 2, "gloo", ["cuda:0"] * 2, jobs)
+    ranks = on_ranks(run_plans_rank, 2, "gloo", jobs)
     log(f"  (a) two gloo ranks, four plans: {time.perf_counter() - t0:.1f} s")
     pipe_launches = {name: {} for name in want}
     for i, (label, _, kind, launches) in enumerate(legs):
@@ -1483,7 +1534,7 @@ def pipeline_phase(work: pathlib.Path, sliced: dict, planned: dict) -> tuple[dic
     ref2, *_ = one_stage(shallow, [batch] * 3, 1)
     stages = (StageSpec((0, 1), True, False, dp=2, tp=1, replica_rows=(3, 1)),
               StageSpec((1, 2), False, True, dp=1, tp=2))
-    ranks = mdist.spawn(run_plans_rank, 4, "gloo", ["cuda:0"] * 4, [dict(
+    ranks = on_ranks(run_plans_rank, 4, "gloo", [dict(
         artifact_json=None, stages=stages, microbatches=1, cfg=shallow, init=SEED,
         batches=[batch] * 3)])
     out["b_hetero_rows_tp"] = pipeline_legs_check(
@@ -1569,7 +1620,7 @@ def one_card_plans(work: pathlib.Path, sliced: dict, spec: dict,
 
 
 def launch_sums(ranks: list[dict]) -> dict:
-    """Each kernel's launches over a spawn's steps, per rank."""
+    """Each kernel's launches over a job's steps, per rank."""
     return {name: [sum(step[name] for step in r["launches"]) for r in ranks]
             for name in ranks[0]["launches"][0]}
 
@@ -1582,7 +1633,6 @@ def llama_phase(work: pathlib.Path) -> tuple[dict, dict]:
     and a two-stage hetero plan of ``LLAMA_STAGE_BLOCKS`` blocks (1 + 1, 2
     microbatches) against the one-stage executor at that depth."""
     from metis_tpu_torch.core.types import UniformPlan
-    from metis_tpu_torch.execution import dist as mdist
     from metis_tpu_torch.execution.hetero import StageSpec
     from metis_tpu_torch.execution.mesh import PlanArtifact
     from metis_tpu_torch.models import config_for_model_spec
@@ -1617,7 +1667,7 @@ def llama_phase(work: pathlib.Path) -> tuple[dict, dict]:
                      [(t.cuda(), g.cuda()) for t, g in sliced["batches"][:3]],
                      SEED)["losses"]
     art = PlanArtifact.from_uniform_plan(UniformPlan(1, 1, 2, 4, 4)).to_json()
-    ranks = mdist.spawn(run_plan_rank, 2, "gloo", ["cuda:0"] * 2, art, shallow, SEED,
+    ranks = on_ranks(run_plan_rank, 2, "gloo", art, shallow, SEED,
                         sliced["batches"][:3])
     out["tp2"] = dist_legs_check(
         f"LLaMA tp 2 on two gloo ranks, {SHALLOW_BLOCKS} block(s)", ranks, want,
@@ -1640,7 +1690,7 @@ def llama_phase(work: pathlib.Path) -> tuple[dict, dict]:
         raise SystemExit(f"LLaMA one-stage launches {counts}")
     stages = (StageSpec((0, half), True, False, dp=1, tp=1),
               StageSpec((half, 2 * half), False, True, dp=1, tp=1))
-    ranks = [r[0] for r in mdist.spawn(run_plans_rank, 2, "gloo", ["cuda:0"] * 2, [dict(
+    ranks = [r[0] for r in on_ranks(run_plans_rank, 2, "gloo", [dict(
         artifact_json=None, stages=stages, microbatches=M, cfg=staged, init=SEED,
         batches=batches, first_grads="norms")])]
     label = f"LLaMA hetero {half} + {half}"
@@ -1669,7 +1719,6 @@ def moe_phase(work: pathlib.Path) -> tuple[dict, dict]:
 
     from metis_tpu_torch.core.config import ModelSpec
     from metis_tpu_torch.core.types import UniformPlan
-    from metis_tpu_torch.execution import dist as mdist
     from metis_tpu_torch.execution.builder import build_executable
     from metis_tpu_torch.execution.mesh import ONE_DEVICE, PlanArtifact, expert_leaves
     from metis_tpu_torch.execution.train import param_specs_for
@@ -1729,8 +1778,8 @@ def moe_phase(work: pathlib.Path) -> tuple[dict, dict]:
         layer_partition=(0, cfg.num_profile_layers),
         strategies=({"dp": 2, "tp": 1, "cp": 1, "ep": 2, "zero": 0, "sp": False},),
         gbs=gbs, microbatches=1).to_json()
-    ranks = [r[0] for r in mdist.spawn(
-        run_plans_rank, 2, "gloo", ["cuda:0"] * 2, [dict(
+    ranks = [r[0] for r in on_ranks(
+        run_plans_rank, 2, "gloo", [dict(
             artifact_json=art, cfg=cfg, init=SEED, batches=batches,
             routing_tokens=batches[0][0], first_grads="norms")])]
     out["ep2"] = dist_legs_check(
@@ -1789,7 +1838,7 @@ def combined_norms(ranks: list[dict], split) -> dict:
 def context_phase(work: pathlib.Path) -> tuple[dict, dict]:
     """The long-context LLaMA (``LLAMA_LONG``, 8192 tokens, gbs 1): (a) one
     device at full depth, 3 steps; at ``CONTEXT_BLOCKS`` blocks on two gloo
-    ranks sharing the card, in one launch, each against one device at that
+    ranks sharing the card, in one job, each against one device at that
     depth on the same fresh batches: (b) cp 2 ring, (c) cp 2 Ulysses, (d)
     the best-ranked cp 2 plan of the hetero search on a 1 x 2 H100 cluster
     (``--enable-cp --max-cp 2 --enable-zero --enable-sp``) from a profile at
@@ -1800,7 +1849,6 @@ def context_phase(work: pathlib.Path) -> tuple[dict, dict]:
     from metis_tpu_torch.cluster.spec import ClusterSpec
     from metis_tpu_torch.core.config import ModelSpec, SearchConfig
     from metis_tpu_torch.core.types import UniformPlan
-    from metis_tpu_torch.execution import dist as mdist
     from metis_tpu_torch.execution.mesh import PlanArtifact
     from metis_tpu_torch.models import config_for_model_spec
     from metis_tpu_torch.planner.api import plan_hetero
@@ -1899,7 +1947,7 @@ def context_phase(work: pathlib.Path) -> tuple[dict, dict]:
 
     legs = (("b_ring", cp_plan("ring")), ("c_a2a", cp_plan("a2a")),
             ("d_planned", planned.to_json()))
-    ranks = mdist.spawn(run_plans_rank, 2, "gloo", ["cuda:0"] * 2, [dict(
+    ranks = on_ranks(run_plans_rank, 2, "gloo", [dict(
         artifact_json=art, cfg=shallow, init=SEED, batches=batches,
         first_grads="norms") for _, art in legs])
     for i, (name, _) in enumerate(legs):
@@ -1925,7 +1973,7 @@ def context_phase(work: pathlib.Path) -> tuple[dict, dict]:
 
 def zero_sp_phase(work: pathlib.Path, sliced: dict) -> tuple[dict, dict]:
     """The GPT at ``SHALLOW_BLOCKS`` of full width (the dist phase's legs (c)), gbs 4,
-    3 fresh batches, on two gloo ranks sharing the card, in one launch: tp 2
+    3 fresh batches, on two gloo ranks sharing the card, in one job: tp 2
     and dp 2 against one device on the same batches, tp 2 with sp against
     tp 2 without it, and dp 2 at ZeRO 1, 2 and 3 against dp 2 at ZeRO 0.
     Loss gaps, first-step gradient norms (each leg's against
@@ -1935,7 +1983,6 @@ def zero_sp_phase(work: pathlib.Path, sliced: dict) -> tuple[dict, dict]:
     the measured one."""
     from metis_tpu_torch.core.config import ModelSpec
     from metis_tpu_torch.cost.zero import zero_static_reduction_mb
-    from metis_tpu_torch.execution import dist as mdist
     from metis_tpu_torch.execution.builder import build_executable
     from metis_tpu_torch.execution.mesh import PlanArtifact
     from metis_tpu_torch.execution.train import param_specs_for
@@ -1966,7 +2013,7 @@ def zero_sp_phase(work: pathlib.Path, sliced: dict) -> tuple[dict, dict]:
     gc.collect()
     torch.cuda.empty_cache()
     log(f"  one device, {SHALLOW_BLOCKS} block(s): losses {[round(x, 5) for x in one]}")
-    ranks = mdist.spawn(run_plans_rank, 2, "gloo", ["cuda:0"] * 2, [dict(
+    ranks = on_ranks(run_plans_rank, 2, "gloo", [dict(
         artifact_json=art, cfg=cfg, init=SEED, batches=batches,
         first_grads="norms") for art in legs.values()])
     runs = {name: [r[i] for r in ranks] for i, name in enumerate(legs)}
@@ -2139,7 +2186,6 @@ def stage_axes_phase(work: pathlib.Path, results: dict) -> tuple[dict, dict]:
     from metis_tpu_torch.cluster.spec import ClusterSpec
     from metis_tpu_torch.core.config import ModelSpec, SearchConfig
     from metis_tpu_torch.core.types import Strategy
-    from metis_tpu_torch.execution import dist as mdist
     from metis_tpu_torch.execution.hetero import StageSpec, stage_specs_from_plan
     from metis_tpu_torch.execution.mesh import ONE_DEVICE, PlanArtifact
     from metis_tpu_torch.execution.train import param_specs_for
@@ -2267,7 +2313,7 @@ def stage_axes_phase(work: pathlib.Path, results: dict) -> tuple[dict, dict]:
             return stage_launches(1, head, M, r["slots"]["sp"][0] if ring else None)
         return expect
 
-    # (label, ranks, job, family, launches of a rank's result), one spawn
+    # (label, ranks, job, family, launches of a rank's result), one job
     # per rank count in this order, the MoE's first (in fresh processes)
     legs = [
         ("c_moe_ep2_rows31", 3, dict(stages(
@@ -2293,7 +2339,7 @@ def stage_axes_phase(work: pathlib.Path, results: dict) -> tuple[dict, dict]:
         log(f"  {world} gloo ranks, {[leg[0] for leg in mine]}; card memory in use "
             f"{card_memory_used()}, this process reserving "
             f"{torch.cuda.memory_reserved() / 1e9:.2f} GB")
-        ranks = mdist.spawn(run_plans_rank, world, "gloo", ["cuda:0"] * world, [
+        ranks = on_ranks(run_plans_rank, world, "gloo", [
             dict(job, cfg=cfgs[fam], init=SEED, batches=data[fam],
                  first_grads="norms") for _, _, job, fam, _ in mine])
         log(f"  {world} gloo ranks, {len(mine)} plans: {time.perf_counter() - t0:.1f} s")
@@ -2362,7 +2408,7 @@ def stage_axes_phase(work: pathlib.Path, results: dict) -> tuple[dict, dict]:
     (report,) = validate_hetero_choice(
         [chosen], ModelSpec(**llama_spec), device="cuda",
         devices=["cuda:0"] * world_d, cluster=cluster, profiles=store, top_k=1,
-        steps=1, warmup=0, backend="gloo")
+        steps=1, warmup=0, backend="gloo", pool=POOLS.get((world_d, "gloo")))
     out["d_planned"].update(
         measured_ms=report.measured_ms, predicted_ms=report.predicted_ms,
         error_pct=report.error_pct, stage_memory_mb=report.stage_memory_mb,
@@ -2461,7 +2507,7 @@ def train_phase(work: pathlib.Path, results: dict) -> tuple[dict, dict]:
     norms within ``GRAD_NORM_TOL``), with the first-block routing
     decisions that differ from the one device's and the router ties.
     (c) ``train``'s rank body on plans pinned in the checkpoint
-    directories, two gloo ranks sharing the card (one launch for the six
+    directories, two gloo ranks sharing the card (one job for the six
     runs, ``train_leg_c``, beside (b)'s), 1 block at ``TRAIN_C_WIDTH``: dp
     2 at ZeRO 1 (gspmd) and a two-stage hetero plan, 2 steps with a
     checkpoint, 2 resumed, 4 straight, gated as (a)."""
@@ -2469,7 +2515,7 @@ def train_phase(work: pathlib.Path, results: dict) -> tuple[dict, dict]:
 
     out, launches = {}, {}
     base = train_files(work, results["planner"]["mem_coef"])
-    out["base"] = base  # the reshard phase plans on the same files
+    out["base"] = base  # the chaos phase plans on the same files
     out["a_gpt"], launches["train_a"] = train_leg_a(work, base)
     # (c)'s launch runs beside (b)'s: both are gloo ranks sharing the card,
     # whose times are no speed (and the host's gloo, not the card, bounds
@@ -2571,7 +2617,6 @@ def train_leg_b() -> tuple[dict, dict]:
     routing groups; its readings and its launches per rank."""
     from metis_tpu_torch.core.config import ModelSpec
     from metis_tpu_torch.core.types import UniformPlan
-    from metis_tpu_torch.execution import dist as mdist
     from metis_tpu_torch.execution.builder import build_executable
     from metis_tpu_torch.execution.mesh import PlanArtifact
     from metis_tpu_torch.execution.train import param_specs_for
@@ -2612,7 +2657,7 @@ def train_leg_b() -> tuple[dict, dict]:
 
     legs = (("tp2_sp", moe_plan(tp=2, sp=True)), ("dp2", moe_plan(dp=2)),
             ("cp2_ring", moe_plan(cp=2)), ("cp2_a2a", moe_plan(cp=2, mode="a2a")))
-    ranks = mdist.spawn(run_plans_rank, 2, "gloo", ["cuda:0"] * 2, [dict(
+    ranks = on_ranks(run_plans_rank, 2, "gloo", [dict(
         artifact_json=art, cfg=mcfg, init=SEED, batches=batches,
         routing_tokens=batches[0][0], first_grads="norms") for _, art in legs])
     specs = param_specs_for(mcfg, 2)
@@ -2642,13 +2687,11 @@ def train_leg_c(work: pathlib.Path, base: list[str]) -> tuple[dict, dict]:
     """Leg (c) of the train phase (``train_phase``): multi-rank resume on
     plans pinned in the checkpoint directories.  Five of the six runs are
     the ``train`` subcommand's jobs (``cli.train_job``) run by its rank body
-    in one launch of two gloo ranks (``testing.train_ranks``): a launch
-    costs ~10 s of the phase.  The dp 2 plan's resumed run is ``python -m
+    in one job of the two-rank pool (``testing.train_ranks``).  The dp 2 plan's resumed run is ``python -m
     metis_tpu_torch train --devices cuda:0,cuda:0 --dist-backend gloo``, the
     launcher a user calls, after that launch.  Its readings, and rank 0's
     launches (its events)."""
     from metis_tpu_torch import cli
-    from metis_tpu_torch.execution import dist as mdist
     from metis_tpu_torch.execution.mesh import PlanArtifact
     from metis_tpu_torch.testing import train_ranks
 
@@ -2681,7 +2724,7 @@ def train_leg_c(work: pathlib.Path, base: list[str]) -> tuple[dict, dict]:
                 *base, *TRAIN_C_WIDTH, "--steps", str(steps),
                 "--checkpoint-dir", str(work / f"{name}_{run}"),
                 "--events", str(work / f"{name}_{label}.events.jsonl")]))
-    results = [r for r in mdist.spawn(train_ranks, 2, "gloo", ["cuda:0"] * 2, jobs)]
+    results = [r for r in on_ranks(train_ranks, 2, "gloo", jobs)]
     if any(run["rc"] != 0 for rank in results for run in rank):
         raise SystemExit(f"(c) a train run failed: {[r['rc'] for r in results[0]]}")
     summaries = {key: run["summary"] for key, run in zip(keys, results[0])}
@@ -2743,44 +2786,40 @@ def hardlink_copy(src: pathlib.Path, dst: pathlib.Path) -> None:
 
 
 def reshard_phase(work: pathlib.Path, results: dict) -> tuple[dict, dict]:
-    """``reshard``: (a) the train phase's GPT (the 1.5B widths at
-    ``TRAIN_BLOCKS`` block): ``python -m metis_tpu_torch train --devices
-    cuda:0,cuda:0 --dist-backend gloo`` on a pinned dp 2 + ZeRO 1 plan for
-    3 steps with a checkpoint, then ``train --replan-on-resume --device
-    cuda`` on the one-card cluster for 2 more: the restore resharded onto
-    one device at step 3 (the data stream from batch 3, steps 4 and 5);
-    its state's one-device digests equal to the checkpoint's assembled
-    ones (the same restore in this process); its losses within
-    ``TRAJ_TOL`` of the dp 2 plan continued from the same checkpoint on
-    the same batches of the data stream (on two gloo ranks, beside that
-    restore); the save (beside leg (b)), the cross-mesh restore and its GB
-    read.  (b) At
-    ``TRAIN_C_WIDTH``, one launch of two gloo ranks
+    """``reshard``: at ``TRAIN_C_WIDTH``, one job of two gloo ranks
     (``testing.live_reshard_rank``): dp 2 + ZeRO 1, 2 steps, resharded
     live onto tp 2 and a step taken, then tp 2 onto one device (rank 1
     only sends) and a step: each verified, each step bit-equal (loss and
     one-device digests) to the same step after a checkpoint restore onto
     the same plan; the ``ReshardReport`` beside ``price_migration_ms`` at
-    100 GB/s and the save + restore ms."""
+    100 GB/s and the save + restore ms.  The restore onto another plan
+    runs in the chaos phase, on chaos (a)'s step-4 checkpoint
+    (``replan_leg``)."""
     # the train phase deletes its checkpoints once compared; anything left
     # of them would crowd the machine's disk
     for path in work.glob("*ckpt*"):
         shutil.rmtree(path, ignore_errors=True)
-    return reshard_leg_a(work, results["train"]["base"],
-                         beside=lambda: reshard_leg_b(work))
+    return reshard_leg_b(work)
 
 
-def reshard_leg_a(work: pathlib.Path, base: list[str],
-                  beside=None) -> tuple[dict, dict]:
-    """Leg (a) of the reshard phase (``reshard_phase``); its readings and
-    its launches, with those of ``beside`` (a leg run beside its first
-    run)."""
+def replan_leg(work: pathlib.Path, base: list[str],
+               chaos_a: dict) -> tuple[dict, dict]:
+    """The restore onto another plan of chaos (a)'s step-4 dp 2 + ZeRO 1
+    checkpoint (``chaos_leg_a`` leaves it in three hard-linked copies, with
+    that run's losses and saves): ``train --replan-on-resume`` on the
+    one-card cluster for 2 steps, resharded onto one device at step 4
+    (the data stream from batch 4, steps 5 and 6); its state's one-device
+    digests equal to the checkpoint's assembled ones (the same restore in
+    this process); its losses within ``TRAJ_TOL`` of the dp 2 plan
+    continued from the same checkpoint on the same batches (on two gloo
+    ranks, beside that restore) and bit-equal to chaos (a)'s steps 5-6;
+    the cross-mesh restore's ms and the GB it reads.  Its readings and
+    its launches."""
     from concurrent.futures import ThreadPoolExecutor
 
     from metis_tpu_torch.core.config import ModelSpec
     from metis_tpu_torch.data.pipeline import make_input_pipeline, synthetic_run_dataset
     from metis_tpu_torch.execution import checkpoint as ckpt
-    from metis_tpu_torch.execution import dist as mdist
     from metis_tpu_torch.execution import reshard
     from metis_tpu_torch.execution.builder import build_executable
     from metis_tpu_torch.models import config_for_model_spec
@@ -2788,88 +2827,75 @@ def reshard_leg_a(work: pathlib.Path, base: list[str],
 
     out, launches = {}, {}
     t0 = time.perf_counter()
-    # the checkpoint at step 3, for the replanned run, for dp 2's own
-    # continuation and for the digests (each run saves into its own)
-    a, cont, at3 = work / "reshard_a", work / "reshard_a_dp2", work / "reshard_a_step3"
-    a.mkdir()
-    (a / "plan.json").write_text(pinned_plan(dp=2, zero=1).to_json())
-    on_two = ["--devices", "cuda:0,cuda:0", "--dist-backend", "gloo"]
-    # the first run (its save not alone on the card) beside ``beside``
-    with ThreadPoolExecutor(1) as pool:
-        b_run = pool.submit(beside) if beside is not None else None
-        _, ev1 = train_cli([*base, "--steps", "3", "--checkpoint-dir", str(a), *on_two],
-                           "reshard_a_dp2_first3", work, True)
-        more = b_run.result() if b_run is not None else ({}, {})
-    gb = dir_gb(a)
-    hardlink_copy(a, cont)
-    hardlink_copy(a, at3)
-    summary, ev2 = train_cli([*base, "--steps", "2", "--checkpoint-dir", str(a),
-                              "--replan-on-resume"], "reshard_a_replan2", work, False)
-    restore = [e for e in ev2 if e["event"] == "checkpoint_restore"]
-    steps = sorted(step_losses(ev2))
-    if (summary["executable"] != "single_device" or len(restore) != 1
-            or restore[0]["step"] != 3 or not restore[0]["resharded"]
-            or steps != [4, 5]):
-        raise SystemExit(f"(a) the replanned run: {summary['executable']}, restore "
-                         f"{restore}, steps {steps}")
-    # beside one another, neither timed: dp 2's own continuation from the
-    # same checkpoint (restored onto its plan and trained on the data
-    # stream's batches 3 and 4, ``testing.elastic_rank``) and the same
-    # restore in this process, whose state's one-device digests are held
-    # to the checkpoint's assembled ones
+    cont, at4 = chaos_a["cont"], chaos_a["at4"]
     spec = dict(GPT_15B, num_layers=TRAIN_BLOCKS + 2)
     cfg = config_for_model_spec(ModelSpec(**spec))
     stream = make_input_pipeline(synthetic_run_dataset(
         cfg.vocab_size, TRAIN_GBS, cfg.seq_len), TRAIN_GBS, device="cpu",
-        skip_batches=3)
+        skip_batches=4)
     batches = [next(stream) for _ in range(2)]
     stream.close()
+    # beside one another, none timed: dp 2's own continuation from the
+    # same checkpoint (restored onto its plan and trained on the data
+    # stream's batches 4 and 5, ``testing.elastic_rank``), the replanned
+    # run, and after it the same restore in this process, whose state's
+    # one-device digests are held to the checkpoint's assembled ones
     with ThreadPoolExecutor(1) as pool:
-        cont_run = pool.submit(mdist.spawn, elastic_rank, 2, "gloo", ["cuda:0"] * 2, [
+        cont_run = pool.submit(on_ranks, elastic_rank, 2, "gloo", [
             dict(cfg=cfg, artifact=pinned_plan(dp=2, zero=1).to_json(),
                  init=SEED + 1, restore=str(cont), batches=batches, digests=False)])
+        summary, ev2 = train_cli([*base, "--steps", "2", "--checkpoint-dir",
+                                  str(chaos_a["replan"]), "--replan-on-resume"],
+                                 "replan2", work, True)
+        shutil.rmtree(chaos_a["replan"])
+        chaos_steps = {k: chaos_a["losses"][k] for k in (5, 6)}
+        if any(chaos_steps[k] != step_losses(ev2).get(k) for k in chaos_steps):
+            raise SystemExit(f"chaos (a): steps 5-6 {chaos_steps} against the "
+                             f"replanned restore's {step_losses(ev2)}")
+        restore = [e for e in ev2 if e["event"] == "checkpoint_restore"]
+        steps = sorted(step_losses(ev2))
+        if (summary["executable"] != "single_device" or len(restore) != 1
+                or restore[0]["step"] != 4 or not restore[0]["resharded"]
+                or steps != [5, 6]):
+            raise SystemExit(f"the replanned run: {summary['executable']}, restore "
+                             f"{restore}, steps {steps}")
         one = build_executable(cfg, pinned_plan(), "cuda")
-        state = ckpt.restore_checkpoint(at3, one.init(SEED + 1))
+        state = ckpt.restore_checkpoint(at4, one.init(SEED + 1))
         got = reshard.logical_digests(state)
         del state, one
         gc.collect()
         torch.cuda.empty_cache()
-        want = ckpt.logical_digests(at3)
+        want = ckpt.logical_digests(at4)
         cont_res = cont_run.result()[0][0]
     differ = sorted(k for k in want if got.get(k) != want[k])
     if differ or set(got) != set(want) or len(want) < 3:
-        raise SystemExit(f"(a) the restored one-device digests differ: {differ[:3]}")
-    if cont_res["step"] != 3:
-        raise SystemExit(f"(a) dp 2's continuation restored step {cont_res['step']}")
-    replan_losses, dp2_losses = step_losses(ev2), dict(zip((4, 5), cont_res["losses"]))
-    gap = max(abs(replan_losses[k] - dp2_losses[k]) for k in (4, 5))
+        raise SystemExit(f"the restored one-device digests differ: {differ[:3]}")
+    if cont_res["step"] != 4:
+        raise SystemExit(f"dp 2's continuation restored step {cont_res['step']}")
+    replan_losses, dp2_losses = step_losses(ev2), dict(zip((5, 6), cont_res["losses"]))
+    gap = max(abs(replan_losses[k] - dp2_losses[k]) for k in (5, 6))
     if gap > TRAJ_TOL or not all(math.isfinite(x) for x in replan_losses.values()):
-        raise SystemExit(f"(a) resumed on one device {replan_losses} against dp 2 "
+        raise SystemExit(f"resumed on one device {replan_losses} against dp 2 "
                          f"{dp2_losses}: gap {gap:.3e} (tol {TRAJ_TOL:g})")
-    saves = [e for e in ev1 if e["event"] == "checkpoint_save"]
-    per_step = [e.get("kernel_launches", {}) for ev in (ev1, ev2) for e in ev
-                if e["event"] == "train_step"]
-    expect = dict.fromkeys(("fa_fwd", "fa_bwd_dq", "fa_bwd_dkv"), TRAIN_BLOCKS)
-    if any(step != expect for step in per_step):
-        raise SystemExit(f"(a) launches per step {per_step}, expected {expect}")
-    launches["reshard_a"] = {k: sum(step[k] for step in per_step) for k in expect}
-    out["a_replan"] = {
-        "checkpoint_gb_on_disk": gb, "save_ms": [e["ms"] for e in saves],
+    launches["replan"] = chaos_launches("replanned", ev2)
+    out["replan"] = {
+        "checkpoint_gb_on_disk": chaos_a["gb"], "save_ms": chaos_a["save_ms"],
         "restore_ms": restore[0]["ms"], "restore_gb_read": restore[0]["bytes_read"] / 1e9,
         "leaves_digest_equal": len(want),
         "step": restore[0]["step"], "steps": steps, "losses_one_device": replan_losses,
         "losses_dp2": dp2_losses, "largest_gap": gap,
-        "plan_cost_ms": summary["plan_cost_ms"], "launches_per_step": expect}
-    log(f"  (a) dp 2 + ZeRO 1 -> one device at step 3: {gb:.2f} GB on disk, save "
-        f"{[round(e['ms'], 1) for e in saves]} ms (beside (b)), cross-mesh restore "
-        f"{restore[0]['ms']:.1f} ms reading {restore[0]['bytes_read'] / 1e9:.2f} GB; "
-        f"{len(want)} one-device digests equal; "
-        f"steps {steps} losses {replan_losses} against dp 2's {dp2_losses}: gap "
-        f"{gap:.3e} (tol {TRAJ_TOL:g}) ({time.perf_counter() - t0:.1f} s)")
-    for path in (a, cont, at3):
+        "plan_cost_ms": summary["plan_cost_ms"],
+        "chaos_a_steps_5_6_bit_equal": True,
+        "launches_per_step": dict.fromkeys(FLASH_KERNELS, TRAIN_BLOCKS)}
+    log(f"  replan: dp 2 + ZeRO 1 -> one device at step 4 (chaos (a)'s checkpoint): "
+        f"{chaos_a['gb']:.2f} GB on disk, saves {chaos_a['save_ms']} ms, "
+        f"cross-mesh restore {restore[0]['ms']:.1f} ms "
+        f"reading {restore[0]['bytes_read'] / 1e9:.2f} GB; {len(want)} one-device "
+        f"digests equal; steps {steps} losses {replan_losses} against dp 2's "
+        f"{dp2_losses}: gap {gap:.3e} (tol {TRAJ_TOL:g}); chaos (a)'s steps 5-6 "
+        f"bit-equal to them ({time.perf_counter() - t0:.1f} s)")
+    for path in (cont, at4):
         shutil.rmtree(path)
-    out.update(more[0])
-    launches.update(more[1])
     return out, launches
 
 
@@ -2878,7 +2904,6 @@ def reshard_leg_b(work: pathlib.Path) -> tuple[dict, dict]:
     of the width; its readings and its launches per rank."""
     from metis_tpu_torch.core.config import ModelSpec
     from metis_tpu_torch.cost.volume import TransformerVolume
-    from metis_tpu_torch.execution import dist as mdist
     from metis_tpu_torch.execution import reshard
     from metis_tpu_torch.models import config_for_model_spec, family_ops
     from metis_tpu_torch.testing import live_reshard_rank
@@ -2890,7 +2915,7 @@ def reshard_leg_b(work: pathlib.Path) -> tuple[dict, dict]:
     batches = [(t.cpu(), g.cpu()) for t, g in fresh_batches(qcfg, TRAIN_GBS, 3, SEED + 7)]
     plans = [pinned_plan(dp=2, zero=1), pinned_plan(tp=2), pinned_plan()]
     (work / "reshard_b").mkdir()
-    ranks = mdist.spawn(live_reshard_rank, 2, "gloo", ["cuda:0"] * 2, qcfg, batches,
+    ranks = on_ranks(live_reshard_rank, 2, "gloo", qcfg, batches,
                         [p.to_json() for p in plans], str(work / "reshard_b"))
     shutil.rmtree(work / "reshard_b")
     full = family_ops(qcfg).init_params(None, qcfg, device="meta")
@@ -2910,7 +2935,7 @@ def reshard_leg_b(work: pathlib.Path) -> tuple[dict, dict]:
         equal = (losses[0] == losses[1]
                  and all(l["digests"][0] == l["digests"][1] for l in legs))
         log(f"  (b) {name}: {rep}; priced {price:.3f} ms at 100 GB/s against "
-            f"stall {rep.stall_ms:.1f} ms (beside (a)'s first run); checkpoint save "
+            f"stall {rep.stall_ms:.1f} ms; checkpoint save "
             f"{max(l['save_ms'] for l in legs):.1f} + restore "
             f"{max(l['restore_ms'] for l in legs):.1f} ms; the step after it "
             f"{losses[0]!r}, after the restore {losses[1]!r}: "
@@ -2931,13 +2956,274 @@ def reshard_leg_b(work: pathlib.Path) -> tuple[dict, dict]:
     return out, launches
 
 
+# the chaos phase: the supervisor's CLI; (a) at the train phase's widths
+# and depth on a cluster of two one-card nodes (losing the last node
+# leaves one card), (b) and (c) at ``TRAIN_C_WIDTH``
+CHAOS_STEPS = 6
+CHAOS_A_SCRIPT = "checkpoint_write@2x2,device_loss@4"
+CHAOS_B_SCRIPT = "device_loss@4,reshard_verify@4"
+FLASH_KERNELS = ("fa_fwd", "fa_bwd_dq", "fa_bwd_dkv")
+
+
+def resilient_cli(args: list[str], label: str, work: pathlib.Path,
+                  sigterm_after: int | None = None) -> tuple[int, dict, list, dict]:
+    """``python -m metis_tpu_torch <args>`` (``chaos`` or ``train
+    --resilient``) in a process of its own, sent a real SIGTERM once
+    ``sigterm_after`` ``train_step`` events are written: its exit code,
+    report, events and rank 0's checkpoint save / restore ms."""
+    events = work / f"{label}.events.jsonl"
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "metis_tpu_torch", *args, "--events", str(events)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=pathlib.Path(__file__).resolve().parent)
+    if sigterm_after is not None:
+        while proc.poll() is None:
+            lines = events.read_text().splitlines() if events.exists() else []
+            if sum('"train_step"' in line for line in lines) >= sigterm_after:
+                proc.send_signal(signal.SIGTERM)
+                break
+            time.sleep(0.01)
+    out, err = proc.communicate()
+    for line in err.strip().splitlines()[-4:]:
+        log(f"    {label}: {line}")
+    if proc.returncode not in (0, 1):
+        raise SystemExit(f"{label} failed (rc {proc.returncode}):\n{err[-4000:]}")
+    ms = next((json.loads(line.split(": ", 1)[1]) for line in err.splitlines()
+               if line.startswith("rank 0 checkpoint ms: ")), {})
+    log(f"    {label}: {time.perf_counter() - t0:.1f} s")
+    return (proc.returncode, json.loads(out) if out.strip() else {},
+            [json.loads(line) for line in events.read_text().splitlines()], ms)
+
+
+def chaos_launches(label: str, events: list) -> dict:
+    """Gate: every supervised step launched each kernel once per block; the
+    launches summed over the run's steps (``kernel_launches`` of its
+    ``train_step`` events)."""
+    per_step = [e.get("kernel_launches", {}) for e in events
+                if e["event"] == "train_step"]
+    expect = dict.fromkeys(FLASH_KERNELS, TRAIN_BLOCKS)
+    if not per_step or any(step != expect for step in per_step):
+        raise SystemExit(f"{label}: launches per step {per_step}, expected {expect}")
+    return {k: sum(step[k] for step in per_step) for k in FLASH_KERNELS}
+
+
+def in_order(names: list, *wanted: str) -> bool:
+    at = [names.index(w) if w in names else -1 for w in wanted]
+    return min(at) >= 0 and at == sorted(at)
+
+
+def pinned_dir(path: pathlib.Path, art) -> pathlib.Path:
+    path.mkdir()
+    (path / "plan.json").write_text(art.to_json())
+    return path
+
+
+def chaos_phase(work: pathlib.Path, results: dict) -> tuple[dict, dict]:
+    """``chaos``: the supervisor through the port's CLI (module doc, phase
+    15), each run in its own process: (a) first, alone; then the restore
+    onto another plan of its step-4 checkpoint (``replan_leg``), (b) and
+    (c) beside one another (each in its own directories; their times are
+    no speed: the ranks share the card and the host)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    base = results["train"]["base"]
+    out, launches, step4 = chaos_leg_a(work, base)
+    with ThreadPoolExecutor(3) as pool:
+        legs = [pool.submit(replan_leg, work, base, step4),
+                pool.submit(chaos_leg_b, work, base),
+                pool.submit(chaos_leg_c, work, base)]
+        for leg in legs:
+            more_out, more_launches = leg.result()
+            out.update(more_out)
+            launches.update(more_launches)
+    return out, launches
+
+
+def chaos_leg_a(work: pathlib.Path, base: list[str]) -> tuple[dict, dict, dict]:
+    """(a) The train phase's GPT (1.5B widths, ``TRAIN_BLOCKS`` block) on
+    two gloo ranks sharing the card, a cluster of two one-card nodes, the
+    dp 2 + ZeRO 1 plan pinned: ``chaos`` with ``CHAOS_A_SCRIPT``.  Gates:
+    completed, 6 of 6 steps, at least 2 retries; one ``device_loss``
+    recovery, migrated live onto the searched one-card plan, resumed at
+    step 4; ``reshard_plan`` -> ``reshard_step`` -> ``migration_complete``
+    -> ``recovery_complete``; steps 5-6 bit-equal to ``train
+    --replan-on-resume`` from the same step-4 checkpoint (kept at
+    ``.prev``) on one device, a run ``replan_leg`` makes and holds to its
+    own gates too.  Its readings, its launches, and what ``replan_leg``
+    reads: three copies of that checkpoint (the replanned run saves over
+    one, dp 2's continuation restores one, this process the other), this
+    run's losses, the dp 2 saves."""
+    from metis_tpu_torch.core.config import ModelSpec
+    from metis_tpu_torch.cost.volume import TransformerVolume
+    from metis_tpu_torch.execution import reshard
+    from metis_tpu_torch.execution.checkpoint import load_meta, load_plan
+    from metis_tpu_torch.profiles.store import ProfileStore
+
+    t0 = time.perf_counter()
+    ckpt = pinned_dir(work / "chaos_a", pinned_plan(dp=2, zero=1))
+    prof = base[base.index("--profile-dir") + 1]
+    hostfile, clusterfile = write_cluster_files(
+        work, ProfileStore.from_dir(prof).device_types[0], 2, 1)
+    args = [*base, "--hostfile", hostfile, "--clusterfile", clusterfile]
+    rc, rep, ev, ms = resilient_cli(
+        ["chaos", *args, "--steps", str(CHAOS_STEPS), "--checkpoint-every", "2",
+         "--fault-script", CHAOS_A_SCRIPT, "--checkpoint-dir", str(ckpt),
+         "--devices", "cuda:0,cuda:0", "--dist-backend", "gloo"], "chaos_a", work)
+    names = [e["event"] for e in ev]
+    recs = rep.get("recoveries", [])
+    if (rc != 0 or rep["outcome"] != "completed" or rep["steps_done"] != CHAOS_STEPS
+            or rep["retries"] < 2 or len(recs) != 1 or recs[0]["kind"] != "device_loss"
+            or not recs[0]["migrated"] or recs[0]["resumed_step"] != 4
+            or not in_order(names, "reshard_plan", "reshard_step",
+                            "migration_complete", "recovery_complete")):
+        raise SystemExit(f"(a) chaos: rc {rc}, report {rep}")
+    launches = {"chaos_a": chaos_launches("(a)", ev)}
+    # the step-4 generation, parked at .prev by the final save, kept for
+    # ``replan_leg``
+    prev = ckpt.with_name(ckpt.name + ".prev")
+    if load_meta(prev).step != 4:
+        raise SystemExit(f"(a) .prev holds step {load_meta(prev).step}, not 4")
+    copies = {key: work / f"chaos_a_step4_{key}" for key in ("replan", "cont", "at4")}
+    for path in copies.values():
+        hardlink_copy(prev, path)
+    got = step_losses(ev)
+    # the price the supervisor's migration decision compared
+    spec = ModelSpec(**dict(GPT_15B, num_layers=TRAIN_BLOCKS + 2))
+    volume = TransformerVolume(spec, ProfileStore.from_dir(prof).model.params_per_layer_bytes)
+    old, new = pinned_plan(dp=2, zero=1), load_plan(ckpt)
+    price = reshard.price_migration_ms(
+        reshard.stage_layout(old, spec.num_layers), reshard.stage_layout(new, spec.num_layers),
+        volume, 100.0)
+    done = next(e for e in ev if e["event"] == "migration_complete")
+    out = {"a_chaos": {
+        "outcome": rep["outcome"], "steps_done": rep["steps_done"],
+        "retries": rep["retries"], "checkpoints": rep["checkpoints"],
+        "recover_s": recs[0]["recover_s"], "stall_ms": done["stall_ms"],
+        "moved_bytes": done["moved_bytes"], "price_migration_ms_100gbps": price,
+        "save_ms": ms.get("save_ms"), "restore_ms": ms.get("restore_ms"),
+        "losses": got}}
+    log(f"  (a) chaos {CHAOS_A_SCRIPT}: {rep['outcome']} {rep['steps_done']}/"
+        f"{CHAOS_STEPS}, {rep['retries']} retries; device loss at 4 migrated live: "
+        f"recover_s {recs[0]['recover_s']}, stall_ms {done['stall_ms']} "
+        f"({done['moved_bytes'] / 1e9:.2f} GB) against price_migration_ms "
+        f"{price:.3f} at 100 GB/s; saves {ms.get('save_ms')} ms; the step-4 "
+        f"checkpoint kept for the replanned restore "
+        f"({time.perf_counter() - t0:.1f} s, {SHARED_CARD})")
+    step4 = dict(copies, gb=dir_gb(prev), losses=got, save_ms=ms.get("save_ms"))
+    for path in (ckpt, prev):
+        shutil.rmtree(path, ignore_errors=True)
+    return out, launches, step4
+
+
+def chaos_leg_b(work: pathlib.Path, base: list[str]) -> tuple[dict, dict]:
+    """(b) At ``TRAIN_C_WIDTH``, the same cluster and pinned plan:
+    ``chaos`` with ``CHAOS_B_SCRIPT`` plus ``loss_nan@5``, and without it.
+    Gates: ``migration_fallback`` then the restore (not migrated, resumed
+    at 4); a NaN rollback to step 4; completed; the final loss equal to
+    that of the run without ``loss_nan``.  The two runs go beside each
+    other."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from metis_tpu_torch.profiles.store import ProfileStore
+
+    t0 = time.perf_counter()
+    prof = base[base.index("--profile-dir") + 1]
+    hostfile, clusterfile = write_cluster_files(
+        work, ProfileStore.from_dir(prof).device_types[0], 2, 1)
+
+    def run(label: str, script: str):
+        ckpt = pinned_dir(work / f"chaos_b_{label}", pinned_plan(dp=2, zero=1))
+        rc, rep, ev, ms = resilient_cli(
+            ["chaos", *base, *TRAIN_C_WIDTH, "--hostfile", hostfile,
+             "--clusterfile", clusterfile, "--steps", str(CHAOS_STEPS),
+             "--checkpoint-every", "2", "--fault-script", script,
+             "--checkpoint-dir", str(ckpt), "--devices", "cuda:0,cuda:0",
+             "--dist-backend", "gloo"], f"chaos_b_{label}", work)
+        for path in (ckpt, ckpt.with_name(ckpt.name + ".prev")):
+            shutil.rmtree(path, ignore_errors=True)
+        return (rc, rep, [e["event"] for e in ev], ms,
+                chaos_launches(f"(b) {label}", ev))
+
+    with ThreadPoolExecutor(2) as pool:
+        runs = dict(zip(("nan", "clean"), pool.map(
+            run, ("nan", "clean"), (f"{CHAOS_B_SCRIPT},loss_nan@5", CHAOS_B_SCRIPT))))
+    launches = {f"chaos_b_{label}": got[4] for label, got in runs.items()}
+    rc, rep, names, ms, _ = runs["nan"]
+    recs = rep.get("recoveries", [])
+    kinds = [(r["kind"], r["step"], r["resumed_step"], r["migrated"]) for r in recs]
+    if (rc != 0 or rep["outcome"] != "completed" or rep["steps_done"] != CHAOS_STEPS
+            or kinds != [("device_loss", 4, 4, False), ("anomaly_rollback", 5, 4, False)]
+            or not in_order(names, "migration_fallback", "recovery_complete",
+                            "anomaly_detected")
+            or "migration_complete" in names
+            or rep["final_loss"] != runs["clean"][1].get("final_loss")):
+        raise SystemExit(f"(b) chaos: rc {rc}, report {rep}; clean run "
+                         f"{runs['clean'][1]}")
+    log(f"  (b) chaos {CHAOS_B_SCRIPT},loss_nan@5: migration_fallback, restore, "
+        f"NaN rollback to 4, {rep['outcome']}; final loss {rep['final_loss']!r} equal "
+        f"to the run without loss_nan; recover_s {[r['recover_s'] for r in recs]}, "
+        f"saves {ms.get('save_ms')} restores {ms.get('restore_ms')} ms "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return {"b_chaos_fallback_nan": {
+        "outcome": rep["outcome"], "recoveries": kinds,
+        "recover_s": [r["recover_s"] for r in recs], "final_loss": rep["final_loss"],
+        "final_loss_equal_without_nan": True, "save_ms": ms.get("save_ms"),
+        "restore_ms": ms.get("restore_ms")}}, launches
+
+
+def chaos_leg_c(work: pathlib.Path, base: list[str]) -> tuple[dict, dict]:
+    """(c) At ``TRAIN_C_WIDTH`` on one device: ``train --resilient`` sent a
+    real SIGTERM once its second ``train_step`` event is written.  Gates:
+    exit 0, outcome ``preempted``, the checkpoint's step equal to
+    ``steps_done``; the same command from the same directory then
+    completes, its losses bit-equal to an uninterrupted run's (which goes
+    beside the two)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from metis_tpu_torch.execution.checkpoint import load_meta
+
+    t0 = time.perf_counter()
+    cmd = ["train", "--resilient", *base, *TRAIN_C_WIDTH, "--steps", str(CHAOS_STEPS),
+           "--checkpoint-every", "2"]
+    ckpt, straight = work / "chaos_c", work / "chaos_c_straight"
+    with ThreadPoolExecutor(1) as pool:
+        uninterrupted = pool.submit(
+            resilient_cli, [*cmd, "--checkpoint-dir", str(straight)],
+            "chaos_c_straight", work)
+        rc, rep, ev1, ms = resilient_cli([*cmd, "--checkpoint-dir", str(ckpt)],
+                                         "chaos_c_sigterm", work, sigterm_after=2)
+        done = rep.get("steps_done")
+        if (rc != 0 or rep["outcome"] != "preempted" or rep["detail"] != "sigterm"
+                or load_meta(ckpt).step != done or not 2 <= done < CHAOS_STEPS):
+            raise SystemExit(f"(c) SIGTERM: rc {rc}, report {rep}")
+        rc2, rep2, ev2, _ = resilient_cli([*cmd, "--checkpoint-dir", str(ckpt)],
+                                          "chaos_c_resumed", work)
+        rc3, rep3, ev3, _ = uninterrupted.result()
+    got = {**step_losses(ev1), **step_losses(ev2)}
+    want = step_losses(ev3)
+    if (rc2 != 0 or rc3 != 0 or rep2["outcome"] != "completed"
+            or sorted(want) != list(range(1, CHAOS_STEPS + 1)) or got != want):
+        raise SystemExit(f"(c) resumed {rep2} losses {got} against {want}")
+    log(f"  (c) train --resilient drained by SIGTERM at step {done} (checkpoint step "
+        f"{done}, save {ms.get('save_ms')} ms), resumed to {CHAOS_STEPS}: losses "
+        f"bit-equal to the uninterrupted run ({time.perf_counter() - t0:.1f} s)")
+    launches = {"chaos_c": chaos_launches("(c)", [*ev1, *ev2])}
+    for path in (ckpt, straight):
+        for p in (path, path.with_name(path.name + ".prev")):
+            shutil.rmtree(p, ignore_errors=True)
+    return {"c_sigterm": {"drained_at": done, "outcome": rep["outcome"],
+                          "resumed_bit_equal": True, "save_ms": ms.get("save_ms")}}, launches
+
+
 HIDDEN = ("launches", "profile_dir", "hostfile", "clusterfile", "tokens", "batches",
           "base")
 PHASES = ("slice", "planner", "dist", "pipeline", "llama", "moe", "context",
-          "zero_sp", "stage_axes", "train", "reshard")
+          "zero_sp", "stage_axes", "train", "reshard", "chaos")
 
 
 def main() -> int:
+    started = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
@@ -2946,7 +3232,6 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from metis_tpu_torch.models.gpt import GPTConfig
     from metis_tpu_torch.ops import flash_attention as fa
 
     t0 = time.perf_counter()
@@ -2960,47 +3245,69 @@ def main() -> int:
     held, path_cases = kernel_phase()
     results = {}
     launches = {}
+    seconds = {}
     with tempfile.TemporaryDirectory() as tmp:
-        work = pathlib.Path(tmp)
-        for phase in PHASES:
-            log(f"{phase}:")
-            t0 = time.perf_counter()
-            if phase == "slice":
-                agreement_phase(GPTConfig(vocab_size=512, seq_len=256, hidden=256,
-                                          num_heads=2, num_blocks=2))
-                results["slice"] = slice_phase(work)
-                launches["main"] = results["slice"]["launches"]
-            elif phase == "planner":
-                results["planner"] = planner_phase(work, results["slice"])
-            elif phase == "dist":
-                results["dist"], launches["dp2_tp2_per_rank"] = dist_phase(
-                    work, results["slice"])
-            elif phase == "pipeline":
-                results["pipeline"], launches["pipeline_per_rank"] = pipeline_phase(
-                    work, results["slice"], results["planner"])
-            elif phase == "zero_sp":
-                results[phase], more = zero_sp_phase(work, results["slice"])
-                launches.update(more)
-            elif phase in ("stage_axes", "train", "reshard"):
-                results[phase], more = {"stage_axes": stage_axes_phase,
-                                        "train": train_phase,
-                                        "reshard": reshard_phase}[phase](work, results)
-                launches.update(more)
-            else:
-                results[phase], more = {"llama": llama_phase, "moe": moe_phase,
-                                        "context": context_phase}[phase](work)
-                launches.update(more)
-            log(f"  {phase} phase {time.perf_counter() - t0:.1f} s")
+        try:
+            run_phases(pathlib.Path(tmp), results, launches, seconds)
+        finally:
+            close_pools()
+    pools = {f"{backend}_{world}": pool.jobs for (world, backend), pool in POOLS.items()}
+    log(f"rank launches: {len(POOLS)} (one pool per world size and backend: "
+        f"{pools} jobs), besides the CLI's subprocesses")
 
     log(json.dumps({"kernels": kernel_records(held, path_cases, launches)}))
     for phase in PHASES:
         log(json.dumps({phase: {k: v for k, v in results[phase].items()
                                 if k not in HIDDEN}}))
+    log(json.dumps({"timing": {"phases_s": seconds, "rank_launches": len(POOLS),
+                               "rank_jobs": pools,
+                               "script_s": round(time.perf_counter() - started, 1)}}))
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def run_phases(work: pathlib.Path, results: dict, launches: dict,
+               seconds: dict) -> None:
+    """Every phase of ``PHASES`` in turn (module doc), each pool closed
+    after the last phase that runs one."""
+    from metis_tpu_torch.models.gpt import GPTConfig
+
+    for phase in PHASES:
+        log(f"{phase}:")
+        t0 = time.perf_counter()
+        if phase == "slice":
+            agreement_phase(GPTConfig(vocab_size=512, seq_len=256, hidden=256,
+                                      num_heads=2, num_blocks=2))
+            results["slice"] = slice_phase(work)
+            launches["main"] = results["slice"]["launches"]
+        elif phase == "planner":
+            results["planner"] = planner_phase(work, results["slice"])
+        elif phase == "dist":
+            start_pools()
+            results["dist"], launches["dp2_tp2_per_rank"] = dist_phase(
+                work, results["slice"])
+        elif phase == "pipeline":
+            results["pipeline"], launches["pipeline_per_rank"] = pipeline_phase(
+                work, results["slice"], results["planner"])
+        elif phase == "zero_sp":
+            results[phase], more = zero_sp_phase(work, results["slice"])
+            launches.update(more)
+        elif phase in ("stage_axes", "train", "reshard", "chaos"):
+            results[phase], more = {"stage_axes": stage_axes_phase,
+                                    "train": train_phase,
+                                    "reshard": reshard_phase,
+                                    "chaos": chaos_phase}[phase](work, results)
+            launches.update(more)
+        else:
+            results[phase], more = {"llama": llama_phase, "moe": moe_phase,
+                                    "context": context_phase}[phase](work)
+            launches.update(more)
+        close_pools(phase)
+        seconds[phase] = round(time.perf_counter() - t0, 1)
+        log(f"  {phase} phase {seconds[phase]} s")
 
 
 if __name__ == "__main__":

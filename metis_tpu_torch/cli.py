@@ -17,13 +17,19 @@ reference's flags and output bytes:
             cluster as it is now and restore the checkpoint onto the new
             plan), build the plan's executable, stream batches through the
             input pipeline and train with checkpoints, a plan of several
-            devices one rank per device.
+            devices one rank per device; with ``--resilient`` under the
+            fault-tolerant supervisor (``resilience/supervisor.py``), one
+            rank per device of the cluster;
+  chaos     the supervisor under a scripted fault sequence
+            (``--fault-script``), its report as JSON;
+  replan    diff two cluster descriptions, search the new one, report
+            the delta and the cost movement (``planner/replan.py``).
 
 The searches run on the host and take no device.  The reference's
 ``--platform`` (a JAX backend pin) becomes ``--device``.  ``train``'s
-flags of later items (the resilience and multi-host groups) parse and exit
-2 naming their ROADMAP item; the serving, daemon and audit subcommands
-come with later slices.
+multi-host flags parse and exit 2 naming their ROADMAP item, as does
+``chaos --fleet``; the serving, daemon and audit subcommands come with
+later slices.
 
   python -m metis_tpu_torch uniform --hostfile hosts --clusterfile c.json \\
       --profile-dir profiles/ --model-size 1.5B --attn flash --gbs 4
@@ -307,6 +313,36 @@ def _cmd_validate(args: argparse.Namespace, profiles, model, config) -> int:
     return 0
 
 
+def _cmd_replan(args: argparse.Namespace, profiles, model, config,
+                events) -> int:
+    """``replan``: the reference's payload and stderr line."""
+    from metis_tpu_torch.cluster.spec import ClusterSpec
+    from metis_tpu_torch.core.types import dump_ranked_plans
+    from metis_tpu_torch.planner.replan import replan
+
+    old = ClusterSpec.from_files(args.hostfile, args.clusterfile)
+    new = ClusterSpec.from_files(args.new_hostfile, args.new_clusterfile)
+    report = replan(old, new, profiles, model, config,
+                    search_old=not args.no_old_cost, events=events)
+    payload = {
+        "delta": {"added": report.delta.added,
+                  "removed": report.delta.removed},
+        "plan_changed": report.plan_changed,
+        "old_best_cost_ms": report.old_best_cost_ms,
+        "new_best_cost_ms": report.new_best_cost_ms,
+        "cost_ratio": report.cost_ratio,
+        "plans": json.loads(
+            dump_ranked_plans(report.result.plans, limit=args.top_k)),
+    }
+    _emit(args, json.dumps(payload, indent=2))
+    print(
+        f"replan: delta +{report.delta.added or '{}'} "
+        f"-{report.delta.removed or '{}'}; plan_changed="
+        f"{report.plan_changed}; cost {report.old_best_cost_ms} -> "
+        f"{report.new_best_cost_ms} ms", file=sys.stderr)
+    return 0
+
+
 def _cmd_search(args: argparse.Namespace, profiles, model, config,
                 events) -> int:
     """``hetero`` and ``uniform``: the same JSON as the reference's."""
@@ -344,10 +380,6 @@ def _cmd_search(args: argparse.Namespace, profiles, model, config,
 
 # train's flags of later ROADMAP items: (flag, dest, the item)
 LATER_TRAIN_FLAGS = (
-    ("--resilient", "resilient", "§A.5 (the fault-tolerant supervisor)"),
-    ("--fault-script", "fault_script", "§A.5 (the fault-tolerant supervisor)"),
-    ("--retry-attempts", "retry_attempts", "§A.5 (the fault-tolerant supervisor)"),
-    ("--spike-factor", "spike_factor", "§A.5 (the fault-tolerant supervisor)"),
     ("--coordinator", "coordinator", "§A.7 (multi-host training)"),
     ("--num-processes", "num_processes", "§A.7 (multi-host training)"),
     ("--process-id", "process_id", "§A.7 (multi-host training)"),
@@ -389,6 +421,29 @@ def _add_train_args(p: argparse.ArgumentParser) -> None:
                         "(obs/ledger.py)")
     p.add_argument("--drift-band", type=float, default=20.0,
                    help="rolling MAPE %% that fires the drift alarm")
+    _add_rank_args(p)
+    g_res = p.add_argument_group(
+        "resilience (resilience/supervisor.py — one rank per device of the "
+        "cluster)")
+    g_res.add_argument("--resilient", action="store_true",
+                       help="run under the fault-tolerant training "
+                            "supervisor: loss anomaly guards, retrying "
+                            "checkpoints with .prev retention, SIGTERM "
+                            "drain, replan-on-device-loss.  Requires "
+                            "--checkpoint-dir")
+    g_res.add_argument("--fault-script", default=None,
+                       help="deterministic fault injection script, e.g. "
+                            "'checkpoint_write@2x2,device_loss@5' "
+                            "(resilience/faults.py syntax)")
+    _add_retry_args(g_res)
+    later = p.add_argument_group(
+        "later items (parsed; each exits 2 naming its ROADMAP item)")
+    for flag, dest, _ in LATER_TRAIN_FLAGS:
+        later.add_argument(flag, dest=dest, default=None)
+    _add_device_arg(p, "train on")
+
+
+def _add_rank_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--devices", default=None,
                    help="comma-separated torch devices, one per rank of a "
                         "plan of several devices (default: every visible "
@@ -398,14 +453,14 @@ def _add_train_args(p: argparse.ArgumentParser) -> None:
                    help="process-group backend of a plan of several devices "
                         "(default: nccl on CUDA, gloo on the CPU; gloo to "
                         "share a card)")
-    later = p.add_argument_group(
-        "later items (parsed; each exits 2 naming its ROADMAP item)")
-    for flag, dest, _ in LATER_TRAIN_FLAGS:
-        if flag == "--resilient":
-            later.add_argument(flag, dest=dest, action="store_true")
-        else:
-            later.add_argument(flag, dest=dest, default=None)
-    _add_device_arg(p, "train on")
+
+
+def _add_retry_args(p) -> None:
+    p.add_argument("--retry-attempts", type=int, default=3,
+                   help="transient-IO retry budget per checkpoint write")
+    p.add_argument("--spike-factor", type=float, default=10.0,
+                   help="loss > this x the rolling mean is flagged as a spike "
+                        "anomaly")
 
 
 def train_job(argv: list[str]) -> dict:
@@ -423,12 +478,19 @@ def train_job(argv: list[str]) -> dict:
 
 def _train_job(args: argparse.Namespace, model, config, events) -> dict | int:
     """Plan (or pin the checkpoint's plan): the job of every rank of
-    ``train``, or the exit code of a refused run."""
+    ``train``, or the exit code of a refused run, or with ``--resilient``
+    of the supervised run (``_run_supervisor``)."""
     for flag, dest, item in LATER_TRAIN_FLAGS:
         if getattr(args, dest) not in (None, False):
             print(f"train {flag} comes with ROADMAP {item}; this slice of "
                   "the port does not run it", file=sys.stderr)
             return 2
+    if args.resilient:
+        if args.checkpoint_dir is None:
+            print("--resilient requires --checkpoint-dir (recovery restores "
+                  "from the latest checkpoint)", file=sys.stderr)
+            return 2
+        return _run_supervisor(args, model, config, events)
     from metis_tpu_torch.cluster.spec import ClusterSpec
     from metis_tpu_torch.core.device import resolve_device
     from metis_tpu_torch.execution.checkpoint import load_plan
@@ -473,6 +535,85 @@ def _train_job(args: argparse.Namespace, model, config, events) -> dict | int:
                 replanned=replanned)
 
 
+def _rank_devices(args: argparse.Namespace, need: int):
+    """The devices of ``need`` ranks (``--devices``, else every visible
+    card or the CPU) and the process group's backend; None (after saying
+    why) when there are fewer."""
+    from metis_tpu_torch.core.device import resolve_device
+    from metis_tpu_torch.execution import dist as mdist
+
+    devs = ([d.strip() for d in args.devices.split(",")] if args.devices
+            else mdist.default_devices(resolve_device(args.device)))
+    if len(devs) < need:
+        print(f"the plan needs {need} devices, this run has {len(devs)} "
+              f"({[str(d) for d in devs]}); pass --devices", file=sys.stderr)
+        return None
+    devs = devs[:need]
+    return devs, args.dist_backend or mdist.default_backend(devs)
+
+
+def _run_supervisor(args: argparse.Namespace, model, config, events) -> int:
+    """What ``train --resilient`` and ``chaos`` share: the fault
+    script and resilience knobs from flags, the supervisor on one rank per
+    device of the cluster (``resilience.supervisor.supervised_rank``), its
+    report as JSON.  Exit 0 for the two healthy outcomes (completed /
+    cleanly preempted), 1 for a failed run.  A SIGTERM to this process
+    reaches every rank, which drain together."""
+    import multiprocessing
+    import os
+    import signal
+
+    from metis_tpu_torch.cluster.spec import ClusterSpec
+    from metis_tpu_torch.core.config import ResilienceConfig
+    from metis_tpu_torch.core.device import resolve_device
+    from metis_tpu_torch.execution import dist as mdist
+    from metis_tpu_torch.resilience.supervisor import supervised_rank
+
+    dev = resolve_device(args.device)  # a missing card fails first
+    cluster = ClusterSpec.from_files(args.hostfile, args.clusterfile)
+    job = dict(
+        cluster=cluster, profile_dir=args.profile_dir, model=model,
+        config=config, checkpoint_dir=args.checkpoint_dir, steps=args.steps,
+        resilience=ResilienceConfig(
+            checkpoint_every=getattr(args, "checkpoint_every", 0) or 1,
+            retry_attempts=args.retry_attempts,
+            spike_factor=args.spike_factor),
+        fault_script=args.fault_script or "", seed=getattr(args, "seed", 0),
+        events=args.events, data=getattr(args, "data", None),
+        install_signal_handler=True)
+    world = cluster.total_devices
+    if world == 1:
+        out = supervised_rank(0, dev, job, events=events)
+    else:
+        launch = _rank_devices(args, world)
+        if launch is None:
+            return 1
+
+        def forward(signum, frame):  # pragma: no cover — a real SIGTERM
+            for child in multiprocessing.active_children():
+                os.kill(child.pid, signum)
+
+        prev = signal.signal(signal.SIGTERM, forward)
+        try:
+            out = mdist.spawn(supervised_rank, world, launch[1], launch[0],
+                              job)[0]
+        finally:
+            signal.signal(signal.SIGTERM, prev)
+    report = out["report"]
+    _emit(args, json.dumps(report, indent=2))
+    if report["outcome"] == "failed":
+        print(f"supervised run FAILED: {report['detail']}", file=sys.stderr)
+        return 1
+    print(f"supervised run {report['outcome']}: {report['steps_done']}/"
+          f"{report['target_steps']} steps, {len(report['recoveries'])} "
+          f"recoveries, {report['retries']} retries, {report['checkpoints']} "
+          "checkpoints", file=sys.stderr)
+    print("rank 0 checkpoint ms: " + json.dumps(
+        {k: [round(ms, 1) for ms in out[k]] for k in ("save_ms", "restore_ms")}),
+        file=sys.stderr)
+    return 0
+
+
 def _run_train(args: argparse.Namespace, job: dict) -> int:
     """``job`` on one rank per device of its plan (the one device in this
     process); rank 0's summary to ``--output``."""
@@ -485,15 +626,10 @@ def _run_train(args: argparse.Namespace, job: dict) -> int:
     if need == 1:
         out = [train_rank(0, dev, job)]
     else:
-        devs = ([d.strip() for d in args.devices.split(",")] if args.devices
-                else mdist.default_devices(dev))
-        if len(devs) < need:
-            print(f"the plan needs {need} devices, this run has {len(devs)} "
-                  f"({[str(d) for d in devs]}); pass --devices", file=sys.stderr)
+        launch = _rank_devices(args, need)
+        if launch is None:
             return 1
-        devs = devs[:need]
-        out = mdist.spawn(train_rank, need,
-                          args.dist_backend or mdist.default_backend(devs), devs, job)
+        out = mdist.spawn(train_rank, need, launch[1], launch[0], job)
     rc, summary = out[0]["rc"], out[0]["summary"]
     if rc == 0:
         _emit(args, json.dumps(summary, indent=2))
@@ -786,6 +922,24 @@ def _parser() -> argparse.ArgumentParser:
                             "to this accuracy ledger JSONL (obs/ledger.py)")
     _add_device_arg(p_val, "execute the validated plans on")
 
+    p_rep = sub.add_parser(
+        "replan", help="elastic re-plan on topology change: diff two cluster "
+                       "descriptions, search the survivor topology, report "
+                       "the delta and cost movement")
+    p_rep.add_argument("--hostfile", required=True,
+                       help="OLD topology hostfile")
+    p_rep.add_argument("--clusterfile", required=True,
+                       help="OLD topology clusterfile")
+    p_rep.add_argument("--new-hostfile", required=True)
+    p_rep.add_argument("--new-clusterfile", required=True)
+    p_rep.add_argument("--profile-dir", required=True)
+    p_rep.add_argument("--no-old-cost", action="store_true",
+                       help="search ONLY the survivor topology (skip the "
+                            "old-cluster search that supplies the cost "
+                            "comparison) — the time-critical recovery path")
+    _add_model_args(p_rep)
+    _add_search_args(p_rep)
+
     p_train = sub.add_parser(
         "train", help="plan and run: search the cluster, build the plan's "
                       "executable, stream batches through the input "
@@ -794,10 +948,42 @@ def _parser() -> argparse.ArgumentParser:
     _add_model_args(p_train)
     _add_search_args(p_train)
     _add_train_args(p_train)
+
+    p_chaos = sub.add_parser(
+        "chaos", help="fault-injection drill: run the training supervisor "
+                      "with a scripted fault sequence (checkpoint IO "
+                      "failures, device loss, NaN loss, preemption) and "
+                      "report what it survived")
+    p_chaos.add_argument("--fleet", action="store_true",
+                         help="the fleet-scale availability drill (comes "
+                              "with ROADMAP §A.9; exits 2)")
+    _add_cluster_args(p_chaos)
+    p_chaos.add_argument("--profile-dir", required=True)
+    _add_model_args(p_chaos)
+    _add_search_args(p_chaos)
+    p_chaos.add_argument("--steps", type=int, default=8,
+                         help="training steps the drill must complete")
+    p_chaos.add_argument("--fault-script", required=True,
+                         help="e.g. 'checkpoint_write@2x2,device_loss@5' "
+                              "(resilience/faults.py syntax)")
+    p_chaos.add_argument("--checkpoint-dir", required=True)
+    p_chaos.add_argument("--checkpoint-every", type=int, default=2)
+    _add_retry_args(p_chaos)
+    p_chaos.add_argument("--seed", type=int, default=0,
+                         help="seed for probabilistic fault entries")
+    _add_rank_args(p_chaos)
+    _add_device_arg(p_chaos, "train on")
     return parser
 
 
 def main(argv: list[str] | None = None) -> int:
+    if argv is None:
+        argv = sys.argv[1:]
+    if argv[:1] == ["chaos"] and "--fleet" in argv:
+        print("chaos --fleet (the fleet drill over the sched/ package, "
+              "tools/fleet_drill.py) comes with ROADMAP §A.9; this slice of "
+              "the port does not run it", file=sys.stderr)
+        return 2
     args = _parser().parse_args(argv)
     if args.command == "profile":
         return _cmd_profile(args)
@@ -815,9 +1001,13 @@ def main(argv: list[str] | None = None) -> int:
     if args.command == "train":
         job = _train_job(args, model, config, events)
         return job if isinstance(job, int) else _run_train(args, job)
+    if args.command == "chaos":
+        return _run_supervisor(args, model, config, events)
     profiles = ProfileStore.from_dir(args.profile_dir)
     if args.command == "validate":
         return _cmd_validate(args, profiles, model, config)
+    if args.command == "replan":
+        return _cmd_replan(args, profiles, model, config, events)
     return _cmd_search(args, profiles, model, config, events)
 
 

@@ -294,9 +294,9 @@ def build_executable(cfg: GPTConfig, artifact: PlanArtifact,
     pipeline route (``resolve_schedule``); the hetero route is a fill and
     drain with stage remat whatever the schedule.  ``events`` and
     ``overlap`` (pipeline route) as in ``make_pipeline_train_step``.
-    On the gspmd and pipeline routes a process group larger than the plan
-    runs it on its first ranks; the others take part in creating the
-    plan's groups and get None (the live reshard's destination,
+    On every route a process group larger than the plan runs it on its
+    first ranks; the others take part in creating the plan's groups and
+    get None (the live reshard's destination,
     ``execution/reshard.py``)."""
     dev = resolve_device(device)
     schedule, virtual_stages = resolve_schedule(artifact, schedule,
@@ -451,11 +451,13 @@ def _stage_specs(cfg, artifact, strategies, cluster=None,
 
 def hetero_executable(cfg: GPTConfig, stages, microbatches: int,
                       device: str | torch.device = "cuda",
-                      optimizer=None) -> Executable:
+                      optimizer=None) -> Executable | None:
     """The hetero route for explicit ``StageSpec``s (``execution.hetero``),
-    splitting full batches into ``microbatches``."""
+    splitting full batches into ``microbatches``; None on a rank outside a
+    plan on the process group's first ranks."""
     runner = hetero_runner(cfg, stages, resolve_device(device), optimizer)
-
+    if runner is None:
+        return None
     exe = Executable("hetero", runner.init,
                      _split_steps(runner.step, microbatches), runner.mesh,
                      runner.block_ids)

@@ -11,6 +11,10 @@ What a checkpoint directory of the port holds:
   (``layout``: ``builder.slice_map``, plus ``opt``, the leaf of each of
   the optimizer's tensors in order).  On the hetero route it is the
   rank's stage's state.
+  A plan on the process group's first ranks (``builder.build_executable``
+  gives the others None) is written by those ranks alone: a rank outside
+  the plan passes None as its state, writes nothing and takes part in the
+  barriers; a restore counts the rank files, not the process group.
 - ``meta.json`` (``CheckpointMeta``, byte for byte the reference's JSON)
   and ``plan.json`` (the ``PlanArtifact``), written by rank 0.
 - **Digests.** ``CheckpointMeta.digests`` maps a leaf's path to sha256 over
@@ -214,11 +218,14 @@ def _host(obj):
     return obj
 
 
-def _snapshot(state: TrainState, step: int | None = None,
-              stage: int | None = None) -> dict:
+def _snapshot(state: TrainState | None, step: int | None = None,
+              stage: int | None = None) -> dict | None:
     """What a rank writes (module doc), copied to host memory: ``params``,
     ``optimizer`` (its ``state_dict``), ``step``, on the hetero route the
-    rank's ``stage``, and the state's slice map as ``layout``."""
+    rank's ``stage``, and the state's slice map as ``layout``; None for a
+    rank outside the plan."""
+    if state is None:
+        return None
     snap = {"params": _host(state.params),
             "optimizer": _host(state.optimizer.state_dict()),
             "step": int(state.step if step is None else step)}
@@ -251,9 +258,22 @@ def _rank_file(directory: Path, rank: int) -> Path:
     return directory / _STATE_DIR / f"rank{rank:05d}.pt"
 
 
-def _write_rank(tmp: Path, snap: dict, rank: int, world: int) -> dict:
-    """Write one rank's snapshot into ``tmp``, hashing it meanwhile; its
-    digests."""
+def _writers(snap: dict | None) -> int:
+    """How many ranks write (those holding a state), after checking that
+    they are the process group's first ranks."""
+    held = _gather(snap is not None)
+    n = sum(held)
+    if held != [True] * n + [False] * (len(held) - n) or n == 0:
+        raise MetisError(f"a checkpoint is written by a plan on the process "
+                         f"group's first ranks; the ranks holding a state: {held}")
+    return n
+
+
+def _write_rank(tmp: Path, snap: dict | None, rank: int, world: int) -> dict:
+    """Write one rank's snapshot into ``tmp`` (nothing for None), hashing it
+    meanwhile; its digests.  ``world``: the ranks that write."""
+    if snap is None:
+        return {}
     with ThreadPoolExecutor(_HASH_THREADS) as pool:
         futures = _digest_futures(pool, _digest_tree(snap),
                                   _rank_prefix(rank, world))
@@ -322,10 +342,11 @@ def _merged(per_rank: list[dict]) -> dict:
     return out
 
 
-def _save(directory, snap: dict, meta_fields: dict, plan, keep_prev) -> Path:
+def _save(directory, snap: dict | None, meta_fields: dict, plan,
+          keep_prev) -> Path:
     directory = Path(directory).absolute()
     tmp, prev = _prepare_tmp(directory)
-    rank, world = _world()
+    rank, world = _world()[0], _writers(snap)
     error, digests = None, {}
     try:
         digests = _write_rank(tmp, snap, rank, world)
@@ -346,18 +367,24 @@ def _raise_failed(directory: Path, results: list, what: str) -> None:
             f"{what}checkpoint write to {directory} failed on rank {r}: {e}")
 
 
-def save_checkpoint(directory: str | Path, state: TrainState, mesh,
+def save_checkpoint(directory: str | Path, state: TrainState | None, mesh,
                     plan: PlanArtifact | None = None,
                     block_layout: str = "canonical",
                     keep_prev: bool = False) -> Path:
-    """Write this rank's state (every rank of the process group calls it)
-    and, from rank 0, the meta and ``plan``, under ``directory``, through
-    the crash-safe swap.  ``mesh``: what the meta records (the plan
-    artifact, or an ``(axes, shape)`` pair).  Synchronous."""
-    axes, shape = _mesh_axes_shape(mesh)
+    """Write this rank's state (every rank of the process group calls it;
+    None on a rank outside the plan) and, from rank 0, the meta and
+    ``plan``, under ``directory``, through the crash-safe swap.  ``mesh``:
+    what the meta records (the plan artifact, or an ``(axes, shape)``
+    pair).  Synchronous."""
     return _save(directory, _snapshot(state),
-                 dict(step=int(state.step), mesh_axes=axes, mesh_shape=shape,
-                      block_layout=block_layout), plan, keep_prev)
+                 _meta_fields(state, mesh, block_layout), plan, keep_prev)
+
+
+def _meta_fields(state: TrainState | None, mesh, block_layout: str) -> dict:
+    """The meta's fields besides the digests (rank 0's state's step)."""
+    axes, shape = _mesh_axes_shape(mesh)
+    return dict(step=None if state is None else int(state.step),
+                mesh_axes=axes, mesh_shape=shape, block_layout=block_layout)
 
 
 class AsyncCheckpointWriter:
@@ -386,14 +413,14 @@ class AsyncCheckpointWriter:
         self._pending = None
         self._keep_prev = keep_prev
 
-    def save(self, directory: str | Path, state: TrainState, mesh,
+    def save(self, directory: str | Path, state: TrainState | None, mesh,
              plan: PlanArtifact | None = None,
              block_layout: str = "canonical") -> None:
         self.wait()  # finish and swap any previous write first
         directory = Path(directory).absolute()
         tmp, prev = _prepare_tmp(directory)
         snap = _snapshot(state)
-        rank, world = _world()
+        rank, world = _world()[0], _writers(snap)
         box: dict = {}
 
         def write():
@@ -405,10 +432,8 @@ class AsyncCheckpointWriter:
         thread = threading.Thread(target=write, name="metis-checkpoint",
                                   daemon=True)
         thread.start()
-        axes, shape = _mesh_axes_shape(mesh)
-        self._pending = (directory, tmp, prev, thread, box, plan, dict(
-            step=int(state.step), mesh_axes=axes, mesh_shape=shape,
-            block_layout=block_layout))
+        self._pending = (directory, tmp, prev, thread, box, plan,
+                         _meta_fields(state, mesh, block_layout))
 
     def wait(self) -> None:
         """Block until the in-flight write (if any) is on disk on every
@@ -479,10 +504,11 @@ def _load_meta_if_present(directory: Path) -> CheckpointMeta | None:
             f"{type(e).__name__}: {e}") from e
 
 
-def _check_scope(directory: Path, meta: CheckpointMeta | None, mesh) -> None:
-    """Refuse a checkpoint of another mesh or world size where no slice map
-    says how to reshard it (module doc)."""
-    _, world = _world()
+def _check_scope(directory: Path, meta: CheckpointMeta | None, mesh,
+                 world: int) -> None:
+    """Refuse a checkpoint of another mesh or world size (``world``: the
+    ranks that hold a state) where no slice map says how to reshard it
+    (module doc)."""
     files = sorted((directory / _STATE_DIR).glob("rank*.pt"))
     want = None if mesh is None else _mesh_axes_shape(mesh)
     got = None if meta is None else (meta.mesh_axes, meta.mesh_shape)
@@ -518,17 +544,18 @@ def _verify_snap(directory: Path, meta: CheckpointMeta | None, snap: dict,
                 "is corrupt")
 
 
-def _restore_verified(directory: Path, mesh) -> dict:
+def _restore_verified(directory: Path, mesh, world: int | None = None) -> dict:
     """This rank's snapshot from ``directory``, verified against the
-    digests its meta recorded (the restore onto the same plan).
-    ``FileNotFoundError`` when the directory holds no checkpoint;
-    ``CheckpointCorruptError`` for anything unreadable or a digest that
-    disagrees."""
+    digests its meta recorded (the restore onto the same plan, held by
+    the first ``world`` ranks; None: the whole process group).  ``FileNotFoundError`` when the directory
+    holds no checkpoint; ``CheckpointCorruptError`` for anything unreadable
+    or a digest that disagrees."""
     if not (directory / _STATE_DIR).exists():
         raise FileNotFoundError(f"no checkpoint state at {directory / _STATE_DIR}")
     meta = _load_meta_if_present(directory)
-    _check_scope(directory, meta, mesh)
-    rank, world = _world()
+    rank, group = _world()
+    world = group if world is None else world
+    _check_scope(directory, meta, mesh, world)
     snap = _load_snap(_rank_file(directory, rank))
     _verify_snap(directory, meta, snap, rank, world)
     return snap
@@ -959,18 +986,22 @@ def _restore(directory: str | Path, state: TrainState | None, mesh,
     ``resharded`` (read through the maps) and ``bytes_read`` (of the
     checkpoint's tensors).  Every rank of the process group calls it."""
     stats = {} if stats is None else stats
-    dst = state.layout if state is not None else None
-    dsts = _gather(dst)
+    held = _gather((state is not None, state.layout if state is not None else None))
+    dsts = [d for _, d in held]
+    # the ranks of the plan to resume on: the process group's first ones
+    world = sum(h for h, _ in held)
 
     def restore(cand: Path):
         gen = _Generation(cand)
         no_maps = (any(s is None for s in gen.layouts)
                    or all(d is None for d in dsts))
-        same = (not no_maps and gen.world == len(dsts)
+        same = (not no_maps and gen.world == world
                 and all(d is not None and {**s, "opt": None} == {**d, "opt": None}
                         for s, d in zip(gen.layouts, dsts)))
+        if same and state is None:
+            return None
         if same or (no_maps and state is not None):
-            snap = _restore_verified(cand, mesh)
+            snap = _restore_verified(cand, mesh, world)
             if snap.get("stage") != stage:
                 raise MetisError(
                     f"checkpoint {cand}: this rank's file holds stage "
@@ -1017,14 +1048,16 @@ def restore_checkpoint(directory: str | Path, reference_state: TrainState | None
 
 # -- hetero (per-stage) checkpoints ----------------------------------------------
 
-def save_hetero_checkpoint(directory: str | Path, state: TrainState, step: int,
-                           mesh, plan: PlanArtifact | None = None,
+def save_hetero_checkpoint(directory: str | Path, state: TrainState | None,
+                           step: int, mesh, plan: PlanArtifact | None = None,
                            keep_prev: bool = False) -> Path:
     """Checkpoint the hetero executor's state: every rank writes its
     stage's state (``mesh``: the rank's ``ProcessMesh``, whose ``pp`` axis
-    is the stage); the meta records the stage count in place of a mesh
+    is the stage; both None on a rank outside the plan); the meta records the stage count in place of a mesh
     shape, as the reference's.  Synchronous, the same swap as
     ``save_checkpoint``."""
+    if state is None:  # a rank outside the plan
+        return _save(directory, None, {}, plan, keep_prev)
     stages, stage = mesh.size("pp"), mesh.index("pp")
     return _save(directory, _snapshot(state, step, stage),
                  dict(step=int(step), mesh_axes=("stage",),

@@ -1,16 +1,22 @@
 """Process launcher for multi-device plans.
 
 The reference is one program over a device mesh; the port runs one process
-per device.  ``spawn(fn, world, backend, devices, *args)`` starts ``world``
+per device.  ``RankPool(world, backend, devices)`` starts ``world``
 processes (``torch.multiprocessing``, start method ``spawn``, so a parent
-that has already initialized CUDA can launch), joins them into one process
-group through a file store in a fresh temporary directory (concurrent
-launches never race for a port), runs ``fn(rank, device, *args)`` on
-rank ``r`` with ``device = devices[r]`` (its current device), and returns
-the ranks' results in rank order.  Results cross back by pickle, so a body
-returns host data (numbers, numpy arrays), not CUDA tensors.  A rank that
-raises fails the launch with its traceback; the other ranks are terminated
-rather than left waiting in a collective.
+that has already initialized CUDA can launch) and joins them into one
+process group through a file store in a fresh temporary directory
+(concurrent launches never race for a port).  It keeps them for several
+jobs: ``run(fn, *args)`` runs ``fn(rank, device, *args)`` on rank ``r``
+with ``device = devices[r]`` (its current device) and returns the ranks'
+results in rank order, without paying each launch's process start-up,
+CUDA context and group join again.  ``spawn(fn, world, backend, devices,
+*args)`` is one job of a pool of its own.  Results cross back by pickle,
+so a body returns host data (numbers, numpy arrays), not CUDA tensors.
+Each job starts from the state a fresh rank has (the default generator's
+seed, the kernels' launch counts at 0) and ends with the rank's cached
+card memory freed and its peak statistics reset.  A job that raises on any
+rank stops the pool and raises in the caller with that rank's traceback;
+the other ranks are terminated rather than left waiting in a collective.
 
 Backends: ``nccl`` needs one distinct card per rank and is the default on
 CUDA; ``gloo`` is the default on the CPU.  Gloo on CUDA tensors (several
@@ -21,8 +27,12 @@ the package): the children start from a fresh interpreter.
 from __future__ import annotations
 
 import datetime
+import gc
 import pickle
 import tempfile
+import threading
+import traceback
+from multiprocessing.connection import wait
 from pathlib import Path
 from typing import Callable, Sequence
 
@@ -90,30 +100,150 @@ def _check_launch(world: int, backend: str,
 def spawn(fn: Callable, world: int, backend: str, devices: Sequence,
           *args) -> list:
     """Run ``fn(rank, device, *args)`` on ``world`` ranks and return their
-    results."""
-    devs = _check_launch(world, backend, devices)
-    with tempfile.TemporaryDirectory(prefix="metis_dist_") as tmp:
-        work = Path(tmp)
-        mp.start_processes(
-            _rank_main, args=(fn, world, backend, devs, str(work), args),
-            nprocs=world, join=True, start_method="spawn")
-        return [pickle.loads((work / f"result_{r}.pkl").read_bytes())
-                for r in range(world)]
+    results (one job of a pool of its own)."""
+    with RankPool(world, backend, devices) as pool:
+        return pool.run(fn, *args)
 
 
-def _rank_main(rank: int, fn: Callable, world: int, backend: str,
-               devices: list, work: str, args: tuple) -> None:
+class RankPool:
+    """``world`` ranks started once, in one process group, that run jobs in
+    turn (module doc).  ``run`` may be called from any thread; jobs do not
+    overlap.  ``close()`` (or leaving a ``with`` block) stops the ranks."""
+
+    def __init__(self, world: int, backend: str, devices: Sequence):
+        self.world, self.backend = world, backend
+        self.devices = _check_launch(world, backend, devices)
+        self.jobs = 0
+        self._lock = threading.Lock()
+        self._tmp = tempfile.TemporaryDirectory(prefix="metis_pool_")
+        ctx = mp.get_context("spawn")
+        self._conns, self._procs = [], []
+        for rank in range(world):
+            mine, theirs = ctx.Pipe()
+            proc = ctx.Process(target=_pool_main, name=f"metis-rank{rank}",
+                               args=(rank, world, backend, self.devices,
+                                     self._tmp.name, theirs))
+            proc.start()
+            theirs.close()
+            self._conns.append(mine)
+            self._procs.append(proc)
+
+    def run(self, fn: Callable, *args) -> list:
+        """``fn(rank, device, *args)`` on every rank; the results in rank
+        order."""
+        with self._lock:
+            if not self._procs:
+                raise MetisError("the rank pool is closed")
+            job = pickle.dumps((fn, args))
+            for conn in self._conns:
+                conn.send_bytes(job)
+            results: dict = {}
+            try:
+                while len(results) < self.world:
+                    waiting = {self._conns[r]: r for r in range(self.world)
+                               if r not in results}
+                    for conn in wait([*waiting, *(p.sentinel for p in self._procs)]):
+                        if conn not in waiting:
+                            continue
+                        rank = waiting[conn]
+                        kind, value = pickle.loads(conn.recv_bytes())
+                        if kind == "error":
+                            raise MetisError(
+                                f"rank {rank} of {self.world} failed in "
+                                f"{getattr(fn, '__name__', fn)}:\n{value}")
+                        results[rank] = value
+                    dead = [r for r, p in enumerate(self._procs)
+                            if not p.is_alive() and r not in results]
+                    if dead:
+                        raise MetisError(
+                            f"rank {dead[0]} of {self.world} died (exit code "
+                            f"{self._procs[dead[0]].exitcode}) in "
+                            f"{getattr(fn, '__name__', fn)}")
+            except BaseException:
+                self._stop(terminate=True)
+                raise
+            self.jobs += 1
+            return [results[r] for r in range(self.world)]
+
+    def _stop(self, terminate: bool) -> None:
+        for conn in self._conns:
+            try:
+                if not terminate:
+                    conn.send_bytes(pickle.dumps(None))
+            except OSError:
+                pass
+        for proc in self._procs:
+            if terminate:
+                proc.terminate()
+            proc.join(timeout=None if not terminate else 30)
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+        for conn in self._conns:
+            conn.close()
+        self._conns, self._procs = [], []
+        self._tmp.cleanup()
+
+    def close(self) -> None:
+        with self._lock:
+            if self._procs:
+                self._stop(terminate=False)
+
+    def __enter__(self) -> "RankPool":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+def _fresh_job(seed: int) -> None:
+    """The state a freshly spawned rank starts a job from."""
+    from metis_tpu_torch.ops import flash_attention as fa
+
+    torch.manual_seed(seed)
+    fa.reset_launch_counts()
+
+
+def _free(device: torch.device) -> None:
+    """Drop what a job left: its objects, the card memory its caching
+    allocator and cuBLAS keep, its peak statistics."""
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+        if hasattr(torch._C, "_cuda_clearCublasWorkspaces"):
+            torch._C._cuda_clearCublasWorkspaces()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+
+
+def _pool_main(rank: int, world: int, backend: str, devices: list, work: str,
+               conn) -> None:
     dev = devices[rank]
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     else:
-        # ranks share the host's cores; one intra-op thread each
         torch.set_num_threads(1)
+    seed = torch.initial_seed()
     init_process_group(backend, rank, world, Path(work) / "store", dev)
     try:
-        result = fn(rank, dev, *args)
-        dist.barrier()
+        while True:
+            try:
+                job = pickle.loads(conn.recv_bytes())
+            except EOFError:  # the parent is gone
+                break
+            if job is None:
+                break
+            fn, args = job
+            try:
+                _fresh_job(seed)
+                result = fn(rank, dev, *args)
+                dist.barrier()
+            except BaseException:  # noqa: BLE001 — the caller raises it
+                conn.send_bytes(pickle.dumps(("error", traceback.format_exc())))
+                break
+            finally:
+                _free(dev)
+            # results cross by pickle (module doc)
+            conn.send_bytes(pickle.dumps(("ok", result)))
     finally:
         dist.destroy_process_group()
-    # written only by this package's ranks and read only by their parent
-    (Path(work) / f"result_{rank}.pkl").write_bytes(pickle.dumps(result))

@@ -50,7 +50,10 @@ from dataclasses import dataclass
 from functools import partial
 from typing import Sequence
 
+import torch.distributed as dist
+
 from metis_tpu_torch.core.device import resolve_device
+from metis_tpu_torch.core.errors import MetisError
 from metis_tpu_torch.execution.mesh import SP, StageGrid, stage_meshes
 from metis_tpu_torch.execution.stages import (
     StageRunner,
@@ -196,10 +199,12 @@ def _grouped(spec: StageSpec) -> bool:
 
 
 def hetero_runner(cfg: GPTConfig, stages: Sequence[StageSpec],
-                  device="cuda", optimizer=None, attn_impl=None) -> StageRunner:
+                  device="cuda", optimizer=None,
+                  attn_impl=None) -> StageRunner | None:
     """This rank's part of the multi-stage executor for a non-uniform hetero
-    plan, inside a process group of the plan's size (a one-device plan also
-    runs outside one).  Boundary sends are waited for two exchanges late
+    plan, inside a process group of at least the plan's size (a one-device
+    plan also runs outside one; a larger group runs it on its first ranks
+    and a rank outside it gets None).  Boundary sends are waited for two exchanges late
     (``StageRunner``'s overlap); the dp reduction is one collective per
     leaf.  ``attn_impl`` replaces the attention of stages without cp."""
     stages = tuple(s if _grouped(s) else dataclasses.replace(s, replica_groups=None)
@@ -208,6 +213,8 @@ def hetero_runner(cfg: GPTConfig, stages: Sequence[StageSpec],
     dev = resolve_device(device)
     grids = [StageGrid(s.dp, s.tp, s.cp, s.ep) for s in stages]
     mesh = stage_meshes(grids)
+    if mesh is None:  # a rank outside a plan on the group's first ranks
+        return None
     s = mesh.index("pp")
     spec, S = stages[s], len(stages)
     unit = Unit(0, spec.num_blocks, spec.has_embed, spec.has_head,
@@ -240,6 +247,12 @@ def make_hetero_train_step(cfg: GPTConfig, stages: Sequence[StageSpec],
     microbatch-major ``[M, rows, seq]`` tokens and targets, whole on every
     rank, and returns the global loss on every rank."""
     runner = hetero_runner(cfg, stages, device, optimizer, attn_impl)
+    if runner is None:
+        need = sum(StageGrid(s.dp, s.tp, s.cp, s.ep).devices for s in stages)
+        raise MetisError(
+            f"the stages take {need} rank(s); this is rank "
+            f"{dist.get_rank()} of a group of {dist.get_world_size()}, "
+            "outside the plan (hetero_runner gives such a rank None)")
     return runner.init, runner.step
 
 

@@ -163,17 +163,13 @@ def stage_meshes(grids) -> ProcessMesh:
     talk point to point).  Every rank creates every stage's groups, the
     stages it is not in included, in the same order, because ``new_group``
     is collective.  A plan of one device outside a process group gets the
-    one-device mesh with a pp axis."""
+    one-device mesh with a pp axis.  A group larger than the plan runs it
+    on its first ranks, as ``_grid``'s: a rank outside it gets None."""
     grids = list(grids)
     offsets = stage_offsets(grids)
     if not dist.is_initialized() and offsets[-1] == 1:
         return ProcessMesh((PP, DP, TP), (1, 1, 1), (0, 0, 0))
-    what = f"stages {[g.shape for g in grids]}"
-    rank = _require_group(offsets[-1], what)
-    if dist.get_world_size() != offsets[-1]:
-        raise MetisError(f"{what} take the whole process group: they need "
-                         f"{offsets[-1]} ranks, the group has "
-                         f"{dist.get_world_size()}")
+    rank = _require_group(offsets[-1], f"stages {[g.shape for g in grids]}")
     mine = None
     for s, grid in enumerate(grids):
         groups = _axis_groups(grid.shape, grid.axes, offsets[s], rank)
@@ -182,6 +178,10 @@ def stage_meshes(grids) -> ProcessMesh:
                            np.unravel_index(rank - offsets[s], grid.shape))
             mine = ProcessMesh((PP, *grid.axes), (len(grids), *grid.shape),
                                (s, *coords), groups)
+    if dist.get_world_size() > offsets[-1]:
+        plan = dist.new_group(list(range(offsets[-1])))
+        if mine is not None:
+            mine.groups[PLAN] = plan
     return mine
 
 

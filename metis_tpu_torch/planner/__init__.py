@@ -14,3 +14,13 @@ __all__ = [
     "plan_hetero",
     "plan_uniform",
 ]
+from metis_tpu_torch.planner.replan import (
+    ClusterDelta,
+    ReplanReport,
+    grow_cluster,
+    replan,
+    shrink_cluster,
+)
+
+__all__ += ["ClusterDelta", "ReplanReport", "grow_cluster", "replan",
+            "shrink_cluster"]

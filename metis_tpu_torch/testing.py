@@ -70,7 +70,9 @@ def run_plan_rank(rank: int, device: torch.device, artifact_json: str | None,
     a wrapped leaf's is that of the rank's flat chunk of it, at ZeRO 3 that
     of its shard, on the gspmd route and on a hetero stage alike.
     ``zero_dims``: ``{(group, name): the dim ZeRO splits a leaf along}``
-    (None: not split; absent without ZeRO, or on a stage without it)."""
+    (None: not split; absent without ZeRO, or on a stage without it).  A
+    rank outside a plan on the process group's first ranks gets ``kind``
+    None and no losses."""
     cuda = device.type == "cuda"
     if cuda:
         torch.cuda.reset_peak_memory_stats(device)
@@ -79,6 +81,8 @@ def run_plan_rank(rank: int, device: torch.device, artifact_json: str | None,
     else:
         exe = build_executable(cfg, PlanArtifact.from_json(artifact_json),
                                device, **build)
+    if exe is None:
+        return {"kind": None, "losses": []}
     slots = exe.mesh.slots()
     state = exe.init(init)
     out: dict = {"kind": exe.kind, "slots": slots, "block_ids": exe.block_ids,
@@ -568,3 +572,65 @@ def _attention_job(device: torch.device, mode: str, shape, q, k, v,
     host = [t.detach().cpu().numpy() for t in (out, qs.grad, ks.grad, vs.grad)]
     return {"slots": mesh.slots(), "out": host[0], "dq": host[1],
             "dk": host[2], "dv": host[3], "calls": dict(calls)}
+
+
+def pool_probe_rank(rank: int, device: torch.device, fail_on: int | None = None) -> dict:
+    """Rank body that reports the state it started in (the default
+    generator's first draw, the kernel launch counts), then draws and
+    counts itself; it raises on rank ``fail_on``."""
+    out = {"draw": torch.rand(1).item(), "launches": dict(fa.launch_counts)}
+    fa.launch_counts["fa_fwd"] += 1
+    if rank == fail_on:
+        raise ValueError(f"rank {rank} fails on purpose")
+    return out
+
+
+def failure_paths_rank(rank: int, device: torch.device, local: bool = False) -> dict:
+    """Rank body for the failure paths of a run across ranks: a rank outside
+    a one-device hetero plan asking for its train step; a search that raises
+    on rank 0 (``resilience.supervisor._on_rank0``); a supervised run whose
+    loop fails on every rank together.  With ``local`` the loop fails on
+    rank 1 alone instead (rank 0's returns after a second)."""
+    from types import SimpleNamespace
+
+    from metis_tpu_torch.core.errors import MetisError, TrainingAnomalyError
+    from metis_tpu_torch.execution.hetero import StageSpec, make_hetero_train_step
+    from metis_tpu_torch.resilience import supervisor as sv
+
+    cfg = GPTConfig(vocab_size=64, seq_len=8, hidden=16, num_heads=2, num_blocks=1,
+                    dtype=torch.float32)
+    out = {}
+
+    def run_failing(err):
+        sup = sv.TrainingSupervisor(
+            SimpleNamespace(total_devices=2), None, None, None,
+            checkpoint_dir="unused", steps=1, device=device)
+
+        def loop(*_):
+            if err is not None:
+                raise err
+            time.sleep(1.0)
+        sup._run_loop = loop
+        report = sup.run()
+        return report.outcome, report.detail
+
+    if local:
+        out["local"] = run_failing(MetisError("rank 1 fails alone") if rank == 1
+                                   else None)
+        return out
+    try:
+        make_hetero_train_step(cfg, [StageSpec(blocks=(0, 1), has_embed=True,
+                                               has_head=True, dp=1, tp=1)], device)
+        out["outside_plan"] = None
+    except MetisError as e:
+        out["outside_plan"] = str(e)
+
+    def search():
+        raise ValueError("the search fails on rank 0")
+    try:
+        sv._on_rank0(search)
+        out["on_rank0"] = None
+    except Exception as e:  # noqa: BLE001 — the test reads what was raised
+        out["on_rank0"] = (type(e).__name__, str(e), getattr(e, "on_every_rank", False))
+    out["agreed"] = run_failing(sv._on_every_rank(TrainingAnomalyError("recoveries exhausted")))
+    return out

@@ -105,17 +105,24 @@ def measure_uniform_plan_ms(
 
 def _measure(artifact_json: str, cfg, need: int, device, devices,
              steps: int, warmup: int, seed: int, backend: str | None = None,
-             **build) -> list[tuple[float, int | None]]:
+             pool=None, **build) -> list[tuple[float, int | None]]:
     """Time ``build_executable``'s step of the artifact: in this process
     at one device, else on ``need`` ranks (over ``backend``, by default
-    NCCL on CUDA and gloo on the CPU).  Per rank: its time, and its peak
-    memory in bytes on CUDA (None on the CPU)."""
+    NCCL on CUDA and gloo on the CPU), or as a job of ``pool`` (an
+    ``execution.dist.RankPool`` of ``need`` ranks) when one is given.  Per
+    rank: its time, and its peak memory in bytes on CUDA (None on the
+    CPU)."""
     from metis_tpu_torch.execution import dist as mdist
 
     dev = resolve_device(device)
     if need == 1:
         return [_measure_plan_rank(0, dev, artifact_json, cfg, steps, warmup,
                                    seed, build)]
+    if pool is not None:
+        if pool.world != need:
+            raise MetisError(f"plan needs {need} ranks, the pool has {pool.world}")
+        return pool.run(_measure_plan_rank, artifact_json, cfg, steps, warmup,
+                        seed, build)
     devs = list(devices if devices is not None else mdist.default_devices(dev))
     if need > len(devs):
         raise MetisError(
@@ -284,13 +291,15 @@ def measure_ranked_plan(
     seed: int = 0,
     dtype: torch.dtype | None = None,
     backend: str | None = None,
+    pool=None,
 ) -> tuple[float, list[int | None]]:
     """Median wall time (ms) of one training step of a hetero ``RankedPlan``
     executed by the hetero executor (``execution.hetero``) — non-uniform
     layer partitions, per-stage strategies with their ZeRO, cp and ep, and
     (with ``cluster`` + ``profiles``) the data balancer's uneven
     per-replica rows — on one rank per device as ``measure_uniform_plan_ms``
-    (``backend``: ``"gloo"`` to share a card), rank 0's time; and each
+    (``backend``: ``"gloo"`` to share a card; ``pool``: a rank pool to run
+    on instead of a launch of its own), rank 0's time; and each
     rank's peak memory in bytes (None on the CPU).  A plan priced with the
     1f1b or interleaved schedule runs on the pipeline route with that
     schedule; a one-stage plan with context or sequence parallelism or ZeRO
@@ -315,7 +324,7 @@ def measure_ranked_plan(
         artifact = dataclasses.replace(artifact, mesh_axes=(), mesh_shape=())
         build = dict(cluster=cluster, profiles=profiles)
     ranks = _measure(artifact.to_json(), cfg, artifact.num_devices, device,
-                     devices, steps, warmup, seed, backend, **build)
+                     devices, steps, warmup, seed, backend, pool, **build)
     return ranks[0][0], [peak for _, peak in ranks]
 
 
@@ -330,18 +339,21 @@ def validate_hetero_choice(
     steps: int = 5,
     warmup: int = 2,
     backend: str | None = None,
+    pool=None,
 ) -> list[HeteroValidationReport]:
     """North-star error metric over the top-k hetero plans a planner run
     would deploy; each prediction is the plan's ``cost.total_ms``, each
     rank's peak memory stands beside the planner's stage estimate (module
     doc of ``HeteroValidationReport``).  Runs on ``device`` (the card
-    unless the caller asks for the CPU)."""
+    unless the caller asks for the CPU), on ranks of ``pool`` when one is
+    given (``measure_ranked_plan``)."""
     device = resolve_device(device)
     reports = []
     for ranked in list(ranked_plans)[:top_k]:
         measured, peaks = measure_ranked_plan(
             ranked, model, device, devices, cluster=cluster,
-            profiles=profiles, steps=steps, warmup=warmup, backend=backend)
+            profiles=profiles, steps=steps, warmup=warmup, backend=backend,
+            pool=pool)
         reports.append(HeteroValidationReport(
             plan_dict=ranked.to_json_dict(),
             predicted_ms=ranked.cost.total_ms,

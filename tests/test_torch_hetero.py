@@ -407,6 +407,18 @@ def test_measure_ranked_plan_ms_on_two_cpu_ranks():
                                     devices=["cpu"])
 
 
+def test_validate_hetero_choice_on_a_rank_pool():
+    """The same validation as a job of a rank pool of the plan's size, in
+    place of a launch of its own."""
+    with tdist.RankPool(2, "gloo", ["cpu"] * 2) as pool:
+        reports = tval.validate_hetero_choice(
+            [_ranked()], VAL_MODEL, device="cpu", top_k=1, steps=1, warmup=0,
+            pool=pool)
+        assert pool.jobs == 1
+    assert len(reports) == 1 and reports[0].predicted_ms == 10.0
+    assert reports[0].measured_ms > 0 and math.isfinite(reports[0].measured_ms)
+
+
 def _reports(pkg, n=5):
     """Synthetic hetero reports: stage counts 1-3, batch counts 1-4."""
     rng = np.random.default_rng(3)

@@ -96,6 +96,8 @@ def _entry_points():
         validate_planner_choice,
     )
 
+    from metis_tpu_torch.resilience.supervisor import TrainingSupervisor
+
     spec = ModelSpec(name="t", num_layers=3, hidden_size=32,
                      sequence_length=16, vocab_size=64, num_heads=2)
     cfg = GPTConfig(vocab_size=64, seq_len=16, hidden=32, num_heads=2,
@@ -140,6 +142,16 @@ def _entry_points():
             "train", "--hostfile", "hosts", "--clusterfile", "c.json",
             "--profile-dir", "profiles", "--model-size", "1.5B",
             "--gbs", "4"]),
+        "train_resilient_cli": lambda: cli.main([
+            "train", "--resilient", "--hostfile", "hosts", "--clusterfile",
+            "c.json", "--profile-dir", "profiles", "--model-size", "1.5B",
+            "--gbs", "4", "--checkpoint-dir", "ckpt"]),
+        "chaos_cli": lambda: cli.main([
+            "chaos", "--hostfile", "hosts", "--clusterfile", "c.json",
+            "--profile-dir", "profiles", "--model-size", "1.5B", "--gbs", "4",
+            "--checkpoint-dir", "ckpt", "--fault-script", "preempt@1"]),
+        "TrainingSupervisor": lambda: TrainingSupervisor(
+            None, None, spec, None, checkpoint_dir="ckpt", steps=1),
     }
 
 
@@ -165,7 +177,8 @@ ENTRY_POINTS = ["entry", "build_executable", "build_train_state",
                 "measure_ranked_plan_ms", "measure_ranked_plan",
                 "validate_hetero_choice",
                 "build_executable_llama", "build_executable_moe",
-                "profile_model_llama", "profile_model_moe"]
+                "profile_model_llama", "profile_model_moe",
+                "train_resilient_cli", "chaos_cli", "TrainingSupervisor"]
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)

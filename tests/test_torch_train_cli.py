@@ -4,8 +4,10 @@ its ``train`` (end to end with resume; refusing a block-layout mismatch on
 resume), resume held bit for bit against a straight run on one device and
 on gloo ranks (a pinned dp 2 plan at ZeRO 1, and a pinned two-stage hetero
 plan), ``--ledger``, ``--replan-on-resume`` (the reference's elastic
-resume onto fewer devices, and its refusal across route families), and
-the flags of later ROADMAP items, which exit 2 naming their item."""
+resume onto fewer devices, and its refusal across route families), the
+resilience flags (``--resilient`` and its knobs, run or refused as the
+reference does), and the flags of later ROADMAP items, which exit 2
+naming their item."""
 import json
 
 import pytest
@@ -113,12 +115,49 @@ def test_train_ledger_records_prediction_and_steps(fixture_dir, tmp_path):
                          ids=[f for f, _, _ in LATER_TRAIN_FLAGS])
 def test_later_flags_exit_2_naming_their_item(fixture_dir, tmp_path, capsys,
                                               flag, dest, item):
-    value = [] if flag == "--resilient" else ["1"]
     rc = main([*_base(fixture_dir, tmp_path / "ckpt", tmp_path / "o.json"),
-               flag, *value])
+               flag, "1"])
     assert rc == 2
     assert item.split()[0] in capsys.readouterr().err
     assert not (tmp_path / "ckpt").exists()
+
+
+RESILIENT_CASES = {
+    # the reference's refusals: no checkpoint to recover from; a
+    # multi-controller run (whose flags name their later item first)
+    "without_checkpoint_dir": (["--resilient"], None, 2, "requires --checkpoint-dir"),
+    "with_coordinator": (["--resilient", "--coordinator", "h:1"], "ckpt", 2, "§A.7"),
+    # the flags now run: a supervised run to the end, and one whose
+    # script fails a checkpoint write once (retried) and injects a loss
+    # spike, with the retry budget and spike factor set
+    "runs": (["--resilient"], "ckpt", 0, "supervised run completed: 3/3 steps"),
+    "fault_script_retry_spike": (
+        ["--resilient", "--fault-script", "loss_spike@2,checkpoint_write@1",
+         "--retry-attempts", "2", "--spike-factor", "5"], "ckpt", 0,
+        "supervised run completed: 3/3 steps, 0 recoveries, 1 retries"),
+}
+
+
+@pytest.mark.parametrize("case", RESILIENT_CASES)
+def test_resilience_flags_run_or_refuse_as_the_reference(fixture_dir, tmp_path,
+                                                         capsys, case):
+    """``--resilient``, ``--fault-script``, ``--retry-attempts`` and
+    ``--spike-factor`` (the reference's ``_run_supervisor`` and its
+    refusals, ``metis_tpu/planner/cli.py:2038-2050``)."""
+    extra, ckpt, want_rc, said = RESILIENT_CASES[case]
+    out = tmp_path / "o.json"
+    args = _base(fixture_dir, tmp_path / "ckpt", out, "--steps", "3", *extra)
+    if ckpt is None:
+        i = args.index("--checkpoint-dir")
+        del args[i:i + 2]
+    assert main(args) == want_rc
+    assert said in capsys.readouterr().err
+    if want_rc == 0:
+        report = json.loads(out.read_text())
+        assert report["outcome"] == "completed" and report["steps_done"] == 3
+        assert load_meta(tmp_path / "ckpt").step == 3
+    else:
+        assert not (tmp_path / "ckpt").exists()
 
 
 PINNED = {
