@@ -95,21 +95,24 @@ Phases, in order (any failure exits non-zero):
    --max-cp 2 --enable-zero --enable-sp`` search on a 1 x 2 H100 cluster
    from a profile at that depth (losses within ``CP_TOL``, first-step
    gradient norms within ``GRAD_NORM_TOL``, each rank's peak);
-11. zero_sp: the GPT at ``SHALLOW_BLOCKS`` (1) block of full width, gbs 4, on two gloo ranks
-   in one job: tp 2 and dp 2 against one device (within 0.05, 1 launch
+11. zero_sp: the GPT at ``SHALLOW_BLOCKS`` (1) block of ``QUARTER_WIDTH``
+   (hidden 1024, 8 heads), gbs 4, on two gloo ranks in one job: tp 2 and
+   dp 2 against one device at that depth and width (within 0.05, 1 launch
    of each kernel per rank per step), tp 2 with Megatron sp against tp 2,
    dp 2 at ZeRO 1, 2 and 3 against dp 2 at ZeRO 0 (losses within
    ``ZERO_SP_TOL``, gradient
    norms within ``GRAD_NORM_TOL``), each rank's peak beside the planner's
    ZeRO relief (``cost/zero.py``);
 12. stage_axes: multi-stage plans whose stages carry ZeRO, context or
-   expert parallelism on the hetero route, at ``STAGE_BLOCKS`` blocks of
-   full width on gloo ranks sharing the card (one job per rank count,
-   several plans each), 3 steps each against the one-stage executor at that
-   depth, run first in this process and freed: (a) the GPT, 1 + 1 stages of
-   dp 2, gbs 4 in one microbatch, at ZeRO 0-3 on both; (b) the 8192-token
-   LLaMA, a cp 2 ring stage feeding a cp 2 Ulysses stage, then a cp 1
-   stage; (c) the MoE at ``MOE_STAGE_BLOCKS`` (1) in ``MOE_STAGE_GROUP``
+   expert parallelism on the hetero route, at full width on gloo ranks
+   sharing the card (one job per rank count, several plans each), 3 steps
+   each against the one-stage executor at the same depth, run first in
+   this process and freed: (a) the GPT at ``GPT_STAGE_BLOCKS`` (1) block,
+   two stages of dp 2 (stage 0 the embedding and the block, stage 1 the
+   head), gbs 4 in one microbatch, at ZeRO 0-3 on both; (b) the 8192-token
+   LLaMA at ``STAGE_BLOCKS`` (2) blocks, a cp 2 ring stage feeding a cp 2
+   Ulysses stage, then a cp 1 stage; (c) the MoE at ``MOE_STAGE_BLOCKS``
+   (1) in ``MOE_STAGE_GROUP``
    routing groups, stage 0 the embedding and the block at dp 2 x ep 2 over
    rows (3, 1) (padded, masked), stage 1 the head at dp 1, with the
    first-block routing decisions of that layout that differ from the
@@ -129,9 +132,10 @@ Phases, in order (any failure exits non-zero):
    ``--checkpoint-every 2``, 2 resumed, 5 straight; the resumed run's
    losses and every leaf's digest bit-equal to the straight run's, save
    and restore ms, ``mean_step_ms`` beside ``plan_cost_ms``, 1 launch of
-   each kernel per step; (b) the MoE at 1 block in the preset's 4096-token
-   routing groups, each shared by two gloo ranks: tp 2 + sp, dp 2, cp 2
-   ring and cp 2 Ulysses against one device (losses within ``PIPE_TOL``,
+   each kernel per step; (b) the MoE at 1 block of ``QUARTER_WIDTH`` in
+   the preset's 4096-token routing groups, each shared by two gloo ranks:
+   tp 2 + sp, dp 2, cp 2 ring and cp 2 Ulysses against one device at that
+   depth and width (losses within ``PIPE_TOL``,
    first-step gradient norms within ``GRAD_NORM_TOL``), the first-block
    routing decisions that differ and the router's ties; (c) ``train``'s
    rank body on pinned plans on two gloo ranks at ``TRAIN_C_WIDTH``: dp 2
@@ -143,8 +147,8 @@ Phases, in order (any failure exits non-zero):
    checkpoint restore onto the same plan, ``stall_ms`` beside
    ``price_migration_ms`` at 100 GB/s;
 15. chaos (``chaos_phase``): the fault-tolerant supervisor through the
-   port's CLI, each run in a process of its own.  First (a) at the train
-   phase's widths and depth, ``chaos --fault-script
+   port's CLI, each run in a process of its own, the train phase's GPT at
+   its depth and ``TRAIN_C_WIDTH``.  First (a) ``chaos --fault-script
    checkpoint_write@2x2,device_loss@4`` on two gloo ranks sharing the card,
    a cluster of two one-card nodes, the dp 2 + ZeRO 1 plan pinned: two
    retried checkpoint writes, the device loss absorbed by a live reshard
@@ -156,7 +160,7 @@ Phases, in order (any failure exits non-zero):
    one-device digests equal to the checkpoint's, its 2 steps within
    ``TRAJ_TOL`` of the dp 2 plan continued from the same checkpoint and
    bit-equal to (a)'s steps 5-6, the cross-mesh restore's ms and the GB
-   it reads; at ``TRAIN_C_WIDTH``, (b) ``device_loss@4,
+   it reads; (b) ``device_loss@4,
    reshard_verify@4,loss_nan@5``: the migration falls back to the restore,
    the NaN rolls back to step 4, the final loss equal to the run without
    ``loss_nan``; and (c) ``train --resilient`` on one device sent a real
@@ -164,6 +168,18 @@ Phases, in order (any failure exits non-zero):
    then resumed to the end bit-equal to an uninterrupted run.  Every
    supervised step launches each kernel once (``kernel_launches`` of the
    ``train_step`` events).
+16. calibration (``calibration_phase``): ``python -m metis_tpu_torch
+   calibrate --output X --chip-roofline`` on the one card (exit 1, no
+   ``X``, the card's matmul TFLOP/s and streaming GB/s, each at most 1.05 x
+   the data sheet's peak and printed with its share of it);
+   ``microbenchmark_collectives`` on two and four gloo ranks (all five
+   collectives fitted, one sample per payload), ``measure_dp_overlap`` on
+   two and ``measure_pipeline_overlap`` (pp 2 x dp 2, the lockstep and
+   overlapped losses equal) on four; ``fit_recovery_seconds`` over the
+   chaos phase's recoveries, ``fit_ledger_correction`` over the planner
+   phase's ``validate`` pairs; and the planner phase's 2 x 8 search with
+   the measured dp overlap and the fitted recovery time.  These paths run
+   dense attention and plain products, as the reference's do: no kernel.
 
 Ranks run in pools (``execution.dist.RankPool``, ``on_ranks``): one per
 world size and backend, all started at the dist phase (their ranks boot
@@ -244,6 +260,13 @@ SHARED_CARD = "ranks share one card; not a dp/tp speed"
 # whole script near 1000 s with the train and reshard phases (2 blocks, and
 # full depth for (a) and the LLaMA's tp 2, before them)
 SHALLOW_BLOCKS = 1
+# a quarter of the preset's hidden width (8 heads of 128, its vocabulary and
+# sequence): the zero_sp phase's legs, the train phase's MoE legs (b) and
+# its legs (c), the reshard and chaos phases, whose gates (bit-equality,
+# agreement with one device, MoE routing in shared 4096-token groups,
+# recoveries) hold at any width, while the dp, cp and ZeRO legs' gloo
+# traffic through the host grows with the parameters' bytes
+QUARTER_WIDTH = dict(hidden_size=1024, num_heads=8)
 # the llama phase's two-stage hetero plan, 1 + 1 blocks (4 + 4 before the
 # reshard phase came)
 LLAMA_STAGE_BLOCKS = 2
@@ -297,15 +320,18 @@ RING_PAST = dict(RING_SELF, name="ring_past", causal=False)
 LONG = dict(name="long", b=1, hq=32, hkv=8, s=8192, d=128, causal=True)
 ULYSSES = dict(name="ulysses", b=1, hq=16, hkv=16, s=8192, d=128, causal=True)
 CONTEXT_CASES = (RING_SELF, RING_PAST, LONG, ULYSSES)
-# the train phase's grids: its MoE's cp 2 ring ranks (b 4, 32 heads, each
-# rank a 512-token block: its self block and its past one, stats mode), and
-# leg (c)'s narrow GPT (8 heads of 128, 2 rows per dp rank or microbatch)
-TRAIN_RING_SELF = dict(name="train_ring_self", b=4, hq=32, hkv=32, s=512, d=128,
+# the grids of the narrow GPT and MoE (``QUARTER_WIDTH``: 8 heads of 128):
+# the train phase's MoE's cp 2 ring ranks (b 4, each rank a 512-token block:
+# its self block and its past one, stats mode), 2 rows per dp rank or
+# microbatch (train (b) and (c), zero_sp's dp 2)
+TRAIN_RING_SELF = dict(name="train_ring_self", b=4, hq=8, hkv=8, s=512, d=128,
                        causal=True, stats=True, ring=True)
 TRAIN_RING_PAST = dict(TRAIN_RING_SELF, name="train_ring_past", causal=False)
 NARROW = dict(name="narrow", b=2, hq=8, hkv=8, s=1024, d=128, causal=True)
-# the reshard phase's leg (b), the same narrow GPT on one device (b 4, 8
-# heads) and at tp 2 (4 heads per rank); its leg (a) runs MBS2 and MAIN
+# on one device (b 4, 8 heads; the reshard phase's leg (b), chaos (b) and
+# (c)) and at tp 2 or under Ulysses' cp 2 (4 heads per rank; zero_sp's tp 2,
+# train (b)'s tp 2 and cp 2 a2a); the reshard phase's leg (a) runs MBS2 and
+# MAIN
 NARROW_ONE = dict(NARROW, name="narrow_one", b=4)
 NARROW_TP2 = dict(NARROW, name="narrow_tp2", b=4, hq=4, hkv=4)
 PATH_CASES = (MAIN, TP2, MICRO, ROWS3, MBS2, LLAMA, LLAMA_TP2, LLAMA_MB2,
@@ -340,7 +366,7 @@ REPLACES = {
 #: runs one
 POOLS: dict = {}
 POOL_LAST_PHASE = {(1, "nccl"): "dist", (3, "gloo"): "stage_axes",
-                   (4, "gloo"): "stage_axes", (2, "gloo"): "chaos"}
+                   (4, "gloo"): "calibration", (2, "gloo"): "calibration"}
 
 
 def start_pools() -> None:
@@ -1067,8 +1093,8 @@ def planner_phase(work: pathlib.Path, sliced: dict) -> dict:
         raise SystemExit(f"the mbs = {gbs} uniform plan is missing or flagged OOM "
                          f"(the step's peak is {sliced['peak_memory_gb']:.2f} GB)")
 
-    path = work / "validate.json"
-    if cli.main(["validate", *args, "--validate-top-k", "3",
+    path, ledger = work / "validate.json", work / "validate_ledger.jsonl"
+    if cli.main(["validate", *args, "--validate-top-k", "3", "--ledger", str(ledger),
                  "--output", str(path)]) != 0:
         raise SystemExit("validate failed")
     validated = json.loads(path.read_text())
@@ -1126,8 +1152,8 @@ def planner_phase(work: pathlib.Path, sliced: dict) -> dict:
     # (the reference's memory coefficient): at max tp 1 as the searches
     # above, and at max tp 4, where the tp 2 and 4 candidates prune for
     # want of a profile (the profile-miss contract)
-    big = ClusterSpec.from_files(*write_cluster_files(
-        work, sliced["device_type"], 2, 8))
+    big_files = write_cluster_files(work, sliced["device_type"], 2, 8)
+    big = ClusterSpec.from_files(*big_files)
     scale = {}
     for max_tp in (1, 4):
         res = plan_hetero(big, store, model, SearchConfig(
@@ -1146,7 +1172,10 @@ def planner_phase(work: pathlib.Path, sliced: dict) -> dict:
             "num_costed": res.num_costed, "num_pruned": res.num_pruned,
             "search_seconds_host": res.search_seconds,
             "top_ms": [r["cost_ms"] for r in rows]}
+        if max_tp == 1:
+            big_rows = rows
     return {
+        "ledger": str(ledger), "big_cluster": big_files, "big_rows": big_rows,
         "mem_coef": mem_coef,
         "hetero_reference_plans": len(out["hetero-reference"]),
         "uniform_top": [(r["plan"]["mbs"], r["cost_ms"], r["cost_breakdown"]["oom"])
@@ -1971,27 +2000,38 @@ def context_phase(work: pathlib.Path) -> tuple[dict, dict]:
     return out, launches
 
 
-def zero_sp_phase(work: pathlib.Path, sliced: dict) -> tuple[dict, dict]:
-    """The GPT at ``SHALLOW_BLOCKS`` of full width (the dist phase's legs (c)), gbs 4,
+def layer_param_bytes(cfg) -> list[int]:
+    """Parameter bytes of each profiled layer of ``cfg``: the embedding, each
+    block, the head (from its leaves' shapes, on the meta device)."""
+    from metis_tpu_torch.models import family_ops
+
+    full = family_ops(cfg).init_params(None, cfg, device="meta")
+    nbytes = {g: sum(t.numel() * t.element_size() for t in sub.values())
+              for g, sub in full.items()}
+    return ([nbytes["embed"]] + [nbytes["blocks"] // cfg.num_blocks] * cfg.num_blocks
+            + [nbytes["head"]])
+
+
+def zero_sp_phase(work: pathlib.Path) -> tuple[dict, dict]:
+    """The GPT at ``SHALLOW_BLOCKS`` (1) block of ``QUARTER_WIDTH``, gbs 4,
     3 fresh batches, on two gloo ranks sharing the card, in one job: tp 2
-    and dp 2 against one device on the same batches, tp 2 with sp against
-    tp 2 without it, and dp 2 at ZeRO 1, 2 and 3 against dp 2 at ZeRO 0.
-    Loss gaps, first-step gradient norms (each leg's against
-    its reference), each rank's peak memory, and the planner's memory
-    relief for the leg (``cost/zero.py``; ``cost/sequence_parallel.py``
-    prices sp only from a tp sweep, which one card cannot profile) beside
-    the measured one."""
+    and dp 2 against one device at that depth and width on the same
+    batches, tp 2 with sp against tp 2 without it, and dp 2 at ZeRO 1, 2
+    and 3 against dp 2 at ZeRO 0.  Loss gaps, first-step gradient norms
+    (each leg's against its reference), each rank's peak memory, and the
+    planner's memory relief for the leg (``cost/zero.py`` on the model's
+    layer bytes; ``cost/sequence_parallel.py`` prices sp only from a tp
+    sweep, which one card cannot profile) beside the measured one."""
     from metis_tpu_torch.core.config import ModelSpec
     from metis_tpu_torch.cost.zero import zero_static_reduction_mb
     from metis_tpu_torch.execution.builder import build_executable
     from metis_tpu_torch.execution.mesh import PlanArtifact
     from metis_tpu_torch.execution.train import param_specs_for
     from metis_tpu_torch.models import config_for_model_spec
-    from metis_tpu_torch.profiles.store import ProfileStore
     from metis_tpu_torch.testing import run_plans_rank
 
-    cfg = dataclasses.replace(config_for_model_spec(ModelSpec(**GPT_15B)),
-                              num_blocks=SHALLOW_BLOCKS)
+    spec = dict(GPT_15B, num_layers=SHALLOW_BLOCKS + 2, **QUARTER_WIDTH)
+    cfg = config_for_model_spec(ModelSpec(**spec))
     batches = [(t.cpu(), g.cpu()) for t, g in fresh_batches(cfg, 4, 3, SEED + 7)]
 
     def plan(dp, tp, zero=0, sp=False):
@@ -2012,7 +2052,8 @@ def zero_sp_phase(work: pathlib.Path, sliced: dict) -> tuple[dict, dict]:
     del state, exe
     gc.collect()
     torch.cuda.empty_cache()
-    log(f"  one device, {SHALLOW_BLOCKS} block(s): losses {[round(x, 5) for x in one]}")
+    log(f"  one device, {SHALLOW_BLOCKS} block(s) of hidden {cfg.hidden}: losses "
+        f"{[round(x, 5) for x in one]}")
     ranks = on_ranks(run_plans_rank, 2, "gloo", [dict(
         artifact_json=art, cfg=cfg, init=SEED, batches=batches,
         first_grads="norms") for art in legs.values()])
@@ -2025,12 +2066,10 @@ def zero_sp_phase(work: pathlib.Path, sliced: dict) -> tuple[dict, dict]:
     def zero_split(group, name):
         return runs["dp2_zero1"][0]["zero_dims"][(group, name)] is not None
 
-    # the planner's static relief per rank at dp 2, from the slice's profile
-    # (its embed, first blocks and head rows are this model's)
-    store = ProfileStore.from_dir(sliced["profile_dir"])
-    per_layer = store.model.params_per_layer_bytes
-    layers = [*range(SHALLOW_BLOCKS + 1), len(per_layer) - 1]
-    dtype_bytes = ModelSpec(**GPT_15B).dtype_bytes
+    # the planner's static relief per rank at dp 2, from the model's layer
+    # bytes (what a profile of it records)
+    per_layer = layer_param_bytes(cfg)
+    dtype_bytes = ModelSpec(**spec).dtype_bytes
     peak = {name: max(r["peak_memory_bytes"] for r in rs) / 1e9
             for name, rs in runs.items()}
     out, launches = {"one_device_losses": one}, {}
@@ -2055,7 +2094,7 @@ def zero_sp_phase(work: pathlib.Path, sliced: dict) -> tuple[dict, dict]:
         if not tp:
             relief = zero_static_reduction_mb(per_layer, int(name[-1]), 2, tp=1,
                                               dtype_bytes=dtype_bytes)
-            planned = sum(relief[i] for i in layers) * 2**20 / 1e9
+            planned = sum(relief) * 2**20 / 1e9
         log(f"  {name}: peak per rank {peak[name]:.2f} GB against {reference} "
             f"{peak[reference]:.2f} GB: relief measured {measured:.2f} GB, planner "
             + ("not priced (sp relief needs a tp sweep; one card profiles tp 1)"
@@ -2078,6 +2117,10 @@ def zero_sp_phase(work: pathlib.Path, sliced: dict) -> tuple[dict, dict]:
 # stage 0), past the card's 79.2 GiB with the others
 STAGE_BLOCKS = 2
 MOE_STAGE_BLOCKS = 1
+# leg (a)'s GPT: 1 block, stage 0 the embedding and the block, stage 1 the
+# head (as the MoE's leg (c)): every stage still carries ZeRO 0-3 over dp 2,
+# and the dp all-reduces and gathers move a quarter fewer bytes than at 2
+GPT_STAGE_BLOCKS = 1
 # the MoE leg's routing groups: one row.  In the preset's groups (the
 # largest divisor of the tokens <= 4096) the (3, 1) stage pads to 3 + 3 rows
 # and routes in groups of 3072 tokens where the one-stage run routes one of
@@ -2165,14 +2208,15 @@ def fitted_mem_coef(profile_dir, layers, bs: int, peak_bytes: int) -> float:
 
 def stage_axes_phase(work: pathlib.Path, results: dict) -> tuple[dict, dict]:
     """Multi-stage plans whose stages carry ZeRO, context or expert
-    parallelism on the hetero route, at 2 blocks of full width on gloo
-    ranks sharing the card, 3 steps each against the one-stage executor at
-    that depth (run first in this process and freed): (a) the GPT, 1 + 1
-    stages of dp 2, gbs 4 in one microbatch, at ZeRO 0, 1, 2 and 3 on both; (b) the 8192-token
-    LLaMA, stage 0 cp 2 ring against stage 1 cp 2 Ulysses, then against
-    stage 1 cp 1; (c) the MoE at 1 block, stage 0 (the embedding and the
-    block) at dp 2 x ep 2 over rows (3, 1), stage 1 (the head) at dp 1,
-    with the first-block routing decisions that differ
+    parallelism on the hetero route, at full width on gloo ranks sharing
+    the card, 3 steps each against the one-stage executor at the same
+    depth (run first in this process and freed): (a) the GPT at 1 block,
+    stage 0 (the embedding and the block) and stage 1 (the head) at dp 2,
+    gbs 4 in one microbatch, at ZeRO 0, 1, 2 and 3 on both; (b) the
+    8192-token LLaMA at 2 blocks, stage 0 cp 2 ring against stage 1 cp 2
+    Ulysses, then against stage 1 cp 1; (c) the MoE at 1 block, stage 0
+    (the embedding and the block) at dp 2 x ep 2 over rows (3, 1), stage 1
+    (the head) at dp 1, with the first-block routing decisions that differ
     from the one-stage layout; (d) the best-ranked plan of two stages or
     more with zero or cp of ``hetero --enable-cp --max-cp 2 --enable-zero``
     on 1 x 4 H100 from the context phase's profile, through
@@ -2196,7 +2240,7 @@ def stage_axes_phase(work: pathlib.Path, results: dict) -> tuple[dict, dict]:
 
     L = STAGE_BLOCKS
     gpt = dataclasses.replace(config_for_model_spec(ModelSpec(**GPT_15B)),
-                              num_blocks=L)
+                              num_blocks=GPT_STAGE_BLOCKS)
     llama_spec = dict(LLAMA_LONG, num_layers=L + 2)
     llama = config_for_model_spec(ModelSpec(**llama_spec))
     preset = dataclasses.replace(config_for_model_spec(ModelSpec(**MOE_15B)),
@@ -2302,7 +2346,11 @@ def stage_axes_phase(work: pathlib.Path, results: dict) -> tuple[dict, dict]:
 
     def gpt_zero(z):
         return stages(StageSpec((0, 1), True, False, dp=2, tp=1, zero=z),
-                      StageSpec((1, 2), False, True, dp=2, tp=1, zero=z))
+                      StageSpec((1, 1), False, True, dp=2, tp=1, zero=z))
+
+    def head_stage(r):
+        """Stage 0 runs the one block, stage 1 (the head) none."""
+        return stage_launches(1 - r["slots"]["pp"][0], False, 1)
 
     def ring_then(second):
         return stages(StageSpec((0, 1), True, False, dp=1, tp=1, cp=2), second)
@@ -2319,12 +2367,12 @@ def stage_axes_phase(work: pathlib.Path, results: dict) -> tuple[dict, dict]:
         ("c_moe_ep2_rows31", 3, dict(stages(
             StageSpec((0, 1), True, False, dp=2, tp=1, ep=2, replica_rows=(3, 1)),
             StageSpec((1, 1), False, True, dp=1, tp=1)), microbatches=1),
-         "moe", lambda r: stage_launches(1 - r["slots"]["pp"][0], False, 1)),
+         "moe", head_stage),
         ("b_ring_cp1", 3, dict(ring_then(StageSpec((1, 2), False, True, dp=1, tp=1)),
                                microbatches=1),
          "llama", by_stage((False, 1, True), (True, 1, False))),
-        *((f"a_zero{z}", 4, dict(gpt_zero(z), microbatches=1), "gpt",
-           by_stage((False, 1, False), (True, 1, False))) for z in range(4)),
+        *((f"a_zero{z}", 4, dict(gpt_zero(z), microbatches=1), "gpt", head_stage)
+          for z in range(4)),
         ("b_ring_a2a", 4, dict(ring_then(StageSpec(
             (1, 2), False, True, dp=1, tp=1, cp=2, cp_mode="a2a")), microbatches=1),
          "llama", by_stage((False, 1, True), (True, 1, False))),
@@ -2348,7 +2396,8 @@ def stage_axes_phase(work: pathlib.Path, results: dict) -> tuple[dict, dict]:
 
     # each rank's peak beside the planner's stage demand
     gpt_dir = results["slice"]["profile_dir"]
-    gpt_spans = [(0, 2), (GPT_15B["num_layers"] - 2, GPT_15B["num_layers"])]
+    # the 10-layer profile's rows of this 1-block model: embed, block, head
+    gpt_spans = [(0, 2), (GPT_15B["num_layers"] - 1, GPT_15B["num_layers"])]
     gpt_coef = fitted_mem_coef(gpt_dir, [0, 1, *range(*gpt_spans[1])], 4,
                                refs["gpt"]["peak_bytes"])
     moe_dir = work / f"profiles_{MOE_15B['name']}"
@@ -2434,7 +2483,8 @@ def stage_axes_phase(work: pathlib.Path, results: dict) -> tuple[dict, dict]:
 # once they are compared
 TRAIN_BLOCKS = 1
 TRAIN_GBS = 4
-TRAIN_C_WIDTH = ["--hidden-size", "1024", "--num-heads", "8"]
+TRAIN_C_WIDTH = ["--hidden-size", str(QUARTER_WIDTH["hidden_size"]),
+                 "--num-heads", str(QUARTER_WIDTH["num_heads"])]
 
 
 def train_cli(args: list[str], label: str, work: pathlib.Path,
@@ -2499,13 +2549,14 @@ def train_phase(work: pathlib.Path, results: dict) -> tuple[dict, dict]:
     ``--checkpoint-every 2``, 2 more resumed, 5 straight; the resumed run's
     losses and every leaf's digest bit-equal to the straight run's at step
     5, save / restore ms, ``mean_step_ms`` beside ``plan_cost_ms``, the
-    launches of each step.  (b) The MoE (``MOE_15B`` at 1 block, the
-    preset's 4096-token routing groups: gbs 4 x 1024 tokens is one group)
-    on two gloo ranks sharing the card, each rank holding part of the
-    group: tp 2 + sp, dp 2, cp 2 ring and cp 2 Ulysses, 3 steps each
-    against one device (losses within ``PIPE_TOL``, first-step gradient
-    norms within ``GRAD_NORM_TOL``), with the first-block routing
-    decisions that differ from the one device's and the router ties.
+    launches of each step.  (b) The MoE (``MOE_15B`` at 1 block of
+    ``QUARTER_WIDTH``, the preset's 4096-token routing groups: gbs 4 x
+    1024 tokens is one group) on two gloo ranks sharing the card, each
+    rank holding part of the group: tp 2 + sp, dp 2, cp 2 ring and cp 2
+    Ulysses, 3 steps each against one device at that depth and width
+    (losses within ``PIPE_TOL``, first-step gradient norms within
+    ``GRAD_NORM_TOL``), with the first-block routing decisions that differ
+    from the one device's and the router ties.
     (c) ``train``'s rank body on plans pinned in the checkpoint
     directories, two gloo ranks sharing the card (one job for the six
     runs, ``train_leg_c``, beside (b)'s), 1 block at ``TRAIN_C_WIDTH``: dp
@@ -2629,7 +2680,7 @@ def train_leg_b() -> tuple[dict, dict]:
 
     out, launches = {}, {}
     t0 = time.perf_counter()
-    mcfg = config_for_model_spec(ModelSpec(**dict(MOE_15B, num_layers=3)))
+    mcfg = config_for_model_spec(ModelSpec(**dict(MOE_15B, num_layers=3, **QUARTER_WIDTH)))
     batches = [(t.cpu(), g.cpu()) for t, g in fresh_batches(mcfg, TRAIN_GBS, 3, SEED + 5)]
     one = build_executable(mcfg, PlanArtifact.from_uniform_plan(
         UniformPlan(1, 1, 1, TRAIN_GBS, TRAIN_GBS)), device="cuda")
@@ -2643,7 +2694,7 @@ def train_leg_b() -> tuple[dict, dict]:
     del state, one
     gc.collect()
     torch.cuda.empty_cache()
-    log(f"  (b) one device, 1 MoE block, gbs {TRAIN_GBS}: losses "
+    log(f"  (b) one device, 1 MoE block of hidden {mcfg.hidden}, gbs {TRAIN_GBS}: losses "
         f"{[round(x, 5) for x in ref]}; router ties {want_routing['ties']} of "
         f"{want_routing['expert_idx'].shape[1]} tokens")
 
@@ -2828,7 +2879,7 @@ def replan_leg(work: pathlib.Path, base: list[str],
     out, launches = {}, {}
     t0 = time.perf_counter()
     cont, at4 = chaos_a["cont"], chaos_a["at4"]
-    spec = dict(GPT_15B, num_layers=TRAIN_BLOCKS + 2)
+    spec = dict(GPT_15B, num_layers=TRAIN_BLOCKS + 2, **QUARTER_WIDTH)
     cfg = config_for_model_spec(ModelSpec(**spec))
     stream = make_input_pipeline(synthetic_run_dataset(
         cfg.vocab_size, TRAIN_GBS, cfg.seq_len), TRAIN_GBS, device="cpu",
@@ -2844,9 +2895,9 @@ def replan_leg(work: pathlib.Path, base: list[str],
         cont_run = pool.submit(on_ranks, elastic_rank, 2, "gloo", [
             dict(cfg=cfg, artifact=pinned_plan(dp=2, zero=1).to_json(),
                  init=SEED + 1, restore=str(cont), batches=batches, digests=False)])
-        summary, ev2 = train_cli([*base, "--steps", "2", "--checkpoint-dir",
-                                  str(chaos_a["replan"]), "--replan-on-resume"],
-                                 "replan2", work, True)
+        summary, ev2 = train_cli([*base, *TRAIN_C_WIDTH, "--steps", "2",
+                                  "--checkpoint-dir", str(chaos_a["replan"]),
+                                  "--replan-on-resume"], "replan2", work, True)
         shutil.rmtree(chaos_a["replan"])
         chaos_steps = {k: chaos_a["losses"][k] for k in (5, 6)}
         if any(chaos_steps[k] != step_losses(ev2).get(k) for k in chaos_steps):
@@ -2905,12 +2956,12 @@ def reshard_leg_b(work: pathlib.Path) -> tuple[dict, dict]:
     from metis_tpu_torch.core.config import ModelSpec
     from metis_tpu_torch.cost.volume import TransformerVolume
     from metis_tpu_torch.execution import reshard
-    from metis_tpu_torch.models import config_for_model_spec, family_ops
+    from metis_tpu_torch.models import config_for_model_spec
     from metis_tpu_torch.testing import live_reshard_rank
 
     out, launches = {}, {}
     t0 = time.perf_counter()
-    qspec = dict(GPT_15B, num_layers=TRAIN_BLOCKS + 2, hidden_size=1024, num_heads=8)
+    qspec = dict(GPT_15B, num_layers=TRAIN_BLOCKS + 2, **QUARTER_WIDTH)
     qcfg = config_for_model_spec(ModelSpec(**qspec))
     batches = [(t.cpu(), g.cpu()) for t, g in fresh_batches(qcfg, TRAIN_GBS, 3, SEED + 7)]
     plans = [pinned_plan(dp=2, zero=1), pinned_plan(tp=2), pinned_plan()]
@@ -2918,12 +2969,7 @@ def reshard_leg_b(work: pathlib.Path) -> tuple[dict, dict]:
     ranks = on_ranks(live_reshard_rank, 2, "gloo", qcfg, batches,
                         [p.to_json() for p in plans], str(work / "reshard_b"))
     shutil.rmtree(work / "reshard_b")
-    full = family_ops(qcfg).init_params(None, qcfg, device="meta")
-    nbytes = {g: sum(t.numel() * t.element_size() for t in sub.values())
-              for g, sub in full.items()}
-    volume = TransformerVolume(ModelSpec(**qspec), tuple(
-        [nbytes["embed"]] + [nbytes["blocks"] // qcfg.num_blocks] * qcfg.num_blocks
-        + [nbytes["head"]]))
+    volume = TransformerVolume(ModelSpec(**qspec), tuple(layer_param_bytes(qcfg)))
     names = ("dp2_zero1_to_tp2", "tp2_to_one")
     for i, name in enumerate(names):
         legs = [r["legs"][i] for r in ranks]
@@ -2956,9 +3002,11 @@ def reshard_leg_b(work: pathlib.Path) -> tuple[dict, dict]:
     return out, launches
 
 
-# the chaos phase: the supervisor's CLI; (a) at the train phase's widths
-# and depth on a cluster of two one-card nodes (losing the last node
-# leaves one card), (b) and (c) at ``TRAIN_C_WIDTH``
+# the chaos phase: the supervisor's CLI at the train phase's depth and
+# ``TRAIN_C_WIDTH``; (a) on a cluster of two one-card nodes (losing the last
+# node leaves one card).  At the 1.5B preset's widths (a) and its replanned
+# restore moved 5.00 GB through the host in the live reshard and 7.50 GB
+# per restore, none of which their gates need
 CHAOS_STEPS = 6
 CHAOS_A_SCRIPT = "checkpoint_write@2x2,device_loss@4"
 CHAOS_B_SCRIPT = "device_loss@4,reshard_verify@4"
@@ -3041,9 +3089,9 @@ def chaos_phase(work: pathlib.Path, results: dict) -> tuple[dict, dict]:
 
 
 def chaos_leg_a(work: pathlib.Path, base: list[str]) -> tuple[dict, dict, dict]:
-    """(a) The train phase's GPT (1.5B widths, ``TRAIN_BLOCKS`` block) on
-    two gloo ranks sharing the card, a cluster of two one-card nodes, the
-    dp 2 + ZeRO 1 plan pinned: ``chaos`` with ``CHAOS_A_SCRIPT``.  Gates:
+    """(a) The train phase's GPT at ``TRAIN_BLOCKS`` block and
+    ``TRAIN_C_WIDTH`` on two gloo ranks sharing the card, a cluster of two
+    one-card nodes, the dp 2 + ZeRO 1 plan pinned: ``chaos`` with ``CHAOS_A_SCRIPT``.  Gates:
     completed, 6 of 6 steps, at least 2 retries; one ``device_loss``
     recovery, migrated live onto the searched one-card plan, resumed at
     step 4; ``reshard_plan`` -> ``reshard_step`` -> ``migration_complete``
@@ -3065,7 +3113,7 @@ def chaos_leg_a(work: pathlib.Path, base: list[str]) -> tuple[dict, dict, dict]:
     prof = base[base.index("--profile-dir") + 1]
     hostfile, clusterfile = write_cluster_files(
         work, ProfileStore.from_dir(prof).device_types[0], 2, 1)
-    args = [*base, "--hostfile", hostfile, "--clusterfile", clusterfile]
+    args = [*base, *TRAIN_C_WIDTH, "--hostfile", hostfile, "--clusterfile", clusterfile]
     rc, rep, ev, ms = resilient_cli(
         ["chaos", *args, "--steps", str(CHAOS_STEPS), "--checkpoint-every", "2",
          "--fault-script", CHAOS_A_SCRIPT, "--checkpoint-dir", str(ckpt),
@@ -3089,7 +3137,7 @@ def chaos_leg_a(work: pathlib.Path, base: list[str]) -> tuple[dict, dict, dict]:
         hardlink_copy(prev, path)
     got = step_losses(ev)
     # the price the supervisor's migration decision compared
-    spec = ModelSpec(**dict(GPT_15B, num_layers=TRAIN_BLOCKS + 2))
+    spec = ModelSpec(**dict(GPT_15B, num_layers=TRAIN_BLOCKS + 2, **QUARTER_WIDTH))
     volume = TransformerVolume(spec, ProfileStore.from_dir(prof).model.params_per_layer_bytes)
     old, new = pinned_plan(dp=2, zero=1), load_plan(ckpt)
     price = reshard.price_migration_ms(
@@ -3100,6 +3148,7 @@ def chaos_leg_a(work: pathlib.Path, base: list[str]) -> tuple[dict, dict, dict]:
         "outcome": rep["outcome"], "steps_done": rep["steps_done"],
         "retries": rep["retries"], "checkpoints": rep["checkpoints"],
         "recover_s": recs[0]["recover_s"], "stall_ms": done["stall_ms"],
+        "records": [{k: r[k] for k in ("kind", "recover_s")} for r in recs],
         "moved_bytes": done["moved_bytes"], "price_migration_ms_100gbps": price,
         "save_ms": ms.get("save_ms"), "restore_ms": ms.get("restore_ms"),
         "losses": got}}
@@ -3168,6 +3217,8 @@ def chaos_leg_b(work: pathlib.Path, base: list[str]) -> tuple[dict, dict]:
     return {"b_chaos_fallback_nan": {
         "outcome": rep["outcome"], "recoveries": kinds,
         "recover_s": [r["recover_s"] for r in recs], "final_loss": rep["final_loss"],
+        "records": [{k: r[k] for k in ("kind", "recover_s")} for run in runs.values()
+                    for r in run[1].get("recoveries", [])],
         "final_loss_equal_without_nan": True, "save_ms": ms.get("save_ms"),
         "restore_ms": ms.get("restore_ms")}}, launches
 
@@ -3216,10 +3267,174 @@ def chaos_leg_c(work: pathlib.Path, base: list[str]) -> tuple[dict, dict]:
                           "resumed_bit_equal": True, "save_ms": ms.get("save_ms")}}, launches
 
 
+# the calibration phase: the collectives' local payloads (the calibrate
+# subcommand's default) and the planner phase's 2 x 8 search it reruns with
+# the measured dp overlap and the fitted recovery time
+CALIBRATION_PAYLOAD_KB = (64, 256, 1024, 4096)
+CALIBRATION_ITERS = 8
+
+
+def finite_fields(label: str, got: dict) -> None:
+    """Gate: every number of a measurement is finite."""
+    bad = {k: v for k, v in got.items() if isinstance(v, (int, float))
+           and not isinstance(v, bool) and not math.isfinite(v)}
+    if bad:
+        raise SystemExit(f"{label}: non-finite fields {bad}")
+
+
+def calibration_phase(work: pathlib.Path, results: dict) -> tuple[dict, dict]:
+    """``calibrate`` and the measured calibration (``cost/calibration.py``):
+    (a) ``python -m metis_tpu_torch calibrate --output X --chip-roofline``
+    on the one card: exit 1 and no ``X`` (one device has no collective to
+    time), and a chip JSON whose ``matmul_tflops`` and ``hbm_stream_gbps``
+    are finite, positive and at most 1.05 x the data sheet's peaks; (b)
+    ``microbenchmark_collectives`` on the 2- and 4-rank gloo pools (CUDA
+    tensors through the host): all five collectives fitted, one sample per
+    payload; (c) ``measure_dp_overlap`` on the 2-rank pool and (d)
+    ``measure_pipeline_overlap`` on the 4-rank pool (pp 2 x dp 2): every
+    field finite, the fractions in [0, 1], (d)'s two modes' losses equal;
+    (e) ``fit_recovery_seconds`` over the chaos phase's recoveries and
+    ``fit_ledger_correction`` over the planner phase's ``validate`` pairs,
+    read back through ``AccuracyLedger``; (f) the planner phase's search
+    on 2 x 8 cards rerun through ``hetero --dp-overlap <measured>
+    --spot-recover-s <fitted>``, its top three beside the default's.  The
+    ranks share the card, so no collective number here is a link's."""
+    from metis_tpu_torch import cli
+    from metis_tpu_torch.cost.calibration import (
+        COLLECTIVES,
+        fit_ledger_correction,
+        fit_recovery_seconds,
+        measure_rank,
+    )
+    from metis_tpu_torch.obs.ledger import AccuracyLedger
+
+    out = {}
+    t0 = time.perf_counter()
+    target = work / "calibration.json"
+    chip_path = pathlib.Path(f"{target}.chip.json")
+    proc = subprocess.run(
+        [sys.executable, "-m", "metis_tpu_torch", "calibrate", "--output", str(target),
+         "--chip-roofline"], capture_output=True, text=True,
+        cwd=pathlib.Path(__file__).resolve().parent)
+    for line in proc.stderr.strip().splitlines()[-3:]:
+        log(f"    calibrate: {line}")
+    if proc.returncode != 1 or target.exists() or not chip_path.exists():
+        raise SystemExit(f"(a) calibrate on one card: rc {proc.returncode}, "
+                         f"{target.name} written {target.exists()}, chip JSON "
+                         f"{chip_path.exists()}:\n{proc.stderr[-4000:]}")
+    chip = json.loads(chip_path.read_text())
+    peaks = {"matmul_tflops": PEAK_BF16_FLOPS / 1e12,
+             "hbm_stream_gbps": PEAK_BYTES_PER_S / 1e9}
+    for key, peak in peaks.items():
+        got = chip[key]
+        log(f"  (a) {key} {got} on {chip['device_kind']}: {got / peak:.1%} of the "
+            f"data sheet's {peak:g}")
+        if not (math.isfinite(got) and 0 < got <= 1.05 * peak):
+            raise SystemExit(f"(a) {key} {got} outside (0, 1.05 x {peak:g}]")
+    out["a_chip"] = {**chip, **{f"{k}_share_of_peak": chip[k] / v
+                                for k, v in peaks.items()}}
+    log(f"  (a) {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    for world in (2, 4):
+        ranks = on_ranks(measure_rank, world, "gloo", "microbenchmark_collectives",
+                         dict(payload_kb=CALIBRATION_PAYLOAD_KB, iters=CALIBRATION_ITERS))
+        same = all(r["result"] == ranks[0]["result"] for r in ranks)
+        cal = ranks[0]["result"].to_json_dict()
+        per = {name: sorted(s["nbytes"] for s in cal["samples"] if s["collective"] == name)
+               for name in COLLECTIVES}
+        if (not same or set(cal["fits"]) != set(COLLECTIVES)
+                or any(len(set(v)) != len(CALIBRATION_PAYLOAD_KB) for v in per.values())
+                or any(f["n_samples"] != len(CALIBRATION_PAYLOAD_KB)
+                       for f in cal["fits"].values())):
+            raise SystemExit(f"(b) collectives at {world} ranks: fits "
+                             f"{sorted(cal['fits'])}, payloads {per}")
+        for s_ in cal["samples"]:
+            finite_fields(f"(b) {s_['collective']} at {world} ranks", s_)
+        for name, f in cal["fits"].items():
+            log(f"  (b) {world} gloo ranks, {name}: latency {f['latency_ms']:.4f} ms, "
+                f"{f['effective_bw_gbps']:.3f} GB/s, r2 {f['r2']:.4f} "
+                f"(payloads {per[name]} B)")
+        out[f"b_collectives_{world}"] = {
+            "fits": cal["fits"], "platform": cal["platform"],
+            "device_kind": cal["device_kind"], "note": SHARED_CARD}
+    log(f"  (b) {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    dp = on_ranks(measure_rank, 2, "gloo", "measure_dp_overlap", {})[0]["result"]
+    finite_fields("(c) dp overlap", dp)
+    if not 0.0 <= dp["overlap_fraction"] <= 1.0:
+        raise SystemExit(f"(c) dp overlap {dp}")
+    log(f"  (c) measure_dp_overlap, 2 gloo ranks: {dp} ({time.perf_counter() - t0:.1f} s)")
+    out["c_dp_overlap"] = dp
+
+    t0 = time.perf_counter()
+    ranks = on_ranks(measure_rank, 4, "gloo", "measure_pipeline_overlap", {})
+    pipe = ranks[0]["result"]
+    finite_fields("(d) pipeline overlap", pipe)
+    equal = all(r["losses"]["overlapped"] == r["losses"]["lockstep"]
+                and all(map(math.isfinite, r["losses"]["lockstep"])) for r in ranks)
+    events = [e["event"] for r in ranks for e in r["events"]]
+    if (not 0.0 <= pipe["overlap_hidden_frac"] <= 1.0 or not equal
+            or events != ["overlap_measured"]):
+        raise SystemExit(f"(d) pipeline overlap {pipe}, losses equal {equal}, "
+                         f"events {events}")
+    log(f"  (d) measure_pipeline_overlap, pp 2 x dp 2 on 4 gloo ranks: {pipe}; "
+        f"lockstep and overlapped losses equal {ranks[0]['losses']['lockstep']} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    out["d_pipeline_overlap"] = dict(pipe, losses=ranks[0]["losses"]["lockstep"])
+
+    # (e) the fits: the recovery time of the chaos phase's recoveries, the
+    # prediction level of the validated plans
+    chaos = results["chaos"]
+    records = [*chaos["a_chaos"]["records"], *chaos["b_chaos_fallback_nan"]["records"]]
+    recovery = fit_recovery_seconds(records)
+    samples = AccuracyLedger(results["planner"]["ledger"]).samples
+    correction = fit_ledger_correction(samples)
+    if correction["n"] != len(results["planner"]["validate"]):
+        raise SystemExit(f"(e) the ledger gave {correction['n']} pairs, validate "
+                         f"measured {len(results['planner']['validate'])}")
+    for label, fit in (("recovery", recovery), ("ledger", correction)):
+        finite_fields(f"(e) {label}", fit)
+    log(f"  (e) fit_recovery_seconds over {records}: {recovery}")
+    log(f"  (e) fit_ledger_correction over validate's {len(samples)} pairs: {correction}")
+    out["e_recovery"], out["e_ledger_correction"] = recovery, correction
+
+    # (f) the planner phase's 2 x 8 search with the measured inputs
+    t0 = time.perf_counter()
+    sliced, planner = results["slice"], results["planner"]
+    overlap = dp["overlap_fraction"]
+    recover_s = recovery["spot_recover_s"]
+    hostfile, clusterfile = planner["big_cluster"]
+    path = work / "hetero_calibrated.json"
+    if cli.main(["hetero", "--hostfile", hostfile, "--clusterfile", clusterfile,
+                 "--profile-dir", sliced["profile_dir"], "--model-name", "gpt-1.5B",
+                 *CLI_MODEL["gpt-1.5B"], "--gbs", "64", "--max-tp", "1",
+                 "--max-bs", "4", "--top-k", "3", "--dp-overlap", str(overlap),
+                 "--spot-recover-s", str(recover_s), "--output", str(path)]) != 0:
+        raise SystemExit("(f) the calibrated hetero search failed")
+    rows = json.loads(path.read_text())
+    if not rows or not all(math.isfinite(r["cost_ms"]) for r in rows):
+        raise SystemExit("(f) the calibrated search costed no finite plan")
+    log(f"  (f) 2 x 8 {sliced['device_type']} at gbs 64, max tp 1, default "
+        f"(--dp-overlap 0, --spot-recover-s 30):")
+    print_ranking("hetero", planner["big_rows"])
+    log(f"  (f) the same with --dp-overlap {overlap} --spot-recover-s {recover_s} "
+        f"({time.perf_counter() - t0:.1f} s):")
+    print_ranking("hetero", rows)
+    out["f_calibrated_search"] = {
+        "dp_overlap": overlap, "spot_recover_s": recover_s,
+        "top_ms": [r["cost_ms"] for r in rows],
+        "default_top_ms": [r["cost_ms"] for r in planner["big_rows"]],
+        "same_order": ([r["strategies"] for r in rows]
+                       == [r["strategies"] for r in planner["big_rows"]])}
+    return out, {}
+
+
 HIDDEN = ("launches", "profile_dir", "hostfile", "clusterfile", "tokens", "batches",
-          "base")
+          "base", "ledger", "big_cluster", "big_rows")
 PHASES = ("slice", "planner", "dist", "pipeline", "llama", "moe", "context",
-          "zero_sp", "stage_axes", "train", "reshard", "chaos")
+          "zero_sp", "stage_axes", "train", "reshard", "chaos", "calibration")
 
 
 def main() -> int:
@@ -3293,13 +3508,14 @@ def run_phases(work: pathlib.Path, results: dict, launches: dict,
             results["pipeline"], launches["pipeline_per_rank"] = pipeline_phase(
                 work, results["slice"], results["planner"])
         elif phase == "zero_sp":
-            results[phase], more = zero_sp_phase(work, results["slice"])
+            results[phase], more = zero_sp_phase(work)
             launches.update(more)
-        elif phase in ("stage_axes", "train", "reshard", "chaos"):
+        elif phase in ("stage_axes", "train", "reshard", "chaos", "calibration"):
             results[phase], more = {"stage_axes": stage_axes_phase,
                                     "train": train_phase,
                                     "reshard": reshard_phase,
-                                    "chaos": chaos_phase}[phase](work, results)
+                                    "chaos": chaos_phase,
+                                    "calibration": calibration_phase}[phase](work, results)
             launches.update(more)
         else:
             results[phase], more = {"llama": llama_phase, "moe": moe_phase,

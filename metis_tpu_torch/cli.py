@@ -23,7 +23,11 @@ reference's flags and output bytes:
   chaos     the supervisor under a scripted fault sequence
             (``--fault-script``), its report as JSON;
   replan    diff two cluster descriptions, search the new one, report
-            the delta and the cost movement (``planner/replan.py``).
+            the delta and the cost movement (``planner/replan.py``);
+  calibrate time the collectives over the devices, one rank per device,
+            and write the fitted wire model's JSON (``cost/calibration.py``;
+            exit 1 with one device), with ``--chip-roofline`` also the
+            first device's matmul TFLOP/s and memory GB/s.
 
 The searches run on the host and take no device.  The reference's
 ``--platform`` (a JAX backend pin) becomes ``--device``.  ``train``'s
@@ -311,6 +315,40 @@ def _cmd_validate(args: argparse.Namespace, profiles, model, config) -> int:
             "means the profile device types don't match the clusterfile)",
             file=sys.stderr)
     return 0
+
+
+def _cmd_calibrate(args: argparse.Namespace) -> int:
+    """``calibrate``: the reference's files, stderr lines and exit codes."""
+    from metis_tpu_torch.core.device import resolve_device
+    from metis_tpu_torch.cost.calibration import measure_rank, microbenchmark_chip
+    from metis_tpu_torch.execution import dist as mdist
+
+    devices = ([d.strip() for d in args.devices.split(",")] if args.devices
+               else mdist.default_devices(resolve_device(args.device)))
+    wrote_output = False
+    if len(devices) >= 2:
+        backend = args.dist_backend or mdist.default_backend(devices)
+        cal = mdist.spawn(
+            measure_rank, len(devices), backend, devices,
+            "microbenchmark_collectives",
+            dict(payload_kb=tuple(int(k) for k in args.payload_kb.split(",")),
+                 iters=args.iters))[0]["result"]
+        cal.dump(args.output)
+        wrote_output = True
+        print(f"calibrated {len(cal.fits)} collectives over {len(devices)} "
+              f"{cal.platform} devices -> {args.output}", file=sys.stderr)
+    else:
+        print("1 device visible: cannot calibrate collectives (needs >= 2); "
+              f"{args.output} NOT written", file=sys.stderr)
+    if args.chip_roofline:
+        chip = microbenchmark_chip(devices[0])
+        chip_path = args.output + ".chip.json"
+        with open(chip_path, "w") as f:
+            json.dump(chip, f, indent=1)
+        print(f"chip roofline -> {chip_path}: {chip}", file=sys.stderr)
+    # a downstream reader of args.output must not find a stale or missing
+    # file after a silent success
+    return 0 if wrote_output else 1
 
 
 def _cmd_replan(args: argparse.Namespace, profiles, model, config,
@@ -940,6 +978,19 @@ def _parser() -> argparse.ArgumentParser:
     _add_model_args(p_rep)
     _add_search_args(p_rep)
 
+    p_cal = sub.add_parser(
+        "calibrate", help="microbenchmark the collectives (+ single-device "
+                          "roofline) and write a calibration JSON")
+    p_cal.add_argument("--output", required=True)
+    p_cal.add_argument("--payload-kb", default="64,256,1024,4096")
+    p_cal.add_argument("--iters", type=int, default=8)
+    p_cal.add_argument("--chip-roofline", action="store_true",
+                       help="also measure matmul TFLOP/s + memory GB/s of the "
+                            "first device (written next to --output as "
+                            "*.chip.json)")
+    _add_rank_args(p_cal)
+    _add_device_arg(p_cal, "calibrate")
+
     p_train = sub.add_parser(
         "train", help="plan and run: search the cluster, build the plan's "
                       "executable, stream batches through the input "
@@ -987,6 +1038,8 @@ def main(argv: list[str] | None = None) -> int:
     args = _parser().parse_args(argv)
     if args.command == "profile":
         return _cmd_profile(args)
+    if args.command == "calibrate":
+        return _cmd_calibrate(args)
     if args.command == "validate":
         # a missing card fails before the search, not after it
         from metis_tpu_torch.core.device import resolve_device

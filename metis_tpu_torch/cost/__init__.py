@@ -1,6 +1,7 @@
-"""Cost model of the port (``metis_tpu/cost``).  Not ported: the TPU
-ICI/DCN model (``cost/ici.py``), the jit cost backend (``cost/jax_backend.py``)
-and the measured calibration functions (``cost/calibration.py``)."""
+"""Cost model of the port (``metis_tpu/cost``), with its calibration
+(``cost/calibration.py``: the fits, and the measurements over
+``torch.distributed``).  Not ported: the TPU ICI/DCN model
+(``cost/ici.py``) and the jit cost backend (``cost/jax_backend.py``)."""
 from metis_tpu_torch.cost.volume import (
     TransformerVolume,
 )
@@ -8,6 +9,19 @@ from metis_tpu_torch.cost.bandwidth import (
     StageBandwidthModel,
     HeteroScalarBandwidth,
     HomoScalarBandwidth,
+)
+from metis_tpu_torch.cost.calibration import (
+    CalibrationError,
+    CollectiveCalibration,
+    LinearFit,
+    fit_ledger_correction,
+    fit_samples,
+    fit_transfer_scale,
+    measure_dp_overlap,
+    measure_pipeline_overlap,
+    microbenchmark_collectives,
+    microbenchmark_chip,
+    transfer_profiles,
 )
 from metis_tpu_torch.cost.uncertainty import (
     ResidualFit,
@@ -29,6 +43,17 @@ __all__ = [
     "StageBandwidthModel",
     "HeteroScalarBandwidth",
     "HomoScalarBandwidth",
+    "CalibrationError",
+    "CollectiveCalibration",
+    "LinearFit",
+    "fit_ledger_correction",
+    "fit_samples",
+    "fit_transfer_scale",
+    "measure_dp_overlap",
+    "measure_pipeline_overlap",
+    "microbenchmark_collectives",
+    "microbenchmark_chip",
+    "transfer_profiles",
     "ResidualFit",
     "ResidualModel",
     "RiskScorer",

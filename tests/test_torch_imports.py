@@ -67,6 +67,7 @@ def _imported_roots(path: pathlib.Path) -> set[str]:
     + [ROOT / "chip_smoke.py", ROOT / "tools" / "torch_step_profile.py",
        ROOT / "tools" / "torch_pipeline_cards.py",
        ROOT / "tools" / "torch_nccl_cards.py",
+       ROOT / "tools" / "torch_calibration_probe.py",
        ROOT / "tools" / "torch_gloo_p2p_probe.py"],
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_jax_package_import(path):
@@ -97,6 +98,12 @@ def _entry_points():
     )
 
     from metis_tpu_torch.resilience.supervisor import TrainingSupervisor
+    from metis_tpu_torch.cost.calibration import (
+        measure_dp_overlap,
+        measure_pipeline_overlap,
+        microbenchmark_chip,
+        microbenchmark_collectives,
+    )
 
     spec = ModelSpec(name="t", num_layers=3, hidden_size=32,
                      sequence_length=16, vocab_size=64, num_heads=2)
@@ -152,6 +159,12 @@ def _entry_points():
             "--checkpoint-dir", "ckpt", "--fault-script", "preempt@1"]),
         "TrainingSupervisor": lambda: TrainingSupervisor(
             None, None, spec, None, checkpoint_dir="ckpt", steps=1),
+        # the device is resolved before any process group is read
+        "microbenchmark_chip": lambda: microbenchmark_chip(),
+        "microbenchmark_collectives": lambda: microbenchmark_collectives(),
+        "measure_dp_overlap": lambda: measure_dp_overlap(),
+        "measure_pipeline_overlap": lambda: measure_pipeline_overlap(),
+        "calibrate_cli": lambda: cli.main(["calibrate", "--output", "cal.json"]),
     }
 
 
@@ -178,7 +191,9 @@ ENTRY_POINTS = ["entry", "build_executable", "build_train_state",
                 "validate_hetero_choice",
                 "build_executable_llama", "build_executable_moe",
                 "profile_model_llama", "profile_model_moe",
-                "train_resilient_cli", "chaos_cli", "TrainingSupervisor"]
+                "train_resilient_cli", "chaos_cli", "TrainingSupervisor",
+                "microbenchmark_chip", "microbenchmark_collectives",
+                "measure_dp_overlap", "measure_pipeline_overlap", "calibrate_cli"]
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)

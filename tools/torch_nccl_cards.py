@@ -32,6 +32,15 @@ tp 2;
 its ``stall_ms`` beside ``price_migration_ms`` at the all-reduce bus
 bandwidth just measured, and the checkpoint's save and restore ms.
 
+    python3 tools/torch_nccl_cards.py --calibrate
+
+runs instead the measured calibration over NCCL, one rank per card
+(``cost/calibration.py``): ``python -m metis_tpu_torch calibrate`` on 2
+cards (with ``--chip-roofline``: card 0's matmul TFLOP/s and streaming
+GB/s) and on 4, each collective's fit; ``measure_dp_overlap`` at dp 4 (dp
+2 with two cards); ``measure_pipeline_overlap`` at pp 2 x dp 2 (four
+cards).
+
 The last line is one JSON object with every reading.
 """
 from __future__ import annotations
@@ -199,6 +208,49 @@ def reshard_leg(cards: list[str], bus_gb_s: float) -> dict:
             "launches": [r["legs"][0]["launches"] for r in ranks]}
 
 
+def calibrate_leg(cards: list[str]) -> dict:
+    """The measured calibration over NCCL (module doc, ``--calibrate``)."""
+    from metis_tpu_torch import cli
+    from metis_tpu_torch.execution import dist as mdist
+    from metis_tpu_torch.cost.calibration import measure_rank
+
+    out: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for world in (2, 4)[:len(cards) // 2]:
+            target = pathlib.Path(tmp) / f"calibration_{world}.json"
+            extra = ["--chip-roofline"] if world == 2 else []
+            t0 = time.perf_counter()
+            if cli.main(["calibrate", "--output", str(target), "--devices",
+                         ",".join(cards[:world]), *extra]) != 0:
+                raise SystemExit(f"calibrate over {world} cards failed")
+            cal = json.loads(target.read_text())
+            out[f"collectives_{world}"] = cal["fits"]
+            for name, fit in cal["fits"].items():
+                print(f"calibrate, {world} cards, {name}: latency "
+                      f"{fit['latency_ms']:.4f} ms, {fit['effective_bw_gbps']:.3f} "
+                      f"GB/s, r2 {fit['r2']:.4f}", flush=True)
+            if extra:
+                out["chip"] = json.loads(pathlib.Path(f"{target}.chip.json").read_text())
+                print(f"chip roofline, card 0: {out['chip']}", flush=True)
+            print(f"  calibrate {world} cards {time.perf_counter() - t0:.1f} s", flush=True)
+    dp = 4 if len(cards) >= 4 else 2
+    t0 = time.perf_counter()
+    out[f"dp_overlap_dp{dp}"] = mdist.spawn(measure_rank, dp, "nccl", cards[:dp],
+                                            "measure_dp_overlap", {})[0]["result"]
+    print(f"measure_dp_overlap, dp {dp}: {out[f'dp_overlap_dp{dp}']} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    if len(cards) >= 4:
+        t0 = time.perf_counter()
+        ranks = mdist.spawn(measure_rank, 4, "nccl", cards[:4],
+                            "measure_pipeline_overlap", {})
+        out["pipeline_overlap_pp2_dp2"] = dict(
+            ranks[0]["result"], losses_equal=all(
+                r["losses"]["overlapped"] == r["losses"]["lockstep"] for r in ranks))
+        print(f"measure_pipeline_overlap, pp 2 x dp 2: {out['pipeline_overlap_pp2_dp2']} "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("torch_nccl_cards: CUDA is not available", file=sys.stderr)
@@ -221,8 +273,12 @@ def main() -> int:
     from metis_tpu_torch.ops import flash_attention as fa
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    fa.kernel_library()
     cards = [f"cuda:{i}" for i in range(count)]
+    if "--calibrate" in sys.argv[1:]:
+        out["calibrate"] = calibrate_leg(cards)
+        print(json.dumps(out, default=str))
+        return 0
+    fa.kernel_library()
     worlds = [2, 4] if count >= 4 else [2]
     if "--reshard" in sys.argv[1:]:
         if count < 4:
