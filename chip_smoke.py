@@ -107,8 +107,8 @@ Phases, in order (any failure exits non-zero):
    expert parallelism on the hetero route, at full width on gloo ranks
    sharing the card (one job per rank count, several plans each), 3 steps
    each against the one-stage executor at the same depth, run first in
-   this process and freed: (a) the GPT at ``GPT_STAGE_BLOCKS`` (1) block,
-   two stages of dp 2 (stage 0 the embedding and the block, stage 1 the
+   this process and freed: (a) the GPT at ``GPT_STAGE_BLOCKS`` (1) block
+   of ``QUARTER_WIDTH``, two stages of dp 2 (stage 0 the embedding and the block, stage 1 the
    head), gbs 4 in one microbatch, at ZeRO 0-3 on both; (b) the 8192-token
    LLaMA at ``STAGE_BLOCKS`` (2) blocks, a cp 2 ring stage feeding a cp 2
    Ulysses stage, then a cp 1 stage; (c) the MoE at ``MOE_STAGE_BLOCKS``
@@ -124,7 +124,7 @@ Phases, in order (any failure exits non-zero):
    Losses within ``PIPE_TOL``, first-step gradient norms within
    ``GRAD_NORM_TOL``, each rank's launches per step as its stage's blocks
    imply (``stage_launches``), each rank's peak beside the planner's stage
-   demand.  Its grids are among ``PATH_CASES`` ((a) runs ``MBS2``, a
+   demand.  Its grids are among ``PATH_CASES`` ((a) runs ``NARROW``, a
    replica of (c)'s stage 0 3 rows, ``ROWS3``).
 13. train (``train_phase``): (a) ``python -m metis_tpu_torch train
    --device cuda`` on a one-card hostfile, the 1.5B preset's widths at
@@ -180,6 +180,19 @@ Phases, in order (any failure exits non-zero):
    phase's ``validate`` pairs; and the planner phase's 2 x 8 search with
    the measured dp overlap and the fitted recovery time.  These paths run
    dense attention and plain products, as the reference's do: no kernel.
+17. serving (``serving_phase``): the decode step of one block of the 1.5B
+   preset after a 1023-token prefix against ``block_forward`` (flash),
+   and the card's busy share over eager and graphed steps; ``profile
+   --decode --decode-context 1024 --tps 1,2 --bss 1,4,8`` (tp 2 skipped),
+   every block row at least 0.95 x its HBM bound; ``plan --workload
+   inference`` on 2 x 8 cards at the calibration phase's measured stream
+   (the reference's parity workload and its prefix-sharing variant, the
+   best plan priced from the measured table, two runs' dumps equal, the
+   components summing to their headlines) beside the same search on the
+   profile without decode tables; ``explain`` of both workloads; and
+   ``measure_remat_fraction`` of the block at bs 2, the three kernels'
+   launches counted around it.  The decode step's products are plain
+   PyTorch, as the reference's are einsums: no kernel of its own.
 
 Ranks run in pools (``execution.dist.RankPool``, ``on_ranks``): one per
 world size and backend, all started at the dist phase (their ranks boot
@@ -2117,9 +2130,10 @@ def zero_sp_phase(work: pathlib.Path) -> tuple[dict, dict]:
 # stage 0), past the card's 79.2 GiB with the others
 STAGE_BLOCKS = 2
 MOE_STAGE_BLOCKS = 1
-# leg (a)'s GPT: 1 block, stage 0 the embedding and the block, stage 1 the
-# head (as the MoE's leg (c)): every stage still carries ZeRO 0-3 over dp 2,
-# and the dp all-reduces and gathers move a quarter fewer bytes than at 2
+# leg (a)'s GPT: 1 block of ``QUARTER_WIDTH`` (the ZeRO legs' gradient
+# reductions and gathers through the host set the phase's time on a slow
+# host), stage 0 the embedding and the block, stage 1 the head (as the
+# MoE's leg (c)): every stage still carries ZeRO 0-3 over dp 2
 GPT_STAGE_BLOCKS = 1
 # the MoE leg's routing groups: one row.  In the preset's groups (the
 # largest divisor of the tokens <= 4096) the (3, 1) stage pads to 3 + 3 rows
@@ -2210,8 +2224,8 @@ def stage_axes_phase(work: pathlib.Path, results: dict) -> tuple[dict, dict]:
     """Multi-stage plans whose stages carry ZeRO, context or expert
     parallelism on the hetero route, at full width on gloo ranks sharing
     the card, 3 steps each against the one-stage executor at the same
-    depth (run first in this process and freed): (a) the GPT at 1 block,
-    stage 0 (the embedding and the block) and stage 1 (the head) at dp 2,
+    depth (run first in this process and freed): (a) the GPT at 1 block
+    of a quarter of the width, stage 0 (the embedding and the block) and stage 1 (the head) at dp 2,
     gbs 4 in one microbatch, at ZeRO 0, 1, 2 and 3 on both; (b) the
     8192-token LLaMA at 2 blocks, stage 0 cp 2 ring against stage 1 cp 2
     Ulysses, then against stage 1 cp 1; (c) the MoE at 1 block, stage 0
@@ -2235,12 +2249,13 @@ def stage_axes_phase(work: pathlib.Path, results: dict) -> tuple[dict, dict]:
     from metis_tpu_torch.execution.train import param_specs_for
     from metis_tpu_torch.models import config_for_model_spec
     from metis_tpu_torch.planner.api import plan_hetero
+    from metis_tpu_torch.profiles.profiler import profile_model
     from metis_tpu_torch.profiles.store import ProfileStore
     from metis_tpu_torch.testing import moe_routing, run_plans_rank, stage_moe_routing
 
     L = STAGE_BLOCKS
-    gpt = dataclasses.replace(config_for_model_spec(ModelSpec(**GPT_15B)),
-                              num_blocks=GPT_STAGE_BLOCKS)
+    gpt_spec = dict(GPT_15B, num_layers=GPT_STAGE_BLOCKS + 2, **QUARTER_WIDTH)
+    gpt = config_for_model_spec(ModelSpec(**gpt_spec))
     llama_spec = dict(LLAMA_LONG, num_layers=L + 2)
     llama = config_for_model_spec(ModelSpec(**llama_spec))
     preset = dataclasses.replace(config_for_model_spec(ModelSpec(**MOE_15B)),
@@ -2394,19 +2409,20 @@ def stage_axes_phase(work: pathlib.Path, results: dict) -> tuple[dict, dict]:
         for i, leg in enumerate(mine):
             runs[leg[0]] = [r[i] for r in ranks]
 
-    # each rank's peak beside the planner's stage demand
-    gpt_dir = results["slice"]["profile_dir"]
-    # the 10-layer profile's rows of this 1-block model: embed, block, head
-    gpt_spans = [(0, 2), (GPT_15B["num_layers"] - 1, GPT_15B["num_layers"])]
-    gpt_coef = fitted_mem_coef(gpt_dir, [0, 1, *range(*gpt_spans[1])], 4,
-                               refs["gpt"]["peak_bytes"])
+    # each rank's peak beside the planner's stage demand; (a)'s from a
+    # profile of its narrow model (at its per-replica bs 2 and at bs 4)
+    gpt_dir = work / "profiles_stage_gpt"
+    profile_model(ModelSpec(**gpt_spec), bss=(2, 4), device="cuda").dump_to_dir(
+        gpt_dir, {"model_name": gpt_spec["name"], "attn": "flash"})
+    gpt_spans = [(0, 2), (2, 3)]
+    gpt_coef = fitted_mem_coef(gpt_dir, [0, 1, 2], 4, refs["gpt"]["peak_bytes"])
     moe_dir = work / f"profiles_{MOE_15B['name']}"
     # the 2-block profile's rows of this 1-block model: embed, block, head
     moe_coef = fitted_mem_coef(moe_dir, (0, 1, 3), 4, refs["moe"]["peak_bytes"])
     halves = [(0, 2), (2, 4)]
     demands = {
         **{f"a_zero{z}": planner_stage_mb(
-            work, gpt_dir, GPT_15B, [Strategy(dp=2, tp=1, zero=z)] * 2, gpt_spans,
+            work, gpt_dir, gpt_spec, [Strategy(dp=2, tp=1, zero=z)] * 2, gpt_spans,
             4, 1, gpt_coef) for z in range(4)},
         "b_ring_a2a": planner_stage_mb(
             work, prof_dir, llama_spec, [Strategy(dp=1, tp=1, cp=2),
@@ -3431,10 +3447,317 @@ def calibration_phase(work: pathlib.Path, results: dict) -> tuple[dict, dict]:
     return out, {}
 
 
+SERVING_BSS = (1, 4, 8)
+SERVING_CONTEXT = 1024
+DECODE_TOL = 2e-2
+# a decode row timed below this share of its HBM bound timed less than the work
+DECODE_BOUND_FLOOR = 0.95
+# the reference's serving parity workload (metis_tpu/testing.py), and its
+# prefix-sharing variant
+SERVING_WORKLOAD = dict(arrival_rate_rps=4.0, prompt_len=512, output_len=128,
+                        slo_ttft_p99_ms=2000.0, slo_tpot_p99_ms=100.0)
+SERVING_PREFIX = dict(prefix_share_frac=0.6, prefix_len=256, page_tokens=16)
+WORKLOAD_FLAGS = {"arrival_rate_rps": "--arrival-rate", "prompt_len": "--prompt-len",
+                  "output_len": "--output-len", "slo_ttft_p99_ms": "--slo-ttft",
+                  "slo_tpot_p99_ms": "--slo-tpot",
+                  "prefix_share_frac": "--prefix-share-frac",
+                  "prefix_len": "--prefix-len", "page_tokens": "--page-tokens"}
+
+
+def device_busy_share(fn, calls: int = 50) -> dict:
+    """The card's busy share while ``fn`` runs ``calls`` times back to
+    back: the union of its kernel and copy intervals (``torch.profiler``,
+    CUDA activity only) over the span from the first one's start to the
+    last one's end; and the five kernels that take the most device time."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = pathlib.Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(trace))
+        events = json.loads(trace.read_text())["traceEvents"]
+    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    if not device:
+        raise SystemExit("torch.profiler recorded no device events")
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in device)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    window = end - spans[0][0]
+    by_name: dict = {}
+    for e in device:
+        by_name[e["name"][:60]] = by_name.get(e["name"][:60], 0.0) + e["dur"]
+    top = sorted(by_name, key=by_name.get, reverse=True)[:5]
+    return {"busy_share": busy / window, "window_ms_per_call": window / 1e3 / calls,
+            "busy_ms_per_call": busy / 1e3 / calls,
+            "kernels_per_call": len(spans) / calls,
+            "top_kernels_us_per_call": {k: by_name[k] / calls for k in top}}
+
+
+def decode_block_bytes(cfg, bs: int, context: int) -> int:
+    """Bytes a decode block step must read: the block's bf16 matrices and
+    fp32 vectors once, and its K and V caches."""
+    h, f = cfg.hidden, cfg.ffn_dim
+    matrices = (3 * h * h + h * h + h * f + f * h) * 2
+    vectors = (2 * h + 3 * h + h + 2 * h + f + h) * 4
+    kv = 2 * bs * cfg.num_heads * context * cfg.head_dim * 2
+    return matrices + vectors + kv
+
+
+def serving_cluster(work: pathlib.Path, device_type: str, hbm_gbps: float,
+                    nodes: int, per_node: int) -> tuple[str, str]:
+    """``write_cluster_files``' cluster with ``hbm_bandwidth`` set."""
+    hostfile, clusterfile = write_cluster_files(work, device_type, nodes, per_node)
+    data = json.loads(pathlib.Path(clusterfile).read_text())
+    for entry in data.values():
+        entry["hbm_bandwidth"] = hbm_gbps
+    served = work / f"clusterfile_serving_{nodes}x{per_node}.json"
+    served.write_text(json.dumps(data))
+    return hostfile, str(served)
+
+
+def serving_cli(args: list[str], label: str) -> tuple[str, str]:
+    """``python -m metis_tpu_torch`` in this process: (stdout, stderr); a
+    non-zero exit fails the phase."""
+    import contextlib
+    import io
+
+    from metis_tpu_torch import cli
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(args)
+    if rc != 0:
+        raise SystemExit(f"{label}: rc {rc}\n{err.getvalue()[-4000:]}")
+    return out.getvalue(), err.getvalue()
+
+
+def serving_phase(work: pathlib.Path, results: dict) -> tuple[dict, dict]:
+    """The serving path (``serving_phase``): (a) the decode step of one
+    full-width block of the 1.5B preset at bs 4 over a cache holding a
+    1023-token prefix's own K and V, against ``block_forward`` over the 1024
+    tokens at the last position (flash attention), within ``DECODE_TOL``;
+    the card's busy share and top kernels over a window of eager steps and
+    of graph replays, and of graph replays with the qkv copy in the
+    reference's layout; (b) ``profile --decode --decode-context 1024 --tps 1,2 --bss
+    1,4,8``: 12 decode rows per entry, tp 2 skipped, every block row at
+    least ``DECODE_BOUND_FLOOR`` of its HBM bound; (c) ``plan --workload
+    inference`` on 2 x 8 cards at the calibration phase's measured stream:
+    the parity workload and its prefix-sharing variant, priced from the
+    measured tables, each twice (the dumps equal), the latency components
+    summing to their headlines; the same on the profile without decode
+    tables (derived TPOT); (d) ``explain --workload inference --ranks 1,2
+    --json`` on the same 16 cards as 4 x 4 (2 x 8 has one split, so one
+    serving plan) and ``explain --ranks 1,2`` (training) on 2 x 8, rc 0; (e) ``measure_remat_fraction`` of the
+    1.5B block at bs 2, the three kernels' launches counted around it."""
+    from metis_tpu_torch.core.config import ModelSpec
+    from metis_tpu_torch.models import config_for_model_spec
+    from metis_tpu_torch.models.gpt import block_forward, init_params
+    from metis_tpu_torch.ops import flash_attention as fa
+    from metis_tpu_torch.profiles.profiler import (
+        cast_once,
+        decode_fns,
+        measure_remat_fraction,
+    )
+    from metis_tpu_torch.profiles.store import ProfileStore
+    from metis_tpu_torch.testing import prefix_kv
+
+    out = {}
+    model = ModelSpec(**GPT_15B)
+    cfg = config_for_model_spec(model)
+
+    # (a) the decode step against the block over the whole sequence
+    t0 = time.perf_counter()
+    one = dataclasses.replace(cfg, num_blocks=1)
+    params = init_params(torch.Generator(device="cuda").manual_seed(SEED), one,
+                         device="cuda")
+    layer = cast_once("blocks", {n: leaf[0] for n, leaf in params["blocks"].items()},
+                      cfg.dtype)
+    del params
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    x = torch.randn((4, SERVING_CONTEXT, cfg.hidden), generator=gen,
+                    device="cuda").to(cfg.dtype)
+    _, block_step, _ = decode_fns(cfg)
+    with torch.no_grad():
+        want = block_forward(x, layer, cfg, fa.flash_attn_fn())[:, -1:].float()
+        k, v = prefix_kv(layer, x[:, :-1], cfg)
+        got = block_step(layer, x[:, -1:], k, v).float()
+        err = norm_err(got, want)
+        # the block's own contribution, without the residual stream it adds to
+        x_last = x[:, -1:].float()
+        err_delta = norm_err(got - x_last, want - x_last)
+        log(f"  (a) decode step vs block_forward at position {SERVING_CONTEXT - 1}, "
+            f"bs 4, flash: ||got-ref||/||ref|| {err:.3e}, of the block's "
+            f"contribution (output - input) {err_delta:.3e} (limit {DECODE_TOL} "
+            f"each), max abs {float((got - want).abs().max()):.3e}")
+        if not (err <= DECODE_TOL and err_delta <= DECODE_TOL):
+            raise SystemExit(f"(a) the decode step is off by {err}, {err_delta}")
+        stream = torch.cuda.Stream()
+        one = (x[:, -1:][:1].contiguous(), k[:1], v[:1])
+        eager = device_busy_share(lambda: block_step(layer, *one))
+        graphed = device_busy_share(graph_of(lambda: block_step(layer, *one), stream))
+        # the qkv copy as the reference lays it out ([3, in, out] contiguous):
+        # its einsum permutes all of it on every call
+        as_reference = {**layer, "qkv": layer["qkv"].contiguous()}
+        reference_layout = device_busy_share(
+            graph_of(lambda: block_step(as_reference, *one), stream))
+    log(f"  (a) card busy share over back-to-back bs 1 block steps: eager {eager}, "
+        f"as CUDA graph replays {graphed}; graphed with qkv in the reference's "
+        f"layout {reference_layout}")
+    out["a_decode_step"] = {"rel_err": err, "rel_err_contribution": err_delta,
+                            "busy_eager": eager, "busy_graphed": graphed,
+                            "graphed_qkv_reference_layout": reference_layout}
+    del x, x_last, k, v, one, layer, as_reference, want, got
+    torch.cuda.empty_cache()
+    log(f"  (a) {time.perf_counter() - t0:.1f} s")
+
+    # (b) the decode table through the CLI
+    t0 = time.perf_counter()
+    prof_dir, events = work / "profiles_serving", work / "serving_events.jsonl"
+    serving_cli(["profile", "--model-name", "gpt-1.5B", *CLI_MODEL["gpt-1.5B"],
+                 "--decode", "--decode-context", str(SERVING_CONTEXT), "--tps", "1,2",
+                 "--bss", ",".join(map(str, SERVING_BSS)), "--events", str(events),
+                 "--output-dir", str(prof_dir)], "(b) profile --decode")
+    evs = [json.loads(line) for line in events.read_text().splitlines()]
+    skipped = [e["tp"] for e in evs if e["event"] == "profile_skipped"]
+    store = ProfileStore.from_dir(prof_dir)
+    device_type = store.device_types[0]
+    if skipped != [2] or store.decode_configs() != [
+            (device_type, 1, bs) for bs in SERVING_BSS]:
+        raise SystemExit(f"(b) skipped {skipped}, decode tables {store.decode_configs()}")
+    stream_gbps = results["calibration"]["a_chip"]["hbm_stream_gbps"]
+    rows = {}
+    head_bytes = cfg.hidden * cfg.vocab_size * 2 + 2 * cfg.hidden * 4
+    for bs in SERVING_BSS:
+        p = store.get(device_type, 1, bs)
+        times = p.decode_layer_times_ms
+        if p.decode_context_len != SERVING_CONTEXT or len(times) != model.num_layers:
+            raise SystemExit(f"(b) bs {bs}: {len(times)} rows at {p.decode_context_len}")
+        nbytes = decode_block_bytes(cfg, bs, SERVING_CONTEXT)
+        bound = nbytes / PEAK_BYTES_PER_S * 1e3
+        block_ms = times[1]
+        row = {"embed_ms": times[0], "block_ms": block_ms, "head_ms": times[-1],
+               "block_bytes": nbytes, "block_bound_ms": bound,
+               "block_share_of_bound": bound / block_ms,
+               "block_share_of_stream": nbytes / (block_ms * 1e6) / stream_gbps,
+               "head_bound_ms": head_bytes / PEAK_BYTES_PER_S * 1e3,
+               "step_ms": sum(times)}
+        row["head_share_of_bound"] = row["head_bound_ms"] / times[-1]
+        log(f"  (b) bs {bs}: decode rows {[round(t, 4) for t in times]} ms; block "
+            f"{block_ms:.4f} ms for {nbytes / 1e6:.1f} MB, bound {bound:.4f} ms "
+            f"({row['block_share_of_bound']:.1%} of it, "
+            f"{row['block_share_of_stream']:.1%} of the measured {stream_gbps:.0f} GB/s), "
+            f"head {times[-1]:.4f} ms ({row['head_share_of_bound']:.1%} of its "
+            f"{row['head_bound_ms']:.4f} ms)")
+        if any(not (math.isfinite(t) and t > 0) for t in times) \
+                or any(t != block_ms for t in times[1:-1]):
+            raise SystemExit(f"(b) bs {bs}: bad decode rows {times}")
+        if block_ms < DECODE_BOUND_FLOOR * bound:
+            raise SystemExit(f"(b) bs {bs}: block row {block_ms} ms under "
+                             f"{DECODE_BOUND_FLOOR} x its bound {bound} ms")
+        rows[bs] = row
+    out["b_decode_rows"] = rows
+    out["b_events"] = [{k: e[k] for k in ("bs", "context_len", "step_ms", "wall_s")}
+                       for e in evs if e["event"] == "decode_profile"]
+    log(f"  (b) {time.perf_counter() - t0:.1f} s")
+
+    # (c) the serving search on 2 x 8 cards
+    t0 = time.perf_counter()
+    hostfile, clusterfile = serving_cluster(work, device_type, stream_gbps, 2, 8)
+    bare = work / "profiles_serving_derived"
+    ProfileStore({key: dataclasses.replace(store.get(*key), decode_layer_times_ms=None,
+                                           decode_context_len=0)
+                  for key in store.configs()}, store.model, store.type_meta
+                 ).dump_to_dir(bare, {"model_name": "gpt-1.5B", "attn": "flash"})
+
+    def query(spec: dict, profiles: pathlib.Path, command: str = "plan",
+              extra: tuple = (), cluster: tuple = (hostfile, clusterfile)
+              ) -> tuple[str, str]:
+        flags = [a for k, v in spec.items() for a in (WORKLOAD_FLAGS[k], str(v))]
+        return serving_cli([command, "--hostfile", cluster[0], "--clusterfile", cluster[1],
+                            "--profile-dir", str(profiles), "--model-name", "gpt-1.5B",
+                            *CLI_MODEL["gpt-1.5B"], "--gbs", "64", "--max-tp", "1",
+                            "--max-bs", "8", "--top-k", "5", "--workload", "inference",
+                            *flags, *extra], f"({command}) {spec}")
+
+    searches = {}
+    for label, spec in (("parity", SERVING_WORKLOAD),
+                        ("prefix", {**SERVING_WORKLOAD, **SERVING_PREFIX})):
+        dumps = [query(spec, prof_dir)[0] for _ in range(2)]
+        derived_dump, _ = query(spec, bare)
+        if dumps[0] != dumps[1]:
+            raise SystemExit(f"(c) {label}: two runs' dumps differ")
+        plans, derived = json.loads(dumps[0])["plans"], json.loads(derived_dump)["plans"]
+        if not plans or plans[0]["decode"].get("decode_source") != "measured":
+            raise SystemExit(f"(c) {label}: best plan {plans[:1]}")
+        for plan in plans:
+            c = plan["cost"]
+            ttft = sum(c["components"][k] for k in ("queueing", "prefill_compute",
+                                                    "prefill_pp_comm", "kv_handoff"))
+            tpot = sum(c["components"][k] for k in ("decode_compute", "kv_read",
+                                                    "decode_pp_comm"))
+            if abs(ttft - c["ttft_p99_ms"]) > 1e-6 or abs(tpot - c["tpot_p99_ms"]) > 1e-6:
+                raise SystemExit(f"(c) {label}: components {c} do not sum")
+        best, dbest = plans[0], derived[0]
+        log(f"  (c) {label}: {len(plans)} plans; best prefill {best['prefill']['node_counts']} "
+            f"dp {best['prefill']['dp']}, decode dp {best['decode']['dp']} batch/lane "
+            f"{best['decode']['batch_per_lane']}: ttft {best['cost']['ttft_p99_ms']:.4f} ms, "
+            f"tpot measured {best['cost']['tpot_p99_ms']:.4f} ms vs derived "
+            f"{dbest['cost']['tpot_p99_ms']:.4f} ms, {best['cost']['throughput_rps']:.2f} "
+            f"rps (derived {dbest['cost']['throughput_rps']:.2f}), slo_ok "
+            f"{best['cost']['slo_ok']}")
+        searches[label] = {"best": best, "derived_best": dbest, "plans": len(plans)}
+    out["c_searches"] = searches
+    out["c_hbm_gbps"] = stream_gbps
+    log(f"  (c) {time.perf_counter() - t0:.1f} s")
+
+    # (d) explain, serving and training.  Two nodes give the serving search
+    # one prefill/decode split, so one ranked plan: its explain runs on the
+    # same 16 cards as four nodes of 4 (three splits)
+    t0 = time.perf_counter()
+    four = serving_cluster(work, device_type, stream_gbps, 4, 4)
+    text, _ = query(SERVING_WORKLOAD, prof_dir, "explain", ("--ranks", "1,2", "--json"),
+                    four)
+    explained = json.loads(text)
+    if [p["rank"] for p in explained["plans"]] != [1, 2]:
+        raise SystemExit(f"(d) explain --workload inference: {explained}")
+    training, _ = serving_cli(["explain", "--hostfile", hostfile, "--clusterfile",
+                               clusterfile, "--profile-dir", str(prof_dir),
+                               "--model-name", "gpt-1.5B", *CLI_MODEL["gpt-1.5B"],
+                               "--gbs", "64", "--max-tp", "1", "--max-bs", "8",
+                               "--ranks", "1,2"], "(d) explain")
+    log(f"  (d) explain --workload inference on 4 x 4: decisive "
+        f"{explained.get('decisive')}; "
+        f"explain (training): {training.strip().splitlines()[-1]} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    out["d_explain"] = {"inference_decisive": explained.get("decisive"),
+                        "training_decisive": training.strip().splitlines()[-1]}
+
+    # (e) the remat fraction, the three kernels counted around it
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    fa.reset_launch_counts()
+    frac = measure_remat_fraction(model, "cuda", bs=2)
+    counts = dict(fa.launch_counts)
+    log(f"  (e) measure_remat_fraction, 1.5B block at bs 2: {frac:.4f} (analytic "
+        f"{1 / 3:.4f}); launches {counts} ({time.perf_counter() - t0:.1f} s)")
+    if not 0.15 <= frac <= 0.6 or any(n == 0 for n in counts.values()):
+        raise SystemExit(f"(e) remat fraction {frac}, launches {counts}")
+    out["e_remat_fraction"] = frac
+    out["e_launches"] = counts
+    return out, {"serving": counts}
+
+
 HIDDEN = ("launches", "profile_dir", "hostfile", "clusterfile", "tokens", "batches",
           "base", "ledger", "big_cluster", "big_rows")
 PHASES = ("slice", "planner", "dist", "pipeline", "llama", "moe", "context",
-          "zero_sp", "stage_axes", "train", "reshard", "chaos", "calibration")
+          "zero_sp", "stage_axes", "train", "reshard", "chaos", "calibration",
+          "serving")
 
 
 def main() -> int:
@@ -3510,12 +3833,14 @@ def run_phases(work: pathlib.Path, results: dict, launches: dict,
         elif phase == "zero_sp":
             results[phase], more = zero_sp_phase(work)
             launches.update(more)
-        elif phase in ("stage_axes", "train", "reshard", "chaos", "calibration"):
+        elif phase in ("stage_axes", "train", "reshard", "chaos", "calibration",
+                       "serving"):
             results[phase], more = {"stage_axes": stage_axes_phase,
                                     "train": train_phase,
                                     "reshard": reshard_phase,
                                     "chaos": chaos_phase,
-                                    "calibration": calibration_phase}[phase](work, results)
+                                    "calibration": calibration_phase,
+                                    "serving": serving_phase}[phase](work, results)
             launches.update(more)
         else:
             results[phase], more = {"llama": llama_phase, "moe": moe_phase,

@@ -27,13 +27,20 @@ reference's flags and output bytes:
   calibrate time the collectives over the devices, one rank per device,
             and write the fitted wire model's JSON (``cost/calibration.py``;
             exit 1 with one device), with ``--chip-roofline`` also the
-            first device's matmul TFLOP/s and memory GB/s.
+            first device's matmul TFLOP/s and memory GB/s;
+  plan      a plan query in-process: the hetero search, or with
+            ``--workload inference`` the prefill/decode-disaggregated
+            serving search under p99 TTFT/TPOT SLOs
+            (``inference/planner.py``), priced from the profile's measured
+            decode table where it has one (``profile --decode``);
+  explain   why plan #1 beat plan #2: the per-component cost delta table
+            of the hetero search, or of the serving search's TTFT/TPOT.
 
 The searches run on the host and take no device.  The reference's
 ``--platform`` (a JAX backend pin) becomes ``--device``.  ``train``'s
-multi-host flags parse and exit 2 naming their ROADMAP item, as does
-``chaos --fleet``; the serving, daemon and audit subcommands come with
-later slices.
+multi-host flags parse and exit 2 naming their ROADMAP item, as do
+``chaos --fleet`` and ``plan --remote`` (the plan daemon); the daemon,
+replay and audit subcommands come with later slices.
 
   python -m metis_tpu_torch uniform --hostfile hosts --clusterfile c.json \\
       --profile-dir profiles/ --model-size 1.5B --attn flash --gbs 4
@@ -223,6 +230,83 @@ def _config_from_args(args: argparse.Namespace) -> SearchConfig:
     )
 
 
+def _add_inference_args(p: argparse.ArgumentParser) -> None:
+    g = p.add_argument_group("serving workload")
+    g.add_argument("--workload", choices=("training", "inference"),
+                   default="training",
+                   help="planning target: training (min step-ms) or "
+                        "inference (max throughput under p99 TTFT/TPOT "
+                        "SLOs, prefill/decode disaggregated)")
+    g.add_argument("--workload-spec", default=None,
+                   help="JSON file with InferenceWorkload fields; explicit "
+                        "flags below override its entries")
+    g.add_argument("--arrival-rate", type=float, default=None,
+                   help="offered request rate, requests/s")
+    g.add_argument("--prompt-len", type=int, default=None,
+                   help="mean prompt length, tokens")
+    g.add_argument("--output-len", type=int, default=None,
+                   help="mean generated length, tokens")
+    g.add_argument("--slo-ttft", type=float, default=None,
+                   help="p99 time-to-first-token SLO, ms")
+    g.add_argument("--slo-tpot", type=float, default=None,
+                   help="p99 time-per-output-token SLO, ms")
+    g.add_argument("--prompt-len-p99", type=int, default=None,
+                   help="p99 prompt length (0/omitted = deterministic)")
+    g.add_argument("--output-len-p99", type=int, default=None,
+                   help="p99 generated length (0/omitted = deterministic)")
+    g.add_argument("--kv-dtype-bytes", type=int, default=None,
+                   help="KV-cache element bytes (2 = bf16 default, 1 = int8)")
+    g.add_argument("--prefix-share-frac", type=float, default=None,
+                   help="fraction of requests sharing one common prompt "
+                        "prefix whose KV pages are stored once per lane "
+                        "(0 = no sharing, the exact pre-paging model)")
+    g.add_argument("--prefix-len", type=int, default=None,
+                   help="shared prompt-prefix length, tokens (clamped to "
+                        "the tail prompt length)")
+    g.add_argument("--page-tokens", type=int, default=None,
+                   help="KV allocator page size, tokens per page per layer "
+                        "(0/omitted = exact unpaged accounting)")
+
+
+def _workload_from_args(args: argparse.Namespace,
+                        default_arrival_rps: float | None = None):
+    """InferenceWorkload from --workload-spec JSON + override flags, or
+    None for a training query."""
+    if getattr(args, "workload", "training") != "inference":
+        return None
+    from metis_tpu_torch.inference.workload import workload_from_dict
+
+    spec: dict = {}
+    if args.workload_spec:
+        with open(args.workload_spec) as f:
+            spec = json.load(f)
+    overrides = {
+        "arrival_rate_rps": args.arrival_rate,
+        "prompt_len": args.prompt_len,
+        "output_len": args.output_len,
+        "slo_ttft_p99_ms": args.slo_ttft,
+        "slo_tpot_p99_ms": args.slo_tpot,
+        "prompt_len_p99": args.prompt_len_p99,
+        "output_len_p99": args.output_len_p99,
+        "kv_dtype_bytes": args.kv_dtype_bytes,
+        "prefix_share_frac": args.prefix_share_frac,
+        "prefix_len": args.prefix_len,
+        "page_tokens": args.page_tokens,
+    }
+    for k, v in overrides.items():
+        if v is not None:
+            spec[k] = v
+    if "arrival_rate_rps" not in spec and default_arrival_rps is not None:
+        spec["arrival_rate_rps"] = default_arrival_rps
+    try:
+        return workload_from_dict(spec)
+    except (TypeError, ValueError) as e:
+        raise SystemExit(
+            f"bad inference workload: {e} — pass --arrival-rate, "
+            "--prompt-len, --output-len, --slo-ttft and --slo-tpot (or a "
+            "--workload-spec JSON carrying them)")
+
+
 def _emit(args: argparse.Namespace, payload: str) -> None:
     if args.output == "-":
         print(payload)
@@ -234,9 +318,6 @@ def _emit(args: argparse.Namespace, payload: str) -> None:
 def _cmd_profile(args: argparse.Namespace) -> int:
     from metis_tpu_torch.profiles.profiler import ProfilerConfig, profile_model
 
-    if args.decode or args.decode_context is not None:
-        raise NotImplementedError(
-            "decode-mode profiling comes with a later slice of the port")
     model = _model_from_args(args)
     events = EventLog(args.events) if args.events else NULL_LOG
     store = profile_model(
@@ -245,11 +326,14 @@ def _cmd_profile(args: argparse.Namespace) -> int:
         bss=tuple(int(b) for b in args.bss.split(",")),
         device=args.device,
         config=ProfilerConfig(warmup=args.warmup, iters=args.iters),
-        events=events)
+        events=events,
+        decode=args.decode,
+        decode_context=args.decode_context)
     store.dump_to_dir(args.output_dir,
                       {"model_name": model.name, "attn": model.attn})
+    decode_note = " (+decode tables)" if store.has_decode() else ""
     print(f"profiled {model.name} -> {args.output_dir} "
-          f"({', '.join(store.device_types)})", file=sys.stderr)
+          f"({', '.join(store.device_types)}){decode_note}", file=sys.stderr)
     return 0
 
 
@@ -413,6 +497,334 @@ def _cmd_search(args: argparse.Namespace, profiles, model, config,
         f"costed {result.num_costed} plans ({result.num_pruned} pruned) "
         f"in {result.search_seconds:.2f}s",
         file=sys.stderr)
+    return 0
+
+
+def _cmd_plan(args: argparse.Namespace) -> int:
+    """``plan``: the reference's in-process plan query, its dump and stderr
+    line; ``--remote`` (the plan daemon) exits 2."""
+    from metis_tpu_torch.cluster.spec import ClusterSpec
+    from metis_tpu_torch.core.types import dump_ranked_plans
+    from metis_tpu_torch.planner.api import plan_hetero
+    from metis_tpu_torch.profiles.store import ProfileStore
+
+    model = _model_from_args(args)
+    config = _config_from_args(args)
+    workload = _workload_from_args(args)
+    if args.remote:
+        print("plan --remote (the plan daemon of the serve/ package) comes "
+              "with ROADMAP §A.9; this slice of the port plans in-process "
+              "only", file=sys.stderr)
+        return 2
+    if not (args.hostfile and args.clusterfile and args.profile_dir):
+        print("in-process plan needs --hostfile, --clusterfile and "
+              "--profile-dir (or point --remote at a daemon)",
+              file=sys.stderr)
+        return 2
+    cluster = ClusterSpec.from_files(args.hostfile, args.clusterfile)
+    profiles = ProfileStore.from_dir(args.profile_dir)
+    events = EventLog(args.events) if args.events else NULL_LOG
+    if workload is not None:
+        from metis_tpu_torch.inference.planner import (
+            dump_inference_plans,
+            plan_inference,
+        )
+
+        result = plan_inference(cluster, profiles, model, config, workload,
+                                top_k=args.top_k, events=events)
+        _emit(args, dump_inference_plans(result, workload))
+        print(f"costed {result.num_costed} pool candidates "
+              f"({result.num_pruned} pruned) across {result.num_splits} "
+              f"prefill/decode splits", file=sys.stderr)
+    else:
+        result = plan_hetero(cluster, profiles, model, config,
+                             top_k=args.top_k, events=events)
+        _emit(args, dump_ranked_plans(result.plans))
+        print(f"costed {result.num_costed} plans ({result.num_pruned} "
+              f"pruned) in {result.search_seconds:.2f}s", file=sys.stderr)
+        cert = result.certificate
+        if cert is not None:
+            status = ("optimal" if cert.complete and cert.gap_frac == 0.0
+                      else f"gap <= {cert.gap_frac:.2%}"
+                      + ("" if cert.complete else " (deadline)"))
+            print(f"certificate: {status} — best {cert.best_ms:.2f}ms, "
+                  f"proven lower bound {cert.lower_bound_ms:.2f}ms, "
+                  f"{cert.nodes_explored} nodes explored / "
+                  f"{cert.nodes_bounded} bounded in {cert.wall_s:.2f}s",
+                  file=sys.stderr)
+    events.close()
+    return 0
+
+
+def _parse_ranks(args: argparse.Namespace) -> list[int] | None:
+    try:
+        ranks = sorted({int(r) for r in args.ranks.split(",")})
+    except ValueError:
+        print(f"--ranks must be comma-separated 1-based integers, got "
+              f"{args.ranks!r}", file=sys.stderr)
+        return None
+    if not ranks or ranks[0] < 1 or len(ranks) > 2:
+        print("--ranks takes one or two 1-based ranks (e.g. 1,2)",
+              file=sys.stderr)
+        return None
+    return ranks
+
+
+def _table(header: list[str], rows: list[list[str]]) -> list[str]:
+    """Left-justified columns under a rule, trailing blanks stripped."""
+    widths = [max(len(header[i]), *(len(r[i]) for r in rows))
+              for i in range(len(header))]
+    lines = ["  ".join(h.ljust(widths[i]) for i, h in enumerate(header)),
+             "  ".join("-" * w for w in widths)]
+    return lines + ["  ".join(c.ljust(widths[i])
+                              for i, c in enumerate(row)).rstrip()
+                    for row in rows]
+
+
+def _cmd_explain(args: argparse.Namespace, profiles, model, config,
+                 events) -> int:
+    """``explain``: the per-component delta table of two ranked hetero
+    plans (the cost term that decided the ranking), or with ``--workload
+    inference`` of two serving plans — the reference's bytes."""
+    from metis_tpu_torch.cluster.spec import ClusterSpec
+    from metis_tpu_torch.core.types import COST_COMPONENTS
+    from metis_tpu_torch.obs.ledger import fingerprint_ranked_plan
+    from metis_tpu_torch.planner.api import plan_hetero
+
+    if getattr(args, "workload", "training") == "inference":
+        return _cmd_explain_inference(args, profiles, model, config, events)
+    ranks = _parse_ranks(args)
+    if ranks is None:
+        return 2
+    cluster = ClusterSpec.from_files(args.hostfile, args.clusterfile)
+    result = plan_hetero(cluster, profiles, model, config,
+                         top_k=max(args.top_k, ranks[-1]), events=events)
+    if len(result.plans) < ranks[-1]:
+        print(f"search found only {len(result.plans)} plans "
+              f"({result.num_pruned} pruned); cannot explain rank "
+              f"{ranks[-1]}", file=sys.stderr)
+        return 1
+    chosen = [result.plans[r - 1] for r in ranks]
+    if any(p.breakdown is None for p in chosen):
+        print("breakdown unavailable for a requested rank (profile miss "
+              "during re-pricing)", file=sys.stderr)
+        return 1
+    fps = [fingerprint_ranked_plan(p) for p in chosen]
+
+    if args.as_json:
+        payload: dict = {"plans": [
+            {"rank": r, "fingerprint": fp, **p.to_json_dict()}
+            for r, fp, p in zip(ranks, fps, chosen)]}
+        if len(chosen) == 2:
+            payload["delta"] = {
+                k: round(v, 4)
+                for k, v in chosen[0].breakdown.delta(
+                    chosen[1].breakdown).items()}
+            name, d = chosen[0].breakdown.decisive_component(
+                chosen[1].breakdown)
+            payload["decisive"] = {"component": name, "delta_ms": round(d, 4)}
+        if result.certificate is not None:
+            payload["certificate"] = result.certificate.to_json_dict()
+        _emit(args, json.dumps(payload, indent=2))
+        return 0
+
+    bds = [p.breakdown for p in chosen]
+    keys = [k for k in COST_COMPONENTS
+            if any(abs(b.components.get(k, 0.0)) > 1e-12 for b in bds)]
+    header = ["component"] + [f"#{r} ({fp})" for r, fp in zip(ranks, fps)]
+    rows: list[list[str]] = []
+    if len(bds) == 2:
+        header.append(f"delta (#{ranks[1]}-#{ranks[0]})")
+        delta = bds[0].delta(bds[1])
+    for k in keys:
+        row = [k] + [f"{b.components.get(k, 0.0):.3f}" for b in bds]
+        if len(bds) == 2:
+            row.append(f"{delta[k]:+.3f}")
+        rows.append(row)
+    # overlap-hidden comm shares: informational, not part of total_ms —
+    # exposed + hidden reconstructs the serial collective cost
+    hidden_keys = sorted({k for b in bds
+                          for k, v in b.hidden.items() if abs(v) > 1e-12})
+    for k in hidden_keys:
+        row = ([f"{k} (hidden)"]
+               + [f"{b.hidden.get(k, 0.0):.3f}" for b in bds])
+        if len(bds) == 2:
+            row.append(f"{bds[1].hidden.get(k, 0.0) - bds[0].hidden.get(k, 0.0):+.3f}")
+        rows.append(row)
+    total_row = ["total"] + [f"{b.total_ms:.3f}" for b in bds]
+    if len(bds) == 2:
+        total_row.append(f"{bds[1].total_ms - bds[0].total_ms:+.3f}")
+    rows.append(total_row)
+    lines = _table(header, rows)
+    for r, p, b in zip(ranks, chosen, bds):
+        lines.append("")
+        lines.append(
+            f"#{r}: stages {list(p.inter.device_groups)} x "
+            f"{[(s.dp, s.tp) for s in p.intra.strategies]}, "
+            f"batches {p.inter.batches}, schedule {b.schedule}; "
+            f"per-stage ms {[round(x, 2) for x in b.stage_execution_ms]}")
+    if len(bds) == 2:
+        name, d = bds[0].decisive_component(bds[1])
+        gap = bds[1].total_ms - bds[0].total_ms
+        lines.append("")
+        if abs(gap) < 1e-3 and abs(d) < 1e-3:
+            lines.append(
+                f"decisive: none — the plans tie at {bds[0].total_ms:.3f} ms "
+                "on every component (ranking broke the tie by order)")
+        elif d > 0:
+            lines.append(
+                f"decisive: {name} ({d:+.3f} ms of the {gap:+.3f} ms gap) — "
+                f"#{ranks[1]} loses mostly on {name}")
+        else:
+            lines.append(
+                f"decisive: {name} ({d:+.3f} ms against a {gap:+.3f} ms gap) "
+                f"— #{ranks[1]} wins {name} but loses elsewhere")
+    cert = result.certificate
+    if cert is not None:
+        status = ("proven optimal" if cert.complete and cert.gap_frac == 0.0
+                  else f"gap <= {cert.gap_frac:.2%}"
+                  + ("" if cert.complete else ", deadline stop"))
+        lines.append("")
+        lines.append(
+            f"certificate: #1 is {status} over this config's plan space "
+            f"(lower bound {cert.lower_bound_ms:.3f} ms; "
+            f"{cert.nodes_explored} nodes explored, "
+            f"{cert.nodes_bounded} bounded, {cert.wall_s:.2f}s)")
+    _emit(args, "\n".join(lines))
+    print(f"costed {result.num_costed} plans ({result.num_pruned} pruned) "
+          f"in {result.search_seconds:.2f}s", file=sys.stderr)
+    return 0
+
+
+def _kv_sharing_summary(model, workload) -> dict:
+    """Per-sequence decode-pool KV with and without paged prefix sharing
+    (full model depth, tp=1 — the hardware-independent contribution)."""
+    from metis_tpu_torch.cost.estimator import kv_stage_bytes, paged_kv_seq_bytes
+
+    ctx = workload.max_context_len
+    full = kv_stage_bytes(model, 1, ctx, 0, model.num_layers,
+                          workload.kv_dtype_bytes, 1)
+    eff = paged_kv_seq_bytes(
+        model, ctx, 0, model.num_layers, workload.kv_dtype_bytes, 1,
+        page_tokens=workload.page_tokens,
+        prefix_len=workload.shared_prefix_len,
+        prefix_share_frac=workload.prefix_share_frac)
+    return {
+        "prefix_share_frac": workload.prefix_share_frac,
+        "shared_prefix_len": workload.shared_prefix_len,
+        "page_tokens": workload.page_tokens,
+        "kv_bytes_per_seq_full": round(full),
+        "kv_bytes_per_seq_effective": round(eff),
+        "kv_reduction_frac": (round(1.0 - eff / full, 4) if full else 0.0),
+    }
+
+
+def _cmd_explain_inference(args: argparse.Namespace, profiles, model,
+                           config, events) -> int:
+    """Serving counterpart of ``explain``: the per-component TTFT/TPOT
+    delta table over ``InferenceCostBreakdown`` (components sum to the two
+    p99 latencies the SLO check judged)."""
+    from metis_tpu_torch.cluster.spec import ClusterSpec
+    from metis_tpu_torch.core.types import TPOT_COMPONENTS, TTFT_COMPONENTS
+    from metis_tpu_torch.inference.planner import (
+        fingerprint_inference_plan,
+        plan_inference,
+    )
+
+    ranks = _parse_ranks(args)
+    if ranks is None:
+        return 2
+    workload = _workload_from_args(args)
+    cluster = ClusterSpec.from_files(args.hostfile, args.clusterfile)
+    result = plan_inference(cluster, profiles, model, config, workload,
+                            top_k=max(args.top_k, ranks[-1]), events=events)
+    if len(result.plans) < ranks[-1]:
+        print(f"search ranked only {len(result.plans)} serving plans "
+              f"({result.num_pruned} pruned) across {result.num_splits} "
+              f"splits; cannot explain rank {ranks[-1]}", file=sys.stderr)
+        return 1
+    chosen = [result.plans[r - 1] for r in ranks]
+    fps = [fingerprint_inference_plan(p) for p in chosen]
+    bds = [p.cost for p in chosen]
+
+    if args.as_json:
+        payload: dict = {
+            "workload": workload.to_json_dict(),
+            "plans": [{"rank": r, "fingerprint": fp, **p.to_json_dict()}
+                      for r, fp, p in zip(ranks, fps, chosen)]}
+        if len(chosen) == 2:
+            payload["delta"] = {k: round(v, 4)
+                                for k, v in bds[0].delta(bds[1]).items()}
+            name, d = bds[0].decisive_component(bds[1])
+            payload["decisive"] = {"component": name,
+                                   "delta_ms": round(d, 4)}
+        if workload.prefix_share_frac > 0.0:
+            payload["kv_sharing"] = _kv_sharing_summary(model, workload)
+        _emit(args, json.dumps(payload, indent=2))
+        return 0
+
+    header = ["component"] + [f"#{r} ({fp})" for r, fp in zip(ranks, fps)]
+    rows: list[list[str]] = []
+    if len(bds) == 2:
+        header.append(f"delta (#{ranks[1]}-#{ranks[0]})")
+        delta = bds[0].delta(bds[1])
+    # grouped so each block visibly sums to its p99 latency
+    for title, keys, total in (
+            ("ttft_p99", TTFT_COMPONENTS,
+             [b.ttft_p99_ms for b in bds]),
+            ("tpot_p99", TPOT_COMPONENTS,
+             [b.tpot_p99_ms for b in bds])):
+        for k in keys:
+            if all(abs(b.components.get(k, 0.0)) <= 1e-12 for b in bds):
+                continue
+            row = [k] + [f"{b.components.get(k, 0.0):.3f}" for b in bds]
+            if len(bds) == 2:
+                row.append(f"{delta[k]:+.3f}")
+            rows.append(row)
+        trow = [title] + [f"{t:.3f}" for t in total]
+        if len(bds) == 2:
+            trow.append(f"{total[1] - total[0]:+.3f}")
+        rows.append(trow)
+    tput_row = (["throughput_rps"]
+                + [f"{b.throughput_rps:.2f}" for b in bds])
+    if len(bds) == 2:
+        tput_row.append(
+            f"{bds[1].throughput_rps - bds[0].throughput_rps:+.2f}")
+    rows.append(tput_row)
+    lines = _table(header, rows)
+    for r, p in zip(ranks, chosen):
+        pf, dc = p.prefill, p.decode
+        lines.append("")
+        lines.append(
+            f"#{r}: prefill {dict(sorted(pf.node_counts.items()))} "
+            f"dp={pf.dp} tp={list(pf.tp_per_stage)} "
+            f"(max {pf.max_rps:.1f} rps) | decode "
+            f"{dict(sorted(dc.node_counts.items()))} dp={dc.dp} "
+            f"tp={list(dc.tp_per_stage)} batch/lane={dc.batch_per_lane} "
+            f"(max {dc.max_rps:.1f} rps, "
+            f"tpot {dc.decode_source or 'derived'}); "
+            f"slo {'ok' if p.cost.slo_ok else 'VIOLATED'}")
+    if workload.prefix_share_frac > 0.0:
+        ks = _kv_sharing_summary(model, workload)
+        lines.append("")
+        lines.append(
+            f"prefix sharing: f={ks['prefix_share_frac']} over "
+            f"{ks['shared_prefix_len']} shared tokens (page="
+            f"{ks['page_tokens'] or 1}) — per-seq decode KV "
+            f"{ks['kv_bytes_per_seq_effective'] / 1e6:.1f} MB vs "
+            f"{ks['kv_bytes_per_seq_full'] / 1e6:.1f} MB unshared "
+            f"({ks['kv_reduction_frac']:.1%} smaller)")
+    if len(bds) == 2:
+        name, d = bds[0].decisive_component(bds[1])
+        lines.append("")
+        lines.append(
+            f"decisive: {name} ({d:+.3f} ms) — the latency term that most "
+            f"separates #{ranks[1]} from #{ranks[0]} (ranking is by "
+            "SLO-feasibility, then throughput)")
+    _emit(args, "\n".join(lines))
+    print(f"costed {result.num_costed} pool candidates "
+          f"({result.num_pruned} pruned) across {result.num_splits} "
+          f"prefill/decode splits", file=sys.stderr)
     return 0
 
 
@@ -937,9 +1349,13 @@ def _parser() -> argparse.ArgumentParser:
     p_prof.add_argument("--warmup", type=int, default=2)
     p_prof.add_argument("--iters", type=int, default=5)
     p_prof.add_argument("--decode", action="store_true",
-                        help="decode-mode profiling (a later slice; raises)")
+                        help="also measure KV-cache-resident single-token "
+                             "decode steps per (tp, bs) — the measured TPOT "
+                             "table serving search prefers over the "
+                             "forward-share derivation")
     p_prof.add_argument("--decode-context", type=int, default=None,
-                        help="KV context of decode profiling (a later slice; raises)")
+                        help="resident KV tokens during decode profiling "
+                             "(default: the model's sequence length)")
     p_prof.add_argument("--events", default=None,
                         help="append structured JSONL measurement events "
                              "(profile_measured per (tp, bs)) to this file")
@@ -977,6 +1393,39 @@ def _parser() -> argparse.ArgumentParser:
                             "comparison) — the time-critical recovery path")
     _add_model_args(p_rep)
     _add_search_args(p_rep)
+
+    p_plan = sub.add_parser(
+        "plan", help="plan query in-process (--hostfile/--clusterfile/"
+                     "--profile-dir); --workload inference ranks prefill/"
+                     "decode-disaggregated serving plans by throughput "
+                     "under p99 TTFT/TPOT SLOs")
+    p_plan.add_argument("--remote", default=None,
+                        help="plan daemon address (comes with ROADMAP "
+                             "§A.9; exits 2)")
+    p_plan.add_argument("--hostfile", default=None,
+                        help="MPI-style hostfile (in-process path)")
+    p_plan.add_argument("--clusterfile", default=None,
+                        help="device-type JSON (in-process path)")
+    p_plan.add_argument("--profile-dir", default=None,
+                        help="profile store (in-process path)")
+    _add_model_args(p_plan)
+    _add_search_args(p_plan)
+    _add_inference_args(p_plan)
+
+    p_exp = sub.add_parser(
+        "explain", help="why plan #1 beat plan #2: run a hetero (or "
+                        "--workload inference) search and render the top "
+                        "plans' per-component cost delta table")
+    _add_cluster_args(p_exp)
+    p_exp.add_argument("--profile-dir", required=True)
+    _add_model_args(p_exp)
+    _add_search_args(p_exp)
+    _add_inference_args(p_exp)
+    p_exp.add_argument("--ranks", default="1,2",
+                       help="1-based ranks to compare, e.g. 1,3 "
+                            "(default: the top two)")
+    p_exp.add_argument("--json", action="store_true", dest="as_json",
+                       help="emit breakdowns + delta as JSON")
 
     p_cal = sub.add_parser(
         "calibrate", help="microbenchmark the collectives (+ single-device "
@@ -1040,6 +1489,8 @@ def main(argv: list[str] | None = None) -> int:
         return _cmd_profile(args)
     if args.command == "calibrate":
         return _cmd_calibrate(args)
+    if args.command == "plan":
+        return _cmd_plan(args)
     if args.command == "validate":
         # a missing card fails before the search, not after it
         from metis_tpu_torch.core.device import resolve_device
@@ -1061,6 +1512,8 @@ def main(argv: list[str] | None = None) -> int:
         return _cmd_validate(args, profiles, model, config)
     if args.command == "replan":
         return _cmd_replan(args, profiles, model, config, events)
+    if args.command == "explain":
+        return _cmd_explain(args, profiles, model, config, events)
     return _cmd_search(args, profiles, model, config, events)
 
 

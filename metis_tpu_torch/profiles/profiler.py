@@ -30,10 +30,28 @@ rank 0 shares the first device with it.  A tp above the device list's length
 is skipped with a ``profile_skipped`` event.  The device list defaults to one
 device on the CPU and every visible card on CUDA; the ranks' process group
 is NCCL on CUDA and gloo on the CPU.
-Decode-mode profiling comes with a later slice.
+
+Decode mode (``run(decode=True)``) also measures, per (tp, bs), the serving
+regime's single-token step with ``decode_context`` tokens of KV cache
+resident (GPT family only, as in the reference): the embedding at the last
+position, one block whose query attends over the cache and itself, and the
+head — the ``decode`` table the serving planner prices TPOT from.  The
+step reads the block's weights as bf16 copies cast once before timing (the
+reference's one compiled program fuses its per-call cast into the
+products; an eager cast would triple the bytes), the fused qkv matrix
+laid out so that its product reads it in place (``cast_once``), and
+attends over the cache and the new token as two products joined by one
+softmax, so the cache is read once and never copied.  On CUDA each step
+is timed as the replay of one CUDA graph, a tp rank's NCCL all-reduces
+captured in it (an eager step of ~50 launches leaves the card idle most
+of the time); a tp job over gloo, whose collectives run on the host, is
+timed eagerly.  ``measure_remat_fraction`` times one block's
+forward against its forward + backward.
 """
 from __future__ import annotations
 
+import dataclasses
+import math
 import re
 import time
 from dataclasses import dataclass
@@ -66,7 +84,14 @@ from metis_tpu_torch.models import (
     family_ops,
     resolve_attention,
 )
-from metis_tpu_torch.models.gpt import GPTConfig, unstack_blocks
+from metis_tpu_torch.models.gpt import (
+    COMPUTE_DTYPE_LEAVES,
+    GPTConfig,
+    block_forward,
+    embed,
+    head_logits,
+    unstack_blocks,
+)
 from metis_tpu_torch.models.parallel import vocab_parallel_cross_entropy
 from metis_tpu_torch.profiles.store import (
     DeviceTypeMeta,
@@ -124,6 +149,106 @@ def _median_ms(fn: Callable, args: tuple, warmup: int, iters: int,
 
     return two_point_queue_ms(enqueue, iters,
                               sync=lambda _: torch.cuda.synchronize(device))
+
+
+def _graph_ms(fn: Callable, args: tuple, warmup: int, iters: int,
+              device: torch.device) -> float:
+    """Device time of ``fn(*args)`` in ms as the replay of one CUDA graph:
+    warmed on a side stream, captured once, the replays timed with the
+    two-point queue form.  The host then launches one graph per call, not
+    each of its kernels."""
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        for _ in range(max(warmup, 1)):
+            fn(*args)
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn(*args)
+    return _median_ms(graph.replay, (), warmup, iters, device)
+
+
+def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.bmm`` with the fp32 accumulator as the result (bf16 operands
+    on CUDA; widened operands elsewhere give the same products)."""
+    if a.is_cuda and a.dtype != torch.float32:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
+def cached_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     k_cache: torch.Tensor, v_cache: torch.Tensor
+                     ) -> torch.Tensor:
+    """One query token per sequence attending over ``[k_cache ‖ k]`` and
+    ``[v_cache ‖ v]`` (``[b, h, 1, d]`` against ``[b, h, ctx, d]`` caches):
+    scores in fp32 over the scaled products, one softmax, the weights in
+    the activations' dtype — the reference decode step's function.  Causal
+    masking is vacuous at a query length of 1.  The cache and the new token
+    enter as two products each, so the cache is read once and not copied
+    (a concatenation would rewrite it on every step)."""
+    b, h, _, d = q.shape
+    ctx = k_cache.shape[2]
+    q3 = q.reshape(b * h, 1, d)
+    scores = torch.cat([
+        _bmm_f32(q3, k_cache.reshape(b * h, ctx, d).transpose(1, 2)),
+        _bmm_f32(q3, k.reshape(b * h, 1, d).transpose(1, 2))], dim=-1)
+    weights = torch.softmax(scores / math.sqrt(d), dim=-1).to(q.dtype)
+    out = (_bmm_f32(weights[..., :ctx], v_cache.reshape(b * h, ctx, d))
+           + _bmm_f32(weights[..., ctx:], v.reshape(b * h, 1, d)))
+    return out.to(q.dtype).reshape(b, h, 1, d)
+
+
+def decode_fns(cfg: GPTConfig, tp_group=None):
+    """``(embed_step, block_step, head_step)``: the forward-only
+    single-token closures of the serving decode regime, one new token per
+    sequence attending over a resident KV cache (the reference's
+    ``LayerProfiler._make_decode_fns``).  With ``tp_group`` the parameters
+    and the caches (``[b, heads / tp, ctx, d]``) are this rank's Megatron
+    shards, and the block sums its row-parallel products over the group.
+    Run them under ``torch.no_grad()``."""
+    from metis_tpu_torch.models.llama import LlamaConfig
+    from metis_tpu_torch.models.moe import MoEConfig
+
+    if isinstance(cfg, (MoEConfig, LlamaConfig)):
+        raise MetisError(
+            "decode profiling currently supports the GPT family only")
+
+    def embed_step(embed_params, tokens):
+        # decode always runs at the END of the context window
+        return embed({"embed": embed_params}, tokens, cfg, tp_group,
+                     pos_offset=cfg.seq_len - 1)
+
+    def block_step(layer, x, k_cache, v_cache):
+        def attn(q, k, v):
+            return cached_attention(q, k, v, k_cache, v_cache)
+
+        return block_forward(x, layer, cfg, attn, tp_group)
+
+    def head_step(head_params, x):
+        return head_logits({"head": head_params}, x, cfg, tp_group)
+
+    return embed_step, block_step, head_step
+
+
+def cast_once(group: str, tree: dict, dtype: torch.dtype) -> dict:
+    """``tree`` (one parameter group, e.g. a block's leaves) with the
+    matrices its forward casts at each use (``COMPUTE_DTYPE_LEAVES``)
+    replaced by ``dtype`` copies, made once.  The fused ``qkv`` copy
+    (``[..., 3, in, out]``) is stored with its input dimension outermost,
+    as a serving engine stores a fused QKV matrix: the product
+    (``einsum("bsh,chk->cbsk")``) then reads it in place, where the
+    reference's layout makes it copy all of the matrix on every call."""
+    names = COMPUTE_DTYPE_LEAVES.get(group, ())
+    out = {}
+    for name, leaf in tree.items():
+        leaf = leaf.detach()
+        if name in names:
+            leaf = leaf.to(dtype)
+            if name == "qkv":
+                leaf = leaf.movedim(-3, -2).contiguous().movedim(-2, -3)
+        out[name] = leaf
+    return out
 
 
 def _analytic_memory_mb(param_bytes: float, act_bytes: float, tp: int) -> float:
@@ -237,6 +362,51 @@ class LayerProfiler:
             return torch.autograd.grad(loss, [*head_params.values(), x])
 
         return embed_fb, block_fb, head_fb, scan_fb
+
+    # -- decode mode ---------------------------------------------------------
+    def _make_decode_fns(self, cfg: GPTConfig):
+        """(embed_step, block_step, head_step) on this profiler's tp group
+        (``decode_fns``)."""
+        return decode_fns(cfg, self._tp_group())
+
+    def _profile_decode_one(self, tp: int, bs: int,
+                            context: int) -> tuple[float, ...]:
+        """Per-layer single-token decode step times at (tp, bs) with
+        ``context`` KV tokens resident — the measured ``decode`` table row.
+        No normalization pass: each decode closure is the deployed unit of
+        work.  A tp job's times are its slowest rank's."""
+        cfg, dev = self.cfg, self.device
+        embed_step, block_step, head_step = self._make_decode_fns(cfg)
+        params = self._model_params()
+        gen = torch.Generator(device=dev).manual_seed(self.config.seed)
+        with torch.no_grad():
+            embed_p = cast_once("embed", params["embed"], cfg.dtype)
+            head_p = cast_once("head", params["head"], cfg.dtype)
+            layer0 = cast_once("blocks", {n: leaf[0] for n, leaf
+                                          in params["blocks"].items()}, cfg.dtype)
+            tokens = torch.randint(0, cfg.vocab_size, (bs, 1), generator=gen,
+                                   device=dev)
+            x = torch.randn((bs, 1, cfg.hidden), generator=gen,
+                            device=dev).to(cfg.dtype)
+            kv_shape = (bs, cfg.num_heads // tp, context, cfg.head_dim)
+            k_cache, v_cache = (torch.randn(kv_shape, generator=gen, device=dev)
+                                .to(cfg.dtype) for _ in range(2))
+            # NCCL's collectives are captured in the graph; gloo's run on
+            # the host and cannot be
+            group = self._tp_group()
+            graphed = dev.type == "cuda" and (
+                group is None or dist.get_backend(group) == "nccl")
+            w, it = self.config.warmup, self.config.iters
+
+            def timed(fn, *args):
+                return (_graph_ms if graphed else _median_ms)(fn, args, w, it, dev)
+
+            times = self._max_over_ranks([
+                timed(embed_step, embed_p, tokens),
+                timed(block_step, layer0, x, k_cache, v_cache),
+                timed(head_step, head_p, x)])
+        embed_ms, block_ms, head_ms = times
+        return tuple([embed_ms] + [block_ms] * cfg.num_blocks + [head_ms])
 
     def _peak_memory_mb(self, fn: Callable, args: tuple, arg_bytes: int
                         ) -> float | None:
@@ -378,15 +548,25 @@ class LayerProfiler:
                           self.device)
 
     # -- public API ---------------------------------------------------------
-    def run(self, tps: Sequence[int] = (1,),
-            bss: Sequence[int] = (1,)) -> ProfileStore:
+    def run(self, tps: Sequence[int] = (1,), bss: Sequence[int] = (1,),
+            *, decode: bool = False,
+            decode_context: int | None = None) -> ProfileStore:
         """Profile every (tp, bs) the device list can measure into a
         ProfileStore; a tp that does not divide the heads or exceeds the
-        device list is skipped with an event."""
+        device list is skipped with an event.
+
+        ``decode=True`` also measures the KV-cache-resident single-token
+        decode step per (tp, bs) (``decode_context`` resident tokens,
+        default the model's sequence length): the serving planner then
+        prices TPOT from the measurement (``decode_source="measured"``)."""
         n_dev = len(self.devices)
         self.events.emit(
             "profile_started", device_type=self.device_type,
             model=self.model.name, tps=list(tps), bss=list(bss), devices=n_dev)
+        if decode:
+            # the GPT family only: refuse before any measurement
+            self._make_decode_fns(self.cfg)
+        ctx = (decode_context or self.model.sequence_length) if decode else None
         entries: dict[tuple[str, int, int], LayerProfile] = {}
         t_run = time.perf_counter()
         for tp in tps:
@@ -398,15 +578,17 @@ class LayerProfiler:
                             else f"tp={tp} exceeds {n_dev} device(s)"))
                 continue
             if tp == 1:
-                measured = []
-                for bs in bss:
-                    t_cfg = time.perf_counter()
-                    measured.append((self._profile_one(1, bs),
-                                     time.perf_counter() - t_cfg))
+                measured = [self._profile_bs(1, bs, ctx) for bs in bss]
             else:
-                measured = self._profile_tp_job(tp, bss)
-            for bs, (prof, wall_s) in zip(bss, measured):
+                measured = self._profile_tp_job(tp, bss, ctx)
+            for bs, (prof, wall_s, decode_s) in zip(bss, measured):
                 entries[(self.device_type, tp, bs)] = prof
+                if decode:
+                    self.events.emit(
+                        "decode_profile", device_type=self.device_type,
+                        tp=tp, bs=bs, context_len=ctx,
+                        step_ms=round(sum(prof.decode_layer_times_ms), 4),
+                        wall_s=round(decode_s, 3))
                 self.events.emit(
                     "profile_measured", device_type=self.device_type,
                     tp=tp, bs=bs,
@@ -435,9 +617,24 @@ class LayerProfiler:
         type_meta = {self.device_type: DeviceTypeMeta(opt_ms, bg_ms)}
         return ProfileStore(entries, meta, type_meta)
 
-    def _profile_tp_job(self, tp: int, bss: Sequence[int]) -> list:
-        """``(LayerProfile, wall seconds)`` per bs from a job of ``tp`` ranks
-        on the first ``tp`` devices — rank 0's, which carries every rank's
+    def _profile_bs(self, tp: int, bs: int, context: int | None) -> tuple:
+        """``(LayerProfile, wall seconds, decode wall seconds)`` of one
+        (tp, bs), with the decode table at ``context`` unless it is None."""
+        t0 = time.perf_counter()
+        prof = self._profile_one(tp, bs)
+        decode_s = 0.0
+        if context is not None:
+            t_dec = time.perf_counter()
+            prof = dataclasses.replace(
+                prof, decode_layer_times_ms=self._profile_decode_one(tp, bs, context),
+                decode_context_len=context)
+            decode_s = time.perf_counter() - t_dec
+        return prof, time.perf_counter() - t0, decode_s
+
+    def _profile_tp_job(self, tp: int, bss: Sequence[int],
+                        context: int | None = None) -> list:
+        """``_profile_bs``'s triple per bs from a job of ``tp`` ranks on the
+        first ``tp`` devices — rank 0's, which carries every rank's
         maximum."""
         from metis_tpu_torch.execution import dist as mdist
 
@@ -449,23 +646,20 @@ class LayerProfiler:
         devices = self.devices[:tp]
         ranks = mdist.spawn(_profile_tp_rank, tp, mdist.default_backend(devices),
                             devices, self.model, self.device_type, self.config,
-                            self.dtype, tp, tuple(bss))
+                            self.dtype, tp, tuple(bss), context)
         return ranks[0]
 
 
 def _profile_tp_rank(rank: int, device: torch.device, model: ModelSpec,
                      device_type: str, config: ProfilerConfig,
-                     dtype: torch.dtype, tp: int, bss: tuple) -> list:
+                     dtype: torch.dtype, tp: int, bss: tuple,
+                     context: int | None = None) -> list:
     """Rank body of a tp profiling job (``execution.dist.spawn``): this
     rank's shards on a (dp 1, tp) mesh, each bs measured in step with the
-    other ranks."""
+    other ranks (and its decode step at ``context``, unless None)."""
     prof = LayerProfiler(model, device_type, device, config, dtype)
     prof._mesh = mesh_dp_tp(1, tp)
-    out = []
-    for bs in bss:
-        t0 = time.perf_counter()
-        out.append((prof._profile_one(tp, bs), time.perf_counter() - t0))
-    return out
+    return [prof._profile_bs(tp, bs, context) for bs in bss]
 
 
 def profile_model(
@@ -477,12 +671,89 @@ def profile_model(
     config: ProfilerConfig = ProfilerConfig(),
     events: EventLog = NULL_LOG,
     devices: Sequence | None = None,
+    decode: bool = False,
+    decode_context: int | None = None,
 ) -> ProfileStore:
     """One-call measured profiling (see :class:`LayerProfiler`).
     ``devices``: the ranks' devices of a tp > 1 job (default: one device on
     the CPU, every visible card on CUDA)."""
     return LayerProfiler(model, device_type, device, config, events=events,
-                         devices=devices).run(tps, bss)
+                         devices=devices).run(tps, bss, decode=decode,
+                                              decode_context=decode_context)
+
+
+def measure_remat_fraction(
+    model: ModelSpec,
+    device: str | torch.device = "cuda",
+    bs: int = 2,
+    warmup: int = 1,
+    iters: int = 5,
+    seed: int = 0,
+) -> float:
+    """Measured forward share of one transformer block's forward + backward
+    time — the work a rematerializing pipeline schedule (1f1b /
+    interleaved) runs twice (``cost/schedule.py``), for
+    ``SearchConfig.remat_fwd_fraction``.  Clamped to [0.15, 0.6] (outside
+    it the measurement is jitter), 1/3 — the analytic fwd:bwd ratio — when
+    the forward + backward time is not positive.
+
+    Each sample times ``max(iters, 32)`` back-to-back calls of a closure
+    (the forward alone, without autograd; or the forward and the gradients
+    of every leaf and of the input) and divides: on CUDA between two
+    events, so the host's launch overhead per call is not counted while it
+    keeps ahead of the card; the median of 3 samples after ``warmup`` whole
+    loops.  Every gradient is computed (eager autograd skips none)."""
+    dev = resolve_device(device)
+    cfg = config_for_model_spec(model)
+    attn = resolve_attention(cfg)
+    family = family_ops(cfg)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = init_params_for(gen, cfg, dev)
+    layer = _leaf_copies(params["blocks"], 1, stacked=False)
+    del params
+    x = torch.randn((bs, cfg.seq_len, cfg.hidden), generator=gen,
+                    device=dev).to(cfg.dtype).requires_grad_()
+
+    def total(layer, x):
+        out = family.block(x, layer, cfg, attn, None)
+        y, aux = out if family.moe else (out, None)
+        y = y.float().sum()
+        return y if aux is None else y + aux
+
+    def fwd_only():
+        with torch.no_grad():
+            return total(layer, x)
+
+    def fwd_bwd():
+        return torch.autograd.grad(total(layer, x), [*layer.values(), x])
+
+    trips = max(iters, 32)
+
+    def looped(fn) -> float:
+        def loop() -> float:
+            if dev.type == "cuda":
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                for _ in range(trips):
+                    fn()
+                end.record()
+                end.synchronize()
+                return start.elapsed_time(end) / trips
+            t0 = time.perf_counter()
+            for _ in range(trips):
+                fn()
+            return (time.perf_counter() - t0) / trips * 1e3
+
+        for _ in range(max(warmup, 1)):
+            loop()
+        return float(np.median([loop() for _ in range(3)]))
+
+    fwd_ms = looped(fwd_only)
+    fb_ms = looped(fwd_bwd)
+    if fb_ms <= 0:
+        return 1.0 / 3.0
+    return float(np.clip(fwd_ms / fb_ms, 0.15, 0.6))
 
 
 def profile_to_dir(
@@ -493,8 +764,11 @@ def profile_to_dir(
     device_type: str | None = None,
     device: str | torch.device = "cuda",
     config: ProfilerConfig = ProfilerConfig(),
+    decode: bool = False,
+    decode_context: int | None = None,
 ) -> list[Path]:
     """Profile and write reference-schema JSON files."""
-    store = profile_model(model, tps, bss, device_type, device, config)
+    store = profile_model(model, tps, bss, device_type, device, config,
+                          decode=decode, decode_context=decode_context)
     return store.dump_to_dir(
         out_dir, {"model_name": model.name, "attn": model.attn})

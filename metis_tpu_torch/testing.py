@@ -9,7 +9,11 @@ phases hand to ``execution.dist.spawn``; its ``stages`` take every stage
 axis of the hetero route (ZeRO, cp, ep, MoE rows and groups).  It lives in the
 package because spawned ranks start from a fresh interpreter and import
 their body by name; it reads the kernels' launch counters, host step times
-and peak memory, none of which production training needs.
+and peak memory, none of which production training needs.  ``decode_rank``
+runs the decode closures on a tp rank's shards, and ``prefix_kv`` fills a
+KV cache with a prefix's own keys and values
+(``tests/test_torch_decode_profile.py``, ``chip_smoke.py``'s serving
+phase).
 """
 from __future__ import annotations
 
@@ -634,3 +638,53 @@ def failure_paths_rank(rank: int, device: torch.device, local: bool = False) -> 
         out["on_rank0"] = (type(e).__name__, str(e), getattr(e, "on_every_rank", False))
     out["agreed"] = run_failing(sv._on_every_rank(TrainingAnomalyError("recoveries exhausted")))
     return out
+
+
+def prefix_kv(layer: dict, x: torch.Tensor,
+              cfg: GPTConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """The K and V (``[b, heads, s, d]``) that ``layer``'s attention
+    computes from the activations ``x`` — the block's own layer norm and
+    projections, as ``models.gpt.attention_residual`` runs them: the KV
+    cache a decode step after the prefix ``x`` attends over."""
+    from metis_tpu_torch.models.gpt import _layer_norm
+    from metis_tpu_torch.models.parallel import column_parallel
+
+    y = _layer_norm(x, layer["ln1_scale"], layer["ln1_bias"])
+    qkv = column_parallel(y, layer["qkv"].to(cfg.dtype), None)
+    qkv = (qkv.float() + layer["qkv_bias"][:, None, None, :]).to(cfg.dtype)
+    b, s, _ = x.shape
+    k, v = (t.reshape(b, s, cfg.num_heads, cfg.head_dim).transpose(1, 2)
+            .contiguous() for t in (qkv[1], qkv[2]))
+    return k, v
+
+
+def decode_rank(rank: int, device: torch.device, cfg: GPTConfig, params: dict,
+                tokens, x, k_cache, v_cache) -> dict:
+    """Rank body: the decode closures (``profiles.profiler.decode_fns``) on
+    this rank's Megatron shards of the full host tree ``params`` (numpy),
+    on a (dp 1, tp = world) mesh, with its heads of the full caches.
+    Returns the embedding, the block's output and this rank's block of the
+    head's logits, as numpy arrays."""
+    import torch.distributed as dist
+
+    from metis_tpu_torch.execution.mesh import mesh_dp_tp
+    from metis_tpu_torch.execution.train import param_specs_for
+    from metis_tpu_torch.profiles.profiler import decode_fns
+
+    tp = dist.get_world_size()
+    mesh = mesh_dp_tp(1, tp)
+    specs, slots = param_specs_for(cfg, tp), mesh.slots()
+    mine = {g: {n: slice_leaf(torch.from_numpy(np.array(leaf)), specs[g][n],
+                              slots).contiguous().to(device)
+                for n, leaf in sub.items()} for g, sub in params.items()}
+    heads = (None, TP, None, None)
+    kc, vc = (slice_leaf(torch.from_numpy(c), heads, slots).contiguous().to(device)
+              for c in (k_cache, v_cache))
+    embed_step, block_step, head_step = decode_fns(cfg, mesh.group(TP))
+    layer0 = {n: leaf[0] for n, leaf in mine["blocks"].items()}
+    with torch.no_grad():
+        xt = torch.from_numpy(x).to(device)
+        out = {"embed": embed_step(mine["embed"], torch.from_numpy(tokens).to(device)),
+               "block": block_step(layer0, xt, kc, vc),
+               "head": head_step(mine["head"], xt)}
+    return {k: v.cpu().numpy() for k, v in out.items()}

@@ -292,7 +292,7 @@ def test_profiler_frees_its_params_before_the_tp_job(monkeypatch):
 
     def fake_spawn(fn, world, backend, devices, *args):
         seen.append((prof._params, world, backend, list(devices)))
-        return [[(tstore.LayerProfile((1.0,) * 4, (1.0,) * 4, 0.0), 0.0)]]
+        return [[(tstore.LayerProfile((1.0,) * 4, (1.0,) * 4, 0.0), 0.0, 0.0)]]
 
     monkeypatch.setattr(tdist, "spawn", fake_spawn)
     store = prof.run(tps=(1, 2), bss=(1,))

@@ -86,7 +86,11 @@ def _entry_points():
     from metis_tpu_torch.models.gpt import GPTConfig
     from metis_tpu_torch.models.llama import LlamaConfig
     from metis_tpu_torch.models.moe import MoEConfig
-    from metis_tpu_torch.profiles.profiler import infer_device_type, profile_model
+    from metis_tpu_torch.profiles.profiler import (
+        infer_device_type,
+        measure_remat_fraction,
+        profile_model,
+    )
     from metis_tpu_torch import cli
     from metis_tpu_torch.execution.hetero import StageSpec, make_hetero_train_step
     from metis_tpu_torch.validation import (
@@ -128,6 +132,11 @@ def _entry_points():
             ModelSpec(name="t", num_layers=3, hidden_size=32, sequence_length=16,
                       vocab_size=64, num_heads=2, num_experts=2)),
         "profile_model": lambda: profile_model(spec),
+        "profile_model_decode": lambda: profile_model(spec, decode=True),
+        "measure_remat_fraction": lambda: measure_remat_fraction(spec),
+        "profile_decode_cli": lambda: cli.main([
+            "profile", "--model-size", "1.5B", "--decode", "--output-dir",
+            "profiles"]),
         "infer_device_type": lambda: infer_device_type(),
         "measure_uniform_plan_ms": lambda: measure_uniform_plan_ms(plan, spec),
         "from_numpy_tree": lambda: from_numpy_tree({"a": {"b": [1.0]}}),
@@ -193,7 +202,9 @@ ENTRY_POINTS = ["entry", "build_executable", "build_train_state",
                 "profile_model_llama", "profile_model_moe",
                 "train_resilient_cli", "chaos_cli", "TrainingSupervisor",
                 "microbenchmark_chip", "microbenchmark_collectives",
-                "measure_dp_overlap", "measure_pipeline_overlap", "calibrate_cli"]
+                "measure_dp_overlap", "measure_pipeline_overlap", "calibrate_cli",
+                "profile_model_decode", "measure_remat_fraction",
+                "profile_decode_cli"]
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)

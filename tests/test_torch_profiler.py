@@ -119,9 +119,14 @@ def test_cli_profile_writes_what_the_planner_reads(tmp_path):
     assert cli.main(args) == 0
     loaded = jstore.ProfileStore.from_dir(tmp_path)
     assert loaded.configs() == [("CPU", 1, 1)] and loaded.attn == "flash"
-    for decode_flags in (["--decode"], ["--decode-context", "16"]):
-        with pytest.raises(NotImplementedError):
-            cli.main(args + decode_flags)
+    # --decode writes decode tables at the sequence length, or at
+    # --decode-context
+    for decode_flags, context in ((["--decode"], 16),
+                                  (["--decode", "--decode-context", "8"], 8)):
+        assert cli.main(args + decode_flags) == 0
+        prof = jstore.ProfileStore.from_dir(tmp_path).get("CPU", 1, 1)
+        assert prof.decode_context_len == context
+        assert len(prof.decode_layer_times_ms) == 3
     assert cli.MODEL_SIZE_PRESETS["1.5B"] == dict(
         num_layers=10, hidden_size=4096, seq_len=1024, vocab_size=51200,
         num_heads=32)
