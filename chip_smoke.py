@@ -168,7 +168,24 @@ Phases, in order (any failure exits non-zero):
    then resumed to the end bit-equal to an uninterrupted run.  Every
    supervised step launches each kernel once (``kernel_launches`` of the
    ``train_step`` events).
-16. calibration (``calibration_phase``): ``python -m metis_tpu_torch
+16. multihost (``multihost_phase``): (a) on the host, the read side of
+   what the earlier phases wrote: ``accuracy --json`` of the planner
+   phase's ``validate`` ledger (``n_matched`` the validated plans, MAPE
+   their mean |error_pct| within 1e-3), ``report --json`` of train (a)'s
+   first run (the search's span tree) and of chaos (a)'s (the supervised
+   run's, its recovery span included), and a decision log of
+   ``plan_hetero`` on the planner phase's 2 x 8 cluster then ``replan``
+   after losing a node (``why`` of the second plan: a chain of 2 ending at
+   the first; ``diff``: the component deltas sum to the total delta);
+   beside it, at once, on the one card over gloo: (b) two ``train
+   --coordinator`` processes of one rank each, a pinned dp 2 plan at
+   ``TRAIN_BLOCKS`` block and ``TRAIN_C_WIDTH``, against one process of two
+   ranks (losses bit-equal or within ``MULTIHOST_REL_TOL``, every leaf's
+   digest equal); (c) ``train --slice-controller 0`` and ``1`` of a pinned
+   two-stage gpipe plan of ``MULTIHOST_C_BLOCKS`` blocks at 2
+   microbatches, against the single-controller hetero run; each rank's
+   launches per step as its blocks imply (the processes' stderr lines).
+17. calibration (``calibration_phase``): ``python -m metis_tpu_torch
    calibrate --output X --chip-roofline`` on the one card (exit 1, no
    ``X``, the card's matmul TFLOP/s and streaming GB/s, each at most 1.05 x
    the data sheet's peak and printed with its share of it);
@@ -180,7 +197,7 @@ Phases, in order (any failure exits non-zero):
    phase's ``validate`` pairs; and the planner phase's 2 x 8 search with
    the measured dp overlap and the fitted recovery time.  These paths run
    dense attention and plain products, as the reference's do: no kernel.
-17. serving (``serving_phase``): the decode step of one block of the 1.5B
+18. serving (``serving_phase``): the decode step of one block of the 1.5B
    preset after a 1023-token prefix against ``block_forward`` (flash),
    and the card's busy share over eager and graphed steps; ``profile
    --decode --decode-context 1024 --tps 1,2 --bss 1,4,8`` (tp 2 skipped),
@@ -3283,6 +3300,290 @@ def chaos_leg_c(work: pathlib.Path, base: list[str]) -> tuple[dict, dict]:
                           "resumed_bit_equal": True, "save_ms": ms.get("save_ms")}}, launches
 
 
+# the multihost phase: (b) and (c) at TRAIN_C_WIDTH for this many steps, (c)
+# at this many blocks; their losses equal to one launcher's bit for bit or
+# within this relative difference
+MULTIHOST_STEPS = 3
+MULTIHOST_C_BLOCKS = 2
+MULTIHOST_REL_TOL = 1e-6
+
+
+def cli_processes(cmds: dict, timeout_s: float = 600.0) -> dict:
+    """``python -m metis_tpu_torch <argv>`` for every ``{label: argv}`` at
+    once, each in a process of its own: ``{label: (rc, stderr)}``.  Every
+    process is stopped before this returns, a failed one's peers too."""
+    root = pathlib.Path(__file__).resolve().parent
+    procs = {label: subprocess.Popen(
+        [sys.executable, "-m", "metis_tpu_torch", *argv], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, cwd=root) for label, argv in cmds.items()}
+    out = {}
+    try:
+        for label, proc in procs.items():
+            _, err = proc.communicate(timeout=timeout_s)
+            out[label] = (proc.returncode, err)
+            if proc.returncode != 0:
+                raise SystemExit(f"{label} failed (rc {proc.returncode}):\n"
+                                 f"{err[-3000:]}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return out
+
+
+def said_launches(err: str, who: str) -> list:
+    """The per-step kernel launches a multi-controller process printed for
+    ``who`` (``cli._say_launches``)."""
+    prefix = f"{who} kernel launches per step: "
+    for line in err.splitlines():
+        if line.startswith(prefix):
+            return json.loads(line[len(prefix):])
+    raise SystemExit(f"no launch line for {who}")
+
+
+def same_losses(label: str, got: list, want: list) -> str:
+    """Gate: ``got`` equal to ``want`` bit for bit, or within
+    ``MULTIHOST_REL_TOL`` relative; which of the two held."""
+    if len(got) != len(want) or not want:
+        raise SystemExit(f"{label}: losses {got} against {want}")
+    if got == want:
+        return "bit-equal"
+    worst = max(abs(g - w) / abs(w) for g, w in zip(got, want))
+    if not worst <= MULTIHOST_REL_TOL:
+        raise SystemExit(f"{label}: losses {got} against {want} (relative "
+                         f"{worst:.3e} > {MULTIHOST_REL_TOL})")
+    return f"within {worst:.3e} relative"
+
+
+def multihost_phase(work: pathlib.Path, results: dict) -> tuple[dict, dict]:
+    """``multihost``: (a) the read side of the records the earlier phases
+    wrote (``accuracy``, ``report``) and a decision log (``why``,
+    ``diff``), on the host; then, at once, (b) two ``train --coordinator``
+    processes and (c) two ``train --slice-controller`` processes on the
+    one card (gloo), each beside the one-launcher run of its plan."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    base = results["train"]["base"]
+    with ThreadPoolExecutor(2) as pool:
+        legs = [pool.submit(multihost_leg_b, work, base),
+                pool.submit(multihost_leg_c, work, base)]
+        out = read_side_leg(work, results)
+        launches = {}
+        for leg in legs:
+            more_out, more_launches = leg.result()
+            out.update(more_out)
+            launches.update(more_launches)
+    return out, launches
+
+
+def read_side_leg(work: pathlib.Path, results: dict) -> dict:
+    """(a) ``accuracy --json`` of the planner phase's ``validate`` ledger:
+    ``n_matched`` the validated plans, MAPE their mean |error_pct| (within
+    1e-3); ``report --json`` of train (a)'s first run (the search's span
+    tree) and of chaos (a) (the supervised run's, with its recovery); a
+    decision log of ``plan_hetero`` on the planner phase's 2 x 8 cluster
+    and of ``replan`` after losing one node, its record a child of the
+    first: ``why`` of the replan's plan is a chain of 2 that ends at the
+    first search, and ``diff`` of the two plans attributes the whole cost
+    delta to the components."""
+    from metis_tpu_torch import cli
+    from metis_tpu_torch.cluster.spec import ClusterSpec
+    from metis_tpu_torch.core.config import ModelSpec, SearchConfig
+    from metis_tpu_torch.obs.provenance import DecisionLog
+    from metis_tpu_torch.planner.api import plan_hetero
+    from metis_tpu_torch.planner.replan import replan, shrink_cluster
+    from metis_tpu_torch.profiles.store import ProfileStore
+
+    t0 = time.perf_counter()
+    planner, sliced = results["planner"], results["slice"]
+
+    def read(argv: list[str], label: str):
+        path = work / f"{label}.json"
+        if cli.main([*argv, "--json", "--output", str(path)]) != 0:
+            raise SystemExit(f"{' '.join(argv[:1])} {label} failed")
+        return json.loads(path.read_text())
+
+    acc = read(["accuracy", planner["ledger"]], "accuracy")
+    errs = [abs(v[3]) for v in planner["validate"]]
+    mape = sum(errs) / len(errs)
+    if acc["n_matched"] != len(errs) or not abs(acc["mape_pct"] - mape) <= 1e-3:
+        raise SystemExit(f"(a) accuracy: n_matched {acc['n_matched']}, MAPE "
+                         f"{acc['mape_pct']} against {len(errs)} validated plans "
+                         f"at mean |error_pct| {mape}")
+    trees = {}
+    for label, root, children in (
+            ("a_first3", "plan_hetero", {"setup", "ranking"}),
+            ("chaos_a", "supervised_run", {"plan", "build", "recovery"})):
+        tree = read(["report", str(work / f"{label}.events.jsonl")], f"report_{label}")
+        tops = [sp for sp in tree["spans"] if sp["name"] == root]
+        below = {c["name"] for sp in tops for c in sp.get("children", ())}
+        if not tops or not children <= below:
+            raise SystemExit(f"(a) report of {label}: roots "
+                             f"{[sp['name'] for sp in tree['spans']]}, under "
+                             f"{root} {sorted(below)}")
+        trees[label] = {"root": root, "children": sorted(below),
+                        "root_ms": tops[0]["dur_ms"]}
+
+    # the decision log: the 2 x 8 search, then the search after one node
+    # is lost, its record a child of the first
+    big = ClusterSpec.from_files(*planner["big_cluster"])
+    store = ProfileStore.from_dir(sliced["profile_dir"])
+    model = ModelSpec(**GPT_15B)
+    config = SearchConfig(gbs=64, max_profiled_tp=1, max_profiled_bs=4)
+    path = work / "decisions.jsonl"
+    lost = {sliced["device_type"]: 8}
+    with DecisionLog(path) as log_:
+        plan_hetero(big, store, model, config, top_k=3, decisions=log_)
+        first = log_.records()[-1]
+        replan(big, shrink_cluster(big, lost), store, model, config,
+               search_old=False, decisions=log_,
+               decision_meta={"cause": "device_loss", "parent_seq": first.seq})
+        second = log_.records()[-1]
+    why = read(["why", second.plan_fingerprint, "--decisions", str(path)], "why")
+    seqs = [h["record"]["seq"] for h in why["hops"]]
+    if (why["depth"] != 2 or seqs != [first.seq, second.seq]
+            or first.kind != "cold_search" or second.kind != "delta_replan"
+            or second.cause != "device_loss"):
+        raise SystemExit(f"(a) why {second.plan_fingerprint}: {why}")
+    diff = read(["diff", first.plan_fingerprint, second.plan_fingerprint,
+                 "--decisions", str(path)], "diff")
+    total = diff["total_delta_ms"]
+    parts = sum(diff["component_deltas"].values())
+    if total is None or not abs(parts - total) <= 1e-6 * max(1.0, abs(total)):
+        raise SystemExit(f"(a) diff: components sum to {parts}, total {total}")
+    log(f"  (a) accuracy: {acc['n_matched']} matched, MAPE {acc['mape_pct']:.4f}% "
+        f"(validate's mean |error_pct| {mape:.4f}%), drift "
+        f"{'ALARM' if acc['drift']['in_drift'] else 'ok'}; report: "
+        f"{ {k: v['children'] for k, v in trees.items()} }; decisions: "
+        f"{first.plan_fingerprint} {first.total_ms:.3f} ms -> "
+        f"{second.plan_fingerprint} {second.total_ms:.3f} ms after losing "
+        f"{lost}, why depth {why['depth']} (root {why['root_cause']}), diff "
+        f"{total:+.3f} ms = components {parts:+.3f}, decisive "
+        f"{diff['decisive']} ({time.perf_counter() - t0:.1f} s, host)")
+    return {"a_read_side": {
+        "accuracy": {k: acc[k] for k in ("n_matched", "mape_pct", "signed_error_pct")},
+        "validate_mean_abs_error_pct": mape, "report": trees,
+        "decisions": {"first": first.plan_fingerprint, "first_ms": first.total_ms,
+                      "second": second.plan_fingerprint, "second_ms": second.total_ms,
+                      "why_depth": why["depth"], "diff_total_ms": total,
+                      "diff_components_ms": parts, "decisive": diff["decisive"]}}}
+
+
+def multihost_leg_b(work: pathlib.Path, base: list[str]) -> tuple[dict, dict]:
+    """(b) The train phase's GPT at ``TRAIN_BLOCKS`` block and
+    ``TRAIN_C_WIDTH``, a pinned dp 2 plan: two ``train --coordinator``
+    processes of one gloo rank each on the one card, against one process
+    of two ranks.  Gates: the losses bit-equal (or within
+    ``MULTIHOST_REL_TOL``), every leaf's digest equal, each rank 1 launch
+    of each kernel per block per step."""
+    from metis_tpu_torch.execution.checkpoint import load_meta
+    from metis_tpu_torch.execution.multihost import free_port
+
+    t0 = time.perf_counter()
+    dirs = {k: pinned_dir(work / f"mh_b_{k}", pinned_plan(dp=2))
+            for k in ("multi", "single")}
+    common = ["train", *base, *TRAIN_C_WIDTH, "--steps", str(MULTIHOST_STEPS),
+              "--dist-backend", "gloo"]
+    port = free_port()
+    cmds = {f"mh_b_p{i}": [*common, "--checkpoint-dir", str(dirs["multi"]),
+                           "--devices", "cuda:0", "--coordinator",
+                           f"127.0.0.1:{port}", "--num-processes", "2",
+                           "--process-id", str(i), "--output",
+                           str(work / f"mh_b_p{i}.json"),
+                           *(["--events", str(work / "mh_b_multi.events.jsonl")]
+                             if i == 0 else [])]
+            for i in range(2)}
+    cmds["mh_b_single"] = [*common, "--checkpoint-dir", str(dirs["single"]),
+                           "--devices", "cuda:0,cuda:0", "--output",
+                           str(work / "mh_b_single.json"), "--events",
+                           str(work / "mh_b_single.events.jsonl")]
+    ran = cli_processes(cmds)
+    ev = {k: [json.loads(x) for x in (work / f"mh_b_{k}.events.jsonl")
+              .read_text().splitlines()] for k in ("multi", "single")}
+    got, want = (list(step_losses(ev[k]).values()) for k in ("multi", "single"))
+    held = same_losses("(b)", got, want)
+    digests = {k: load_meta(d).digests for k, d in dirs.items()}
+    if digests["multi"] != digests["single"] or not digests["single"]:
+        raise SystemExit("(b) the two launchers' leaves differ from one launcher's")
+    expect = dict.fromkeys(FLASH_KERNELS, TRAIN_BLOCKS)
+    per_rank = {r: said_launches(ran[f"mh_b_p{r}"][1], f"rank {r}") for r in (0, 1)}
+    if any(step != expect for steps in per_rank.values() for step in steps):
+        raise SystemExit(f"(b) launches per rank per step {per_rank}, expected {expect}")
+    if "multihost: process 1/2, 2 global / 1 local devices" not in ran["mh_b_p1"][1]:
+        raise SystemExit("(b) process 1 did not start its one rank of two")
+    if (work / "mh_b_p1.json").exists():
+        raise SystemExit("(b) process 1 wrote a summary (process 0 writes it)")
+    summary = json.loads((work / "mh_b_p0.json").read_text())
+    for d in dirs.values():
+        shutil.rmtree(d)
+    log(f"  (b) train --coordinator, 2 processes x 1 gloo rank: losses {got} "
+        f"{held} to one process of 2 ranks, {len(digests['single'])} leaves "
+        f"equal; launches per rank per step {expect}; mean_step_ms "
+        f"{summary['mean_step_ms']} ({time.perf_counter() - t0:.1f} s, {SHARED_CARD})")
+    return ({"b_coordinator": {"losses": got, "held": held,
+                               "leaves_equal": len(digests["single"]),
+                               "mean_step_ms": summary["mean_step_ms"]}},
+            {"multihost_b": {k: sum(step[k] for steps in per_rank.values()
+                                    for step in steps) for k in FLASH_KERNELS}})
+
+
+def multihost_leg_c(work: pathlib.Path, base: list[str]) -> tuple[dict, dict]:
+    """(c) A pinned two-stage gpipe plan of ``MULTIHOST_C_BLOCKS`` blocks at
+    ``TRAIN_C_WIDTH``, 2 microbatches of ``TRAIN_GBS / 2`` rows: ``train
+    --slice-controller 0`` and ``1`` (boundaries over a localhost socket,
+    each stage in its controller's process on the one card), against the
+    single-controller hetero ``train`` of the plan on two gloo ranks.
+    Gates: the last stage's losses bit-equal (or within
+    ``MULTIHOST_REL_TOL``), each stage's launches per step as its blocks
+    imply (``stage_launches``)."""
+    from metis_tpu_torch.execution.mesh import PlanArtifact
+    from metis_tpu_torch.execution.multihost import free_port
+
+    t0 = time.perf_counter()
+    art = PlanArtifact(mesh_axes=(), mesh_shape=(),
+                       layer_partition=(0, 2, MULTIHOST_C_BLOCKS + 2),
+                       strategies=({"dp": 1, "tp": 1},) * 2, gbs=TRAIN_GBS,
+                       microbatches=2)
+    dirs = {k: pinned_dir(work / f"mh_c_{k}", art) for k in ("multi", "single")}
+    common = ["train", *base, *TRAIN_C_WIDTH, "--num-layers",
+              str(MULTIHOST_C_BLOCKS + 2), "--steps", str(MULTIHOST_STEPS)]
+    link = f"127.0.0.1:{free_port()}"
+    cmds = {f"mh_c_s{i}": [*common, "--checkpoint-dir", str(dirs["multi"]),
+                           "--devices", "cuda:0", "--slice-controller", str(i),
+                           "--peers", link, "--output", str(work / f"mh_c_s{i}.json")]
+            for i in range(2)}
+    cmds["mh_c_single"] = [*common, "--checkpoint-dir", str(dirs["single"]),
+                           "--devices", "cuda:0,cuda:0", "--dist-backend", "gloo",
+                           "--output", str(work / "mh_c_single.json"), "--events",
+                           str(work / "mh_c_single.events.jsonl")]
+    ran = cli_processes(cmds)
+    stages = [json.loads((work / f"mh_c_s{i}.json").read_text()) for i in range(2)]
+    if stages[0]["losses"] or [s["stage"] for s in stages] != [0, 1]:
+        raise SystemExit(f"(c) slice controllers: {stages}")
+    want = list(step_losses([json.loads(x) for x in (
+        work / "mh_c_single.events.jsonl").read_text().splitlines()]).values())
+    got = stages[1]["losses"]
+    held = same_losses("(c)", got, want)
+    per_stage = {}
+    for i in range(2):
+        expect = stage_launches(1, i == 1, art.microbatches)
+        steps = said_launches(ran[f"mh_c_s{i}"][1], f"stage {i} rank 0")
+        if len(steps) != MULTIHOST_STEPS or any(step != expect for step in steps):
+            raise SystemExit(f"(c) stage {i} launches per step {steps}, expected {expect}")
+        per_stage[i] = steps
+    for d in dirs.values():
+        shutil.rmtree(d)
+    log(f"  (c) train --slice-controller 0 | 1 over a socket: losses {got} {held} "
+        f"to the single-controller hetero run; launches per step "
+        f"{ {i: s[0] for i, s in per_stage.items()} } "
+        f"({time.perf_counter() - t0:.1f} s, {SHARED_CARD})")
+    return ({"c_slice_controllers": {"losses": got, "held": held,
+                                     "launches_per_step": {i: s[0] for i, s in per_stage.items()}}},
+            {"multihost_c": {k: sum(step[k] for steps in per_stage.values()
+                                    for step in steps) for k in FLASH_KERNELS}})
+
+
 # the calibration phase: the collectives' local payloads (the calibrate
 # subcommand's default) and the planner phase's 2 x 8 search it reruns with
 # the measured dp overlap and the fitted recovery time
@@ -3756,8 +4057,8 @@ def serving_phase(work: pathlib.Path, results: dict) -> tuple[dict, dict]:
 HIDDEN = ("launches", "profile_dir", "hostfile", "clusterfile", "tokens", "batches",
           "base", "ledger", "big_cluster", "big_rows")
 PHASES = ("slice", "planner", "dist", "pipeline", "llama", "moe", "context",
-          "zero_sp", "stage_axes", "train", "reshard", "chaos", "calibration",
-          "serving")
+          "zero_sp", "stage_axes", "train", "reshard", "chaos", "multihost",
+          "calibration", "serving")
 
 
 def main() -> int:
@@ -3833,12 +4134,13 @@ def run_phases(work: pathlib.Path, results: dict, launches: dict,
         elif phase == "zero_sp":
             results[phase], more = zero_sp_phase(work)
             launches.update(more)
-        elif phase in ("stage_axes", "train", "reshard", "chaos", "calibration",
-                       "serving"):
+        elif phase in ("stage_axes", "train", "reshard", "chaos", "multihost",
+                       "calibration", "serving"):
             results[phase], more = {"stage_axes": stage_axes_phase,
                                     "train": train_phase,
                                     "reshard": reshard_phase,
                                     "chaos": chaos_phase,
+                                    "multihost": multihost_phase,
                                     "calibration": calibration_phase,
                                     "serving": serving_phase}[phase](work, results)
             launches.update(more)

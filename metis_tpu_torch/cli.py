@@ -19,7 +19,12 @@ reference's flags and output bytes:
             input pipeline and train with checkpoints, a plan of several
             devices one rank per device; with ``--resilient`` under the
             fault-tolerant supervisor (``resilience/supervisor.py``), one
-            rank per device of the cluster;
+            rank per device of the cluster; with ``--coordinator`` one of
+            several processes, each starting its share of the ranks of one
+            process group (``execution/multihost.py``); with
+            ``--slice-controller N --peers ...`` stage N of a hetero plan
+            alone, its boundaries over sockets
+            (``execution/multihost2.py``);
   chaos     the supervisor under a scripted fault sequence
             (``--fault-script``), its report as JSON;
   replan    diff two cluster descriptions, search the new one, report
@@ -34,13 +39,22 @@ reference's flags and output bytes:
             (``inference/planner.py``), priced from the profile's measured
             decode table where it has one (``profile --decode``);
   explain   why plan #1 beat plan #2: the per-component cost delta table
-            of the hetero search, or of the serving search's TTFT/TPOT.
+            of the hetero search, or of the serving search's TTFT/TPOT;
+  report    an event log (``--events``) as a span tree with self-times and
+            counters (``core/trace.py``);
+  accuracy  an accuracy ledger (``--ledger``): the error distribution,
+            per-plan MAPE, worst samples and stages, drift status;
+  why       a decision log's causal chain from a plan back to its root
+            trigger, with the attributed cost diff at every hop
+            (``obs/provenance.py``);
+  diff      the attributed cost diff of two plans by fingerprint, from a
+            decision log or plan dumps.
 
-The searches run on the host and take no device.  The reference's
-``--platform`` (a JAX backend pin) becomes ``--device``.  ``train``'s
-multi-host flags parse and exit 2 naming their ROADMAP item, as do
-``chaos --fleet`` and ``plan --remote`` (the plan daemon); the daemon,
-replay and audit subcommands come with later slices.
+The searches and readers run on the host and take no device.  The
+reference's ``--platform`` (a JAX backend pin) becomes ``--device``.
+``chaos --fleet``, ``plan --remote``, ``why --remote`` and ``diff
+--remote`` (the plan daemon) exit 2 naming their ROADMAP item; the daemon
+and replay subcommands come with later slices.
 
   python -m metis_tpu_torch uniform --hostfile hosts --clusterfile c.json \\
       --profile-dir profiles/ --model-size 1.5B --attn flash --gbs 4
@@ -828,14 +842,287 @@ def _cmd_explain_inference(args: argparse.Namespace, profiles, model,
     return 0
 
 
-# train's flags of later ROADMAP items: (flag, dest, the item)
-LATER_TRAIN_FLAGS = (
-    ("--coordinator", "coordinator", "§A.7 (multi-host training)"),
-    ("--num-processes", "num_processes", "§A.7 (multi-host training)"),
-    ("--process-id", "process_id", "§A.7 (multi-host training)"),
-    ("--slice-controller", "slice_controller", "§A.7 (multi-host training)"),
-    ("--peers", "peers", "§A.7 (multi-host training)"),
-)
+def _cmd_report(args: argparse.Namespace) -> int:
+    """Span-tree/counters report over an event JSONL (``core/trace.py``)."""
+    from metis_tpu_torch.core.events import read_events_rotated
+    from metis_tpu_torch.core.trace import (
+        build_span_tree,
+        filter_top_spans,
+        render_span_table,
+        span_tree_json,
+    )
+
+    try:
+        # a log rolled to <name>.1 (EventLog max_bytes) is read roll
+        # first, so spans that straddle the rotation still pair up
+        events = read_events_rotated(args.events_file)
+    except OSError as e:
+        print(f"cannot read {args.events_file}: {e}", file=sys.stderr)
+        return 1
+    if args.trace is not None:
+        total = len(events)
+        events = [e for e in events if e.get("trace_id") == args.trace]
+        print(f"trace {args.trace}: {len(events)} of {total} events",
+              file=sys.stderr)
+        if not events:
+            return 1
+    roots, counters = build_span_tree(events)
+    if not roots and not counters:
+        print(f"{args.events_file}: no span/counter events "
+              f"({len(events)} events total)", file=sys.stderr)
+    if args.top is not None:
+        roots = filter_top_spans(roots, args.top)
+    if args.as_json:
+        payload = json.dumps(span_tree_json(roots, counters), indent=2)
+    else:
+        payload = render_span_table(roots, counters)
+    _emit(args, payload)
+    return 0
+
+
+def _cmd_accuracy(args: argparse.Namespace) -> int:
+    """Ledger summary: cost-model error distribution + drift status."""
+    from pathlib import Path
+
+    from metis_tpu_torch.obs.ledger import AccuracyLedger, DriftDetector
+
+    if not Path(args.ledger).exists():
+        print(f"no such ledger: {args.ledger}", file=sys.stderr)
+        return 1
+    ledger = AccuracyLedger(args.ledger)
+    summary = ledger.summary(fingerprint=args.fingerprint, worst_k=args.top)
+    # drift status: the matched samples replayed (in recorded order)
+    # through a detector at the requested band — the train loop's
+    # hysteresis, so `accuracy` and the drift_alarm agree
+    detector = DriftDetector(band_pct=args.band)
+    for s in ledger.samples:
+        if args.fingerprint and s.fingerprint != args.fingerprint:
+            continue
+        if s.error_pct is not None:
+            detector.observe(s.error_pct)
+    status = detector.status()
+
+    residuals = None
+    if args.components or args.by_device:
+        residuals = ledger.component_residuals(
+            fingerprint=args.fingerprint, by_device=args.by_device)
+
+    if args.as_json:
+        payload = summary.to_json_dict()
+        payload["drift"] = {
+            "in_drift": status.in_drift,
+            "rolling_mape_pct": (round(status.rolling_mape_pct, 3)
+                                 if status.rolling_mape_pct is not None
+                                 else None),
+            "band_pct": status.band_pct,
+            "alarms": status.alarms,
+        }
+        if residuals is not None:
+            payload["component_residuals"] = residuals
+        _emit(args, json.dumps(payload, indent=2))
+        return 0
+
+    lines = [f"accuracy ledger {args.ledger}: {summary.n_samples} samples "
+             f"({summary.n_matched} matched) over {summary.n_plans} plan(s)"]
+    if summary.mape_pct is not None:
+        lines.append(
+            f"error: MAPE {summary.mape_pct:.1f}%  signed bias "
+            f"{summary.signed_error_pct:+.1f}%  p50 {summary.p50_abs_pct:.1f}%"
+            f"  p90 {summary.p90_abs_pct:.1f}%  max {summary.max_abs_pct:.1f}%")
+        mape_txt = (f"{status.rolling_mape_pct:.1f}%"
+                    if status.rolling_mape_pct is not None else "n/a")
+        lines.append(
+            f"drift: {'ALARM' if status.in_drift else 'ok'} "
+            f"(rolling MAPE {mape_txt} vs band {status.band_pct:.1f}%, "
+            f"{status.alarms} alarm(s) over the replay)")
+    else:
+        lines.append("no samples carry a matching prediction — record one "
+                     "with `metis-tpu train --ledger` or `validate --ledger`")
+    if summary.by_plan:
+        lines.append("")
+        lines.append("per plan:")
+        for fp, d in summary.by_plan.items():
+            mape = (f"{d['mape_pct']:.1f}%" if d["mape_pct"] is not None
+                    else "n/a")
+            pred = (f"{d['predicted_ms']:.2f} ms"
+                    if d.get("predicted_ms") is not None else "unpredicted")
+            lines.append(f"  {fp}: n={d['n']} mape={mape} predicted={pred}")
+    if summary.worst:
+        lines.append("")
+        lines.append("worst samples:")
+        for w in summary.worst:
+            lines.append(
+                f"  {w['fingerprint']} step={w['step']} src={w['source']}: "
+                f"predicted {w['predicted_ms']:.2f} vs measured "
+                f"{w['measured_ms']:.2f} ms ({w['error_pct']:+.1f}%)")
+    if summary.stage_residuals:
+        lines.append("")
+        lines.append("per-stage residuals (worst first):")
+        for sr in sorted(summary.stage_residuals,
+                         key=lambda d: -d["mape_pct"]):
+            lines.append(
+                f"  stage {sr['stage']}: signed "
+                f"{sr['signed_error_pct']:+.1f}% mape {sr['mape_pct']:.1f}% "
+                f"(n={sr['n']})")
+    if residuals is not None:
+        lines.append("")
+        if not residuals:
+            lines.append("component residuals: none (no sample carries a "
+                         "component-attributed prediction)")
+        elif args.by_device:
+            lines.append("component residuals by device (|residual| ms):")
+            for dev, comps in residuals.items():
+                lines.append(f"  {dev or '(unlabeled)'}:")
+                for comp, st in comps.items():
+                    lines.append(
+                        f"    {comp}: n={st['n']} mean "
+                        f"{st['mean_ms']:+.3f} p50 {st['p50_abs_ms']:.3f} "
+                        f"p95 {st['p95_abs_ms']:.3f}")
+        else:
+            lines.append("component residuals (|residual| ms):")
+            for comp, st in residuals.items():
+                lines.append(
+                    f"  {comp}: n={st['n']} mean {st['mean_ms']:+.3f} "
+                    f"p50 {st['p50_abs_ms']:.3f} p95 {st['p95_abs_ms']:.3f}")
+    _emit(args, "\n".join(lines))
+    return 0
+
+
+def _remote_refused(command: str) -> int:
+    print(f"{command} --remote (the plan daemon of the serve/ package) comes "
+          "with ROADMAP §A.9 (c); this slice of the port reads a "
+          "--decisions file only", file=sys.stderr)
+    return 2
+
+
+def _load_decision_records(args: argparse.Namespace):
+    """DecisionRecords from ``--decisions FILE`` (None + stderr message
+    when the file is missing or not given)."""
+    from pathlib import Path
+
+    from metis_tpu_torch.obs.provenance import DecisionRecord
+
+    if not args.decisions:
+        print("need a decision source: --decisions FILE (a DecisionLog's "
+              "JSONL, obs/provenance.py)", file=sys.stderr)
+        return None
+    path = Path(args.decisions)
+    if not path.exists():
+        print(f"no such decision log: {args.decisions}", file=sys.stderr)
+        return None
+    records = []
+    for line in path.read_text().splitlines():
+        if not line.strip():
+            continue
+        try:
+            records.append(DecisionRecord.from_json_dict(json.loads(line)))
+        except (json.JSONDecodeError, KeyError, TypeError, ValueError):
+            continue  # check_decisions_schema.py reports corruption
+    return records
+
+
+def _cmd_why(args: argparse.Namespace) -> int:
+    """Causal-chain reconstruction: find the leaf decision (by plan
+    fingerprint, tenant, or seq), walk parent_seq edges to the root
+    trigger, render each hop with its attributed diff."""
+    from metis_tpu_torch.obs.provenance import (
+        causal_chain,
+        chain_json,
+        render_chain,
+    )
+
+    if args.fingerprint is None and args.tenant is None and args.seq is None:
+        print("give a plan fingerprint, --tenant NAME, or --seq N",
+              file=sys.stderr)
+        return 2
+    if args.remote:
+        return _remote_refused("why")
+    records = _load_decision_records(args)
+    if records is None:
+        return 1
+    leaf = None
+    if args.seq is not None:
+        leaf = next((r for r in records if r.seq == args.seq), None)
+    else:
+        # the latest record wins ("why is this plan/tenant running now");
+        # a fingerprint matches the plan or the query fingerprint
+        for rec in reversed(records):
+            if args.fingerprint is not None \
+                    and args.fingerprint not in (rec.plan_fingerprint,
+                                                 rec.query_fingerprint):
+                continue
+            if args.tenant is not None and rec.tenant != args.tenant:
+                continue
+            leaf = rec
+            break
+    if leaf is None:
+        want = (f"seq {args.seq}" if args.seq is not None
+                else f"tenant {args.tenant!r}" if args.tenant is not None
+                else f"plan {args.fingerprint}")
+        print(f"no decision matching {want} among {len(records)} records",
+              file=sys.stderr)
+        return 1
+    chain = causal_chain(records, leaf)
+    if args.as_json:
+        _emit(args, json.dumps(chain_json(chain), indent=2))
+    else:
+        _emit(args, render_chain(chain))
+    return 0
+
+
+def _cmd_diff(args: argparse.Namespace) -> int:
+    """Attributed plan diff by fingerprint: resolve each fingerprint from
+    plan dumps (structural axes + breakdown) and/or decision records
+    (breakdown only), then render ``diff_plans``' attribution."""
+    from pathlib import Path
+
+    from metis_tpu_torch.obs.provenance import diff_plans, fingerprint_plan_dict
+
+    if args.remote:
+        return _remote_refused("diff")
+    by_fp: dict[str, object] = {}
+    # decision records first, so a plan dump carrying the same
+    # fingerprint overrides with its richer structural axes
+    if args.decisions:
+        records = _load_decision_records(args)
+        if records is None:
+            return 1
+        for rec in records:  # later (newer) records win
+            if rec.plan_fingerprint and rec.breakdown is not None:
+                by_fp[rec.plan_fingerprint] = rec
+    for plans_file in args.plans:
+        try:
+            payload = json.loads(Path(plans_file).read_text())
+        except (OSError, json.JSONDecodeError) as e:
+            print(f"cannot read plan dump {plans_file}: {e}",
+                  file=sys.stderr)
+            return 1
+        entries = (payload.get("plans", [])
+                   if isinstance(payload, dict) else payload)
+        for entry in entries:
+            fp = fingerprint_plan_dict(entry)
+            if fp:
+                by_fp[fp] = entry
+    if not by_fp:
+        print("no plans to diff: give --plans FILE, --decisions FILE, "
+              "or --remote ADDRESS", file=sys.stderr)
+        return 2
+    missing = [fp for fp in (args.fp_a, args.fp_b) if fp not in by_fp]
+    if missing:
+        known = ", ".join(sorted(by_fp)) or "(none)"
+        print(f"fingerprint(s) not found: {', '.join(missing)} — "
+              f"known: {known}", file=sys.stderr)
+        return 1
+    diff = diff_plans(by_fp[args.fp_a], by_fp[args.fp_b])
+    if args.as_json:
+        _emit(args, json.dumps(diff.to_json_dict(), indent=2))
+    else:
+        header = (f"plan {args.fp_a} -> {args.fp_b}"
+                  + (f": {diff.total_a_ms:.3f} -> {diff.total_b_ms:.3f} ms"
+                     f" ({diff.total_delta_ms:+.3f})"
+                     if diff.total_delta_ms is not None else ""))
+        _emit(args, header + "\n\n" + diff.render())
+    return 0
 
 
 def _add_train_args(p: argparse.ArgumentParser) -> None:
@@ -886,10 +1173,30 @@ def _add_train_args(p: argparse.ArgumentParser) -> None:
                             "'checkpoint_write@2x2,device_loss@5' "
                             "(resilience/faults.py syntax)")
     _add_retry_args(g_res)
-    later = p.add_argument_group(
-        "later items (parsed; each exits 2 naming its ROADMAP item)")
-    for flag, dest, _ in LATER_TRAIN_FLAGS:
-        later.add_argument(flag, dest=dest, default=None)
+    g_mh = p.add_argument_group(
+        "multi-host (run the same command on every host, varying only "
+        "--process-id; execution/multihost.py: each process starts world / "
+        "--num-processes ranks of one process group)")
+    g_mh.add_argument("--coordinator", default=None,
+                      help="host:port of process 0 — enables "
+                           "multi-controller training (gspmd and pipeline "
+                           "plans); the ranks meet at its TCP store")
+    g_mh.add_argument("--num-processes", type=int, default=None)
+    g_mh.add_argument("--process-id", type=int, default=None)
+    g_sc = p.add_argument_group(
+        "per-slice controller (one controller per stage group, each with "
+        "its own process group; run the same command per slice varying "
+        "only --slice-controller)")
+    g_sc.add_argument("--slice-controller", type=int, default=None,
+                      metavar="STAGE",
+                      help="run only this stage of the chosen/pinned hetero "
+                           "plan as an independent controller; boundary "
+                           "activations/cotangents flow over --peers "
+                           "sockets (execution/multihost2.py)")
+    g_sc.add_argument("--peers", default=None,
+                      help="comma-separated host:port boundary links, one "
+                           "per stage boundary: link i is listened on by "
+                           "stage i and dialed by stage i+1")
     _add_device_arg(p, "train on")
 
 
@@ -926,15 +1233,39 @@ def train_job(argv: list[str]) -> dict:
     return job
 
 
+def _deployment_refusal(args: argparse.Namespace) -> str | None:
+    """The reference's rules for the multi-controller flags, in its words:
+    what is wrong with this combination, or None."""
+    multihost = args.coordinator is not None
+    if args.slice_controller is not None:
+        if multihost:
+            return ("--slice-controller and --coordinator are different "
+                    "deployment shapes (one controller per stage group vs "
+                    "one process group over every rank) — pick one")
+        if args.peers is None:
+            return ("--slice-controller requires --peers (one host:port "
+                    "boundary link per stage boundary)")
+    if not multihost and (args.num_processes is not None
+                          or args.process_id is not None):
+        return ("--num-processes/--process-id require --coordinator (without "
+                "it every host would silently train an independent copy)")
+    if multihost and (args.num_processes is None or args.process_id is None):
+        return "--coordinator requires --num-processes and --process-id"
+    if args.resilient and (multihost or args.slice_controller is not None):
+        return ("--resilient is single-controller only (the supervisor "
+                "rebuilds the executable on recovery, which a "
+                "multi-controller run cannot do mid-flight)")
+    return None
+
+
 def _train_job(args: argparse.Namespace, model, config, events) -> dict | int:
     """Plan (or pin the checkpoint's plan): the job of every rank of
     ``train``, or the exit code of a refused run, or with ``--resilient``
     of the supervised run (``_run_supervisor``)."""
-    for flag, dest, item in LATER_TRAIN_FLAGS:
-        if getattr(args, dest) not in (None, False):
-            print(f"train {flag} comes with ROADMAP {item}; this slice of "
-                  "the port does not run it", file=sys.stderr)
-            return 2
+    refusal = _deployment_refusal(args)
+    if refusal is not None:
+        print(refusal, file=sys.stderr)
+        return 2
     if args.resilient:
         if args.checkpoint_dir is None:
             print("--resilient requires --checkpoint-dir (recovery restores "
@@ -1064,14 +1395,160 @@ def _run_supervisor(args: argparse.Namespace, model, config, events) -> int:
     return 0
 
 
+def _say_launches(who: str, launches: list[dict] | None) -> None:
+    """A multi-controller rank's flash-attention kernel launches, one dict
+    per step, on stderr (its process writes no events)."""
+    if launches and any(launches):
+        print(f"{who} kernel launches per step: {json.dumps(launches)}",
+              file=sys.stderr)
+
+
+def _run_multihost(args: argparse.Namespace, job: dict) -> int:
+    """``train --coordinator``: this process's share of the plan's ranks
+    (``execution/multihost.py``), global ranks ``I * L ..`` of one process
+    group that meets at the coordinator; process 0's summary to
+    ``--output``.  A plan on the hetero route is refused, as the
+    reference refuses it."""
+    from metis_tpu_torch.execution import dist as mdist
+    from metis_tpu_torch.execution.builder import plan_route, resolve_schedule
+    from metis_tpu_torch.execution.mesh import PlanArtifact
+    from metis_tpu_torch.execution.multihost import initialize_multihost
+    from metis_tpu_torch.models import config_for_model_spec
+
+    art = PlanArtifact.from_json(job["artifact"])
+    schedule, vs = resolve_schedule(art, args.schedule, args.virtual_stages)
+    kind = plan_route(config_for_model_spec(job["model"]), art, schedule, vs)
+    if kind == "hetero":
+        print(f"--coordinator supports GSPMD (pp=1) and pipeline (pp>1 "
+              f"rectangular) plans; the chosen plan routes to the {kind} "
+              "executable.  The multi-mesh hetero executor runs one "
+              "controller per stage group on real deployments "
+              "(execution/multihost2.py realizes that slice: train "
+              "--slice-controller).", file=sys.stderr)
+        return 2
+    try:
+        info = initialize_multihost(args.coordinator, args.num_processes,
+                                    args.process_id, art.num_devices)
+    except MetisError as e:
+        print(e, file=sys.stderr)
+        return 2
+    print(f"multihost: process {info.process_index}/{info.process_count}, "
+          f"{info.global_device_count} global / {info.local_device_count} "
+          "local devices", file=sys.stderr)
+    launch = _rank_devices(args, info.local_device_count)
+    if launch is None:
+        return 1
+    with mdist.RankPool(info.local_device_count, launch[1], launch[0],
+                        init_method=info.init_method,
+                        first_rank=info.first_rank,
+                        world_size=info.global_device_count) as pool:
+        out = pool.run(train_rank, {**job, "multihost": True})
+    for r, rank_out in enumerate(out):
+        _say_launches(f"rank {info.first_rank + r}", rank_out.get("launches"))
+    rc, summary = out[0]["rc"], out[0]["summary"]
+    if rc == 0 and info.process_index == 0:
+        _emit(args, json.dumps(summary, indent=2))
+    return rc
+
+
+def _run_slice_controller(args: argparse.Namespace, job: dict) -> int:
+    """``train --slice-controller N --peers ...``: this process runs stage
+    N of the chosen/pinned plan as an independent controller
+    (``execution/multihost2.py``), its ranks on ``--devices`` in a process
+    group of their own, boundary tensors over the ``--peers`` sockets.
+    With ``--checkpoint-dir`` each controller checkpoints and resumes its
+    own stage under ``<dir>/slice{N}/``; the plan is pinned at the top
+    level, where a resume reads it."""
+    from pathlib import Path
+
+    from metis_tpu_torch.cluster.spec import ClusterSpec
+    from metis_tpu_torch.core.device import resolve_device
+    from metis_tpu_torch.execution import dist as mdist
+    from metis_tpu_torch.execution.builder import resolve_schedule
+    from metis_tpu_torch.execution.mesh import PlanArtifact
+    from metis_tpu_torch.execution.multihost2 import (
+        parse_link_addrs,
+        run_artifact_stage_worker,
+    )
+
+    art = PlanArtifact.from_json(job["artifact"])
+    # the single-controller path's rule: the plan's priced schedule unless
+    # --schedule / --virtual-stages say otherwise
+    sched, vs = resolve_schedule(art, args.schedule, args.virtual_stages)
+    art = dataclasses.replace(art, schedule=sched, virtual_stages=vs)
+    if art.node_sequence:
+        # a mixed-type stage gets uneven data-balancer rows / per-type
+        # groups in the single-controller executor, which one controller
+        # per slice cannot realize: refuse rather than diverge
+        from metis_tpu_torch.core.types import InterStagePlan, Strategy
+        from metis_tpu_torch.execution.hetero import plan_replica_rows
+        from metis_tpu_torch.profiles.store import ProfileStore
+
+        inter = InterStagePlan(
+            node_sequence=tuple(art.node_sequence),
+            device_groups=tuple(art.device_groups),
+            batches=art.microbatches, gbs=art.gbs)
+        strats = [Strategy(dp=s["dp"], tp=s["tp"]) for s in art.strategies]
+        rows = plan_replica_rows(
+            inter, strats, ClusterSpec.from_files(args.hostfile,
+                                                  args.clusterfile),
+            ProfileStore.from_dir(args.profile_dir))
+        mixed = [i for i, r in enumerate(rows) if r is not None]
+        if mixed:
+            print(f"stages {mixed} span multiple device types (uneven "
+                  "data-balancer rows) — a slice controller owns one "
+                  "process group of one device type and cannot realize a "
+                  "mixed-type stage; re-plan with per-slice stage groups or "
+                  "run single-controller", file=sys.stderr)
+            return 2
+    if args.checkpoint_dir is not None:
+        pin = Path(args.checkpoint_dir) / "plan.json"
+        if not pin.exists():
+            pin.parent.mkdir(parents=True, exist_ok=True)
+            pin.write_text(art.to_json())
+    links = parse_link_addrs(args.peers)
+    print(f"slice controller: stage {args.slice_controller} of "
+          f"{len(art.strategies)}, links {links}", file=sys.stderr)
+    # the stage's ranks: --devices, else every visible card (or the CPU)
+    devs = ([d.strip() for d in args.devices.split(",")] if args.devices
+            else mdist.default_devices(resolve_device(args.device)))
+    report = run_artifact_stage_worker(
+        art, job["model"], args.slice_controller, links, args.steps, devs,
+        backend=args.dist_backend, data_path=args.data,
+        checkpoint_dir=args.checkpoint_dir,
+        checkpoint_every=args.checkpoint_every)
+    _say_launches(f"stage {report['stage']} rank 0", report["launches"])
+    print(f"stage {report['stage']} rank 0 step ms: "
+          f"{json.dumps([round(ms, 3) for ms in report['step_ms']])}",
+          file=sys.stderr)
+    summary = {
+        "executable": "slice-controller",
+        "stage": report["stage"],
+        "stages": report["stages"],
+        "local_devices": report["local_devices"],
+        "steps": report["steps"],
+        "start_step": report["start_step"],
+        "first_loss": report["losses"][0] if report["losses"] else None,
+        "final_loss": report["losses"][-1] if report["losses"] else None,
+        "losses": report["losses"],
+    }
+    _emit(args, json.dumps(summary, indent=2))
+    return 0
+
+
 def _run_train(args: argparse.Namespace, job: dict) -> int:
     """``job`` on one rank per device of its plan (the one device in this
-    process); rank 0's summary to ``--output``."""
+    process); rank 0's summary to ``--output``.  ``--coordinator`` and
+    ``--slice-controller`` run their multi-controller shapes."""
     from metis_tpu_torch.core.device import resolve_device
     from metis_tpu_torch.execution import dist as mdist
     from metis_tpu_torch.execution.mesh import PlanArtifact
 
+    if args.slice_controller is not None:
+        return _run_slice_controller(args, job)
     dev = resolve_device(args.device)
+    if args.coordinator is not None:
+        return _run_multihost(args, job)
     need = PlanArtifact.from_json(job["artifact"]).num_devices
     if need == 1:
         out = [train_rank(0, dev, job)]
@@ -1090,7 +1567,8 @@ def train_rank(rank: int, device, job: dict) -> dict:
     """One rank of ``train`` (``execution.dist.spawn``'s body, or the whole
     run on one device): build the plan's executable, resume from the
     checkpoint when there is one, stream batches, train and checkpoint.
-    Returns ``{"rc", "summary"}``; rank 0 writes the events, the ledger
+    Returns ``{"rc", "summary", "launches"}`` (the kernel launches of each
+    step on this rank); rank 0 writes the events, the ledger
     and the summary."""
     import time
 
@@ -1210,8 +1688,19 @@ def train_rank(rank: int, device, job: dict) -> dict:
 
     # a resumed run continues through the data stream: one batch per
     # completed step, skipped arithmetically
-    batches = make_input_pipeline(dataset, art.gbs, device=device, epochs=None,
-                                  skip_batches=start_step)
+    if job.get("multihost"):
+        # per-rank feeding: the schedule of every rank, only this rank's
+        # rows gathered (execution/multihost.py)
+        from metis_tpu_torch.execution.multihost import (
+            global_batch_pipeline,
+            rank_rows,
+        )
+
+        batches = global_batch_pipeline(dataset, art.gbs, rank_rows(art, rank),
+                                        device=device, skip_batches=start_step)
+    else:
+        batches = make_input_pipeline(dataset, art.gbs, device=device,
+                                      epochs=None, skip_batches=start_step)
     writer = AsyncCheckpointWriter() if can_ckpt and not hetero else None
 
     def save(state, step, final):
@@ -1254,6 +1743,7 @@ def train_rank(rank: int, device, job: dict) -> dict:
     timer = StepTimer(events, tokens_per_step=art.gbs * model.sequence_length,
                       start_step=start_step, monitor=monitor)
     losses: list[float] = []
+    launches: list[dict] = []
     t0 = time.perf_counter()
     try:
         for i in range(args.steps):
@@ -1266,6 +1756,7 @@ def train_rank(rank: int, device, job: dict) -> dict:
                 loss = float(loss)  # the sync that makes the step time real
                 losses.append(loss)
             launched = {k: v for k, v in fa.launch_counts.items() if v}
+            launches.append(launched)
             timer.record(loss=loss if log_this else None, emit=log_this,
                          **({"kernel_launches": launched} if launched else {}))
             if (can_ckpt and args.checkpoint_every
@@ -1314,7 +1805,7 @@ def train_rank(rank: int, device, job: dict) -> dict:
                 "ranked on predictions the hardware no longer honors")
         ledger.close()
     events.close()
-    return {"rc": 0, "summary": summary}
+    return {"rc": 0, "summary": summary, "launches": launches}
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -1473,6 +1964,93 @@ def _parser() -> argparse.ArgumentParser:
                          help="seed for probabilistic fault entries")
     _add_rank_args(p_chaos)
     _add_device_arg(p_chaos, "train on")
+
+    p_report = sub.add_parser(
+        "report", help="render a trace/event JSONL (--events, core/trace "
+                       "spans) as a span tree with self-times, "
+                       "percentages, and counters — table or JSON")
+    p_report.add_argument("events_file",
+                          help="JSONL file written via --events")
+    p_report.add_argument("--json", action="store_true", dest="as_json",
+                          help="emit the tree as JSON instead of a table")
+    p_report.add_argument("--top", type=int, default=None, metavar="N",
+                          help="keep only the N most expensive spans by "
+                               "self-time (ancestors kept for context, "
+                               "crashed-open spans always shown)")
+    p_report.add_argument("--trace", default=None, metavar="ID",
+                          help="keep only events stamped with this "
+                               "trace_id — one request's span tree out of "
+                               "a shared event log")
+    p_report.add_argument("--output", default="-",
+                          help="output path ('-' = stdout)")
+
+    p_acc = sub.add_parser(
+        "accuracy", help="cost-model accuracy from a ledger JSONL "
+                         "(train/validate --ledger): error distribution, "
+                         "per-plan MAPE, worst samples/stages, drift status")
+    p_acc.add_argument("ledger", help="accuracy ledger JSONL")
+    p_acc.add_argument("--band", type=float, default=20.0,
+                       help="drift band (MAPE %%) the status is judged "
+                            "against")
+    p_acc.add_argument("--fingerprint", default=None,
+                       help="restrict to one plan fingerprint")
+    p_acc.add_argument("--top", type=int, default=5,
+                       help="worst samples to list")
+    p_acc.add_argument("--components", action="store_true",
+                       help="per-component residual distributions (n, "
+                            "mean, p50/p95 |residual| ms) — the "
+                            "model-confidence stats decision records "
+                            "carry")
+    p_acc.add_argument("--by-device", action="store_true",
+                       help="split --components stats per device type")
+    p_acc.add_argument("--json", action="store_true", dest="as_json")
+    p_acc.add_argument("--output", default="-",
+                       help="output path ('-' = stdout)")
+
+    p_why = sub.add_parser(
+        "why", help="why is this plan running: walk the decision log's "
+                    "causal parent chain from a plan (or a tenant's latest "
+                    "decision) back to its root trigger, with the "
+                    "attributed cost diff at every hop")
+    p_why.add_argument("fingerprint", nargs="?", default=None,
+                       help="plan fingerprint to explain (a query "
+                            "fingerprint also matches; omit with --tenant "
+                            "or --seq)")
+    p_why.add_argument("--tenant", default=None,
+                       help="explain this tenant's latest decision "
+                            "instead of a plan fingerprint")
+    p_why.add_argument("--seq", type=int, default=None,
+                       help="explain the decision with this exact seq")
+    p_why.add_argument("--decisions", default=None, metavar="FILE",
+                       help="decision JSONL (obs/provenance.DecisionLog)")
+    p_why.add_argument("--remote", default=None,
+                       help="a plan daemon's decisions (comes with ROADMAP "
+                            "§A.9 (c); exits 2)")
+    p_why.add_argument("--json", action="store_true", dest="as_json",
+                       help="emit the chain + per-hop diffs as JSON")
+    p_why.add_argument("--output", default="-",
+                       help="output path ('-' = stdout)")
+
+    p_diff = sub.add_parser(
+        "diff", help="attributed diff between two plans by fingerprint: "
+                     "per-component cost deltas (summing exactly to the "
+                     "total delta) plus every decision axis that moved")
+    p_diff.add_argument("fp_a", help="plan fingerprint A (the baseline)")
+    p_diff.add_argument("fp_b", help="plan fingerprint B")
+    p_diff.add_argument("--decisions", default=None, metavar="FILE",
+                        help="decision JSONL to resolve fingerprints from")
+    p_diff.add_argument("--remote", default=None,
+                        help="a plan daemon's decisions (comes with ROADMAP "
+                             "§A.9 (c); exits 2)")
+    p_diff.add_argument("--plans", action="append", default=[],
+                        metavar="FILE",
+                        help="plan-dump JSON (hetero output) to resolve "
+                             "fingerprints from; repeatable, carries the "
+                             "structural axes decision records lack")
+    p_diff.add_argument("--json", action="store_true", dest="as_json",
+                        help="emit the diff as JSON")
+    p_diff.add_argument("--output", default="-",
+                        help="output path ('-' = stdout)")
     return parser
 
 
@@ -1485,6 +2063,10 @@ def main(argv: list[str] | None = None) -> int:
               "the port does not run it", file=sys.stderr)
         return 2
     args = _parser().parse_args(argv)
+    reader = {"report": _cmd_report, "accuracy": _cmd_accuracy,
+              "why": _cmd_why, "diff": _cmd_diff}.get(args.command)
+    if reader is not None:
+        return reader(args)
     if args.command == "profile":
         return _cmd_profile(args)
     if args.command == "calibrate":

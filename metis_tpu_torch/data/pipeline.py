@@ -73,8 +73,11 @@ def batches_per_epoch(dataset: TokenDataset, gbs: int) -> int:
 
 
 def _host_batches(dataset: TokenDataset, gbs: int, shuffle_seed: int | None,
-                  epochs: int | None,
-                  skip: int = 0) -> Iterator[tuple[np.ndarray, np.ndarray]]:
+                  epochs: int | None, skip: int = 0,
+                  rows=None) -> Iterator[tuple[np.ndarray, np.ndarray]]:
+    """The deterministic ``[gbs, seq]`` batch schedule of the seed.  With
+    ``rows`` (indices into the batch) only those rows are gathered from the
+    dataset; the others stay zero (a rank that reads only its rows)."""
     per_epoch = batches_per_epoch(dataset, gbs)
     if per_epoch < 1:
         raise ValueError(
@@ -91,8 +94,13 @@ def _host_batches(dataset: TokenDataset, gbs: int, shuffle_seed: int | None,
         for b in range(b0, per_epoch):
             idx = order[b * gbs:(b + 1) * gbs]
             # one vectorized gather per batch
-            gather = np.asarray(
-                dataset.tokens)[idx[:, None] * L + offsets].astype(np.int32)
+            if rows is None:
+                gather = np.asarray(
+                    dataset.tokens)[idx[:, None] * L + offsets].astype(np.int32)
+            else:
+                gather = np.zeros((gbs, L + 1), np.int32)
+                gather[rows] = np.asarray(
+                    dataset.tokens)[idx[rows, None] * L + offsets]
             yield gather[:, :-1], gather[:, 1:]
         b0 = 0
         epoch += 1
@@ -119,7 +127,7 @@ def synthetic_run_dataset(vocab_size: int, gbs: int, seq_len: int,
 def make_input_pipeline(dataset: TokenDataset, gbs: int, device=None,
                         shuffle_seed: int | None = 0,
                         epochs: int | None = None, prefetch: int = 1,
-                        skip_batches: int = 0):
+                        skip_batches: int = 0, rows=None):
     """Iterator of ``(tokens, targets)`` int32 batches.
 
     With ``device`` each batch is a pair of tensors on it (the CPU only
@@ -128,9 +136,10 @@ def make_input_pipeline(dataset: TokenDataset, gbs: int, device=None,
     batching overlaps the step; an error there is raised on the consumer,
     and closing the iterator stops and joins the thread.  ``skip_batches``
     fast-forwards the schedule arithmetically (resume: one batch per
-    completed step)."""
+    completed step).  ``rows``: gather only these rows of each batch
+    (``execution/multihost.global_batch_pipeline``)."""
     host_iter = _host_batches(dataset, gbs, shuffle_seed, epochs,
-                              skip=skip_batches)
+                              skip=skip_batches, rows=rows)
     dev = resolve_device(device) if device is not None else None
 
     def put(batch):

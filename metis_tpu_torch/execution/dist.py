@@ -18,6 +18,14 @@ card memory freed and its peak statistics reset.  A job that raises on any
 rank stops the pool and raises in the caller with that rank's traceback;
 the other ranks are terminated rather than left waiting in a collective.
 
+Several launchers can join one process group: ``RankPool(local, backend,
+devices, init_method="tcp://HOST:PORT", first_rank=I * local,
+world_size=W)`` starts this process's ``local`` ranks as global ranks
+``first_rank .. first_rank + local - 1`` of a group of ``W`` that meets at
+the TCP store global rank 0 serves (``execution/multihost.py``: one
+launcher per host).  Its jobs then run on every launcher's pool at once,
+and each pool returns its own ranks' results; ``fn`` gets the global rank.
+
 Backends: ``nccl`` needs one distinct card per rank and is the default on
 CUDA; ``gloo`` is the default on the CPU.  Gloo on CUDA tensors (several
 ranks sharing one card; gloo reduces through the host) runs only when the
@@ -64,12 +72,14 @@ def init_process_group(backend: str, rank: int, world: int,
                        store_path: str | Path,
                        device: torch.device | None = None) -> None:
     """Join the group through the file store at ``store_path`` (a path no
-    other launch uses; the file must not exist before the first rank).
-    NCCL binds the group to this rank's ``device``."""
+    other launch uses; the file must not exist before the first rank), or
+    through the TCP store a ``tcp://HOST:PORT`` names (global rank 0
+    serves it).  NCCL binds the group to this rank's ``device``."""
     extra = {"device_id": device} if backend == "nccl" else {}
-    dist.init_process_group(backend, init_method=f"file://{store_path}",
-                            rank=rank, world_size=world, timeout=TIMEOUT,
-                            **extra)
+    store = str(store_path)
+    init = store if store.startswith("tcp://") else f"file://{store}"
+    dist.init_process_group(backend, init_method=init, rank=rank,
+                            world_size=world, timeout=TIMEOUT, **extra)
 
 
 def _check_launch(world: int, backend: str,
@@ -110,19 +120,34 @@ class RankPool:
     turn (module doc).  ``run`` may be called from any thread; jobs do not
     overlap.  ``close()`` (or leaving a ``with`` block) stops the ranks."""
 
-    def __init__(self, world: int, backend: str, devices: Sequence):
+    def __init__(self, world: int, backend: str, devices: Sequence, *,
+                 init_method: str | None = None, first_rank: int = 0,
+                 world_size: int | None = None):
+        """``world`` ranks of this process on ``devices``; with
+        ``init_method`` (``tcp://HOST:PORT``) global ranks ``first_rank
+        ..`` of a group of ``world_size`` that other launchers join too
+        (module doc)."""
         self.world, self.backend = world, backend
         self.devices = _check_launch(world, backend, devices)
+        self.first_rank = first_rank
+        self.world_size = world_size or world
+        if not 0 <= first_rank <= self.world_size - world:
+            raise MetisError(
+                f"ranks {first_rank}..{first_rank + world - 1} do not fit a "
+                f"group of {self.world_size}")
+        if init_method is None and self.world_size != world:
+            raise MetisError("a pool in a larger group needs its init_method")
         self.jobs = 0
         self._lock = threading.Lock()
         self._tmp = tempfile.TemporaryDirectory(prefix="metis_pool_")
+        store = init_method or str(Path(self._tmp.name) / "store")
         ctx = mp.get_context("spawn")
         self._conns, self._procs = [], []
         for rank in range(world):
             mine, theirs = ctx.Pipe()
             proc = ctx.Process(target=_pool_main, name=f"metis-rank{rank}",
-                               args=(rank, world, backend, self.devices,
-                                     self._tmp.name, theirs))
+                               args=(rank, first_rank, self.world_size,
+                                     backend, self.devices, store, theirs))
             proc.start()
             theirs.close()
             self._conns.append(mine)
@@ -149,14 +174,16 @@ class RankPool:
                         kind, value = pickle.loads(conn.recv_bytes())
                         if kind == "error":
                             raise MetisError(
-                                f"rank {rank} of {self.world} failed in "
+                                f"rank {self.first_rank + rank} of "
+                                f"{self.world_size} failed in "
                                 f"{getattr(fn, '__name__', fn)}:\n{value}")
                         results[rank] = value
                     dead = [r for r, p in enumerate(self._procs)
                             if not p.is_alive() and r not in results]
                     if dead:
                         raise MetisError(
-                            f"rank {dead[0]} of {self.world} died (exit code "
+                            f"rank {self.first_rank + dead[0]} of "
+                            f"{self.world_size} died (exit code "
                             f"{self._procs[dead[0]].exitcode}) in "
                             f"{getattr(fn, '__name__', fn)}")
             except BaseException:
@@ -216,15 +243,16 @@ def _free(device: torch.device) -> None:
         torch.cuda.reset_peak_memory_stats(device)
 
 
-def _pool_main(rank: int, world: int, backend: str, devices: list, work: str,
-               conn) -> None:
-    dev = devices[rank]
+def _pool_main(local: int, first_rank: int, world: int, backend: str,
+               devices: list, store: str, conn) -> None:
+    dev = devices[local]
+    rank = first_rank + local
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     else:
         torch.set_num_threads(1)
     seed = torch.initial_seed()
-    init_process_group(backend, rank, world, Path(work) / "store", dev)
+    init_process_group(backend, rank, world, store, dev)
     try:
         while True:
             try:

@@ -18,8 +18,7 @@ This closes the loop:
 - :class:`DriftDetector` turns the rolling error into an alarm with
   hysteresis: one ``drift_alarm`` event per excursion above the band, no
   re-fire until the error drops below the clear threshold — the signal
-  the reference's ``planner.replan.replan_on_drift`` keys on (not ported
-  yet).
+  ``planner.replan.replan_on_drift`` keys on.
 - :class:`AccuracyMonitor` is the train-loop composition of all three
   (``execution/train.StepTimer`` feeds it one measured step at a time).
 

@@ -218,27 +218,47 @@ def plan_hetero(
     (phase timings come from the tracer's accum spans, so they require an
     enabled ``events`` log; setup and ranking are timed directly).
 
-    ``decisions``: the reference's ``obs.provenance.DecisionLog`` hook.
-    The decision log is not ported yet, so passing one raises
-    ``NotImplementedError``; ``decision_meta`` is its companion."""
+    ``decisions``: an optional ``obs.provenance.DecisionLog`` — the search
+    outcome is appended as one decision record (kind ``cold_search``
+    unless ``decision_meta`` overrides it).  ``decision_meta``: extra
+    DecisionRecord fields (``kind``, ``cause``, ``parent_seq``,
+    ``trace_id``, ``query_fingerprint``, ...)."""
     _check_profile_attn(profiles, model)
-    if decisions is not None:
-        raise NotImplementedError(
-            "the planner decision log (obs/provenance.py) is not ported yet")
     from metis_tpu_torch.cost.uncertainty import make_risk_scorer
 
     scorer = make_risk_scorer(config, residual_model)
+
+    def _record(result: PlannerResult) -> PlannerResult:
+        if decisions is not None:
+            from metis_tpu_torch.obs.provenance import record_planner_decision
+
+            meta = dict(decision_meta or {})
+            # the risk posture `why` renders: point-, quantile- or
+            # CVaR-ranked, and whether transferred profiles priced it
+            posture: dict = (scorer.describe() if scorer is not None
+                             else {})
+            transferred = getattr(profiles, "transferred", None)
+            if transferred:
+                posture["transferred_profiles"] = sorted(transferred)
+            if posture:
+                detail = dict(meta.get("detail") or {})
+                detail.update(posture)
+                meta["detail"] = detail
+            record_planner_decision(
+                decisions, result, kind=meta.pop("kind", "cold_search"),
+                **meta)
+        return result
 
     if getattr(config, "backend", "beam") == "exact":
         # branch-and-bound backend (search/exact.py): same candidate space
         # and cost path, plus an optimality certificate; runs serially
         from metis_tpu_torch.search.exact import exact_plan_hetero
 
-        return exact_plan_hetero(
+        return _record(exact_plan_hetero(
             cluster, profiles, model, config,
             bandwidth_factory=bandwidth_factory, top_k=top_k,
             events=events, inter_filter=inter_filter,
-            search_state=search_state, residual_model=residual_model)
+            search_state=search_state, residual_model=residual_model))
     if config.workers > 1 and scorer is None:
         # risk-ranked searches take the serial loop below — the sharded
         # workers don't carry a residual model across the process boundary
@@ -249,7 +269,7 @@ def plan_hetero(
             bandwidth_factory=bandwidth_factory, top_k=top_k,
             events=events, inter_filter=inter_filter)
         if parallel_result is not None:
-            return parallel_result
+            return _record(parallel_result)
     tracer = Tracer(events)
     heartbeat = Heartbeat(events, every=config.progress_every)
     root = tracer.span("plan_hetero", mode="hetero", model=model.name,
@@ -464,13 +484,13 @@ def plan_hetero(
         num_pruned=pruned, seconds=round(elapsed, 4),
         best_cost_ms=best_cost, num_bound_pruned=pruner.num_pruned)
     root.__exit__(None, None, None)
-    return PlannerResult(
+    return _record(PlannerResult(
         plans=tuple(results),
         num_costed=num_costed,
         num_pruned=pruned,
         search_seconds=elapsed,
         num_bound_pruned=pruner.num_pruned,
-    )
+    ))
 
 
 def plan_uniform(

@@ -1,8 +1,8 @@
 """Elastic re-planning on topology change — the port of
 ``metis_tpu/planner/replan.py``, copied (it is host Python over the
 planner), with ``plan_hetero`` and the cluster spec of the port.
-``decisions=`` passes through to ``plan_hetero``, which refuses it until
-``obs/provenance.py`` is ported.
+``decisions=`` passes through to ``plan_hetero``, which records the new
+search in the decision log (``obs/provenance.py``).
 
 SURVEY.md §5 ("Failure detection / elastic recovery"): the reference's only
 fault posture is per-plan pruning; its natural recovery mechanism — re-running

@@ -46,7 +46,10 @@ same script and seed and is consulted at the same points in the same
 order; a SIGTERM sets the flag of the rank that got it, and the ranks
 agree on the drain through one all-reduce of their flags at the top of
 each step; each recovery's ``recover_s`` is rank 0's.  So every rank's
-:class:`SupervisorReport` is the same.  Events go to the log the caller
+:class:`SupervisorReport` is the same.  The decision log (``decisions``)
+is written by rank 0 alone: each recovery appends the reference's chain,
+a ``cluster_delta`` root, the replan's ``delta_replan`` child and a
+``migration_decision`` grandchild.  Events go to the log the caller
 passes: rank 0's ``EventLog`` on rank 0 (its injector's too), ``NULL_LOG``
 elsewhere.  After a shrink the new plan runs on the group's first ranks
 (``build_executable`` gives the others None); a rank outside the plan skips
@@ -111,6 +114,7 @@ from metis_tpu_torch.execution.checkpoint import (
 )
 from metis_tpu_torch.execution.mesh import PlanArtifact
 from metis_tpu_torch.execution.train import LossAnomalyDetector, StepTimer
+from metis_tpu_torch.obs.ledger import fingerprint_ranked_plan
 from metis_tpu_torch.planner.api import plan_hetero
 from metis_tpu_torch.planner.replan import (
     ClusterDelta,
@@ -321,8 +325,9 @@ class TrainingSupervisor:
     overrides the synthetic token stream.  ``device``: this rank's device
     (the CPU only when asked for); ``init``: the seed, or the full
     parameter tree, every fresh state is drawn from (the reference's
-    ``PRNGKey(0)``).  ``decisions`` (the decision log) comes with
-    ``obs/provenance.py`` (ROADMAP §A.9) and is refused until then."""
+    ``PRNGKey(0)``).  ``decisions``: an ``obs.provenance.DecisionLog``
+    each recovery is recorded in (rank 0 writes it; other ranks ignore
+    theirs)."""
 
     def __init__(
         self,
@@ -346,10 +351,6 @@ class TrainingSupervisor:
     ):
         if steps < 1:
             raise ValueError("steps must be >= 1")
-        if decisions is not None:
-            raise NotImplementedError(
-                "the decision log (obs/provenance.py) comes with ROADMAP "
-                "§A.9; this slice of the port does not record decisions")
         self.cluster = cluster
         # the reference topology spot returns grow back toward; the live
         # ``self.cluster`` shrinks/grows within it across recoveries
@@ -368,6 +369,7 @@ class TrainingSupervisor:
         self._sleep = sleep
         self.device = resolve_device(device)
         self.init = init
+        self.decisions = decisions if _world()[0] == 0 else None
         self._sigterm = False
         self._drain = False
         self._drain_reason = ""
@@ -377,6 +379,28 @@ class TrainingSupervisor:
         self.restore_ms: list[float] = []
         #: the artifact JSON of every plan this run built, in order
         self.artifacts: list[str] = []
+
+    # -- provenance helpers ------------------------------------------------
+
+    def _recovery_root(self, cause: str, step: int, **detail) -> dict | None:
+        """Record one recovery's ``cluster_delta`` root; the replan's
+        decision_meta under it (None when no decision log is attached)."""
+        if self.decisions is None:
+            return None
+        root = self.decisions.record(
+            "cluster_delta", cause=cause, detail={"step": step, **detail})
+        return {"cause": cause, "parent_seq": root.seq}
+
+    def _record_migration(self, cause: str, fingerprint: str,
+                          migrated: bool, step: int) -> None:
+        if self.decisions is None:
+            return
+        parent = self.decisions.last_seq or None
+        self.decisions.record(
+            "migration_decision", plan_fingerprint=fingerprint,
+            parent_seq=parent, cause=cause,
+            detail={"path": "migrate" if migrated else "ckpt",
+                    "resumed_step": step})
 
     # -- build helpers ----------------------------------------------------
 
@@ -621,21 +645,30 @@ class TrainingSupervisor:
 
     def _recover(self, report: SupervisorReport, tracer: Tracer,
                  detector: LossAnomalyDetector, built: _Built, kind: str,
-                 step: int, cluster: ClusterSpec, tokens_per_step: int):
-        """Switch to the plan searched on ``cluster``: ``(built, timer,
+                 step: int, cluster: ClusterSpec, tokens_per_step: int,
+                 moved: dict):
+        """Switch to the plan searched on ``cluster`` (``moved``: the
+        devices lost, or returned on a spot return): ``(built, timer,
         step, plan_changed, migrated)``."""
+        cause = {"spot_preemption": "preemption"}.get(kind, kind)
         with tracer.span("recovery", kind=kind):
             old_cluster = self.cluster
 
             def search():
+                meta = self._recovery_root(
+                    cause, step, **{"added" if kind == "spot_return"
+                                    else "removed": moved})
                 rep = replan(self.cluster, cluster, self.profiles, self.model,
-                             self.search_config, search_old=False)
+                             self.search_config, search_old=False,
+                             decisions=self.decisions, decision_meta=meta)
                 best = rep.result.best
-                return rep.plan_changed, (
-                    None if best is None
-                    else PlanArtifact.from_ranked_plan(best).to_json())
+                if best is None:
+                    return rep.plan_changed, None, ""
+                return (rep.plan_changed,
+                        PlanArtifact.from_ranked_plan(best).to_json(),
+                        fingerprint_ranked_plan(best))
 
-            plan_changed, art = _on_rank0(search)
+            plan_changed, art, fingerprint = _on_rank0(search)
             if art is None:
                 raise _on_every_rank(InfeasiblePlanError(
                     "no feasible plan on survivor topology" if kind != "spot_return"
@@ -645,6 +678,7 @@ class TrainingSupervisor:
             fresh = self._fresh(new)
             new.state, step, migrated = self._switch_state(
                 built, old_cluster, new, fresh, step)
+            self._record_migration(cause, fingerprint, migrated, step)
             self._release(built)
             timer = self._replace(new, step, tokens_per_step)
             detector.reset()
@@ -700,7 +734,7 @@ class TrainingSupervisor:
                         survivor = shrink_cluster(self.cluster, lost)
                         built, timer, step, changed, migrated = self._recover(
                             report, tracer, detector, built, kind, step,
-                            survivor, tokens_per_step)
+                            survivor, tokens_per_step, lost)
                         recover_s = _from_rank0(time.perf_counter() - t0)
                         self.events.emit(
                             "recovery_complete", step=step, kind=kind,
@@ -738,7 +772,7 @@ class TrainingSupervisor:
                                 self.cluster, self.full_cluster, returned)
                             built, timer, step, changed, migrated = self._recover(
                                 report, tracer, detector, built, "spot_return",
-                                step, grown, tokens_per_step)
+                                step, grown, tokens_per_step, returned)
                             recover_s = _from_rank0(time.perf_counter() - t0)
                             self.events.emit(
                                 "recovery_complete", step=step,
@@ -854,7 +888,8 @@ def supervised_rank(rank: int, device: torch.device, job: dict,
     (``ClusterSpec``), ``profile_dir``, ``model``, ``config``
     (``SearchConfig``), ``resilience``, ``fault_script`` and its ``seed``,
     ``checkpoint_dir``, ``steps``, and optionally ``events`` (a path; rank
-    0 writes it), ``data`` (a token file), ``init``, ``no_sleep`` and
+    0 writes it), ``decisions`` (a decision log's path; rank 0 writes it),
+    ``data`` (a token file), ``init``, ``no_sleep`` and
     ``install_signal_handler``.  Returns host data: ``report``
     (``SupervisorReport.to_json_dict``), ``losses``, ``fired`` (the
     injected faults), ``artifacts`` (the plans built), ``save_ms`` and
@@ -879,6 +914,11 @@ def supervised_rank(rank: int, device: torch.device, job: dict,
                       else np.memmap(path, dtype=np.int32, mode="r"))
             return TokenDataset(tokens, job["model"].sequence_length)
 
+    decisions = None
+    if job.get("decisions") and rank == 0:
+        from metis_tpu_torch.obs.provenance import DecisionLog
+
+        decisions = DecisionLog(job["decisions"])
     try:
         supervisor = TrainingSupervisor(
             job["cluster"], ProfileStore.from_dir(job["profile_dir"]),
@@ -887,11 +927,13 @@ def supervised_rank(rank: int, device: torch.device, job: dict,
             faults=faults, events=events, data_factory=data_factory,
             install_signal_handler=job.get("install_signal_handler", False),
             sleep=_no_sleep if job.get("no_sleep") else time.sleep,
-            device=device, init=job.get("init", 0))
+            device=device, init=job.get("init", 0), decisions=decisions)
         report = supervisor.run()
     finally:
         if own:
             events.close()
+        if decisions is not None:
+            decisions.close()
     return {"report": report.to_json_dict(), "losses": list(report.losses),
             "fired": list(faults.fired), "artifacts": supervisor.artifacts,
             "save_ms": supervisor.save_ms,

@@ -357,6 +357,17 @@ def test_ranked_plan_artifact_builds_and_steps(port_profile):
 
 
 def test_decision_log_is_not_ported_yet(fixtures):
-    with pytest.raises(NotImplementedError, match="provenance"):
-        tapi.plan_hetero(*_inputs(PORT, fixtures / "parity"),
-                         decisions=object())
+    """The decision log is ported now (``obs/provenance.py``): the search
+    records one ``cold_search`` decision, the reference's record in every
+    field but its time (``tests/test_torch_provenance.py`` holds the rest)."""
+    from metis_tpu.obs.provenance import DecisionLog as JDecisionLog
+    from metis_tpu_torch.obs.provenance import DecisionLog
+
+    records = []
+    for pkg, log in ((JAX, JDecisionLog(None)), (PORT, DecisionLog(None))):
+        pkg["api"].plan_hetero(*_inputs(pkg, fixtures / "parity"), top_k=3,
+                               decisions=log)
+        records.append([{k: v for k, v in r.to_json_dict().items() if k != "ts"}
+                        for r in log.records()])
+    assert len(records[1]) == 1 and records[1][0]["kind"] == "cold_search"
+    assert records[1] == records[0]

@@ -6,14 +6,15 @@ on gloo ranks (a pinned dp 2 plan at ZeRO 1, and a pinned two-stage hetero
 plan), ``--ledger``, ``--replan-on-resume`` (the reference's elastic
 resume onto fewer devices, and its refusal across route families), the
 resilience flags (``--resilient`` and its knobs, run or refused as the
-reference does), and the flags of later ROADMAP items, which exit 2
-naming their item."""
+reference does), and the multi-controller flags alone, which follow the
+reference's rules (``tests/test_torch_multihost.py`` and
+``tests/test_torch_multihost2.py`` run them together)."""
 import json
 
 import pytest
 import torch
 
-from metis_tpu_torch.cli import LATER_TRAIN_FLAGS, main
+from metis_tpu_torch.cli import main
 from metis_tpu_torch.execution.checkpoint import CheckpointMeta, load_meta
 from metis_tpu_torch.execution.mesh import PlanArtifact
 
@@ -111,22 +112,36 @@ def test_train_ledger_records_prediction_and_steps(fixture_dir, tmp_path):
     led.close()
 
 
-@pytest.mark.parametrize("flag,dest,item", LATER_TRAIN_FLAGS,
-                         ids=[f for f, _, _ in LATER_TRAIN_FLAGS])
+# each multi-controller flag alone: (flag, exit code, what the reference
+# says); --peers is read only with --slice-controller, so alone it trains
+MULTI_CONTROLLER_FLAGS = (
+    ("--coordinator", 2, "--coordinator requires --num-processes and --process-id"),
+    ("--num-processes", 2, "--num-processes/--process-id require --coordinator"),
+    ("--process-id", 2, "--num-processes/--process-id require --coordinator"),
+    ("--slice-controller", 2, "--slice-controller requires --peers"),
+    ("--peers", 0, "best plan"),
+)
+
+
+@pytest.mark.parametrize("flag,rc,said", MULTI_CONTROLLER_FLAGS,
+                         ids=[f for f, _, _ in MULTI_CONTROLLER_FLAGS])
 def test_later_flags_exit_2_naming_their_item(fixture_dir, tmp_path, capsys,
-                                              flag, dest, item):
-    rc = main([*_base(fixture_dir, tmp_path / "ckpt", tmp_path / "o.json"),
-               flag, "1"])
-    assert rc == 2
-    assert item.split()[0] in capsys.readouterr().err
-    assert not (tmp_path / "ckpt").exists()
+                                              flag, rc, said):
+    """The flags of ROADMAP §A.7 run now; alone, each follows the
+    reference CLI's rule (``metis_tpu/planner/cli.py:2002-2027``)."""
+    assert main([*_base(fixture_dir, tmp_path / "ckpt", tmp_path / "o.json"),
+                 "--steps", "1", flag, "1"]) == rc
+    assert said in capsys.readouterr().err
+    assert (tmp_path / "ckpt").exists() == (rc == 0)
 
 
 RESILIENT_CASES = {
     # the reference's refusals: no checkpoint to recover from; a
-    # multi-controller run (whose flags name their later item first)
+    # multi-controller run
     "without_checkpoint_dir": (["--resilient"], None, 2, "requires --checkpoint-dir"),
-    "with_coordinator": (["--resilient", "--coordinator", "h:1"], "ckpt", 2, "§A.7"),
+    "with_coordinator": (["--resilient", "--coordinator", "h:1",
+                          "--num-processes", "2", "--process-id", "0"], "ckpt",
+                         2, "--resilient is single-controller only"),
     # the flags now run: a supervised run to the end, and one whose
     # script fails a checkpoint write once (retried) and injects a loss
     # spike, with the retry budget and spike factor set

@@ -41,12 +41,28 @@ GB/s) and on 4, each collective's fit; ``measure_dp_overlap`` at dp 4 (dp
 2 with two cards); ``measure_pipeline_overlap`` at pp 2 x dp 2 (four
 cards).
 
+    python3 tools/torch_nccl_cards.py --multihost
+
+runs instead, on four cards, the multi-controller shapes over NCCL
+(``execution/multihost.py``, ``execution/multihost2.py``), each against
+one controller of the same plan on the same four cards, the runs one after
+another: (a) two ``train --coordinator`` processes of two cards each
+(cards 0-1 and 2-3), a pinned dp 2 x tp 2 plan of one block of the 1.5B
+preset at full width, gbs 4, 5 steps, against one process of four ranks;
+(b) two ``train --slice-controller`` processes, each a stage of two cards
+at tp 2 in an NCCL group of its own, a pinned two-stage gpipe plan of 2
+blocks at 2 microbatches, against the single-controller hetero run of
+it.  Each leg's losses against the one controller's and the step ms
+(rank 0's ``train_step`` events, or the slice controllers' stderr) beside
+it.
+
 The last line is one JSON object with every reading.
 """
 from __future__ import annotations
 
 import json
 import pathlib
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -251,6 +267,120 @@ def calibrate_leg(cards: list[str]) -> dict:
     return out
 
 
+MULTIHOST_STEPS = 5
+
+
+def multihost_leg(cards: list[str]) -> dict:
+    """The multi-controller legs over NCCL (module doc, ``--multihost``)."""
+    import statistics
+
+    import chip_smoke
+    from metis_tpu_torch import cli
+    from metis_tpu_torch.execution.mesh import PlanArtifact
+    from metis_tpu_torch.execution.multihost import free_port
+    from metis_tpu_torch.profiles.store import ProfileStore
+
+    out: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        work = pathlib.Path(tmp)
+        prof = work / "profiles"
+        if cli.main(["profile", *chip_smoke.CLI_MODEL["gpt-1.5B"], "--model-name",
+                     "gpt-1.5B", "--num-layers", "3", "--tps", "1", "--bss", "4",
+                     "--output-dir", str(prof), "--device", "cuda"]) != 0:
+            raise SystemExit("profile failed")
+        hostfile, clusterfile = chip_smoke.write_cluster_files(
+            work, ProfileStore.from_dir(prof).device_types[0], 1, 4)
+        base = ["train", "--device", "cuda", "--hostfile", hostfile, "--clusterfile",
+                clusterfile, "--profile-dir", str(prof), "--model-name", "gpt-1.5B",
+                *chip_smoke.CLI_MODEL["gpt-1.5B"], "--gbs", "4", "--max-bs", "4",
+                "--steps", str(MULTIHOST_STEPS)]
+
+        def events_of(label):
+            return [json.loads(x) for x in (work / f"{label}.events.jsonl")
+                    .read_text().splitlines()]
+
+        def warm(ms):
+            return statistics.median(ms[1:])
+
+        # (a) two launchers of two cards, dp 2 x tp 2 at 1 block
+        art = PlanArtifact.from_json(plan(dp=2, tp=2, blocks=1))
+        dirs = {k: chip_smoke.pinned_dir(work / f"a_{k}", art)
+                for k in ("multi", "single")}
+        port = free_port()
+        t0 = time.perf_counter()
+        ran = chip_smoke.cli_processes({f"a_p{i}": [
+            *base, "--num-layers", "3", "--checkpoint-dir", str(dirs["multi"]),
+            "--devices", ",".join(cards[2 * i:2 * i + 2]), "--coordinator",
+            f"127.0.0.1:{port}", "--num-processes", "2", "--process-id", str(i),
+            "--output", str(work / f"a_p{i}.json"),
+            *(["--events", str(work / "a_multi.events.jsonl")] if i == 0 else [])]
+            for i in range(2)})
+        multi_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        chip_smoke.cli_processes({"a_single": [
+            *base, "--num-layers", "3", "--checkpoint-dir", str(dirs["single"]),
+            "--devices", ",".join(cards[:4]), "--output", str(work / "a_single.json"),
+            "--events", str(work / "a_single.events.jsonl")]})
+        single_s = time.perf_counter() - t0
+        ev = {k: [e for e in events_of(f"a_{k}") if e["event"] == "train_step"]
+              for k in ("multi", "single")}
+        for d in dirs.values():  # ~7.5 GB each: the call's disk is bounded
+            shutil.rmtree(d)
+        losses = {k: [e["loss"] for e in v] for k, v in ev.items()}
+        ms = {k: [e["step_ms"] for e in v] for k, v in ev.items()}
+        out["coordinator_dp2_tp2"] = {
+            "losses": losses, "bit_equal": losses["multi"] == losses["single"],
+            "step_ms": ms, "warm_step_ms": {k: warm(v) for k, v in ms.items()},
+            "launches": chip_smoke.said_launches(ran["a_p1"][1], "rank 2"),
+            "process_s": {"multi": multi_s, "single": single_s}}
+        print(f"train --coordinator, 2 processes x 2 cards, dp 2 x tp 2, 1 block: "
+              f"{out['coordinator_dp2_tp2']}", flush=True)
+
+        # (b) two slice controllers, each a tp 2 stage of two cards
+        art = PlanArtifact(mesh_axes=(), mesh_shape=(), layer_partition=(0, 2, 4),
+                           strategies=({"dp": 1, "tp": 2},) * 2, gbs=4,
+                           microbatches=2)
+        dirs = {k: chip_smoke.pinned_dir(work / f"b_{k}", art)
+                for k in ("multi", "single")}
+        link = f"127.0.0.1:{free_port()}"
+        t0 = time.perf_counter()
+        ran = chip_smoke.cli_processes({f"b_s{i}": [
+            *base, "--num-layers", "4", "--checkpoint-dir", str(dirs["multi"]),
+            "--devices", ",".join(cards[2 * i:2 * i + 2]), "--slice-controller",
+            str(i), "--peers", link, "--output", str(work / f"b_s{i}.json")]
+            for i in range(2)})
+        multi_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        chip_smoke.cli_processes({"b_single": [
+            *base, "--num-layers", "4", "--checkpoint-dir", str(dirs["single"]),
+            "--devices", ",".join(cards[:4]), "--output", str(work / "b_single.json"),
+            "--events", str(work / "b_single.events.jsonl")]})
+        single_s = time.perf_counter() - t0
+        single = [e for e in events_of("b_single") if e["event"] == "train_step"]
+        for d in dirs.values():
+            shutil.rmtree(d)
+        got = json.loads((work / "b_s1.json").read_text())["losses"]
+        stage_ms = {}
+        for i in range(2):
+            prefix = f"stage {i} rank 0 step ms: "
+            stage_ms[i] = next(json.loads(line[len(prefix):]) for line in
+                               ran[f"b_s{i}"][1].splitlines() if line.startswith(prefix))
+        want = [e["loss"] for e in single]
+        out["slice_controllers_tp2_tp2"] = {
+            "losses": {"multi": got, "single": want}, "bit_equal": got == want,
+            "stage_step_ms": stage_ms,
+            "single_step_ms": [e["step_ms"] for e in single],
+            "warm_step_ms": {"stage0": warm(stage_ms[0]), "stage1": warm(stage_ms[1]),
+                             "single": warm([e["step_ms"] for e in single])},
+            "launches": {i: chip_smoke.said_launches(ran[f"b_s{i}"][1],
+                                                     f"stage {i} rank 0")
+                         for i in range(2)},
+            "process_s": {"multi": multi_s, "single": single_s}}
+        print(f"train --slice-controller 0 | 1, a tp 2 stage of two cards each, 2 "
+              f"blocks, M 2: {out['slice_controllers_tp2_tp2']}", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("torch_nccl_cards: CUDA is not available", file=sys.stderr)
@@ -276,6 +406,13 @@ def main() -> int:
     cards = [f"cuda:{i}" for i in range(count)]
     if "--calibrate" in sys.argv[1:]:
         out["calibrate"] = calibrate_leg(cards)
+        print(json.dumps(out, default=str))
+        return 0
+    if "--multihost" in sys.argv[1:]:
+        if count < 4:
+            raise SystemExit("--multihost needs four cards")
+        fa.kernel_library()
+        out["multihost"] = multihost_leg(cards)
         print(json.dumps(out, default=str))
         return 0
     fa.kernel_library()
