@@ -127,8 +127,9 @@ Phases, in order (any failure exits non-zero):
    demand.  Its grids are among ``PATH_CASES`` ((a) runs ``NARROW``, a
    replica of (c)'s stage 0 3 rows, ``ROWS3``).
 13. train (``train_phase``): (a) ``python -m metis_tpu_torch train
-   --device cuda`` on a one-card hostfile, the 1.5B preset's widths at
-   ``TRAIN_BLOCKS`` (1) block planned from its own profile: 3 steps with
+   --device cuda`` on a one-card hostfile, the 1.5B preset at
+   ``TRAIN_BLOCKS`` (1) block and ``TRAIN_C_WIDTH`` (a quarter of its
+   width), planned from the full-width profile: 3 steps with
    ``--checkpoint-every 2``, 2 resumed, 5 straight; the resumed run's
    losses and every leaf's digest bit-equal to the straight run's, save
    and restore ms, ``mean_step_ms`` beside ``plan_cost_ms``, 1 launch of
@@ -210,6 +211,16 @@ Phases, in order (any failure exits non-zero):
    ``measure_remat_fraction`` of the block at bs 2, the three kernels'
    launches counted around it.  The decode step's products are plain
    PyTorch, as the reference's are einsums: no kernel of its own.
+19. serve (``serve_phase``): the plan daemon, a host process that holds no
+   card, on the planner phase's 2 x 8 cluster and the serving phase's
+   profile: ``serve --search-pool 2 --state-dir``'s boot, ``plan
+   --remote`` byte-equal to the in-process ``plan`` and its cache hits,
+   a measured step of the one card's plan (``validate_hetero_choice``,
+   the kernels' launches counted) fed to a daemon's accuracy monitor, a
+   lost node's replan push with ``why`` / ``diff --remote`` equal to the
+   decision log's, ``top`` and the metric catalog, ``replay --remote``
+   equal to the in-process ``replay``, ``kill -9`` and a restore of the
+   state dir, and a standby's promotion.
 
 Ranks run in pools (``execution.dist.RankPool``, ``on_ranks``): one per
 world size and backend, all started at the dist phase (their ranks boot
@@ -230,6 +241,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import re
 import shutil
 import signal
@@ -358,8 +370,8 @@ TRAIN_RING_SELF = dict(name="train_ring_self", b=4, hq=8, hkv=8, s=512, d=128,
                        causal=True, stats=True, ring=True)
 TRAIN_RING_PAST = dict(TRAIN_RING_SELF, name="train_ring_past", causal=False)
 NARROW = dict(name="narrow", b=2, hq=8, hkv=8, s=1024, d=128, causal=True)
-# on one device (b 4, 8 heads; the reshard phase's leg (b), chaos (b) and
-# (c)) and at tp 2 or under Ulysses' cp 2 (4 heads per rank; zero_sp's tp 2,
+# on one device (b 4, 8 heads; train (a), the reshard phase's leg (b),
+# chaos (b) and (c)) and at tp 2 or under Ulysses' cp 2 (4 heads per rank; zero_sp's tp 2,
 # train (b)'s tp 2 and cp 2 a2a); the reshard phase's leg (a) runs MBS2 and
 # MAIN
 NARROW_ONE = dict(NARROW, name="narrow_one", b=4)
@@ -2508,12 +2520,12 @@ def stage_axes_phase(work: pathlib.Path, results: dict) -> tuple[dict, dict]:
     return out, launches
 
 
-# the train phase: leg (a)'s GPT depth (the 1.5B preset's widths), the
-# multi-rank legs' (c) and the MoE legs' (b).  (a)'s four checkpoints of
-# 7.50 GB write 30 GB; to keep the phase's writes near 40 GB, (c)'s six
-# run a quarter of the preset's hidden width (``TRAIN_C_WIDTH``: 8 heads of
-# 128, its vocabulary and sequence), and each leg deletes its checkpoints
-# once they are compared
+# the train phase: leg (a)'s GPT depth, the multi-rank legs' (c) and the
+# MoE legs' (b).  (a) and (c) run a quarter of the preset's hidden width
+# (``TRAIN_C_WIDTH``: 8 heads of 128, its vocabulary and sequence): at the
+# preset's width (a)'s four checkpoints of 7.50 GB took ~90 s to write on a
+# slow host, and the resume and digest gates hold at any width.  Each leg
+# deletes its checkpoints once they are compared
 TRAIN_BLOCKS = 1
 TRAIN_GBS = 4
 TRAIN_C_WIDTH = ["--hidden-size", str(QUARTER_WIDTH["hidden_size"]),
@@ -2576,9 +2588,10 @@ def resume_check(label: str, resumed: pathlib.Path, straight: pathlib.Path,
 
 
 def train_phase(work: pathlib.Path, results: dict) -> tuple[dict, dict]:
-    """``train``: (a) the 1.5B GPT's widths at ``TRAIN_BLOCKS`` blocks through
-    ``python -m metis_tpu_torch train --device cuda`` on a one-card
-    hostfile (planned from a profile at that depth): 3 steps with
+    """``train``: (a) the 1.5B GPT at ``TRAIN_BLOCKS`` blocks and
+    ``TRAIN_C_WIDTH`` through ``python -m metis_tpu_torch train --device
+    cuda`` on a one-card hostfile (planned from the full-width profile at
+    that depth): 3 steps with
     ``--checkpoint-every 2``, 2 more resumed, 5 straight; the resumed run's
     losses and every leaf's digest bit-equal to the straight run's at step
     5, save / restore ms, ``mean_step_ms`` beside ``plan_cost_ms``, the
@@ -2641,14 +2654,15 @@ def train_leg_a(work: pathlib.Path, base: list[str]) -> tuple[dict, dict]:
     from metis_tpu_torch.models import config_for_model_spec
 
     t0 = time.perf_counter()
-    spec = dict(GPT_15B, num_layers=TRAIN_BLOCKS + 2)
+    spec = dict(GPT_15B, num_layers=TRAIN_BLOCKS + 2, **QUARTER_WIDTH)
     cfg = config_for_model_spec(ModelSpec(**spec))
     h, f, v = cfg.hidden, cfg.ffn_dim, cfg.vocab_size
     params = (2 * v * h + cfg.seq_len * h + 2 * h
               + TRAIN_BLOCKS * (4 * h * h + 2 * h * f + 9 * h + f))
-    log(f"  (a) {TRAIN_BLOCKS} block(s) of the 1.5B widths: {params / 1e9:.3f} B "
-        f"parameters, {params * 12 / 1e9:.2f} GB of fp32 parameters and AdamW "
-        "moments per checkpoint")
+    log(f"  (a) {TRAIN_BLOCKS} block(s) of the 1.5B preset at hidden {h}: "
+        f"{params / 1e9:.3f} B parameters, {params * 12 / 1e9:.2f} GB of fp32 "
+        "parameters and AdamW moments per checkpoint")
+    base = [*base, *TRAIN_C_WIDTH]
     ckpt, straight = work / "ckpt_a", work / "ckpt_a_straight"
     # the first run as a user starts it; the others through the same main
     # in this process (a process start costs ~10 s of the phase)
@@ -3310,8 +3324,9 @@ MULTIHOST_REL_TOL = 1e-6
 
 def cli_processes(cmds: dict, timeout_s: float = 600.0) -> dict:
     """``python -m metis_tpu_torch <argv>`` for every ``{label: argv}`` at
-    once, each in a process of its own: ``{label: (rc, stderr)}``.  Every
-    process is stopped before this returns, a failed one's peers too."""
+    once, each in a process of its own: ``{label: (rc, stderr, stdout)}``.
+    Every process is stopped before this returns, a failed one's peers
+    too."""
     root = pathlib.Path(__file__).resolve().parent
     procs = {label: subprocess.Popen(
         [sys.executable, "-m", "metis_tpu_torch", *argv], stdout=subprocess.PIPE,
@@ -3319,8 +3334,8 @@ def cli_processes(cmds: dict, timeout_s: float = 600.0) -> dict:
     out = {}
     try:
         for label, proc in procs.items():
-            _, err = proc.communicate(timeout=timeout_s)
-            out[label] = (proc.returncode, err)
+            stdout, err = proc.communicate(timeout=timeout_s)
+            out[label] = (proc.returncode, err, stdout)
             if proc.returncode != 0:
                 raise SystemExit(f"{label} failed (rc {proc.returncode}):\n"
                                  f"{err[-3000:]}")
@@ -4051,14 +4066,424 @@ def serving_phase(work: pathlib.Path, results: dict) -> tuple[dict, dict]:
         raise SystemExit(f"(e) remat fraction {frac}, launches {counts}")
     out["e_remat_fraction"] = frac
     out["e_launches"] = counts
+    out["profile_dir"] = str(prof_dir)  # the serve phase's daemon reads it
     return out, {"serving": counts}
+
+
+# the serve phase: the plan daemon (``serve/``) on the host, its training
+# query the read side's (the planner phase's 2 x 8 cluster at gbs 64), the
+# reference's cached-answer budget (``tools/serve_smoke.py``'s
+# P50_BUDGET_MS, printed beside the p50, not gated: a host time) and its
+# restore budget (``tools/ha_drill.py``'s RESTORE_BUDGET_S, gated)
+SERVE_QUERY = ["--model-name", "gpt-1.5B", *CLI_MODEL["gpt-1.5B"], "--gbs", "64",
+               "--max-tp", "1", "--max-bs", "4", "--top-k", "3"]
+SERVE_CACHED = 20
+SERVE_P50_BUDGET_MS = 10.0
+SERVE_RESTORE_BUDGET_S = 1.0
+SERVE_BOOT_TIMEOUT_S = 120.0
+# what one answer of the same cache entry may change between two servings
+SERVE_VOLATILE = ("cached", "serve_ms", "trace_id")
+# what the daemon exports once it has served a plan query (the reference's
+# tools/check_metrics_names.py list)
+SERVE_CORE_METRICS = ("metis_serve_requests_total", "metis_serve_request_latency_ms",
+                      "metis_serve_cache_hits_total", "metis_search_duration_seconds")
+
+
+def serve_boot(argv: list[str], label: str, work: pathlib.Path):
+    """``python -m metis_tpu_torch serve <argv>`` as a process of its own,
+    in a session of its own (``kill_tree`` ends it with its search pool's
+    workers): (process, the boot line's JSON, seconds to the boot line).
+    Its stderr goes to a file of the work directory."""
+    import select
+
+    err = open(work / f"serve_{label}.err", "w")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "metis_tpu_torch", "serve", *argv],
+                            stdout=subprocess.PIPE, stderr=err, text=True,
+                            start_new_session=True,
+                            cwd=pathlib.Path(__file__).resolve().parent)
+    err.close()
+    ready, _, _ = select.select([proc.stdout], [], [], SERVE_BOOT_TIMEOUT_S)
+    line = proc.stdout.readline() if ready else ""
+    seconds = time.perf_counter() - t0
+    if not line.startswith("{"):
+        kill_tree(proc)
+        raise SystemExit(f"serve {label}: no boot line in {seconds:.1f} s:\n"
+                         f"{(work / f'serve_{label}.err').read_text()[-3000:]}")
+    return proc, json.loads(line), seconds
+
+
+def kill_tree(proc) -> None:
+    """``kill -9`` of a ``serve_boot`` process and of every process of its
+    session (its search pool's workers); a no-op once it is gone."""
+    try:
+        os.killpg(proc.pid, signal.SIGKILL)
+    except ProcessLookupError:
+        pass
+    proc.wait()
+
+
+def canonical_answer(payload: dict) -> str:
+    return json.dumps({k: v for k, v in payload.items() if k not in SERVE_VOLATILE},
+                      sort_keys=True)
+
+
+def wait_replan(client, since: int) -> list[dict]:
+    """The ``replan_push`` notes after op ``since`` (the daemon replans in
+    a background thread), long-polled 2 s at a time, at most 30 s."""
+    for _ in range(15):
+        notes = client.notifications(since=since, timeout_s=2.0)
+        pushes = [n for n in notes if n.get("kind") == "replan_push"]
+        if pushes:
+            return pushes
+    raise SystemExit(f"no replan_push after op {since}")
+
+
+# a pool started as the daemon starts its own: from a process that imports
+# no torch (this script's spawned children would re-import it, and torch)
+POOL_STARTUP = """
+import json, sys, time
+from metis_tpu_torch import cli
+from metis_tpu_torch.cluster.spec import ClusterSpec
+from metis_tpu_torch.obs.ledger import query_fingerprint
+from metis_tpu_torch.profiles.store import ProfileStore
+from metis_tpu_torch.serve.pool import SearchWorkerPool
+
+hostfile, clusterfile, profile_dir, query = sys.argv[1:]
+args = cli._parser().parse_args(["plan", *json.loads(query)])
+model, config = cli._model_from_args(args), cli._config_from_args(args)
+cluster = ClusterSpec.from_files(hostfile, clusterfile)
+store = ProfileStore.from_dir(profile_dir)
+t0 = time.perf_counter()
+pool = SearchWorkerPool(cluster, store, 2)
+try:
+    pool.prewarm(query_fingerprint(model, cluster, config), cluster, model,
+                 config, range(len(cluster.nodes)))
+    print(time.perf_counter() - t0)
+finally:
+    pool.close()
+"""
+
+
+def pool_startup_s(files: tuple) -> float:
+    """Seconds from starting a ``SearchWorkerPool`` of two workers
+    (spawned) on the daemon's inputs to both answering a prewarm (a warm
+    evaluator built in each), in a process of its own that imports no
+    torch, as the daemon's own pool starts."""
+    proc = subprocess.run([sys.executable, "-c", POOL_STARTUP, *files,
+                           json.dumps(SERVE_QUERY)], capture_output=True, text=True,
+                          timeout=300, cwd=pathlib.Path(__file__).resolve().parent)
+    if proc.returncode != 0:
+        raise SystemExit(f"(a) the pool's start-up: rc {proc.returncode}\n"
+                         f"{proc.stderr[-3000:]}")
+    return float(proc.stdout.strip().splitlines()[-1])
+
+
+def serve_phase(work: pathlib.Path, results: dict) -> tuple[dict, dict]:
+    """The plan daemon (``serve_phase``), on the host: (a) ``serve --port 0
+    --state-dir W/serve --decisions W/serve/decisions.jsonl --search-pool
+    2`` on the planner phase's 2 x 8 cluster and the serving phase's
+    profile (its decode tables), booted as a process, beside a pool of two
+    started by a process of its own (its start-up seconds); (b) ``plan --remote`` the
+    same bytes as the in-process ``plan`` on the same files, the repeat a
+    cache hit (``/stats``), the p50 of ``SERVE_CACHED`` cached answers; (c)
+    a second daemon (``serve_in_thread``) on the one card's files and the
+    planner phase's query there: its top plan is the plan that
+    ``validate_hetero_choice`` measures on the card (the kernels' launches
+    counted), the measured step posted to ``/accuracy_sample`` under its
+    fingerprint gives n 1 and a MAPE equal to the validation's |error_pct|
+    within 1e-6; (d) a ``/cluster_delta`` losing one node, its
+    ``replan_push``, ``why`` and ``diff`` with ``--remote`` the bytes of the
+    in-process ones on the daemon's decision log (the components summing
+    to the total within 1e-9 relative), then the node back; (e) ``top
+    --iterations 1 --no-clear`` and the ``/metrics`` names: only cataloged
+    ones (``METRIC_CATALOG``, which the tests hold equal to the
+    reference's), of the catalog's kinds and labels, the serve core among
+    them; (f) ``replay --remote`` of the serving workload (6 ticks, one
+    cycle, down to one node) against the in-process ``replay`` on the same
+    files; (g) ``kill -9``, a reboot on the state dir (the same op seq,
+    the query and a tenant's plan cache hits with equal payloads, its
+    ``restore_s`` under ``SERVE_RESTORE_BUDGET_S``), a ``--standby-of``
+    standby, the primary killed again, the standby promoted and a failover
+    client's tenant plan equal.  Every daemon is killed in a ``finally``."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from metis_tpu_torch import cli
+    from metis_tpu_torch.cluster.spec import ClusterSpec
+    from metis_tpu_torch.core.types import dump_ranked_plans
+    from metis_tpu_torch.obs.ledger import fingerprint_ranked_plan
+    from metis_tpu_torch.obs.metrics import METRIC_CATALOG, parse_exposition
+    from metis_tpu_torch.ops import flash_attention as fa
+    from metis_tpu_torch.planner.api import plan_hetero
+    from metis_tpu_torch.profiles.store import ProfileStore
+    from metis_tpu_torch.sched.tenant import TenantSpec
+    from metis_tpu_torch.serve.client import PlanServiceClient
+    from metis_tpu_torch.serve.daemon import PlanService, serve_in_thread
+    from metis_tpu_torch.validation import validate_hetero_choice
+
+    t_phase = time.perf_counter()
+    planner, sliced = results["planner"], results["slice"]
+    files = (*planner["big_cluster"], results["serving"]["profile_dir"])
+    device_type = sliced["device_type"]
+    flags = ["--hostfile", files[0], "--clusterfile", files[1], "--profile-dir", files[2]]
+    state = work / "serve"
+    boot_argv = [*flags, "--port", "0", "--state-dir", str(state),
+                 "--decisions", str(state / "decisions.jsonl"), "--search-pool", "2"]
+    parsed = cli._parser().parse_args(["plan", *SERVE_QUERY])
+    model, config = cli._model_from_args(parsed), cli._config_from_args(parsed)
+    out, seconds, launches = {}, {}, {}
+    procs = []
+    in_process = None
+    try:
+        # (a) boot, and a pool of two started here meanwhile
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(1) as pool:
+            started = pool.submit(pool_startup_s, files)
+            proc, boot, boot_s = serve_boot(boot_argv, "primary", work)
+            procs.append(proc)
+            pool_s = started.result()
+        address = boot["serving"]
+        if (boot.get("search_pool_workers") != 2 or boot["devices"] != 16
+                or boot["state_dir"] != str(state) or boot["restored_seq"] != 0
+                or boot["restore_s"] is None):
+            raise SystemExit(f"(a) boot line {boot}")
+        client = PlanServiceClient(address)
+        log(f"  (a) serve booted in {boot_s:.2f} s (host): {boot}; a pool of two "
+            f"started and prewarmed in {pool_s:.2f} s (spawn, host)")
+        out["a_boot"] = {"boot_s": boot_s, "pool_startup_s": pool_s,
+                         "restore_s": boot["restore_s"], "boot": boot}
+        seconds["a"] = time.perf_counter() - t0
+
+        # (b) plan --remote against the in-process plan, then the cache
+        t0 = time.perf_counter()
+        local, _ = serving_cli(["plan", *flags, *SERVE_QUERY], "(b) plan")
+        _, remote_err, remote = cli_processes(
+            {"(b) plan --remote": ["plan", "--remote", address, *SERVE_QUERY]}
+        )["(b) plan --remote"]
+        if remote != local or not remote_err.startswith("cold search"):
+            raise SystemExit(f"(b) plan --remote printed {len(remote)} bytes against "
+                             f"{len(local)} in-process: {remote_err}")
+        hit = client.plan(model, config, top_k=3)
+        stats = client.stats()
+        if not hit["cached"] or hit["plans"] + "\n" != local \
+                or stats["cache"]["hits"] < 1:
+            raise SystemExit(f"(b) the repeat: cached {hit['cached']}, cache {stats['cache']}")
+        lat = []
+        for _ in range(SERVE_CACHED):
+            t1 = time.perf_counter()
+            again = client.plan(model, config, top_k=3)
+            lat.append((time.perf_counter() - t1) * 1e3)
+            if not again["cached"] or canonical_answer(again) != canonical_answer(hit):
+                raise SystemExit("(b) a cached answer changed")
+        p50 = statistics.median(lat)
+        first_fp = hit["plan_fingerprint"]
+        log(f"  (b) plan --remote: {len(remote)} bytes, equal to the in-process plan; "
+            f"{remote_err.strip()}; the repeat a cache hit ({stats['cache']}); "
+            f"p50 of {SERVE_CACHED} cached answers {p50:.3f} ms (host; the reference's "
+            f"budget {SERVE_P50_BUDGET_MS} ms), best {hit['best_cost_ms']:.3f} ms "
+            f"plan {first_fp}")
+        out["b_plan"] = {"bytes": len(remote), "cached_p50_ms": p50,
+                         "cached_ms": lat, "best_cost_ms": hit["best_cost_ms"],
+                         "plan_fingerprint": first_fp,
+                         "search_seconds_host": hit["search_seconds"]}
+        seconds["b"] = time.perf_counter() - t0
+
+        # (c) a measured step feeds the accuracy monitor
+        t0 = time.perf_counter()
+        one_card = ClusterSpec.from_files(sliced["hostfile"], sliced["clusterfile"])
+        store = ProfileStore.from_dir(sliced["profile_dir"])
+        config1 = dataclasses.replace(config, gbs=4, mem_coef=planner["mem_coef"])
+        in_process = serve_in_thread(PlanService(one_card, store))
+        client1 = PlanServiceClient(in_process[2])
+        served = client1.plan(model, config1, top_k=3)
+        result = plan_hetero(one_card, store, model, config1, top_k=3)
+        if (served["plans"] != dump_ranked_plans(result.plans)
+                or served["plan_fingerprint"] != fingerprint_ranked_plan(result.best)):
+            raise SystemExit(f"(c) the daemon's top plan {served['plan_fingerprint']} is "
+                             f"not the plan measured, {fingerprint_ranked_plan(result.best)}")
+        fa.reset_launch_counts()
+        report = validate_hetero_choice(result.plans, model, "cuda", cluster=one_card,
+                                        profiles=store, top_k=1, steps=3, warmup=1)[0]
+        launches["serve"] = dict(fa.launch_counts)
+        gc.collect()
+        torch.cuda.empty_cache()
+        acc = client1.accuracy_sample(served["plan_fingerprint"], report.measured_ms,
+                                      step=0)
+        if acc["n"] != 1 or not abs(acc["rolling_mape_pct"] - report.abs_error_pct) <= 1e-6:
+            raise SystemExit(f"(c) the daemon's record {acc} against validate's "
+                             f"error_pct {report.error_pct}")
+        if any(n == 0 for n in launches["serve"].values()) or len(launches["serve"]) != 3:
+            raise SystemExit(f"(c) launches {launches['serve']}")
+        log(f"  (c) the one card's daemon serves plan {served['plan_fingerprint']} "
+            f"({served['best_cost_ms']:.3f} ms), the plan validate_hetero_choice "
+            f"measured: {report.measured_ms:.3f} ms, error_pct {report.error_pct:.4f}; "
+            f"/accuracy_sample: n {acc['n']}, rolling MAPE {acc['rolling_mape_pct']:.6f} "
+            f"(|error_pct| {report.abs_error_pct:.6f}), in_drift {acc['in_drift']}; "
+            f"launches {launches['serve']}")
+        out["c_accuracy"] = {"plan_fingerprint": served["plan_fingerprint"],
+                             "predicted_ms": report.predicted_ms,
+                             "measured_ms": report.measured_ms,
+                             "error_pct": report.error_pct, "daemon": acc}
+        in_process[0].shutdown()
+        in_process[1].join(10)
+        in_process[0].server_close()
+        in_process = None
+        seconds["c"] = time.perf_counter() - t0
+
+        # (d) a node lost: the replan push, why and diff over the wire
+        t0 = time.perf_counter()
+        delta = client.cluster_delta(removed={device_type: 8}, replan=True,
+                                     cause="device_loss")
+        push = wait_replan(client, delta["seq"])[0]
+        new_fp = push["new_fingerprint"]
+        decisions = str(state / "decisions.jsonl")
+        asks = {"why": ["why", new_fp, "--json"],
+                "why_text": ["why", new_fp],
+                "diff": ["diff", first_fp, new_fp, "--json"],
+                "diff_text": ["diff", first_fp, new_fp]}
+        remote = {k: ran[2] for k, ran in cli_processes(
+            {k: [*argv, "--remote", address] for k, argv in asks.items()}).items()}
+        local = {k: serving_cli([*argv, "--decisions", decisions], f"(d) {k}")[0]
+                 for k, argv in asks.items()}
+        differ = [k for k in asks if remote[k] != local[k]]
+        why, diff = json.loads(local["why"]), json.loads(local["diff"])
+        parts, total = sum(diff["component_deltas"].values()), diff["total_delta_ms"]
+        if (differ or push.get("reason") != "cluster_delta" or total is None
+                or not abs(parts - total) <= 1e-9 * max(abs(total), 1e-12)
+                or why["depth"] < 2):
+            raise SystemExit(f"(d) differ {differ}, push {push}, why depth "
+                             f"{why['depth']}, diff {parts} against {total}")
+        back = client.cluster_delta(added={device_type: 8}, replan=True,
+                                    cause="spot_return")
+        wait_replan(client, back["seq"])
+        log(f"  (d) lost {delta['removed']}: {delta['devices']} devices, replan_push "
+            f"{push['fingerprint']} -> {new_fp} ({push['new_best_cost_ms']:.3f} ms); "
+            f"why (depth {why['depth']}, root {why['root_cause']}) and diff "
+            f"({total:+.3f} ms = components {parts:+.3f}, decisive "
+            f"{diff['decisive']}) with --remote equal to the decision log's, text and "
+            f"JSON; the node back: {back['devices']} devices")
+        out["d_delta"] = {"devices": delta["devices"], "new_fingerprint": new_fp,
+                          "new_best_cost_ms": push["new_best_cost_ms"],
+                          "why_depth": why["depth"], "diff_total_ms": total,
+                          "diff_components_ms": parts, "decisive": diff["decisive"]}
+        seconds["d"] = time.perf_counter() - t0
+
+        # (e) top and the metric names
+        t0 = time.perf_counter()
+        frame = cli_processes({"(e) top": ["top", address, "--iterations", "1",
+                                           "--no-clear"]})["(e) top"][2]
+        fams = parse_exposition(client.metrics())
+        names = {n for n in fams if n.startswith("metis_")}
+        wrong = sorted(n for n in names if n not in METRIC_CATALOG
+                       or fams[n]["type"] != METRIC_CATALOG[n][0]
+                       or any(set(lab) - {"le"} - set(METRIC_CATALOG[n][2])
+                              for _, lab, _ in fams[n]["samples"]))
+        if (not frame.startswith(f"metis-tpu top — {address}") or wrong
+                or not set(SERVE_CORE_METRICS) <= names):
+            raise SystemExit(f"(e) top {frame!r}; names off the catalog {wrong}; "
+                             f"exported {sorted(names)}")
+        log(f"  (e) top: {frame.strip().splitlines()[:2]}; /metrics: {len(names)} "
+            f"families, every one cataloged with its kind and labels")
+        out["e_metrics"] = sorted(names)
+        seconds["e"] = time.perf_counter() - t0
+
+        # (f) replay against the daemon and in-process
+        t0 = time.perf_counter()
+        workload = [a for k, v in SERVING_WORKLOAD.items() for a in (WORKLOAD_FLAGS[k], str(v))]
+        replay = ["replay", *flags, "--model-name", "gpt-1.5B", *CLI_MODEL["gpt-1.5B"],
+                  "--gbs", "64", "--max-tp", "1", "--max-bs", "8", "--top-k", "5",
+                  *workload, "--base-rps", "4", "--peak-rps", "40",
+                  "--ticks-per-cycle", "6", "--cycles", "1", "--min-nodes", "1"]
+        with ThreadPoolExecutor(1) as pool:
+            remote = pool.submit(cli_processes,
+                                 {"(f) replay --remote": [*replay, "--remote", address]})
+            local, local_err = serving_cli(replay, "(f) replay")
+            _, remote_err, remote = remote.result()["(f) replay --remote"]
+        summaries = [json.loads(text) for text in (remote, local)]
+        pushes = [r.pop("replan_pushes") for r in summaries]
+        if summaries[0] != summaries[1]:
+            raise SystemExit(f"(f) replay --remote {summaries[0]} against in-process "
+                             f"{summaries[1]}")
+        devices = client.stats()["cluster_devices"]
+        if devices < 16:
+            grown = client.cluster_delta(added={device_type: 16 - devices}, replan=True)
+            wait_replan(client, grown["seq"])
+        log(f"  (f) replay --remote: {remote_err.strip()}; in-process: "
+            f"{local_err.strip()}; the reports equal but replan_pushes {pushes} "
+            f"(counted as they arrive); daemon back at 16 devices from {devices}")
+        out["f_replay"] = {**summaries[0], "replan_pushes": pushes}
+        seconds["f"] = time.perf_counter() - t0
+
+        # (g) kill -9, restore; a standby, failover
+        t0 = time.perf_counter()
+        client.tenant_register(TenantSpec("train", model, config, quota_floor=8))
+        tenant = client.tenant_plan("train")
+        before = client.plan(model, config, top_k=3)
+        seq = client.stats()["note_seq"]
+        kill_tree(proc)
+        proc2, boot2, reboot_s = serve_boot(boot_argv, "restarted", work)
+        procs.append(proc2)
+        address2 = boot2["serving"]
+        client2 = PlanServiceClient(address2)
+        after = client2.plan(model, config, top_k=3)
+        tenant2 = client2.tenant_plan("train")
+        if (boot2["restored_seq"] != seq
+                or not boot2["restore_s"] < SERVE_RESTORE_BUDGET_S
+                or not (after["cached"] and tenant2["cached"])
+                or canonical_answer(after) != canonical_answer(before)
+                or canonical_answer(tenant2) != canonical_answer(tenant)):
+            raise SystemExit(f"(g) restore: {boot2} at op {seq}; cached "
+                             f"{after['cached']} {tenant2['cached']}")
+        proc3, boot3, standby_s = serve_boot([*flags, "--port", "0", "--standby-of",
+                                              address2], "standby", work)
+        procs.append(proc3)
+        standby = PlanServiceClient(boot3["serving"])
+        deadline = time.monotonic() + 30.0
+        while standby.stats()["note_seq"] < client2.stats()["note_seq"]:
+            if time.monotonic() > deadline:
+                raise SystemExit("(g) the standby never caught up")
+            time.sleep(0.05)
+        t_kill = time.monotonic()
+        kill_tree(proc2)
+        while standby.healthz()["standby"]:
+            if time.monotonic() > t_kill + 30.0:
+                raise SystemExit("(g) the standby did not promote")
+            time.sleep(0.05)
+        promote_s = time.monotonic() - t_kill
+        failover = PlanServiceClient([address2, boot3["serving"]])
+        served3 = failover.tenant_plan("train")
+        notes = failover.notifications(since=0)
+        if (canonical_answer(served3) != canonical_answer(tenant)
+                or failover.active_address != boot3["serving"]
+                or not any(n.get("kind") == "failover" for n in notes)):
+            raise SystemExit(f"(g) failover: active {failover.active_address}")
+        log(f"  (g) kill -9 at op {seq}; reboot in {reboot_s:.2f} s (host), restore_s "
+            f"{boot2['restore_s']}, restored_seq {boot2['restored_seq']}; the query and "
+            f"the tenant's plan cache hits, payloads equal; a standby booted in "
+            f"{standby_s:.2f} s caught up, promoted {promote_s:.2f} s after the "
+            f"primary's kill -9, its failover client's tenant plan equal")
+        out["g_ha"] = {"restored_seq": boot2["restored_seq"], "restore_s": boot2["restore_s"],
+                       "reboot_s": reboot_s, "standby_boot_s": standby_s,
+                       "promote_s": promote_s}
+        failover.shutdown()
+        seconds["g"] = time.perf_counter() - t0
+    finally:
+        if in_process is not None:
+            in_process[0].shutdown()
+            in_process[0].server_close()
+        for proc in procs:
+            kill_tree(proc)
+    out["legs_s"] = seconds
+    log(f"  legs (s): { {k: round(v, 2) for k, v in seconds.items()} }; the phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return out, launches
 
 
 HIDDEN = ("launches", "profile_dir", "hostfile", "clusterfile", "tokens", "batches",
           "base", "ledger", "big_cluster", "big_rows")
 PHASES = ("slice", "planner", "dist", "pipeline", "llama", "moe", "context",
           "zero_sp", "stage_axes", "train", "reshard", "chaos", "multihost",
-          "calibration", "serving")
+          "calibration", "serving", "serve")
 
 
 def main() -> int:
@@ -4135,14 +4560,15 @@ def run_phases(work: pathlib.Path, results: dict, launches: dict,
             results[phase], more = zero_sp_phase(work)
             launches.update(more)
         elif phase in ("stage_axes", "train", "reshard", "chaos", "multihost",
-                       "calibration", "serving"):
+                       "calibration", "serving", "serve"):
             results[phase], more = {"stage_axes": stage_axes_phase,
                                     "train": train_phase,
                                     "reshard": reshard_phase,
                                     "chaos": chaos_phase,
                                     "multihost": multihost_phase,
                                     "calibration": calibration_phase,
-                                    "serving": serving_phase}[phase](work, results)
+                                    "serving": serving_phase,
+                                    "serve": serve_phase}[phase](work, results)
             launches.update(more)
         else:
             results[phase], more = {"llama": llama_phase, "moe": moe_phase,

@@ -48,13 +48,21 @@ reference's flags and output bytes:
             trigger, with the attributed cost diff at every hop
             (``obs/provenance.py``);
   diff      the attributed cost diff of two plans by fingerprint, from a
-            decision log or plan dumps.
+            decision log or plan dumps;
+  serve     the plan daemon (``serve/daemon.py``): plan queries over local
+            HTTP (TCP or a unix socket) from a plan cache, drift- and
+            cluster-delta-driven replans, tenants, a durable state dir and
+            a standby (``--standby-of``);
+  top       a live dashboard over a daemon's ``GET /metrics``;
+  replay    the traffic-replay bench (``inference/replay.py``): a diurnal
+            arrival-rate sweep against a daemon (``--remote``, or one
+            booted in-process).
 
-The searches and readers run on the host and take no device.  The
-reference's ``--platform`` (a JAX backend pin) becomes ``--device``.
-``chaos --fleet``, ``plan --remote``, ``why --remote`` and ``diff
---remote`` (the plan daemon) exit 2 naming their ROADMAP item; the daemon
-and replay subcommands come with later slices.
+``plan``, ``why`` and ``diff`` take ``--remote ADDRESS`` (``http://HOST:PORT``
+or ``unix:/path``) to ask a running daemon instead.  The searches, readers
+and the daemon run on the host and take no device.  The reference's
+``--platform`` (a JAX backend pin) becomes ``--device``.  ``chaos
+--fleet`` (the fleet drill) exits 2 naming its ROADMAP item.
 
   python -m metis_tpu_torch uniform --hostfile hosts --clusterfile c.json \\
       --profile-dir profiles/ --model-size 1.5B --attn flash --gbs 4
@@ -515,21 +523,36 @@ def _cmd_search(args: argparse.Namespace, profiles, model, config,
 
 
 def _cmd_plan(args: argparse.Namespace) -> int:
-    """``plan``: the reference's in-process plan query, its dump and stderr
-    line; ``--remote`` (the plan daemon) exits 2."""
+    """``plan``: a plan query, remote (a daemon round trip) or in-process;
+    either way the printed ``plans`` JSON is the same dump for the same
+    query, so the daemon's answer is byte-identical to the offline
+    search."""
+    model = _model_from_args(args)
+    config = _config_from_args(args)
+    workload = _workload_from_args(args)
+    if args.remote:
+        from metis_tpu_torch.serve.client import PlanServiceClient
+
+        client = PlanServiceClient(args.remote)
+        resp = client.plan(model, config, top_k=args.top_k,
+                           workload=workload)
+        _emit(args, resp["plans"])
+        how = "cache hit" if resp.get("cached") else "cold search"
+        print(
+            f"{how} fingerprint={resp.get('fingerprint')} "
+            f"costed {resp.get('num_costed')} plans "
+            f"({resp.get('num_pruned')} pruned) in "
+            f"{resp.get('search_seconds', 0):.2f}s "
+            f"(served in {resp.get('serve_ms', 0):.1f}ms) "
+            f"trace={resp.get('trace_id')}",
+            file=sys.stderr)
+        return 0
+
     from metis_tpu_torch.cluster.spec import ClusterSpec
     from metis_tpu_torch.core.types import dump_ranked_plans
     from metis_tpu_torch.planner.api import plan_hetero
     from metis_tpu_torch.profiles.store import ProfileStore
 
-    model = _model_from_args(args)
-    config = _config_from_args(args)
-    workload = _workload_from_args(args)
-    if args.remote:
-        print("plan --remote (the plan daemon of the serve/ package) comes "
-              "with ROADMAP §A.9; this slice of the port plans in-process "
-              "only", file=sys.stderr)
-        return 2
     if not (args.hostfile and args.clusterfile and args.profile_dir):
         print("in-process plan needs --hostfile, --clusterfile and "
               "--profile-dir (or point --remote at a daemon)",
@@ -568,6 +591,225 @@ def _cmd_plan(args: argparse.Namespace) -> int:
                   file=sys.stderr)
     events.close()
     return 0
+
+
+def _cmd_serve(args: argparse.Namespace) -> int:
+    """Boot the plan daemon and serve until interrupted (or POST
+    /shutdown).  Prints the bound address as one JSON line so wrappers
+    can parse it even with --port 0."""
+    from pathlib import Path
+
+    from metis_tpu_torch.cluster.spec import ClusterSpec
+    from metis_tpu_torch.obs.provenance import DecisionLog
+    from metis_tpu_torch.profiles.store import ProfileStore
+    from metis_tpu_torch.serve.daemon import PlanService, make_server, run_server
+
+    cluster = ClusterSpec.from_files(args.hostfile, args.clusterfile)
+    profiles = ProfileStore.from_dir(args.profile_dir)
+    events = (EventLog(args.events, max_bytes=args.events_max_bytes)
+              if args.events else NULL_LOG)
+    decisions_path = args.decisions
+    if decisions_path is None and args.state_dir:
+        # the decision log is part of the durable control plane: default
+        # it into the state dir so seq numbering survives restarts too
+        decisions_path = str(Path(args.state_dir) / "decisions.jsonl")
+    decisions = (DecisionLog(decisions_path, events=events)
+                 if decisions_path else None)
+    service = PlanService(
+        cluster, profiles, cache_capacity=args.cache_size,
+        cache_shards=args.cache_shards,
+        state_capacity=args.state_cache_size, events=events,
+        drift_band_pct=args.drift_band, decisions=decisions,
+        state_dir=args.state_dir,
+        snapshot_interval=args.snapshot_interval,
+        search_pool=args.search_pool,
+        read_only=args.standby_of is not None)
+    tailer = None
+    if args.standby_of is not None:
+        from metis_tpu_torch.serve.standby import StandbyTailer
+
+        tailer = StandbyTailer(service, args.standby_of)
+        tailer.start()
+    server = make_server(service, host=args.host, port=args.port,
+                         socket_path=args.socket,
+                         threads=args.serve_threads)
+    boot = {
+        "serving": server.address,
+        "devices": cluster.total_devices,
+        "device_types": list(cluster.device_types),
+        "cache_capacity": args.cache_size,
+        "cache_shards": args.cache_shards,
+        "serve_threads": server.pool_threads,
+    }
+    if args.search_pool:
+        boot["search_pool_workers"] = (
+            service.search_pool.num_workers
+            if service.search_pool is not None else 0)
+    if args.state_dir:
+        boot["state_dir"] = args.state_dir
+        boot["restore_s"] = service.restore_s
+        boot["restored_seq"] = service.stats()["note_seq"]
+    if args.standby_of is not None:
+        boot["standby_of"] = args.standby_of
+    print(json.dumps(boot), flush=True)
+    run_server(server)
+    if tailer is not None:
+        tailer.stop()
+    service.close()
+    events.close()
+    return 0
+
+
+def _cmd_replay(args: argparse.Namespace) -> int:
+    """Traffic-replay bench (inference/replay.py): boot or dial a daemon,
+    sweep the diurnal curve, print the ReplayReport JSON."""
+    from metis_tpu_torch.cluster.spec import ClusterSpec
+    from metis_tpu_torch.inference.replay import replay_traffic
+    from metis_tpu_torch.serve.client import PlanServiceClient
+
+    model = _model_from_args(args)
+    config = _config_from_args(args)
+    args.workload = "inference"  # replay is a serving bench by definition
+    workload = _workload_from_args(args, default_arrival_rps=args.base_rps)
+    cluster = ClusterSpec.from_files(args.hostfile, args.clusterfile)
+    events = EventLog(args.events) if args.events else NULL_LOG
+
+    server = None
+    if args.remote:
+        client = PlanServiceClient(args.remote)
+    else:
+        from metis_tpu_torch.profiles.store import ProfileStore
+        from metis_tpu_torch.serve.daemon import PlanService, serve_in_thread
+
+        profiles = ProfileStore.from_dir(args.profile_dir)
+        service = PlanService(cluster, profiles, events=events)
+        server, _thread, address = serve_in_thread(service)
+        client = PlanServiceClient(address)
+    try:
+        report = replay_traffic(
+            client, cluster, model, config, workload,
+            base_rps=args.base_rps, peak_rps=args.peak_rps,
+            ticks_per_cycle=args.ticks_per_cycle, cycles=args.cycles,
+            tick_seconds=args.tick_seconds, min_nodes=args.min_nodes,
+            top_k=args.top_k, policy=args.policy, events=events)
+    finally:
+        if server is not None:
+            server.shutdown()
+            server.server_close()
+    _emit(args, json.dumps(report.to_json_dict(), indent=2))
+    print(f"[{report.policy}] slo attainment {report.slo_attainment:.3f} "
+          f"over {report.cycles} cycle(s), devices "
+          f"{min(report.device_trajectory, default=0)}-"
+          f"{max(report.device_trajectory, default=0)} "
+          f"({report.device_hours:.1f} device-hours), "
+          f"{report.replan_pushes} replan push(es)", file=sys.stderr)
+    events.close()
+    return 0
+
+
+def _top_frame(text: str, address: str) -> str:
+    """One rendered dashboard frame from a /metrics exposition scrape.
+    Pure text-in/text-out so tests drive it without a terminal."""
+    from metis_tpu_torch.obs.metrics import (
+        parse_exposition,
+        quantile_from_buckets,
+    )
+
+    fams = parse_exposition(text)
+
+    def gauge(name: str, **want) -> float | None:
+        fam = fams.get(name)
+        if fam is None:
+            return None
+        for n, lab, v in fam["samples"]:
+            if n == name and all(lab.get(k) == w for k, w in want.items()):
+                return v
+        return None
+
+    def labeled(name: str, label: str) -> dict[str, float]:
+        fam = fams.get(name)
+        if fam is None:
+            return {}
+        return {lab[label]: v for n, lab, v in fam["samples"]
+                if n == name and label in lab}
+
+    lines = [f"metis-tpu top — {address} — "
+             f"up {gauge('metis_serve_uptime_seconds') or 0:.0f}s"]
+    qps = gauge("metis_serve_qps") or 0.0
+    hit = gauge("metis_serve_cache_hit_ratio")
+    inflight = gauge("metis_serve_inflight_requests") or 0
+    lines.append(
+        f"qps {qps:7.1f}   in-flight {inflight:3.0f}   cache hit "
+        + (f"{hit:6.1%}" if hit is not None else "   n/a")
+        + f"   entries {gauge('metis_serve_cache_entries') or 0:.0f}"
+          f"/{gauge('metis_serve_cache_capacity') or 0:.0f}")
+    lat = fams.get("metis_serve_request_latency_ms")
+    if lat is not None:
+        # per-endpoint cumulative buckets -> p50/p99 via the same
+        # nearest-rank rule the registry uses
+        per_ep: dict[str, list[tuple[float, float]]] = {}
+        counts: dict[str, float] = {}
+        for n, lab, v in lat["samples"]:
+            ep = lab.get("endpoint", "")
+            if n.endswith("_bucket"):
+                le = lab.get("le", "")
+                bound = float("inf") if le == "+Inf" else float(le)
+                per_ep.setdefault(ep, []).append((bound, v))
+            elif n.endswith("_count"):
+                counts[ep] = v
+        lines.append(f"{'endpoint':<16}{'reqs':>8}{'p50 ms':>10}"
+                     f"{'p99 ms':>10}")
+        for ep in sorted(per_ep):
+            p50 = quantile_from_buckets(per_ep[ep], 0.5)
+            p99 = quantile_from_buckets(per_ep[ep], 0.99)
+            lines.append(
+                f"{ep:<16}{counts.get(ep, 0):>8.0f}"
+                + (f"{p50:>10.2f}" if p50 is not None else f"{'-':>10}")
+                + (f"{p99:>10.2f}" if p99 is not None else f"{'-':>10}"))
+    util = gauge("metis_fleet_utilization_frac")
+    if util is not None:
+        lines.append(f"fleet utilization {util:6.1%}   objective "
+                     f"{gauge('metis_fleet_objective') or 0:.3f}")
+        devices = labeled("metis_fleet_tenant_devices", "tenant")
+        tenant_util = labeled("metis_fleet_tenant_utilization_frac",
+                              "tenant")
+        for tname in sorted(devices):
+            lines.append(f"  tenant {tname:<14}{devices[tname]:>5.0f} dev"
+                         f"   util {tenant_util.get(tname, 0.0):6.1%}")
+    slo = labeled("metis_replay_slo_attainment", "policy")
+    for policy in sorted(slo):
+        lines.append(f"replay[{policy}] slo attainment {slo[policy]:6.1%}")
+    return "\n".join(lines)
+
+
+def _cmd_top(args: argparse.Namespace) -> int:
+    """Live dashboard: poll GET /metrics and render qps / latency
+    quantiles / cache / fleet / SLO until Ctrl-C (or --iterations)."""
+    import time
+
+    from metis_tpu_torch.serve.client import PlanServiceClient, ServeClientError
+
+    client = PlanServiceClient(args.address,
+                               timeout=max(args.interval, 5.0))
+    n = 0
+    try:
+        while True:
+            try:
+                text = client.metrics(timeout=max(args.interval, 5.0))
+                frame = _top_frame(text, args.address)
+            except ServeClientError as e:
+                frame = f"metis-tpu top — {args.address} — {e}"
+            if args.no_clear:
+                print(frame, flush=True)
+            else:
+                # ANSI clear + home: plain escapes, no curses dependency
+                print(f"\x1b[2J\x1b[H{frame}", flush=True)
+            n += 1
+            if args.iterations and n >= args.iterations:
+                return 0
+            time.sleep(args.interval)
+    except KeyboardInterrupt:
+        return 0
 
 
 def _parse_ranks(args: argparse.Namespace) -> list[int] | None:
@@ -988,23 +1230,21 @@ def _cmd_accuracy(args: argparse.Namespace) -> int:
     return 0
 
 
-def _remote_refused(command: str) -> int:
-    print(f"{command} --remote (the plan daemon of the serve/ package) comes "
-          "with ROADMAP §A.9 (c); this slice of the port reads a "
-          "--decisions file only", file=sys.stderr)
-    return 2
-
-
 def _load_decision_records(args: argparse.Namespace):
-    """DecisionRecords from ``--decisions FILE`` (None + stderr message
-    when the file is missing or not given)."""
+    """DecisionRecords from ``--decisions FILE`` or a ``--remote`` daemon
+    (None + stderr message when neither source yields records)."""
     from pathlib import Path
 
     from metis_tpu_torch.obs.provenance import DecisionRecord
 
+    if args.remote:
+        from metis_tpu_torch.serve.client import PlanServiceClient
+
+        dicts = PlanServiceClient(args.remote).decisions()
+        return [DecisionRecord.from_json_dict(d) for d in dicts]
     if not args.decisions:
-        print("need a decision source: --decisions FILE (a DecisionLog's "
-              "JSONL, obs/provenance.py)", file=sys.stderr)
+        print("need a decision source: --decisions FILE (metis-tpu serve "
+              "--decisions) or --remote ADDRESS", file=sys.stderr)
         return None
     path = Path(args.decisions)
     if not path.exists():
@@ -1035,8 +1275,6 @@ def _cmd_why(args: argparse.Namespace) -> int:
         print("give a plan fingerprint, --tenant NAME, or --seq N",
               file=sys.stderr)
         return 2
-    if args.remote:
-        return _remote_refused("why")
     records = _load_decision_records(args)
     if records is None:
         return 1
@@ -1078,12 +1316,10 @@ def _cmd_diff(args: argparse.Namespace) -> int:
 
     from metis_tpu_torch.obs.provenance import diff_plans, fingerprint_plan_dict
 
-    if args.remote:
-        return _remote_refused("diff")
     by_fp: dict[str, object] = {}
     # decision records first, so a plan dump carrying the same
     # fingerprint overrides with its richer structural axes
-    if args.decisions:
+    if args.decisions or args.remote:
         records = _load_decision_records(args)
         if records is None:
             return 1
@@ -1885,14 +2121,138 @@ def _parser() -> argparse.ArgumentParser:
     _add_model_args(p_rep)
     _add_search_args(p_rep)
 
+    p_srv = sub.add_parser(
+        "serve", help="long-lived planner daemon (serve/daemon.py): answer "
+                      "plan queries over local HTTP (TCP or unix socket) "
+                      "from an LRU plan cache keyed by query fingerprint, "
+                      "with warm search state and drift-driven replanning")
+    p_srv.add_argument("--hostfile", required=True)
+    p_srv.add_argument("--clusterfile", required=True)
+    p_srv.add_argument("--profile-dir", required=True)
+    p_srv.add_argument("--host", default="127.0.0.1")
+    p_srv.add_argument("--port", type=int, default=0,
+                       help="TCP port (0 = ephemeral; the bound address is "
+                            "printed as JSON at boot)")
+    p_srv.add_argument("--socket", default=None,
+                       help="serve on this unix socket path instead of TCP")
+    p_srv.add_argument("--cache-size", type=int, default=128,
+                       help="plan cache capacity (LRU entries)")
+    p_srv.add_argument("--cache-shards", type=int, default=4,
+                       help="plan-cache lock shards (serve/cache.py): "
+                            "concurrent requests on distinct fingerprints "
+                            "never contend; capacity stays a single "
+                            "global LRU bound")
+    p_srv.add_argument("--serve-threads", type=int, default=None,
+                       metavar="N",
+                       help="handler worker-pool size (default 64); when "
+                            "pool and backlog are both full, new "
+                            "connections get 503 + Retry-After instead "
+                            "of unbounded thread growth")
+    p_srv.add_argument("--search-pool", type=int, default=0, metavar="N",
+                       help="resident cold-search worker processes "
+                            "(serve/pool.py): N index-stride shards per "
+                            "search, warm evaluators per query shape, "
+                            "byte-identical ranking; 0 = serial in-"
+                            "process search (default)")
+    p_srv.add_argument("--state-cache-size", type=int, default=8,
+                       help="warm search states retained (one per query "
+                            "shape; each holds estimator + memo tables)")
+    p_srv.add_argument("--drift-band", type=float, default=20.0,
+                       help="rolling MAPE %% band posted accuracy samples "
+                            "must stay inside before a replan fires")
+    p_srv.add_argument("--events", default=None,
+                       help="append structured JSONL daemon events here")
+    p_srv.add_argument("--events-max-bytes", type=int, default=None,
+                       metavar="N",
+                       help="rotate the events file to <name>.1 when it "
+                            "would exceed N bytes (core/events.EventLog "
+                            "max_bytes) — bounds a long-lived daemon's "
+                            "log; default: never rotate")
+    p_srv.add_argument("--decisions", default=None, metavar="FILE",
+                       help="append the decision log (plan provenance: "
+                            "obs/provenance.DecisionLog) here; reopening "
+                            "resumes the seq so restarts never reset the "
+                            "audit trail. Default: in-memory only "
+                            "(with --state-dir, defaults to "
+                            "STATE_DIR/decisions.jsonl)")
+    p_srv.add_argument("--state-dir", default=None, metavar="DIR",
+                       help="durable control plane (serve/persist.py): "
+                            "atomic digest-verified state snapshots plus "
+                            "an append-only oplog in DIR; a restarted "
+                            "daemon restores its plan cache, tenants and "
+                            "cursors from them (restart ≈ warm). "
+                            "Default: memory-only")
+    p_srv.add_argument("--snapshot-interval", type=float, default=30.0,
+                       metavar="S",
+                       help="seconds between periodic state snapshots "
+                            "when --state-dir is set (mutating endpoints "
+                            "also snapshot synchronously; 0 disables the "
+                            "periodic loop)")
+    p_srv.add_argument("--standby-of", default=None, metavar="ADDR",
+                       help="boot as a read-only standby replicating "
+                            "ADDR's oplog (serve/standby.py): serves "
+                            "reads, answers mutations 503, and promotes "
+                            "itself to primary when ADDR stops answering")
+
+    p_top = sub.add_parser(
+        "top", help="live terminal dashboard over a running daemon's "
+                    "GET /metrics: qps, per-endpoint p50/p99 latency, "
+                    "cache hit rate, fleet utilization, per-tenant SLO "
+                    "(plain ANSI poll loop, Ctrl-C to exit)")
+    p_top.add_argument("address",
+                       help="daemon address: http://HOST:PORT or "
+                            "unix:/path/to.sock")
+    p_top.add_argument("--interval", type=float, default=2.0,
+                       help="seconds between /metrics polls")
+    p_top.add_argument("--iterations", type=int, default=0, metavar="N",
+                       help="render N frames then exit (0 = run until "
+                            "Ctrl-C; >0 is the scriptable/test mode)")
+    p_top.add_argument("--no-clear", action="store_true",
+                       help="append frames instead of clearing the "
+                            "screen (for logs/pipes)")
+
+    p_rpl = sub.add_parser(
+        "replay", help="traffic-replay bench: sweep a diurnal arrival-rate "
+                       "curve against the plan daemon, scale the fleet "
+                       "up/down through cluster deltas (replan pushes), "
+                       "and report SLO attainment + device trajectory")
+    p_rpl.add_argument("--remote", default=None,
+                       help="existing daemon address (default: boot one "
+                            "in-process for the bench)")
+    _add_cluster_args(p_rpl)
+    p_rpl.add_argument("--profile-dir", required=True)
+    _add_model_args(p_rpl)
+    _add_search_args(p_rpl)
+    _add_inference_args(p_rpl)
+    g_rpl = p_rpl.add_argument_group("replay")
+    g_rpl.add_argument("--base-rps", type=float, required=True,
+                       help="trough arrival rate, requests/s")
+    g_rpl.add_argument("--peak-rps", type=float, required=True,
+                       help="peak arrival rate, requests/s")
+    g_rpl.add_argument("--ticks-per-cycle", type=int, default=24,
+                       help="ticks per diurnal cycle (default hourly)")
+    g_rpl.add_argument("--cycles", type=int, default=1)
+    g_rpl.add_argument("--tick-seconds", type=float, default=3600.0,
+                       help="simulated seconds per tick (no wall sleeps)")
+    g_rpl.add_argument("--min-nodes", type=int, default=2,
+                       help="scale-down floor, nodes")
+    g_rpl.add_argument("--policy", choices=("hysteresis", "predictive"),
+                       default="hysteresis",
+                       help="elastic policy: reactive hysteresis (scale "
+                            "after a tick shows stress) or predictive "
+                            "(forecast the arrival trend and scale BEFORE "
+                            "the rate crosses the feasible ceiling)")
+
     p_plan = sub.add_parser(
-        "plan", help="plan query in-process (--hostfile/--clusterfile/"
-                     "--profile-dir); --workload inference ranks prefill/"
-                     "decode-disaggregated serving plans by throughput "
-                     "under p99 TTFT/TPOT SLOs")
+        "plan", help="plan query: against a running daemon (--remote) or "
+                     "in-process (--hostfile/--clusterfile/--profile-dir); "
+                     "--workload inference ranks prefill/decode-"
+                     "disaggregated serving plans by throughput under p99 "
+                     "TTFT/TPOT SLOs (output byte-identical either way)")
     p_plan.add_argument("--remote", default=None,
-                        help="plan daemon address (comes with ROADMAP "
-                             "§A.9; exits 2)")
+                        help="daemon address: http://HOST:PORT or "
+                             "unix:/path/to.sock (omit to search "
+                             "in-process)")
     p_plan.add_argument("--hostfile", default=None,
                         help="MPI-style hostfile (in-process path)")
     p_plan.add_argument("--clusterfile", default=None,
@@ -1947,7 +2307,7 @@ def _parser() -> argparse.ArgumentParser:
                       "report what it survived")
     p_chaos.add_argument("--fleet", action="store_true",
                          help="the fleet-scale availability drill (comes "
-                              "with ROADMAP §A.9; exits 2)")
+                              "with ROADMAP §A.9 (e); exits 2)")
     _add_cluster_args(p_chaos)
     p_chaos.add_argument("--profile-dir", required=True)
     _add_model_args(p_chaos)
@@ -2024,8 +2384,9 @@ def _parser() -> argparse.ArgumentParser:
     p_why.add_argument("--decisions", default=None, metavar="FILE",
                        help="decision JSONL (obs/provenance.DecisionLog)")
     p_why.add_argument("--remote", default=None,
-                       help="a plan daemon's decisions (comes with ROADMAP "
-                            "§A.9 (c); exits 2)")
+                       help="fetch decisions from a running daemon "
+                            "(http://HOST:PORT or unix:/path) instead "
+                            "of a file")
     p_why.add_argument("--json", action="store_true", dest="as_json",
                        help="emit the chain + per-hop diffs as JSON")
     p_why.add_argument("--output", default="-",
@@ -2040,8 +2401,8 @@ def _parser() -> argparse.ArgumentParser:
     p_diff.add_argument("--decisions", default=None, metavar="FILE",
                         help="decision JSONL to resolve fingerprints from")
     p_diff.add_argument("--remote", default=None,
-                        help="a plan daemon's decisions (comes with ROADMAP "
-                             "§A.9 (c); exits 2)")
+                        help="resolve fingerprints from a running "
+                             "daemon's decision log")
     p_diff.add_argument("--plans", action="append", default=[],
                         metavar="FILE",
                         help="plan-dump JSON (hetero output) to resolve "
@@ -2059,12 +2420,13 @@ def main(argv: list[str] | None = None) -> int:
         argv = sys.argv[1:]
     if argv[:1] == ["chaos"] and "--fleet" in argv:
         print("chaos --fleet (the fleet drill over the sched/ package, "
-              "tools/fleet_drill.py) comes with ROADMAP §A.9; this slice of "
-              "the port does not run it", file=sys.stderr)
+              "tools/fleet_drill.py) comes with ROADMAP §A.9 (e); the port "
+              "does not run it yet", file=sys.stderr)
         return 2
     args = _parser().parse_args(argv)
     reader = {"report": _cmd_report, "accuracy": _cmd_accuracy,
-              "why": _cmd_why, "diff": _cmd_diff}.get(args.command)
+              "why": _cmd_why, "diff": _cmd_diff, "serve": _cmd_serve,
+              "top": _cmd_top, "replay": _cmd_replay}.get(args.command)
     if reader is not None:
         return reader(args)
     if args.command == "profile":

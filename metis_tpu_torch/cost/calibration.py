@@ -20,7 +20,9 @@ group calls ``microbenchmark_collectives``, ``measure_dp_overlap`` or
 collectives and executors on it, and returns rank 0's result.
 ``microbenchmark_chip`` times one device alone.  On gloo ranks sharing one
 card the collectives cross through the host, so their fits describe that
-transport, not the card's links.
+transport, not the card's links.  The measurements import torch when they
+run: the planner imports this module, and a process that only plans (the
+plan daemon, its search workers) starts without torch.
 """
 from __future__ import annotations
 
@@ -33,10 +35,6 @@ from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Callable, Sequence
 
-import torch
-import torch.distributed as dist
-
-from metis_tpu_torch.core.device import resolve_device
 
 COLLECTIVES = ("all_reduce", "all_gather", "reduce_scatter", "all_to_all",
                "ppermute")
@@ -194,18 +192,24 @@ def fit_samples(samples: Sequence[CollectiveSample]) -> dict[str, LinearFit]:
 
 def _device_names(device: torch.device) -> tuple[str, str]:
     """(platform, device_kind): the torch device type and the device's name."""
+    import torch
+
     kind = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else device.type)
     return device.type, kind
 
 
 def _fence(device: torch.device) -> None:
+    import torch
+
     if device.type == "cuda":
         torch.cuda.synchronize(device)
 
 
 def _rank0(value):
     """Rank 0's ``value`` on every rank of the process group."""
+    import torch.distributed as dist
+
     box = [value]
     dist.broadcast_object_list(box, src=0)
     return box[0]
@@ -224,6 +228,8 @@ def _collective_fns(group, n: int) -> dict:
     - ppermute: the block one neighbor sends (a one-step ring of
       send/recv).
     """
+    import torch.distributed as dist
+
     from metis_tpu_torch.models import parallel
 
     def all_reduce(x):
@@ -255,6 +261,11 @@ def microbenchmark_collectives(
     rank 0's calibration.  ``payload_kb`` are *local* buffer sizes; logical
     payloads are derived per collective (see ``_collective_fns``).  Each
     timing is ``iters`` back-to-back calls between two device fences."""
+    import torch
+    import torch.distributed as dist
+
+    from metis_tpu_torch.core.device import resolve_device
+
     dev = resolve_device(device if device is not None else "cuda")
     group = dist.group.WORLD
     n = dist.get_world_size(group)
@@ -454,6 +465,11 @@ def measure_dp_overlap(
     The fraction feeds ``EstimatorOptions.dp_overlap_fraction`` (native cost
     mode only; strict_compat stays serial like the reference).  Every rank
     returns rank 0's measurement."""
+    import torch
+    import torch.distributed as dist
+
+    from metis_tpu_torch.core.device import resolve_device
+
     dev = resolve_device(device if device is not None else "cuda")
     group = dist.group.WORLD
     n = dist.get_world_size(group)
@@ -561,6 +577,10 @@ def measure_pipeline_overlap(
     measurement.  ``losses``, when given, receives each mode's step losses
     (``"lockstep"``, ``"overlapped"``): both modes take the same steps from
     the same initial state.  Every rank returns rank 0's measurement."""
+    import torch
+    import torch.distributed as dist
+
+    from metis_tpu_torch.core.device import resolve_device
     from metis_tpu_torch.core.events import NULL_LOG
     from metis_tpu_torch.execution.mesh import DP, PP, TP, _grid
     from metis_tpu_torch.execution.pipeline import (
@@ -682,6 +702,8 @@ def measure_rank(rank: int, device: torch.device, name: str, kwargs: dict) -> di
 def matmul_chain(n: int, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``n`` dependent products: each feeds ``x @ b``, scaled by ``1/k``
     back to ~1, into the next (``microbenchmark_chip``'s compute chain)."""
+    import torch
+
     k = b.shape[0]
     x = a
     for _ in range(n):
@@ -705,6 +727,9 @@ def microbenchmark_chip(device: str | torch.device | None = None,
     chains are timed with the two-point fence (``core/timing.py``), which
     cancels the fixed launch and fence overhead.  Returns a plain dict
     artifact (written next to the collective calibration)."""
+    import torch
+
+    from metis_tpu_torch.core.device import resolve_device
     from metis_tpu_torch.core.timing import two_point_queue_ms
 
     dev = resolve_device(device if device is not None else "cuda")

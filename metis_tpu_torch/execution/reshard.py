@@ -39,7 +39,8 @@ included), pipeline to pipeline at the same block layout, never hetero.
 The analytic half (``stage_layout``, ``layout_moved_bytes``,
 ``price_migration_ms``) prices a prospective switch from plan artifacts
 alone, with the moved-bytes rule ``cost/estimator.py`` charges as its
-``migration`` term (``SearchConfig.migrate_from``).
+``migration`` term (``SearchConfig.migrate_from``); the last two live in
+``cost/migration.py``, which imports no torch.
 """
 from __future__ import annotations
 
@@ -51,6 +52,10 @@ import torch
 import torch.distributed as dist
 
 from metis_tpu_torch.core.errors import MigrationError
+from metis_tpu_torch.cost.migration import (  # noqa: F401 (the reference's names)
+    layout_moved_bytes,
+    price_migration_ms,
+)
 from metis_tpu_torch.core.events import NULL_LOG, EventLog
 from metis_tpu_torch.execution.checkpoint import (
     MOMENTS,
@@ -107,36 +112,6 @@ def stage_layout(artifact: PlanArtifact,
         bounds = tuple(acc)
     return tuple((int(s["tp"]), int(bounds[i]), int(bounds[i + 1]))
                  for i, s in enumerate(strategies))
-
-
-def layout_moved_bytes(old_layout: tuple, new_layout: tuple,
-                       volume) -> float:
-    """Parameter bytes a switch from ``old_layout`` to ``new_layout`` must
-    move: every layer the new layout does NOT already hold at the same tp
-    under some old stage transfers its (new-tp-sharded) parameter bytes.
-    The identical rule ``cost/estimator._migration_ms`` amortizes — kept
-    in lockstep so the priced term and the live transfer agree."""
-    old_tp: dict[int, int] = {}
-    for tp, start, end in old_layout:
-        for layer in range(start, end):
-            old_tp[layer] = tp
-    moved = 0.0
-    for tp, start, end in new_layout:
-        per = volume.parameter_bytes_per_layer(tp)
-        for layer in range(start, end):
-            if old_tp.get(layer) != tp:
-                moved += per[layer]
-    return moved
-
-
-def price_migration_ms(old_layout: tuple, new_layout: tuple, volume,
-                       bw_gbps: float = 100.0) -> float:
-    """One-time live-transfer cost of the switch, in ms (decimal GB/s —
-    the native bandwidth convention).  This is the UN-amortized figure the
-    supervisor compares against the measured checkpoint-restore time; the
-    cost model divides the same bytes by ``migration_amortize_steps`` to
-    make it a per-step term."""
-    return layout_moved_bytes(old_layout, new_layout, volume) / (bw_gbps * 1e6)
 
 
 def device_sets_intersect(old_cluster, new_cluster) -> bool:

@@ -5,9 +5,9 @@ models the traffic (arrival rate, prompt/output lengths, SLOs) and derives
 prefill/decode phase timings from the same per-layer profiles the training
 planner runs on (a measured decode table where the profile has one);
 :mod:`planner` searches disaggregated prefill/decode pool splits and ranks
-them by sustainable throughput under p99 TTFT/TPOT SLOs.  The traffic
-replay against the plan daemon (the reference's ``replay``) is not ported
-yet.
+them by sustainable throughput under p99 TTFT/TPOT SLOs; :mod:`replay`
+sweeps a diurnal arrival-rate curve against the plan daemon and drives
+elastic scale-up/down through ``POST /cluster_delta``.
 """
 from metis_tpu_torch.inference.workload import InferenceWorkload, workload_from_dict
 from metis_tpu_torch.inference.planner import (
@@ -17,6 +17,7 @@ from metis_tpu_torch.inference.planner import (
     dump_inference_plans,
     plan_inference,
 )
+from metis_tpu_torch.inference.replay import diurnal_rate, replay_traffic
 
 __all__ = [
     "InferenceWorkload",
@@ -26,4 +27,6 @@ __all__ = [
     "RankedInferencePlan",
     "dump_inference_plans",
     "plan_inference",
+    "diurnal_rate",
+    "replay_traffic",
 ]

@@ -1,6 +1,7 @@
 """Observability of the port: plan fingerprints, the accuracy ledger
-(``metis_tpu/obs/ledger.py``) and the decision log
-(``metis_tpu/obs/provenance.py``)."""
+(``metis_tpu/obs/ledger.py``), the decision log
+(``metis_tpu/obs/provenance.py``) and the metrics plane
+(``metis_tpu/obs/metrics.py``)."""
 from metis_tpu_torch.obs.ledger import (
     AccuracyLedger,
     AccuracyMonitor,
@@ -13,6 +14,7 @@ from metis_tpu_torch.obs.ledger import (
     fingerprint_uniform_plan,
     plan_fingerprint,
 )
+from metis_tpu_torch.obs.metrics import NULL_METRICS, MetricsRegistry
 from metis_tpu_torch.obs.provenance import (
     DecisionLog,
     DecisionRecord,
@@ -30,6 +32,8 @@ __all__ = [
     "DriftDetector",
     "DriftStatus",
     "LedgerSummary",
+    "MetricsRegistry",
+    "NULL_METRICS",
     "PlanDiff",
     "causal_chain",
     "diff_plans",

@@ -92,8 +92,10 @@ def test_dp_overlap_noise_cap(monkeypatch):
     step with the reduction ran faster than the one without it."""
     times = iter([(5.0, 2.0), (6.0, 2.0), (10.0, 0.1)])
     monkeypatch.setattr(tcal, "_timed", lambda *a, **k: next(times))
-    monkeypatch.setattr(tcal.dist, "get_world_size", lambda group=None: 2)
-    monkeypatch.setattr(tcal.dist, "barrier", lambda group=None: None)
+    # the measurement imports torch.distributed when it runs
+    monkeypatch.setattr(torch.distributed, "get_world_size",
+                        lambda group=None: 2)
+    monkeypatch.setattr(torch.distributed, "barrier", lambda group=None: None)
     monkeypatch.setattr(tcal, "_rank0", lambda value: value)
     out = tcal.measure_dp_overlap("cpu", **DP_SHAPE)
     assert out["exposed_comm_ms"] == 0.0 and out["noise_limited"] is True

@@ -52,6 +52,55 @@ def test_every_module_imports_with_jax_blocked():
     assert "imported" in proc.stdout
 
 
+# the plan daemon's modules: host Python over the planner, each scanned
+# and imported with JAX blocked like every other module of the port
+DAEMON_MODULES = ("metis_tpu_torch.obs.metrics", "metis_tpu_torch.sched",
+                  "metis_tpu_torch.sched.fleet", "metis_tpu_torch.sched.tenant",
+                  "metis_tpu_torch.serve", "metis_tpu_torch.serve.cache",
+                  "metis_tpu_torch.serve.client", "metis_tpu_torch.serve.daemon",
+                  "metis_tpu_torch.serve.persist", "metis_tpu_torch.serve.pool",
+                  "metis_tpu_torch.serve.standby",
+                  "metis_tpu_torch.inference.replay")
+
+
+def test_the_daemon_modules_are_covered():
+    mods = set(_port_modules())
+    assert set(DAEMON_MODULES) <= mods
+    scanned = {str(p.relative_to(ROOT)) for p in PACKAGE.rglob("*.py")}
+    for mod in DAEMON_MODULES:
+        path = mod.replace(".", "/")
+        assert f"{path}.py" in scanned or f"{path}/__init__.py" in scanned
+
+
+def test_daemon_and_client_import_no_torch():
+    """The plan daemon runs on the host and holds no card: a client
+    (``plan --remote``, ``top``), the daemon with its search pool's worker
+    modules, the fleet scheduler, the replay bench and the migration
+    pricing a replan calls start without importing torch."""
+    blocked = ", ".join(repr(m) for m in FORBIDDEN)
+    code = (
+        "import sys\n"
+        f"for name in ({blocked},):\n"
+        "    sys.modules[name] = None\n"
+        "import metis_tpu_torch.serve.client, metis_tpu_torch.serve\n"
+        "from metis_tpu_torch import cli\n"
+        "assert 'torch' not in sys.modules, 'client imported torch'\n"
+        "from metis_tpu_torch.serve import PlanService\n"
+        "import metis_tpu_torch.serve.pool, metis_tpu_torch.serve.standby\n"
+        "import metis_tpu_torch.sched, metis_tpu_torch.inference.replay\n"
+        "import metis_tpu_torch.cost.migration\n"
+        "from metis_tpu_torch.cluster.spec import ClusterSpec\n"
+        "from metis_tpu_torch.profiles.store import ProfileStore\n"
+        "PlanService(ClusterSpec.of(('A100', 1, 1)), ProfileStore({}, None))\n"
+        "assert 'torch' not in sys.modules, 'the daemon imported torch'\n"
+        "print('ok')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
 def _imported_roots(path: pathlib.Path) -> set[str]:
     roots = set()
     for node in ast.walk(ast.parse(path.read_text())):

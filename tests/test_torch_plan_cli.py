@@ -3,7 +3,9 @@ package's CLI (``metis_tpu.planner.cli``): the same arguments on the parity
 fixtures of ``metis_tpu.testing`` print the same bytes — the serving
 search's dump (``--workload inference``, with and without measured decode
 tables and prefix sharing), the hetero search's, and both ``explain``
-tables, as text and as JSON.  ``plan --remote`` (the plan daemon) exits 2.
+tables, as text and as JSON.  ``plan --remote`` asks a running daemon: its
+stdout is the in-process ``plan``'s bytes, and against an unreachable
+address it fails as the reference CLI fails.
 """
 import contextlib
 import io
@@ -104,15 +106,62 @@ def test_explain_refuses_bad_ranks_as_the_reference(fixtures, extra):
     assert trc == jrc == 2 and terr == jerr
 
 
+def _raised(main, argv: list[str]) -> tuple[str, str, str, str]:
+    """(exception type, message, stdout, stderr) of a CLI call that
+    raises — how both CLIs end on an unreachable daemon (rc 1 and the
+    traceback's last line as a process)."""
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err), \
+            pytest.raises(Exception) as e:
+        main(argv)
+    return (type(e.value).__name__, str(e.value), out.getvalue(),
+            err.getvalue())
+
+
 def test_plan_needs_its_inputs_or_a_daemon(fixtures):
     bare = ["plan", "--model-size", "1.5B", "--gbs", "8"]
     jrc, _, jerr = _run(jcli.main, bare)
     trc, _, terr = _run(tcli.main, bare)
     assert trc == jrc == 2 and terr == jerr
-    # the daemon comes with a later slice: the flag parses and exits 2
-    trc, tout, terr = _run(tcli.main, _args(fixtures / "parity", "plan")
-                           + ["--remote", "unix:/nonexistent.sock"])
-    assert trc == 2 and tout == "" and "§A.9" in terr
+    # an unreachable daemon: the reference CLI's error, nothing printed
+    argv = (_args(fixtures / "parity", "plan")
+            + ["--remote", "unix:/nonexistent.sock"])
+    got, want = _raised(tcli.main, argv), _raised(jcli.main, argv)
+    assert got == want
+    assert got[0] == "ServeClientError" and got[2:] == ("", "")
+
+
+def test_plan_remote_against_a_live_daemon(fixtures):
+    """``plan --remote`` of the port, and of the reference CLI, against a
+    port daemon on the parity files: the in-process ``plan``'s stdout
+    bytes, a cold search then a cache hit (training and serving
+    queries)."""
+    from metis_tpu_torch.cluster.spec import ClusterSpec
+    from metis_tpu_torch.profiles.store import ProfileStore
+    from metis_tpu_torch.serve.daemon import PlanService, serve_in_thread
+
+    root = fixtures / "parity"
+    service = PlanService(
+        ClusterSpec.from_files(root / "hostfile", root / "clusterfile.json"),
+        ProfileStore.from_dir(root / "profiles"))
+    server, thread, address = serve_in_thread(service)
+    try:
+        for extra in ([], _workload_flags(PARITY_INFERENCE)):
+            argv = _args(root, "plan") + extra
+            _, local, _ = _run(tcli.main, argv)
+            remote = argv + ["--remote", address]
+            trc, tout, terr = _run(tcli.main, remote)
+            jrc, jout, jerr = _run(jcli.main, remote)
+            assert trc == jrc == 0
+            assert tout == jout == local and len(local) > 100
+            assert terr.startswith("cold search fingerprint=")
+            assert jerr.startswith("cache hit fingerprint=")
+            assert terr.split(" costed")[0].split("=")[1] == \
+                jerr.split(" costed")[0].split("=")[1]
+    finally:
+        server.shutdown()
+        thread.join(10)
+        server.server_close()
 
 
 def test_bad_workload_exits_with_the_reference_message(fixtures):

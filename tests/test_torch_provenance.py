@@ -3,7 +3,7 @@
 (``metis_tpu/obs/provenance.py``, ``metis_tpu/planner/cli.py``).
 
 The reference's ``tests/test_provenance.py`` unit cases run on the port
-(all but the fleet drill, whose ``sched/`` package is not ported), and the
+(all but the fleet drill, ROADMAP §A.9 (e), not ported yet), and the
 two packages are held to each other four ways: a log written by either
 reads back in the other to equal records; the reference's
 ``tools/check_decisions_schema.py`` passes the port's logs;
@@ -12,8 +12,9 @@ fixture record what the reference records, every field but the time; and
 the supervisor's recoveries, on four gloo ranks, record the reference
 supervisor's chains in the scenarios of
 ``tests/torch_supervisor_reference.py``.  ``why`` and ``diff`` print the
-reference CLI's bytes and exit codes on the same files; ``--remote`` (the
-daemon, not ported) exits 2."""
+reference CLI's bytes and exit codes on the same files, and with
+``--remote`` on a live daemon's decision log (an unreachable daemon fails
+them as it fails the reference CLI)."""
 import dataclasses
 import json
 import sys
@@ -668,7 +669,61 @@ def test_diff_without_plans_or_bad_dump(tmp_path, capsys):
 @pytest.mark.parametrize("argv", [["why", "fpA"], ["diff", "fpA", "fpB"]],
                          ids=["why", "diff"])
 def test_remote_exits_2_naming_the_item(decisions_file, capsys, argv):
-    rc = port_main([*argv, "--remote", "unix:/nonexistent.sock",
-                    "--decisions", str(decisions_file)])
-    assert rc == 2
-    assert "§A.9 (c)" in capsys.readouterr().err
+    """``--remote`` wins over ``--decisions``; an unreachable daemon fails
+    both CLIs with the same error and prints nothing."""
+    argv = [*argv, "--remote", "unix:/nonexistent.sock",
+            "--decisions", str(decisions_file)]
+    got = []
+    for main in (ref_main, port_main):
+        capsys.readouterr()
+        with pytest.raises(Exception) as e:
+            main(list(argv))
+        got.append((type(e.value).__name__, str(e.value),
+                    capsys.readouterr()))
+    assert got[1][:2] == got[0][:2]
+    assert got[1][0] == "ServeClientError"
+    assert got[0][2] == got[1][2] == ("", "")
+
+
+def test_why_and_diff_remote_on_a_live_daemon(parity, tmp_path, capsys):
+    """A port daemon with a decision log on disk: a cold search, then a
+    cluster delta whose replan records a ``delta_replan``.  ``why`` and
+    ``diff`` with ``--remote`` print, in both CLIs, the bytes the port's
+    in-process ``why`` / ``diff`` print on the daemon's log file."""
+    from metis_tpu_torch.serve.daemon import PlanService, serve_in_thread
+
+    cluster, store, model, config = _inputs(PORT, parity)
+    path = tmp_path / "daemon_decisions.jsonl"
+    service = PlanService(cluster, store, decisions=DecisionLog(path))
+    server, thread, address = serve_in_thread(service)
+    try:
+        first = service.plan_query(model, config, top_k=3)
+        seq = service.apply_cluster_delta(removed={"A100": 4},
+                                          replan=True)["seq"]
+        for _ in range(30):
+            if any(n["kind"] == "replan_push" for n in
+                   service.notifications(since=seq, timeout_s=2.0)):
+                break
+        second = [r for r in service.decisions.records()
+                  if r.kind == "delta_replan"][-1]
+        cases = [["why", second.plan_fingerprint, "--json"],
+                 ["why", second.plan_fingerprint],
+                 ["diff", first["plan_fingerprint"], second.plan_fingerprint],
+                 ["diff", first["plan_fingerprint"], second.plan_fingerprint,
+                  "--json"]]
+        for argv in cases:
+            capsys.readouterr()
+            assert port_main([*argv, "--decisions", str(path)]) == 0
+            local = capsys.readouterr().out
+            for main in (port_main, ref_main):
+                assert main([*argv, "--remote", address]) == 0
+                assert capsys.readouterr().out == local
+            if argv[0] == "diff" and argv[-1] == "--json":
+                payload = json.loads(local)
+                total = payload["total_delta_ms"]
+                assert sum(payload["component_deltas"].values()) == \
+                    pytest.approx(total, rel=1e-9)
+    finally:
+        server.shutdown()
+        thread.join(10)
+        server.server_close()
