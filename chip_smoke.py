@@ -6,7 +6,8 @@ its plain version.
 Phases, in order (any failure exits non-zero):
 
 1. the card's name and power limit (``nvidia-smi``) and the CUDA version;
-2. build the hand-written kernels from ``metis_tpu_torch/ops/csrc``;
+2. build the hand-written kernels from ``metis_tpu_torch/ops/csrc``, and
+   the planner's native min-max DP (``metis_tpu_torch/native``, g++);
 3. kernels: each of B1 (forward), B2 (dQ) and B3 (dK/dV) against its plain
    PyTorch version at the main-path shape and at GQA, ragged-length (across
    the 128-row tile edges too), non-causal and stats-mode shapes, in bf16;
@@ -104,28 +105,30 @@ Phases, in order (any failure exits non-zero):
    norms within ``GRAD_NORM_TOL``), each rank's peak beside the planner's
    ZeRO relief (``cost/zero.py``);
 12. stage_axes: multi-stage plans whose stages carry ZeRO, context or
-   expert parallelism on the hetero route, at full width on gloo ranks
-   sharing the card (one job per rank count, several plans each), 3 steps
-   each against the one-stage executor at the same depth, run first in
-   this process and freed: (a) the GPT at ``GPT_STAGE_BLOCKS`` (1) block
+   expert parallelism on the hetero route, on gloo ranks sharing the card
+   (one job per rank count, several plans each), 3 steps each against the
+   one-stage executor at the same depth and width, run first in this
+   process and freed: (a) the GPT at ``GPT_STAGE_BLOCKS`` (1) block
    of ``QUARTER_WIDTH``, two stages of dp 2 (stage 0 the embedding and the block, stage 1 the
    head), gbs 4 in one microbatch, at ZeRO 0-3 on both; (b) the 8192-token
-   LLaMA at ``STAGE_BLOCKS`` (2) blocks, a cp 2 ring stage feeding a cp 2
-   Ulysses stage, then a cp 1 stage; (c) the MoE at ``MOE_STAGE_BLOCKS``
-   (1) in ``MOE_STAGE_GROUP``
+   LLaMA at ``STAGE_BLOCKS`` (2) blocks of ``STAGE_LLAMA_WIDTH`` (a quarter
+   of the width, 8 query heads over 2 KV heads), a cp 2 ring stage feeding
+   a cp 2 Ulysses stage, then a cp 1 stage; (c) the MoE at full width and
+   ``MOE_STAGE_BLOCKS`` (1) in ``MOE_STAGE_GROUP``
    routing groups, stage 0 the embedding and the block at dp 2 x ep 2 over
    rows (3, 1) (padded, masked), stage 1 the head at dp 1, with the
    first-block routing decisions of that layout that differ from the
    one-stage run's, in those groups and in the preset's; (d) the best-ranked plan of two stages or more with
    zero or cp of the ``hetero --enable-cp --max-cp 2 --enable-zero`` search
-   on 1 x 4 H100 from the context phase's profile, built from the ranking
+   on 1 x 4 H100 from a profile of (b)'s LLaMA, built from the ranking
    (``PlanArtifact.from_ranked_plan``) and measured by
    ``validate_hetero_choice`` (not gated: the ranks share the card).
    Losses within ``PIPE_TOL``, first-step gradient norms within
    ``GRAD_NORM_TOL``, each rank's launches per step as its stage's blocks
    imply (``stage_launches``), each rank's peak beside the planner's stage
    demand.  Its grids are among ``PATH_CASES`` ((a) runs ``NARROW``, a
-   replica of (c)'s stage 0 3 rows, ``ROWS3``).
+   replica of (c)'s stage 0 3 rows, ``ROWS3``, (b) and (d)
+   ``STAGE_LLAMA_CASES``).
 13. train (``train_phase``): (a) ``python -m metis_tpu_torch train
    --device cuda`` on a one-card hostfile, the 1.5B preset at
    ``TRAIN_BLOCKS`` (1) block and ``TRAIN_C_WIDTH`` (a quarter of its
@@ -221,11 +224,25 @@ Phases, in order (any failure exits non-zero):
    decision log's, ``top`` and the metric catalog, ``replay --remote``
    equal to the in-process ``replay``, ``kill -9`` and a restore of the
    state dir, and a standby's promotion.
+20. fleet (``fleet_phase``): the last modules of the port, on the host but
+   for (d): (a) the parity, decode-parity and spot-parity fixtures written
+   by the port's writers (``metis_tpu_torch/fixtures.py``), ``hetero`` and
+   ``uniform`` of the CLI on each, timed with the native min-max DP
+   (``metis_tpu_torch/native``, built at first use with ``g++``) and with
+   the numpy DP, the rankings byte-equal; (b) the fleet drill at its
+   defaults (256 devices, 24 ticks, seed 0) and (c) the tenant drill at
+   its defaults (3 tenants, 32 devices, 8 ticks), gated on the
+   reference's counts; (d) the supervisor spot leg on ``FLEET_WORLD``
+   gloo ranks sharing the card (``spot_preemption@3:A100=4,
+   spot_return@5``), gated on the reference's recovery order and outcome.
+   Its model trains dense attention: no kernel.
 
 Ranks run in pools (``execution.dist.RankPool``, ``on_ranks``): one per
 world size and backend, all started at the dist phase (their ranks boot
 while its first legs run) and each stopped after the last phase that uses
-it; the ``timing`` line counts the launches and each phase's seconds.
+it (the fleet phase's pool of ``FLEET_WORLD`` ranks is its own, started
+at that phase); the ``timing`` line counts the launches and each phase's
+seconds.
 
 The kernel phase also holds and times the pipeline's microbatch shape (b 1,
 ``MICRO``), the LLaMA grid (``LLAMA``; SDPA with ``enable_gqa``) and the
@@ -362,6 +379,15 @@ RING_PAST = dict(RING_SELF, name="ring_past", causal=False)
 LONG = dict(name="long", b=1, hq=32, hkv=8, s=8192, d=128, causal=True)
 ULYSSES = dict(name="ulysses", b=1, hq=16, hkv=16, s=8192, d=128, causal=True)
 CONTEXT_CASES = (RING_SELF, RING_PAST, LONG, ULYSSES)
+# the stage_axes phase's LLaMA at 8192 tokens (``STAGE_LLAMA_WIDTH``: 8 query
+# heads over 2 KV heads): a cp 2 ring rank's self and past blocks, one
+# device's whole sequence (the one-stage reference, a cp 1 stage), a
+# Ulysses rank's half of the heads, K/V expanded to them
+NARROW_RING_SELF = dict(RING_SELF, name="narrow_ring_self", hq=8, hkv=2)
+NARROW_RING_PAST = dict(NARROW_RING_SELF, name="narrow_ring_past", causal=False)
+NARROW_LONG = dict(LONG, name="narrow_long", hq=8, hkv=2)
+NARROW_ULYSSES = dict(ULYSSES, name="narrow_ulysses", hq=4, hkv=4)
+STAGE_LLAMA_CASES = (NARROW_RING_SELF, NARROW_RING_PAST, NARROW_LONG, NARROW_ULYSSES)
 # the grids of the narrow GPT and MoE (``QUARTER_WIDTH``: 8 heads of 128):
 # the train phase's MoE's cp 2 ring ranks (b 4, each rank a 512-token block:
 # its self block and its past one, stats mode), 2 rows per dp rank or
@@ -377,8 +403,8 @@ NARROW = dict(name="narrow", b=2, hq=8, hkv=8, s=1024, d=128, causal=True)
 NARROW_ONE = dict(NARROW, name="narrow_one", b=4)
 NARROW_TP2 = dict(NARROW, name="narrow_tp2", b=4, hq=4, hkv=4)
 PATH_CASES = (MAIN, TP2, MICRO, ROWS3, MBS2, LLAMA, LLAMA_TP2, LLAMA_MB2,
-              *CONTEXT_CASES, TRAIN_RING_SELF, TRAIN_RING_PAST, NARROW,
-              NARROW_ONE, NARROW_TP2)
+              *CONTEXT_CASES, *STAGE_LLAMA_CASES, TRAIN_RING_SELF, TRAIN_RING_PAST,
+              NARROW, NARROW_ONE, NARROW_TP2)
 TIMED_CASES = (MAIN, MICRO, LLAMA, *CONTEXT_CASES)
 KERNEL_CASES = [
     *PATH_CASES,
@@ -2164,6 +2190,16 @@ MOE_STAGE_BLOCKS = 1
 # host), stage 0 the embedding and the block, stage 1 the head (as the
 # MoE's leg (c)): every stage still carries ZeRO 0-3 over dp 2
 GPT_STAGE_BLOCKS = 1
+# legs (b) and (d)'s LLaMA: ``QUARTER_WIDTH`` with 2 KV heads (the preset's 4
+# query heads per KV head) at 8192 tokens.  At full width a cp 2 stage's
+# gradient reduction moves ~1.5 GB through the host per step, ~3 s on gloo
+# ranks sharing the card, and those legs and (d)'s validation set the
+# four-rank job's time; the ring, Ulysses, ZeRO and the planner's plan
+# hold at any width
+STAGE_LLAMA_WIDTH = dict(QUARTER_WIDTH, num_kv_heads=2)
+STAGE_LLAMA_CLI = [*CONTEXT_CLI, "--hidden-size", str(QUARTER_WIDTH["hidden_size"]),
+                   "--num-heads", str(QUARTER_WIDTH["num_heads"]), "--num-kv-heads",
+                   str(STAGE_LLAMA_WIDTH["num_kv_heads"])]
 # the MoE leg's routing groups: one row.  In the preset's groups (the
 # largest divisor of the tokens <= 4096) the (3, 1) stage pads to 3 + 3 rows
 # and routes in groups of 3072 tokens where the one-stage run routes one of
@@ -2251,18 +2287,20 @@ def fitted_mem_coef(profile_dir, layers, bs: int, peak_bytes: int) -> float:
 
 def stage_axes_phase(work: pathlib.Path, results: dict) -> tuple[dict, dict]:
     """Multi-stage plans whose stages carry ZeRO, context or expert
-    parallelism on the hetero route, at full width on gloo ranks sharing
-    the card, 3 steps each against the one-stage executor at the same
-    depth (run first in this process and freed): (a) the GPT at 1 block
+    parallelism on the hetero route, on gloo ranks sharing the card, 3
+    steps each against the one-stage executor at the same depth and width
+    (run first in this process and freed): (a) the GPT at 1 block
     of a quarter of the width, stage 0 (the embedding and the block) and stage 1 (the head) at dp 2,
     gbs 4 in one microbatch, at ZeRO 0, 1, 2 and 3 on both; (b) the
-    8192-token LLaMA at 2 blocks, stage 0 cp 2 ring against stage 1 cp 2
-    Ulysses, then against stage 1 cp 1; (c) the MoE at 1 block, stage 0
+    8192-token LLaMA at 2 blocks of ``STAGE_LLAMA_WIDTH`` (a quarter of
+    the width, 8 query heads over 2 KV heads), stage 0 cp 2 ring against
+    stage 1 cp 2 Ulysses, then against stage 1 cp 1; (c) the MoE at 1
+    block of full width, stage 0
     (the embedding and the block) at dp 2 x ep 2 over rows (3, 1), stage 1
     (the head) at dp 1, with the first-block routing decisions that differ
     from the one-stage layout; (d) the best-ranked plan of two stages or
     more with zero or cp of ``hetero --enable-cp --max-cp 2 --enable-zero``
-    on 1 x 4 H100 from the context phase's profile, through
+    on 1 x 4 H100 from a profile of (b)'s LLaMA, through
     ``PlanArtifact.from_ranked_plan`` and ``build_executable``, and
     ``validate_hetero_choice`` of it (measured and predicted ms, not gated:
     the ranks share one card).  Losses within ``PIPE_TOL``, first-step
@@ -2278,14 +2316,14 @@ def stage_axes_phase(work: pathlib.Path, results: dict) -> tuple[dict, dict]:
     from metis_tpu_torch.execution.train import param_specs_for
     from metis_tpu_torch.models import config_for_model_spec
     from metis_tpu_torch.planner.api import plan_hetero
-    from metis_tpu_torch.profiles.profiler import profile_model
+    from metis_tpu_torch.profiles.profiler import ProfilerConfig, profile_model
     from metis_tpu_torch.profiles.store import ProfileStore
     from metis_tpu_torch.testing import moe_routing, run_plans_rank, stage_moe_routing
 
     L = STAGE_BLOCKS
     gpt_spec = dict(GPT_15B, num_layers=GPT_STAGE_BLOCKS + 2, **QUARTER_WIDTH)
     gpt = config_for_model_spec(ModelSpec(**gpt_spec))
-    llama_spec = dict(LLAMA_LONG, num_layers=L + 2)
+    llama_spec = dict(LLAMA_LONG, num_layers=L + 2, **STAGE_LLAMA_WIDTH)
     llama = config_for_model_spec(ModelSpec(**llama_spec))
     preset = dataclasses.replace(config_for_model_spec(ModelSpec(**MOE_15B)),
                                  num_blocks=MOE_STAGE_BLOCKS)
@@ -2335,9 +2373,12 @@ def stage_axes_phase(work: pathlib.Path, results: dict) -> tuple[dict, dict]:
                              f"launches {counts}")
     log(f"  references {time.perf_counter() - t0:.1f} s")
 
-    # (d) the planner's plan, on the context phase's profile at this depth
+    # (d) the planner's plan, on a profile of (b)'s LLaMA
     t0 = time.perf_counter()
-    prof_dir = work / "profiles_llama_8k"
+    prof_dir = work / "profiles_stage_llama"
+    profile_model(ModelSpec(**llama_spec), bss=(1, 2), device="cuda",
+                  config=ProfilerConfig(warmup=1, iters=2)).dump_to_dir(
+        prof_dir, {"model_name": llama_spec["name"], "attn": "flash"})
     store = ProfileStore.from_dir(prof_dir)
     device_type = store.device_types[0]
     mem_coef = fitted_mem_coef(prof_dir, range(L + 2), 1, refs["llama"]["peak_bytes"])
@@ -2347,7 +2388,7 @@ def stage_axes_phase(work: pathlib.Path, results: dict) -> tuple[dict, dict]:
     axes = ["--enable-cp", "--max-cp", "2", "--enable-zero"]
     if cli.main(["hetero", "--hostfile", hostfile, "--clusterfile", clusterfile,
                  "--profile-dir", str(prof_dir), "--model-name", llama_spec["name"],
-                 *CONTEXT_CLI, "--gbs", "1", "--max-tp", "1", "--max-bs", "2",
+                 *STAGE_LLAMA_CLI, "--gbs", "1", "--max-tp", "1", "--max-bs", "2",
                  "--mem-coef", str(mem_coef), *axes, "--output", str(path)]) != 0:
         raise SystemExit("the stage_axes hetero search failed")
     rows = json.loads(path.read_text())
@@ -4479,11 +4520,171 @@ def serve_phase(work: pathlib.Path, results: dict) -> tuple[dict, dict]:
     return out, launches
 
 
+# the fleet phase: the supervisor leg's cluster (``fleet_drill.drill_setup``:
+# 2 nodes x 4 A100), one gloo rank per device sharing the card, and the
+# drills' headline counts at their defaults, seed 0 (the reference's
+# ``tools/fleet_drill.py`` gives the same)
+FLEET_WORLD = 8
+FLEET_COUNTS = dict(preempted_nodes=2, returned_nodes=2, migrations=2,
+                    migration_fallbacks=1)
+FLEET_GOODPUT = "0.8698"
+TENANT_COUNTS = dict(preempted_nodes=4)
+TENANT_FRACS = dict(fleet_utilization_frac="1.0000", tenant_slo_attainment_min="1.0000")
+SPOT_RECOVERIES = ["spot_preemption", "spot_return"]
+
+
+def numpy_dp(fn):
+    """``fn()`` with the layer balancer on its numpy DP
+    (``balance.layers.minmax_partition``) in place of the native one."""
+    from unittest import mock
+
+    from metis_tpu_torch.balance import layers
+
+    with mock.patch.object(layers, "native_available", lambda: False):
+        return fn()
+
+
+def fleet_phase(work: pathlib.Path, results: dict) -> tuple[dict, dict]:
+    """The last modules (``fleet_phase``), on the host but for (d): (a) the
+    parity fixtures written by the port's writers (``fixtures.py``: parity,
+    decode-parity, spot-parity), ``hetero`` and ``uniform`` of the port's
+    CLI on each, timed with the native min-max DP (``native/``, built at
+    first use) and with the numpy DP (``numpy_dp``), the two rankings
+    byte-equal; (b) the fleet drill (``run_fleet_drill``) at its defaults,
+    256 devices, 24 ticks, seed 0, gated on the reference's counts; (c) the
+    tenant drill (``run_tenant_drill``) at its defaults, 3 tenants, 32
+    devices, 8 ticks, gated on the reference's counts; (d) the supervisor
+    spot leg (``run_supervisor_spot_drill``: ``spot_preemption@3:A100=4,
+    spot_return@5``, 8 steps) on ``FLEET_WORLD`` gloo ranks sharing the
+    card, booted while (a)-(c) run, gated on the reference's recovery
+    order and outcome.  The drills run their own asserts.  The drill's
+    model trains dense attention (its head dim of 16 is below the flash
+    kernels'), so no kernel launches here."""
+    from metis_tpu_torch import cli
+    from metis_tpu_torch.execution import dist as mdist
+    from metis_tpu_torch.fixtures import (
+        PARITY_GBS,
+        PARITY_MAX_BS,
+        PARITY_MAX_TP,
+        write_decode_parity_fixture,
+        write_parity_fixture,
+        write_spot_parity_fixture,
+    )
+    from metis_tpu_torch.native import library_path, native_available
+    from metis_tpu_torch.resilience.fleet_drill import (
+        run_fleet_drill,
+        run_supervisor_spot_drill,
+        run_tenant_drill,
+    )
+
+    t_phase = time.perf_counter()
+    out, seconds = {}, {}
+    pool = mdist.RankPool(FLEET_WORLD, "gloo", ["cuda:0"] * FLEET_WORLD)
+    try:
+        t0 = time.perf_counter()
+        if not native_available():
+            raise SystemExit("(a) the native min-max DP did not build (no g++?)")
+        out["a_native"] = dict(results.get("native", {}), library=library_path().name)
+        log(f"  (a) native DP {library_path().name} (built at the script's start: "
+            f"{out['a_native'].get('build_s', 0.0):.3f} s)")
+        def search_argv(command: str, fixture: pathlib.Path, path: pathlib.Path):
+            return [command, "--hostfile", str(fixture / "hostfile"),
+                    "--clusterfile", str(fixture / "clusterfile.json"),
+                    "--profile-dir", str(fixture / "profiles"), "--num-layers", "10",
+                    "--hidden-size", "4096", "--seq-len", "1024", "--vocab-size",
+                    "51200", "--num-heads", "32", "--gbs", str(PARITY_GBS),
+                    "--max-tp", str(PARITY_MAX_TP), "--max-bs", str(PARITY_MAX_BS),
+                    "--top-k", "10", "--output", str(path)]
+
+        # the first search in this process pays the planner's imports: an
+        # untimed one first, so that neither DP's time carries them
+        write_parity_fixture(work / "fixture_warm")
+        if cli.main(search_argv("hetero", work / "fixture_warm",
+                                work / "fixture_warm" / "hetero.json")) != 0:
+            raise SystemExit("(a) hetero on the parity fixture failed")
+        searches = {}
+        for name, writer in (("parity", write_parity_fixture),
+                             ("decode", write_decode_parity_fixture),
+                             ("spot", write_spot_parity_fixture)):
+            fixture = work / f"fixture_{name}"
+            writer(fixture)
+            for command in ("hetero", "uniform"):
+                secs, dumps = {}, {}
+                for dp, run in (("native", lambda fn: fn()), ("numpy", numpy_dp)):
+                    path = fixture / f"{command}_{dp}.json"
+                    argv = search_argv(command, fixture, path)
+                    t = time.perf_counter()
+                    if run(lambda: cli.main(argv)) != 0:
+                        raise SystemExit(f"(a) {command} on the {name} fixture failed")
+                    secs[dp] = time.perf_counter() - t
+                    dumps[dp] = path.read_bytes()
+                rows = json.loads(dumps["native"])
+                if dumps["native"] != dumps["numpy"] or not rows:
+                    raise SystemExit(f"(a) {command} on the {name} fixture: the "
+                                     "native DP's ranking differs from the numpy DP's")
+                searches[f"{name}_{command}"] = {
+                    "native_s": secs["native"], "numpy_s": secs["numpy"],
+                    "plans": len(rows), "best_cost_ms": rows[0]["cost_ms"]}
+                log(f"  (a) {command} on the {name} fixture: native DP "
+                    f"{secs['native']:.3f} s, numpy DP {secs['numpy']:.3f} s (host), "
+                    f"{len(rows)} plans, rankings byte-equal, best "
+                    f"{rows[0]['cost_ms']:.3f} ms")
+        out["a_searches"] = searches
+        seconds["a"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        rep = run_fleet_drill(work / "fleet")
+        got = {k: rep[k] for k in FLEET_COUNTS}
+        goodput = f"{rep['fleet_goodput_frac']:.4f}"
+        log(f"  (b) fleet drill, {rep['devices']} devices, {rep['ticks']} ticks, seed "
+            f"{rep['seed']}: {got}, goodput {goodput}, "
+            f"{rep['migration_stall_ms_total']} ms stalled, "
+            f"{rep['replan_pushes']} replan pushes, {rep['decision_records']} "
+            f"decision records")
+        if got != FLEET_COUNTS or goodput != FLEET_GOODPUT:
+            raise SystemExit(f"(b) fleet drill {got}, goodput {goodput}: expected "
+                             f"{FLEET_COUNTS}, goodput {FLEET_GOODPUT}")
+        out["b_fleet"] = {k: v for k, v in rep.items() if k != "trajectory"}
+        seconds["b"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        rep = run_tenant_drill(work / "tenants", tenants=3)
+        got = {k: rep[k] for k in TENANT_COUNTS}
+        fracs = {k: f"{rep[k]:.4f}" for k in TENANT_FRACS}
+        log(f"  (c) tenant drill, {len(rep['tenants'])} tenants, {rep['devices']} "
+            f"devices, {rep['ticks']} ticks: {got}, {fracs}, "
+            f"{rep['tenant_preempt_events']} tenant preemptions")
+        if got != TENANT_COUNTS or fracs != TENANT_FRACS:
+            raise SystemExit(f"(c) tenant drill {got}, {fracs}: expected "
+                             f"{TENANT_COUNTS}, {TENANT_FRACS}")
+        out["c_tenants"] = {k: v for k, v in rep.items() if k != "trajectory"}
+        seconds["c"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        rep = run_supervisor_spot_drill(work / "spot", pool=pool)
+        kinds = [r["kind"] for r in rep["recoveries"]]
+        log(f"  (d) supervisor spot leg on {FLEET_WORLD} gloo ranks sharing the card: "
+            f"{rep['outcome']}, {rep['steps_done']} steps, recoveries {kinds} "
+            f"(recover_s {[r['recover_s'] for r in rep['recoveries']]}), final loss "
+            f"{rep['final_loss']}; card memory in use {card_memory_used()}")
+        if (rep["outcome"] != "completed" or kinds != SPOT_RECOVERIES
+                or not math.isfinite(rep["final_loss"])):
+            raise SystemExit(f"(d) supervisor spot leg: {rep}")
+        out["d_supervisor"] = rep
+        seconds["d"] = time.perf_counter() - t0
+    finally:
+        pool.close()
+    out["legs_s"] = seconds
+    log(f"  legs (s): { {k: round(v, 2) for k, v in seconds.items()} }; the phase "
+        f"{time.perf_counter() - t_phase:.1f} s on {card_line()}")
+    return out, {}
+
+
 HIDDEN = ("launches", "profile_dir", "hostfile", "clusterfile", "tokens", "batches",
           "base", "ledger", "big_cluster", "big_rows")
 PHASES = ("slice", "planner", "dist", "pipeline", "llama", "moe", "context",
           "zero_sp", "stage_axes", "train", "reshard", "chaos", "multihost",
-          "calibration", "serving", "serve")
+          "calibration", "serving", "serve", "fleet")
 
 
 def main() -> int:
@@ -4504,10 +4705,22 @@ def main() -> int:
         f"(nvcc {built.seconds:.1f} s)")
     for line in ptxas_summary(built.ptxas_log):
         log(f"  ptxas: {line}")
+    # the planner's native min-max DP (host C++, built with g++ at first
+    # use): first used here, so that the planner phase's searches run on it
+    # and the fleet phase compares it with the numpy DP
+    from metis_tpu_torch import native
+
+    t0 = time.perf_counter()
+    if not native.native_available():
+        print("chip_smoke: the native min-max DP did not build (no g++ on PATH)",
+              file=sys.stderr)
+        return 2
+    native_s = time.perf_counter() - t0
+    log(f"native DP: {native.library_path().name} built and loaded in {native_s:.3f} s")
 
     log("kernels:")
     held, path_cases = kernel_phase()
-    results = {}
+    results = {"native": {"library": native.library_path().name, "build_s": native_s}}
     launches = {}
     seconds = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -4560,7 +4773,7 @@ def run_phases(work: pathlib.Path, results: dict, launches: dict,
             results[phase], more = zero_sp_phase(work)
             launches.update(more)
         elif phase in ("stage_axes", "train", "reshard", "chaos", "multihost",
-                       "calibration", "serving", "serve"):
+                       "calibration", "serving", "serve", "fleet"):
             results[phase], more = {"stage_axes": stage_axes_phase,
                                     "train": train_phase,
                                     "reshard": reshard_phase,
@@ -4568,7 +4781,8 @@ def run_phases(work: pathlib.Path, results: dict, launches: dict,
                                     "multihost": multihost_phase,
                                     "calibration": calibration_phase,
                                     "serving": serving_phase,
-                                    "serve": serve_phase}[phase](work, results)
+                                    "serve": serve_phase,
+                                    "fleet": fleet_phase}[phase](work, results)
             launches.update(more)
         else:
             results[phase], more = {"llama": llama_phase, "moe": moe_phase,

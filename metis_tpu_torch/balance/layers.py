@@ -42,6 +42,7 @@ from metis_tpu_torch.cost.expert_parallel import (
 )
 from metis_tpu_torch.cost.sequence_parallel import SequenceParallelModel
 from metis_tpu_torch.cost.zero import zero_static_reduction_mb
+from metis_tpu_torch.native import minmax_partition_native, native_available
 from metis_tpu_torch.search.intra_stage import PartitionResult
 
 
@@ -501,12 +502,15 @@ class LayerBalancer:
             return 0.001 + coef * (hi - lo)
 
         cap = np.asarray(memory_capacity, dtype=np.float64)
+        use_native = native_available()
 
-        # Pass 1: compute-optimal, ignore memory.  The port runs the numpy
-        # DP only; the reference's C++ DP (metis_tpu/native) gives the same
-        # boundaries.
-        unconstrained = minmax_partition(
-            self.layer_weights, compute_performance)
+        # Pass 1: compute-optimal, ignore memory.
+        if use_native:
+            unconstrained = minmax_partition_native(
+                self._wprefix, compute_performance)
+        else:
+            unconstrained = minmax_partition(
+                self.layer_weights, compute_performance)
         if unconstrained is None:
             return PartitionResult(None, -1, None)
         state = tuple((cap - stage_demands(np.asarray(unconstrained))).tolist())
@@ -515,12 +519,17 @@ class LayerBalancer:
 
         # Pass 2: memory-constrained DP (replaces the reference's iterative
         # capacity-reweighting repair, load_balancer.py:71-107).
-        # demand D[s, i, j] = 0.001 + coef * (prefix[s, j] - prefix[s, i])
-        demand_mat = 0.001 + coef * (
-            stage_prefix[:, None, :] - stage_prefix[:, :, None])
-        constrained = minmax_partition(
-            self.layer_weights, compute_performance,
-            demand_mat <= cap[:, None, None])
+        if use_native:
+            constrained = minmax_partition_native(
+                self._wprefix, compute_performance, stage_prefix, cap,
+                coef=coef)
+        else:
+            # demand D[s, i, j] = 0.001 + coef * (prefix[s, j] - prefix[s, i])
+            demand_mat = 0.001 + coef * (
+                stage_prefix[:, None, :] - stage_prefix[:, :, None])
+            constrained = minmax_partition(
+                self.layer_weights, compute_performance,
+                demand_mat <= cap[:, None, None])
         if constrained is None:
             return PartitionResult(None, -1, state)
         state = tuple((cap - stage_demands(np.asarray(constrained))).tolist())

@@ -62,7 +62,8 @@ reference's flags and output bytes:
 or ``unix:/path``) to ask a running daemon instead.  The searches, readers
 and the daemon run on the host and take no device.  The reference's
 ``--platform`` (a JAX backend pin) becomes ``--device``.  ``chaos
---fleet`` (the fleet drill) exits 2 naming its ROADMAP item.
+--fleet`` runs the fleet drill (``resilience/fleet_drill.py``) with its
+own arguments.
 
   python -m metis_tpu_torch uniform --hostfile hosts --clusterfile c.json \\
       --profile-dir profiles/ --model-size 1.5B --attn flash --gbs 4
@@ -2306,8 +2307,13 @@ def _parser() -> argparse.ArgumentParser:
                       "failures, device loss, NaN loss, preemption) and "
                       "report what it survived")
     p_chaos.add_argument("--fleet", action="store_true",
-                         help="the fleet-scale availability drill (comes "
-                              "with ROADMAP §A.9 (e); exits 2)")
+                         help="run the fleet-scale availability drill "
+                              "instead (resilience/fleet_drill.py): a "
+                              "simulated 256-device mixed v5e/v6e spot fleet "
+                              "under seeded Poisson preemptions/returns, "
+                              "replanning through the plan daemon; ignores "
+                              "the flags below — see `python -m "
+                              "metis_tpu_torch chaos --fleet --help`")
     _add_cluster_args(p_chaos)
     p_chaos.add_argument("--profile-dir", required=True)
     _add_model_args(p_chaos)
@@ -2419,10 +2425,12 @@ def main(argv: list[str] | None = None) -> int:
     if argv is None:
         argv = sys.argv[1:]
     if argv[:1] == ["chaos"] and "--fleet" in argv:
-        print("chaos --fleet (the fleet drill over the sched/ package, "
-              "tools/fleet_drill.py) comes with ROADMAP §A.9 (e); the port "
-              "does not run it yet", file=sys.stderr)
-        return 2
+        # fleet-scale availability drill: its own arg surface (no hostfile/
+        # profiles — the drill synthesizes the mixed v5e/v6e spot fleet and
+        # drives the plan daemon itself)
+        from metis_tpu_torch.resilience.fleet_drill import main as fleet_main
+
+        return fleet_main([a for a in argv[1:] if a != "--fleet"])
     args = _parser().parse_args(argv)
     reader = {"report": _cmd_report, "accuracy": _cmd_accuracy,
               "why": _cmd_why, "diff": _cmd_diff, "serve": _cmd_serve,

@@ -893,8 +893,10 @@ def supervised_rank(rank: int, device: torch.device, job: dict,
     ``install_signal_handler``.  Returns host data: ``report``
     (``SupervisorReport.to_json_dict``), ``losses``, ``fired`` (the
     injected faults), ``artifacts`` (the plans built), ``save_ms`` and
-    ``restore_ms``.  ``events``: rank 0's open log, in place of
-    ``job["events"]`` (a run on one device in the caller's process)."""
+    ``restore_ms``, and ``total_devices`` (the size of the cluster the run
+    ended on, grown back after a ``spot_return``).  ``events``: rank 0's
+    open log, in place of ``job["events"]`` (a run on one device in the
+    caller's process)."""
     import numpy as np
 
     from metis_tpu_torch.data.pipeline import TokenDataset
@@ -937,4 +939,5 @@ def supervised_rank(rank: int, device: torch.device, job: dict,
     return {"report": report.to_json_dict(), "losses": list(report.losses),
             "fired": list(faults.fired), "artifacts": supervisor.artifacts,
             "save_ms": supervisor.save_ms,
-            "restore_ms": supervisor.restore_ms}
+            "restore_ms": supervisor.restore_ms,
+            "total_devices": supervisor.cluster.total_devices}

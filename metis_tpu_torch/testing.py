@@ -13,7 +13,8 @@ and peak memory, none of which production training needs.  ``decode_rank``
 runs the decode closures on a tp rank's shards, and ``prefix_kv`` fills a
 KV cache with a prefix's own keys and values
 (``tests/test_torch_decode_profile.py``, ``chip_smoke.py``'s serving
-phase).
+phase).  The parity fixtures' writers and constants live in the torch-free
+``metis_tpu_torch.fixtures`` and are re-exported here.
 """
 from __future__ import annotations
 
@@ -37,6 +38,22 @@ from metis_tpu_torch.execution.mesh import (
     batch_spec,
 )
 from metis_tpu_torch.execution.train import aligned_routing
+from metis_tpu_torch.fixtures import (  # noqa: F401 — re-exported
+    PARITY_DECODE_CONTEXT,
+    PARITY_GBS,
+    PARITY_INFERENCE,
+    PARITY_INFERENCE_PREFIX,
+    PARITY_MAX_BS,
+    PARITY_MAX_TP,
+    PARITY_SPOT_RATE,
+    SCALE_DEVICES,
+    SCALE_GBS,
+    run_reference_planner,
+    symmetric_scale_workload,
+    write_decode_parity_fixture,
+    write_parity_fixture,
+    write_spot_parity_fixture,
+)
 from metis_tpu_torch.models import family_ops
 from metis_tpu_torch.models.gpt import GPTConfig
 from metis_tpu_torch.models.moe import MoEConfig

@@ -60,7 +60,11 @@ DAEMON_MODULES = ("metis_tpu_torch.obs.metrics", "metis_tpu_torch.sched",
                   "metis_tpu_torch.serve.client", "metis_tpu_torch.serve.daemon",
                   "metis_tpu_torch.serve.persist", "metis_tpu_torch.serve.pool",
                   "metis_tpu_torch.serve.standby",
-                  "metis_tpu_torch.inference.replay")
+                  "metis_tpu_torch.inference.replay",
+                  "metis_tpu_torch.profiles.synthetic", "metis_tpu_torch.native",
+                  "metis_tpu_torch.fixtures", "metis_tpu_torch.obs.events_schema",
+                  "metis_tpu_torch.obs.decisions_schema",
+                  "metis_tpu_torch.resilience.fleet_drill")
 
 
 def test_the_daemon_modules_are_covered():
@@ -101,6 +105,40 @@ def test_daemon_and_client_import_no_torch():
     assert proc.stdout.strip() == "ok"
 
 
+def test_profiles_native_fixtures_and_drills_import_no_torch(tmp_path):
+    """The synthetic profiles, the native DP (built and called), the
+    fixture writers and the fleet drill's fleet leg — the plan daemon's
+    search pool runs the balancer, and the drill feeds the synthetic
+    profiles to an in-thread daemon — start and run without torch.  (The
+    tenant leg imports it: the fleet scheduler's switch decision builds a
+    ``PlanArtifact``, ``sched/fleet.py``.)"""
+    blocked = ", ".join(repr(m) for m in FORBIDDEN)
+    code = (
+        "import sys\n"
+        f"for name in ({blocked},):\n"
+        "    sys.modules[name] = None\n"
+        "from pathlib import Path\n"
+        "from metis_tpu_torch.profiles import synthesize_profiles, tiny_test_model\n"
+        "from metis_tpu_torch import native\n"
+        "from metis_tpu_torch.fixtures import write_parity_fixture\n"
+        "from metis_tpu_torch.resilience.fleet_drill import run_fleet_drill\n"
+        "import metis_tpu_torch.resilience.faults, metis_tpu_torch.resilience.retry\n"
+        f"root = Path({str(tmp_path)!r})\n"
+        "write_parity_fixture(root / 'parity')\n"
+        "synthesize_profiles(tiny_test_model(), ['A100'], decode_context=64)\n"
+        "import numpy as np\n"
+        "if native.native_available():\n"
+        "    assert native.minmax_partition_native(np.arange(5.0), [1.0, 1.0]) is not None\n"
+        "run_fleet_drill(root / 'fleet', ticks=8, seed=7, spot_rate_per_hr=0.2)\n"
+        "assert 'torch' not in sys.modules, 'imported torch'\n"
+        "print('ok')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
 def _imported_roots(path: pathlib.Path) -> set[str]:
     roots = set()
     for node in ast.walk(ast.parse(path.read_text())):
@@ -117,7 +155,8 @@ def _imported_roots(path: pathlib.Path) -> set[str]:
        ROOT / "tools" / "torch_pipeline_cards.py",
        ROOT / "tools" / "torch_nccl_cards.py",
        ROOT / "tools" / "torch_calibration_probe.py",
-       ROOT / "tools" / "torch_gloo_p2p_probe.py"],
+       ROOT / "tools" / "torch_gloo_p2p_probe.py",
+       ROOT / "tools" / "torch_fleet_drill.py"],
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_jax_package_import(path):
     assert not _imported_roots(path) & set(FORBIDDEN)
@@ -150,6 +189,7 @@ def _entry_points():
         validate_planner_choice,
     )
 
+    from metis_tpu_torch.resilience.fleet_drill import run_supervisor_spot_drill
     from metis_tpu_torch.resilience.supervisor import TrainingSupervisor
     from metis_tpu_torch.cost.calibration import (
         measure_dp_overlap,
@@ -223,6 +263,9 @@ def _entry_points():
         "measure_dp_overlap": lambda: measure_dp_overlap(),
         "measure_pipeline_overlap": lambda: measure_pipeline_overlap(),
         "calibrate_cli": lambda: cli.main(["calibrate", "--output", "cal.json"]),
+        # the fleet drill's supervisor leg, alone and behind ``chaos --fleet``
+        "run_supervisor_spot_drill": lambda: run_supervisor_spot_drill("spot"),
+        "chaos_fleet_cli": lambda: cli.main(["chaos", "--fleet"]),
     }
 
 
@@ -253,7 +296,8 @@ ENTRY_POINTS = ["entry", "build_executable", "build_train_state",
                 "microbenchmark_chip", "microbenchmark_collectives",
                 "measure_dp_overlap", "measure_pipeline_overlap", "calibrate_cli",
                 "profile_model_decode", "measure_remat_fraction",
-                "profile_decode_cli"]
+                "profile_decode_cli", "run_supervisor_spot_drill",
+                "chaos_fleet_cli"]
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)

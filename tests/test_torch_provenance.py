@@ -3,8 +3,9 @@
 (``metis_tpu/obs/provenance.py``, ``metis_tpu/planner/cli.py``).
 
 The reference's ``tests/test_provenance.py`` unit cases run on the port
-(all but the fleet drill, ROADMAP §A.9 (e), not ported yet), and the
-two packages are held to each other four ways: a log written by either
+(its fleet drill case on the port's drill,
+``metis_tpu_torch/resilience/fleet_drill.py``), and the two packages are
+held to each other four ways: a log written by either
 reads back in the other to equal records; the reference's
 ``tools/check_decisions_schema.py`` passes the port's logs;
 ``plan_hetero(decisions=)`` and ``replan(decisions=)`` on the parity
@@ -521,6 +522,52 @@ def test_supervisor_records_as_reference(supervisor_runs, name):
 
 
 # -- the decision-schema checker ------------------------------------------------------
+
+class TestRotationRegression:
+    def test_fleet_drill_with_midrun_rotation(self, tmp_path):
+        """A fleet drill sized to roll its event log to <name>.1 exactly
+        once mid-run: the drill's own causality checks (which read the
+        roll) and the schema checker's rotated read must both pass."""
+        import check_events_schema
+
+        from metis_tpu_torch.resilience.fleet_drill import run_fleet_drill
+
+        rep = run_fleet_drill(tmp_path, ticks=12, seed=2,
+                              spot_rate_per_hr=0.15,
+                              events_max_bytes=60_000)
+        assert rep["provenance_chains_verified"] == rep["replan_pushes"] > 0
+        ev = tmp_path / "fleet_events.jsonl"
+        roll = tmp_path / "fleet_events.jsonl.1"
+        assert roll.exists(), "the drill never rotated"
+        n, problems = check_events_schema.validate_file(ev)
+        assert not problems, "\n".join(problems)
+        n_live, _ = check_events_schema.validate_file(
+            ev, include_rotated=False)
+        assert n > n_live > 0
+        n_recs, problems = check_decisions_schema.validate_file(
+            tmp_path / "fleet_decisions.jsonl")
+        assert not problems and n_recs == rep["decision_records"]
+
+    def test_rotated_drill_equals_reference(self, tmp_path):
+        """The same rotated drill in both packages: equal reports but for
+        the counts of background replans, which depend on thread timing in
+        either package; every push chains back to its eviction or return
+        in both."""
+        from fleet_drill import run_fleet_drill as ref_drill
+
+        from metis_tpu_torch.resilience.fleet_drill import run_fleet_drill
+
+        kw = dict(ticks=12, seed=2, spot_rate_per_hr=0.15,
+                  events_max_bytes=60_000)
+        want = ref_drill(tmp_path / "ref", **kw)
+        got = run_fleet_drill(tmp_path / "port", **kw)
+        racy = ("replan_pushes", "provenance_chains_verified", "decision_records")
+        assert ({k: v for k, v in got.items() if k not in racy}
+                == {k: v for k, v in want.items() if k not in racy})
+        for rep in (want, got):
+            assert rep["provenance_chains_verified"] == rep["replan_pushes"] \
+                >= rep["cluster_deltas"]
+
 
 class TestDecisionsSchemaChecker:
     def _valid(self):

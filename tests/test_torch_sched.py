@@ -1,10 +1,10 @@
 """The port's multi-tenant fleet scheduler (``metis_tpu_torch/sched/``)
 against the reference's (``metis_tpu/sched/``).
 
-The reference's ``tests/test_sched.py`` runs on the port (all but its
-fleet drill cases: ``tools/fleet_drill.py`` is not ported yet), with the
-reference's synthetic profiles read back through the profile JSON
-contract.  The two packages are then held to each other: on the same
+The reference's ``tests/test_sched.py`` runs on the port, its tenant
+drill cases (``TestTenantDrill``) on the port's drill
+(``metis_tpu_torch/resilience/fleet_drill.py``), with the reference's
+synthetic profiles read back through the profile JSON contract.  The two packages are then held to each other: on the same
 fixture and the same sequence of admissions, shrinks, grows and removals
 the port's fleet plans dump byte-identically to the reference's, its
 switch decisions and exported state are equal, each package restores the
@@ -23,6 +23,10 @@ The reference's contracts:
 - PlanService tenant integration: tenant-routed /plan byte-identity,
   tenant-tagged cache keys surviving deltas that didn't move the tenant,
   typed errors for unknown tenants.
+- The multi-tenant chaos drill (``run_tenant_drill``): evictions preempt
+  tenants without breaching a floor, the closing fleet state equals the
+  baseline, the same seed replays the same report — and the port's report
+  equals the reference drill's.
 """
 from __future__ import annotations
 
@@ -591,11 +595,43 @@ def test_scheduler_events_pass_the_reference_schema(shared_profiles,
     assert validate_events(events) == []
 
 
-def test_chaos_fleet_exits_2_naming_its_item(capsys):
-    """The fleet drill is not ported yet: ``chaos --fleet`` refuses with
-    exit 2 and names the ROADMAP item that holds it."""
-    from metis_tpu_torch.cli import main
+# ---------------------------------------------------------------------------
+# The multi-tenant chaos drill
+# ---------------------------------------------------------------------------
 
-    assert main(["chaos", "--fleet"]) == 2
-    captured = capsys.readouterr()
-    assert captured.out == "" and "ROADMAP §A.9 (e)" in captured.err
+TENANT_DRILL = dict(tenants=3, devices=16, chips_per_node=2, ticks=3,
+                    spot_rate_per_hr=0.9, return_rate_per_hr=0.9, seed=0)
+
+
+class TestTenantDrill:
+    def test_tenant_drill_smoke(self, tmp_path):
+        from metis_tpu_torch.resilience.fleet_drill import run_tenant_drill
+
+        rep = run_tenant_drill(tmp_path, **TENANT_DRILL)
+        assert rep["preempted_nodes"] > 0
+        assert rep["tenant_preempt_events"] > 0
+        assert rep["closing_state_identical"]
+        assert rep["tenant_slo_attainment_min"] > 0.0
+        assert 0.0 < rep["fleet_utilization_frac"] <= 1.0
+
+    def test_tenant_drill_deterministic(self, tmp_path):
+        from metis_tpu_torch.resilience.fleet_drill import run_tenant_drill
+
+        a = run_tenant_drill(tmp_path / "a", **TENANT_DRILL)
+        b = run_tenant_drill(tmp_path / "b", **TENANT_DRILL)
+        assert json.dumps(a, sort_keys=True) == json.dumps(b,
+                                                           sort_keys=True)
+
+    def test_tenant_drill_equals_reference(self, tmp_path):
+        from fleet_drill import run_tenant_drill as ref_drill
+        from metis_tpu_torch.resilience.fleet_drill import run_tenant_drill
+
+        want = ref_drill(tmp_path / "ref", **TENANT_DRILL)
+        got = run_tenant_drill(tmp_path / "port", **TENANT_DRILL)
+        assert got == want
+
+    def test_tenant_drill_refuses_too_few_tenants(self, tmp_path):
+        from metis_tpu_torch.resilience.fleet_drill import run_tenant_drill
+
+        with pytest.raises(AssertionError, match=">= 3 tenants"):
+            run_tenant_drill(tmp_path, **{**TENANT_DRILL, "tenants": 2})
