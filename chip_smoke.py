@@ -6,8 +6,10 @@ its plain version.
 Phases, in order (any failure exits non-zero):
 
 1. the card's name and power limit (``nvidia-smi``) and the CUDA version;
-2. build the hand-written kernels from ``metis_tpu_torch/ops/csrc``, and
-   the planner's native min-max DP (``metis_tpu_torch/native``, g++);
+2. build the hand-written kernels from ``metis_tpu_torch/ops/csrc`` (the
+   flash-attention library and the cost tensor, one ``nvcc`` each) and the
+   planner's native min-max DP (``metis_tpu_torch/native``, g++), all three
+   started together;
 3. kernels: each of B1 (forward), B2 (dQ) and B3 (dK/dV) against its plain
    PyTorch version at the main-path shape and at GQA, ragged-length (across
    the 128-row tile edges too), non-causal and stats-mode shapes, in bf16;
@@ -236,6 +238,24 @@ Phases, in order (any failure exits non-zero):
    gloo ranks sharing the card (``spot_preemption@3:A100=4,
    spot_return@5``), gated on the reference's recovery order and outcome.
    Its model trains dense attention: no kernel.
+21. cost_tensor (``cost_tensor_phase``): the batched cost tensor
+   (``cost_backend="torch"``: ``ops/csrc/cost_tensor.cu``, one thread per
+   candidate plan, f64): (a) the kernel against its plain version on the
+   card and on the host, bit-equal (``torch.equal``), on seeded random
+   inputs at S 1, 2, 4 and 8 stages, every one of the 16 combinations of
+   its four flags, and B 1, 37 and 4096 candidates; its time, its plain
+   version's and its bound at the shape the main path gives it most and
+   at B 4096, S 8; (b) the main path: ``plan_hetero`` with
+   ``cost_backend`` ``"torch"`` and ``"numpy"``, strict-compat and native,
+   on the port's parity and spot-parity fixtures and on the slice's 1.5B
+   profile over the planner phase's 2 x 8 cards, the rankings byte-equal,
+   ``num_costed`` equal, both searches' host seconds, the kernel's
+   launches counted around each torch search; (c) ``tpu --slices
+   v4-32,v5e-16`` on synthetic TPU profiles, the CLI (numpy) against
+   ``plan_tpu`` on the torch backend, bare and with ``--calibration`` of
+   the calibration phase's collective fits: the rankings byte-equal, and
+   the card's calibration matches no TPU slice (its ranking equal to the
+   bare one).
 
 Ranks run in pools (``execution.dist.RankPool``, ``on_ranks``): one per
 world size and backend, all started at the dist phase (their ranks boot
@@ -256,6 +276,7 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import itertools
 import json
 import math
 import os
@@ -422,6 +443,17 @@ KERNEL_CASES = [
          stats=True),
 ]
 SOURCE = "metis_tpu_torch/ops/csrc/flash_attention.cu"
+COST_SOURCE = "metis_tpu_torch/ops/csrc/cost_tensor.cu"
+COST_REPLACES = "metis_tpu/cost/jax_backend.py:76"
+# the cost kernel's cases: stages, candidates, and every combination of its
+# flags (overlap model, latency floor, spot model, migration model)
+COST_STAGES = (1, 2, 4, 8)
+COST_BATCHES = (1, 37, 4096)
+COST_FLAGS = tuple(dict(zip(("ov", "has_lat", "has_spot", "has_mig"), bits))
+                   for bits in itertools.product((False, True), repeat=4))
+# H100 SXM float64 rate outside the tensor cores (NVIDIA data sheet; the
+# cost kernel's operations are f64 adds, multiplies, divides and compares)
+PEAK_F64_FLOPS = 34e12
 REPLACES = {
     "fa_fwd": "metis_tpu/ops/flash_attention.py:85",
     "fa_bwd_dq": "metis_tpu/ops/flash_attention.py:137",
@@ -519,6 +551,9 @@ def ptxas_summary(log: str) -> list[str]:
         entry = re.search(r"Compiling entry function '\S*?(fa_\w+?_kernel)ILi(\d+)E", line)
         if entry:
             name = f"{entry.group(1)}<{entry.group(2)}>"
+        entry = re.search(r"Compiling entry function '\S*?(cost_tensor_kernel)", line)
+        if entry:
+            name = entry.group(1)
         spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if spills:
             spill = f"{spills.group(1)} B spill stores, {spills.group(2)} B spill loads"
@@ -3731,6 +3766,9 @@ def calibration_phase(work: pathlib.Path, results: dict) -> tuple[dict, dict]:
         out[f"b_collectives_{world}"] = {
             "fits": cal["fits"], "platform": cal["platform"],
             "device_kind": cal["device_kind"], "note": SHARED_CARD}
+        if world == 2:  # the cost_tensor phase plans TPU slices with it
+            out["collectives_file"] = str(work / "collectives_2.json")
+            ranks[0]["result"].dump(out["collectives_file"])
     log(f"  (b) {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -4680,11 +4718,319 @@ def fleet_phase(work: pathlib.Path, results: dict) -> tuple[dict, dict]:
     return out, {}
 
 
+def cost_inputs(S: int, B: int, rng) -> tuple:
+    """Seeded random inputs of the cost kernel: ``x`` f64 ``[7 S + 4, B]`` in
+    the kernel's layout (``ops/cost_tensor.py`` ``FIELDS``, ``TAIL``),
+    ``pp_den`` f64 ``[S - 1]``, and its four runtime scalars.  The
+    magnitudes are the planner's (ms, bytes, ring factors), so both signs
+    of ``t_pp - t`` and ``dpv - opt`` occur; every fifth candidate's last
+    stage ties its first."""
+    import numpy as np
+
+    def pos(rows, lo=-2.0, hi=3.0):
+        return 10.0 ** rng.uniform(lo, hi, size=(rows, B))
+
+    stage = pos(S)
+    stage[-1, ::5] = stage[0, ::5]
+    x = np.concatenate([
+        stage, pos(S - 1, 6, 9), pos(S, -10, -7), pos(S, 7, 10), pos(S, -3, 0),
+        pos(S, -1, 2), rng.integers(1, 9, size=(S, B)).astype(np.float64),
+        pos(1), pos(1), pos(1, -3, 1), pos(1, -2, 1), pos(1, -2, 0)])
+    pp_den = 10.0 ** rng.uniform(6, 8, size=S - 1)
+    scalars = (float(rng.integers(1, 17)), float(rng.uniform(0.001, 0.2)),
+               float(rng.integers(S, 40)), float(rng.uniform(0.1, 1.0)))
+    return x, pp_den, scalars
+
+
+def cost_work(S: int, B: int, flags: dict) -> tuple[float, float]:
+    """(f64 operations, bytes) the cost kernel needs on one call under these
+    flags, counted from its source: the sums, products, quotients and
+    compares each candidate does (a chained sum or maximum starts from its
+    first term, so it does one fewer than its terms), and each input the
+    function reads once (``lat`` only under ``has_lat``, ``migration``
+    only under ``has_mig``), each output written once."""
+    ov, lat, spot, mig = (int(bool(flags[k])) for k in
+                          ("ov", "has_lat", "has_spot", "has_mig"))
+    # every stage: dpv's two products (+ lat), opt's product and quotient,
+    # under ov the exposed dp's difference and clamp
+    per_stage = 4 + lat + 2 * ov
+    # every stage after the first: the sum, the maxima of stage time, dp
+    # and opt (+ the exposed dp's under ov)
+    per_chain = 4 + ov
+    # every pp boundary: its quotient (+ the exposed pp's difference and
+    # clamp); every boundary after the first: the pp sum (+ the exposed one)
+    per_pp, per_pp_chain = 1 + 2 * ov, 1 + ov
+    # execution's 6, the total's 5 sums, the recovery product and sum, the
+    # migration sum
+    tail = 6 + 5 + 2 * spot + mig
+    ops = B * (S * per_stage + (S - 1) * per_chain + (S - 1) * per_pp
+               + max(S - 2, 0) * per_pp_chain + tail)
+    rows = S + (S - 1) + 4 * S + lat * S + 4 + mig
+    nbytes = 8 * (rows * B + (S - 1) + 6 * B)
+    return float(ops), float(nbytes)
+
+
+def cost_bound(S: int, B: int, flags: dict) -> tuple[float, str]:
+    ops, nb = cost_work(S, B, flags)
+    t_ops, t_bytes = ops / PEAK_F64_FLOPS, nb / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
+
+
+def cost_kernel_timing(S: int, B: int, flags: dict, rng) -> dict:
+    """The kernel's and its plain version's time at one shape on the card,
+    beside its bound.  A launch of the kernel takes less device time than
+    the host needs to issue it (the wrapper's allocation and ctypes call),
+    so ``ms`` is the device time of a CUDA graph's replay of the wrapper
+    (``graph_of``) and ``eager_ms`` the time per back-to-back eager call,
+    what the search sees (``cuda_ms``), each three times; the plain
+    version's ~100 small ops are timed eagerly (it copies its scalars to
+    the card, which a graph cannot capture)."""
+    from metis_tpu_torch.ops import cost_tensor as ct
+
+    x, pp_den, scalars = cost_inputs(S, B, rng)
+    xd, pd = torch.from_numpy(x).cuda(), torch.from_numpy(pp_den).cuda()
+    args = (xd, pd, *scalars)
+    bound_ms, bound_by = cost_bound(S, B, flags)
+    call = lambda: ct.cost_tensor(*args, S=S, **flags)  # noqa: E731
+    graphed = timed_runs(graph_of(call, torch.cuda.Stream()))
+    eager = timed_runs(call)
+    return {"shape": {"S": S, "B": B, **flags}, "ms": graphed["ms"],
+            "runs": graphed["runs"], "eager_ms": eager["ms"], "eager_runs": eager["runs"],
+            "plain_ms": cuda_ms(lambda: ct.cost_tensor_plain(*args, S=S, **flags), 5, 1),
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def cost_tensor_phase(work: pathlib.Path, results: dict) -> tuple[dict, dict]:
+    """The batched cost tensor (module doc, phase 21): (a) the kernel
+    against its plain version, (b) the searches on both backends, (c) the
+    TPU slice planner on both backends, with and without the card's
+    collective calibration.  Returns the phase's results, with the
+    ``kernels`` line's record of the cost kernel under ``record``."""
+    import numpy as np
+    from unittest import mock
+
+    from metis_tpu_torch import cli
+    from metis_tpu_torch.cluster.spec import ClusterSpec
+    from metis_tpu_torch.cluster.tpu import TpuClusterSpec, slice_from_name
+    from metis_tpu_torch.core.config import ModelSpec, SearchConfig
+    from metis_tpu_torch.core.types import dump_ranked_plans
+    from metis_tpu_torch.cost.calibration import CollectiveCalibration
+    from metis_tpu_torch.cost.ici import generation_of_device_kind
+    from metis_tpu_torch.fixtures import (
+        PARITY_GBS,
+        PARITY_MAX_BS,
+        PARITY_MAX_TP,
+        write_parity_fixture,
+        write_spot_parity_fixture,
+    )
+    from metis_tpu_torch.ops import cost_tensor as ct
+    from metis_tpu_torch.planner.api import plan_hetero, plan_tpu
+    from metis_tpu_torch.profiles import synthesize_profiles, tiny_test_model
+    from metis_tpu_torch.profiles.store import ProfileStore
+
+    t_phase = time.perf_counter()
+    out, seconds = {}, {}
+
+    # (a) the kernel against its plain version, on the card and on the host
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+    held = {"cases": 0, "max_abs": 0.0, "failures": []}
+
+    def hold(S: int, B: int, flags: dict) -> None:
+        x, pp_den, scalars = cost_inputs(S, B, rng)
+        xd, pd = torch.from_numpy(x).cuda(), torch.from_numpy(pp_den).cuda()
+        got = ct.cost_tensor(xd, pd, *scalars, S=S, **flags)
+        plain = ct.cost_tensor_plain(xd, pd, *scalars, S=S, **flags)
+        host = ct.cost_tensor_plain(torch.from_numpy(x), torch.from_numpy(pp_den),
+                                    *scalars, S=S, **flags)
+        torch.cuda.synchronize()
+        held["cases"] += 1
+        held["max_abs"] = max(held["max_abs"], (got - plain).abs().max().item())
+        pairs = {"kernel=plain": torch.equal(got, plain),
+                 "kernel=host": torch.equal(got.cpu(), host),
+                 "plain=host": torch.equal(plain.cpu(), host),
+                 "finite": bool(torch.isfinite(got).all())}
+        if not all(pairs.values()):
+            held["failures"].append((S, B, flags, pairs))
+
+    for S, B, flags in itertools.product(COST_STAGES, COST_BATCHES, COST_FLAGS):
+        hold(S, B, flags)
+    n_grid = held["cases"]
+    log(f"  (a) cost kernel against its plain version at {n_grid} cases "
+        f"(S {COST_STAGES} x B {COST_BATCHES} x {len(COST_FLAGS)} flag sets): "
+        f"{n_grid - len(held['failures'])} bit-equal on the card and on the host, "
+        f"max abs err {held['max_abs']:.3e}")
+    if held["failures"]:
+        raise SystemExit(f"(a) the cost kernel differs from its plain version at "
+                         f"{held['failures'][:5]}")
+    seconds["a"] = time.perf_counter() - t0
+
+    # (b) the main path: the searches on both backends; every cost kernel
+    # call records its shape
+    t0 = time.perf_counter()
+    shapes: dict = {}
+    wrapped = ct.cost_tensor
+
+    def recording(x, pp_den, *args, S, **flags):
+        key = (S, x.shape[1], tuple(sorted(flags.items())))
+        shapes[key] = shapes.get(key, 0) + 1
+        return wrapped(x, pp_den, *args, S=S, **flags)
+
+    fixtures = {}
+    for name, writer in (("parity", write_parity_fixture),
+                         ("spot", write_spot_parity_fixture)):
+        writer(work / f"cost_{name}")
+        d = work / f"cost_{name}"
+        fixtures[name] = (ClusterSpec.from_files(d / "hostfile", d / "clusterfile.json"),
+                          ProfileStore.from_dir(d / "profiles"), tiny_test_model(),
+                          dict(gbs=PARITY_GBS, max_profiled_tp=PARITY_MAX_TP,
+                               max_profiled_bs=PARITY_MAX_BS))
+    sliced, planner = results["slice"], results["planner"]
+    fixtures["gpt_1.5B_2x8"] = (
+        ClusterSpec.from_files(*planner["big_cluster"]),
+        ProfileStore.from_dir(sliced["profile_dir"]), ModelSpec(**GPT_15B),
+        dict(gbs=64, max_profiled_tp=1, max_profiled_bs=4))
+    # the first search of each backend pays its imports and the card's
+    # context: one of each, untimed
+    cluster, store, model, search = fixtures["parity"]
+    for backend in ("numpy", "torch"):
+        plan_hetero(cluster, store, model, SearchConfig(**search, cost_backend=backend))
+    searches, launches = {}, 0
+    with mock.patch.object(ct, "cost_tensor", recording):
+        for (name, (cluster, store, model, search)), strict in itertools.product(
+                fixtures.items(), (True, False)):
+            dumps, secs, costed = {}, {}, {}
+            for backend in ("numpy", "torch"):
+                config = SearchConfig(**search, strict_compat=strict, cost_backend=backend)
+                ct.reset_launch_counts()
+                t = time.perf_counter()
+                res = plan_hetero(cluster, store, model, config)
+                secs[backend] = time.perf_counter() - t
+                n = ct.launch_counts["cost_tensor"]
+                if (backend == "torch") != (n > 0):
+                    raise SystemExit(f"(b) {name}: the {backend} search launched the "
+                                     f"cost kernel {n} times")
+                launches += n
+                dumps[backend], costed[backend] = dump_ranked_plans(res.plans), res.num_costed
+            label = f"{name}_{'strict' if strict else 'native'}"
+            if dumps["torch"] != dumps["numpy"] or costed["torch"] != costed["numpy"]:
+                raise SystemExit(f"(b) {label}: the torch backend's ranking differs from "
+                                 f"numpy's (num_costed {costed})")
+            if not json.loads(dumps["numpy"]):
+                raise SystemExit(f"(b) {label}: no plan")
+            searches[label] = {"numpy_s": secs["numpy"], "torch_s": secs["torch"],
+                               "num_costed": costed["numpy"], "launches": n}
+            log(f"  (b) hetero {label}: numpy {secs['numpy']:.3f} s, torch "
+                f"{secs['torch']:.3f} s (host), {costed['numpy']} costed, {n} kernel "
+                f"launches, rankings byte-equal")
+    out["b_searches"] = searches
+    out["b_launches"] = launches
+    main_shape, main_calls = max(shapes.items(), key=lambda kv: kv[1])
+    by_b: dict = {}
+    for (S, B, _), calls in shapes.items():
+        by_b[B] = by_b.get(B, 0) + calls
+    out["b_shapes"] = {"calls_by_batch": dict(sorted(by_b.items())),
+                       "most": {"S": main_shape[0], "B": main_shape[1],
+                                "flags": dict(main_shape[2]), "calls": main_calls}}
+    log(f"  (b) {launches} launches; calls by candidates per launch "
+        f"{out['b_shapes']['calls_by_batch']}; most at {out['b_shapes']['most']}")
+    seconds["b"] = time.perf_counter() - t0
+
+    # (a) again at every shape (b) gave the kernel, on fresh random inputs
+    t0 = time.perf_counter()
+    for S, B, flags in sorted(shapes):
+        hold(S, B, dict(flags))
+    log(f"  (a) at the {len(shapes)} shapes of (b) (S {sorted({k[0] for k in shapes})}, "
+        f"B {sorted({k[1] for k in shapes})}): {held['cases'] - n_grid - len(held['failures'])} "
+        f"of {held['cases'] - n_grid} bit-equal, max abs err {held['max_abs']:.3e}")
+    if held["failures"]:
+        raise SystemExit(f"(a) at the shapes of (b) the cost kernel differs from its "
+                         f"plain version at {held['failures'][:5]}")
+    out["a_cases"] = {"grid": n_grid, "main_path_shapes": held["cases"] - n_grid}
+    seconds["a_main_shapes"] = time.perf_counter() - t0
+
+    # (c) the TPU slice planner: the CLI on numpy against plan_tpu on the
+    # torch backend, bare and with the card's collective calibration
+    t0 = time.perf_counter()
+    tpu_dir = work / "cost_tpu_profiles"
+    synthesize_profiles(tiny_test_model(), ["tpu_v4", "tpu_v5e"], tps=[1, 2, 4],
+                        bss=[1, 2, 4, 8, 16]).dump_to_dir(tpu_dir)
+    cal_file = results["calibration"]["collectives_file"]
+    cal = CollectiveCalibration.load(cal_file)
+    if generation_of_device_kind(cal.device_kind) is not None:
+        raise SystemExit(f"(c) the card's calibration ({cal.device_kind}) names a "
+                         "TPU generation")
+    argv = ["tpu", "--slices", "v4-32,v5e-16", "--profile-dir", str(tpu_dir),
+            "--gbs", "64", "--num-layers", "10", "--hidden-size", "4096", "--seq-len",
+            "1024", "--vocab-size", "51200", "--num-heads", "32", "--max-tp", "4",
+            "--max-bs", "16", "--top-k", "10"]
+    parsed = cli._parser().parse_args(argv)
+    slices = TpuClusterSpec(tuple(slice_from_name(n) for n in ("v4-32", "v5e-16")))
+    config = dataclasses.replace(cli._config_from_args(parsed), cost_backend="torch")
+    tpu = {}
+    for label, extra, calibration in (("bare", [], None),
+                                      ("calibrated", ["--calibration", cal_file], cal)):
+        path = work / f"tpu_{label}.json"
+        t = time.perf_counter()
+        if cli.main([*argv, *extra, "--output", str(path)]) != 0:
+            raise SystemExit(f"(c) tpu {label} failed")
+        numpy_s = time.perf_counter() - t
+        ct.reset_launch_counts()
+        t = time.perf_counter()
+        res = plan_tpu(slices, ProfileStore.from_dir(tpu_dir), cli._model_from_args(parsed),
+                       config, top_k=10, calibration=calibration)
+        torch_s = time.perf_counter() - t
+        n = ct.launch_counts["cost_tensor"]
+        if dump_ranked_plans(res.plans) != path.read_text() or n == 0:
+            raise SystemExit(f"(c) tpu {label}: plan_tpu on the torch backend ({n} "
+                             "launches) differs from the CLI's ranking")
+        tpu[label] = {"numpy_cli_s": numpy_s, "torch_s": torch_s, "launches": n,
+                      "best_cost_ms": res.plans[0].cost.total_ms}
+        log(f"  (c) tpu --slices v4-32,v5e-16 {label}: CLI (numpy) {numpy_s:.3f} s, "
+            f"plan_tpu (torch) {torch_s:.3f} s, {n} launches, rankings byte-equal, "
+            f"best {res.plans[0].cost.total_ms:.3f} ms")
+    if (work / "tpu_bare.json").read_text() != (work / "tpu_calibrated.json").read_text():
+        raise SystemExit(f"(c) the card's calibration ({cal.device_kind}) moved a TPU "
+                         "slice's ranking")
+    log(f"  (c) the card's calibration ({cal.platform}, {cal.device_kind}) matches no "
+        "TPU slice: the calibrated ranking equals the bare one")
+    out["c_tpu"] = tpu
+    seconds["c"] = time.perf_counter() - t0
+
+    # the kernel's time at the shape the main path gives it most, and in bulk
+    t0 = time.perf_counter()
+    S, B, flags = main_shape[0], main_shape[1], dict(main_shape[2])
+    main_t = cost_kernel_timing(S, B, flags, rng)
+    bulk = cost_kernel_timing(8, 4096, dict(COST_FLAGS[-1]), rng)
+    for label, t in (("main-path shape", main_t), ("bulk", bulk)):
+        log(f"  cost_tensor at the {label} {t['shape']}: {t['ms']:.5f} ms as a graph "
+            f"(runs {[round(r, 5) for r in t['runs']]}), {t['eager_ms']:.5f} ms per eager "
+            f"call (runs {[round(r, 5) for r in t['eager_runs']]}), plain "
+            f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.3e} ms ({t['bound_by']})")
+    seconds["timing"] = time.perf_counter() - t0
+    regs = ptxas_summary(ct.kernel_library().ptxas_log)
+    out["record"] = {
+        "name": "cost_tensor", "route": "cuda", "source": COST_SOURCE,
+        "replaces": COST_REPLACES, "launches": launches,
+        "max_abs_err": held["max_abs"], "held_at": held["cases"], "ms": main_t["ms"],
+        "plain_ms": main_t["plain_ms"],
+        "bound_ms": main_t["bound_ms"], "bound_by": main_t["bound_by"],
+        "library_ms": None, "eager_ms": main_t["eager_ms"], "shape": main_t["shape"],
+        "ptxas": regs,
+        "bulk": {k: bulk[k] for k in ("shape", "ms", "eager_ms", "plain_ms", "bound_ms",
+                                      "bound_by")},
+    }
+    out["legs_s"] = seconds
+    log(f"  legs (s): { {k: round(v, 2) for k, v in seconds.items()} }; the phase "
+        f"{time.perf_counter() - t_phase:.1f} s on {card_line()}")
+    return out, {}
+
+
 HIDDEN = ("launches", "profile_dir", "hostfile", "clusterfile", "tokens", "batches",
-          "base", "ledger", "big_cluster", "big_rows")
+          "base", "ledger", "big_cluster", "big_rows", "collectives_file", "record")
 PHASES = ("slice", "planner", "dist", "pipeline", "llama", "moe", "context",
           "zero_sp", "stage_axes", "train", "reshard", "chaos", "multihost",
-          "calibration", "serving", "serve", "fleet")
+          "calibration", "serving", "serve", "fleet", "cost_tensor")
 
 
 def main() -> int:
@@ -4697,25 +5043,33 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    from concurrent.futures import ThreadPoolExecutor
+
+    from metis_tpu_torch import native
+    from metis_tpu_torch.ops import cost_tensor as ct
     from metis_tpu_torch.ops import flash_attention as fa
 
-    t0 = time.perf_counter()
-    built = fa.kernel_library()
-    log(f"build: {built.path.name} in {time.perf_counter() - t0:.1f} s "
-        f"(nvcc {built.seconds:.1f} s)")
-    for line in ptxas_summary(built.ptxas_log):
-        log(f"  ptxas: {line}")
-    # the planner's native min-max DP (host C++, built with g++ at first
-    # use): first used here, so that the planner phase's searches run on it
-    # and the fleet phase compares it with the numpy DP
-    from metis_tpu_torch import native
+    # every build at once, one compiler each: the two kernel libraries
+    # (nvcc) and the planner's native min-max DP (host C++, g++; the
+    # planner phase's searches run on it and the fleet phase compares it
+    # with the numpy DP)
+    def timed(fn):
+        t0 = time.perf_counter()
+        return fn(), time.perf_counter() - t0
 
-    t0 = time.perf_counter()
-    if not native.native_available():
+    with ThreadPoolExecutor(3) as builds:
+        jobs = [builds.submit(timed, fn) for fn in
+                (fa.kernel_library, ct.kernel_library, native.native_available)]
+        (built, fa_s), (cost_built, cost_s), (native_ok, native_s) = (
+            job.result() for job in jobs)
+    for lib, secs in ((built, fa_s), (cost_built, cost_s)):
+        log(f"build: {lib.path.name} in {secs:.1f} s (nvcc {lib.seconds:.1f} s)")
+    for line in ptxas_summary(built.ptxas_log) + ptxas_summary(cost_built.ptxas_log):
+        log(f"  ptxas: {line}")
+    if not native_ok:
         print("chip_smoke: the native min-max DP did not build (no g++ on PATH)",
               file=sys.stderr)
         return 2
-    native_s = time.perf_counter() - t0
     log(f"native DP: {native.library_path().name} built and loaded in {native_s:.3f} s")
 
     log("kernels:")
@@ -4732,7 +5086,8 @@ def main() -> int:
     log(f"rank launches: {len(POOLS)} (one pool per world size and backend: "
         f"{pools} jobs), besides the CLI's subprocesses")
 
-    log(json.dumps({"kernels": kernel_records(held, path_cases, launches)}))
+    log(json.dumps({"kernels": [*kernel_records(held, path_cases, launches),
+                                results["cost_tensor"]["record"]]}))
     for phase in PHASES:
         log(json.dumps({phase: {k: v for k, v in results[phase].items()
                                 if k not in HIDDEN}}))
@@ -4773,7 +5128,7 @@ def run_phases(work: pathlib.Path, results: dict, launches: dict,
             results[phase], more = zero_sp_phase(work)
             launches.update(more)
         elif phase in ("stage_axes", "train", "reshard", "chaos", "multihost",
-                       "calibration", "serving", "serve", "fleet"):
+                       "calibration", "serving", "serve", "fleet", "cost_tensor"):
             results[phase], more = {"stage_axes": stage_axes_phase,
                                     "train": train_phase,
                                     "reshard": reshard_phase,
@@ -4782,7 +5137,8 @@ def run_phases(work: pathlib.Path, results: dict, launches: dict,
                                     "calibration": calibration_phase,
                                     "serving": serving_phase,
                                     "serve": serve_phase,
-                                    "fleet": fleet_phase}[phase](work, results)
+                                    "fleet": fleet_phase,
+                                    "cost_tensor": cost_tensor_phase}[phase](work, results)
             launches.update(more)
         else:
             results[phase], more = {"llama": llama_phase, "moe": moe_phase,

@@ -7,6 +7,10 @@ reference's flags and output bytes:
             tp ranks, one per card) and write the profile JSON dir the
             planner reads;
   hetero    heterogeneous-cluster plan search (``planner.api.plan_hetero``);
+  tpu       TPU multi-slice plan search over the ICI/DCN torus model
+            (``planner.api.plan_tpu``; ``--slices v4-32,v5e-16``), its
+            link constants overridden by a ``calibrate`` JSON
+            (``--calibration``) whose device matches a slice;
   uniform   uniform Megatron-grid sweep (``planner.api.plan_uniform``);
   validate  predicted-vs-measured step time of the top uniform plans,
             measured on the cards, a plan of several devices (dp x tp, or
@@ -490,17 +494,33 @@ def _cmd_replan(args: argparse.Namespace, profiles, model, config,
 
 def _cmd_search(args: argparse.Namespace, profiles, model, config,
                 events) -> int:
-    """``hetero`` and ``uniform``: the same JSON as the reference's."""
+    """``hetero``, ``tpu`` and ``uniform``: the same JSON as the
+    reference's."""
     from metis_tpu_torch.cluster.spec import ClusterSpec
     from metis_tpu_torch.core.types import dump_ranked_plans
-    from metis_tpu_torch.planner.api import plan_hetero, plan_uniform
+    from metis_tpu_torch.planner.api import plan_hetero, plan_tpu, plan_uniform
 
-    cluster = ClusterSpec.from_files(args.hostfile, args.clusterfile)
     if args.command == "hetero":
+        cluster = ClusterSpec.from_files(args.hostfile, args.clusterfile)
         result = plan_hetero(cluster, profiles, model, config,
                              top_k=args.top_k, events=events)
         _emit(args, dump_ranked_plans(result.plans))
+    elif args.command == "tpu":
+        from metis_tpu_torch.cluster.tpu import TpuClusterSpec, slice_from_name
+
+        tpu_cluster = TpuClusterSpec(tuple(
+            slice_from_name(s.strip()) for s in args.slices.split(",")))
+        calibration = None
+        if args.calibration:
+            from metis_tpu_torch.cost.calibration import CollectiveCalibration
+
+            calibration = CollectiveCalibration.load(args.calibration)
+        result = plan_tpu(tpu_cluster, profiles, model, config,
+                          chips_per_node=args.chips_per_node, top_k=args.top_k,
+                          events=events, calibration=calibration)
+        _emit(args, dump_ranked_plans(result.plans))
     else:
+        cluster = ClusterSpec.from_files(args.hostfile, args.clusterfile)
         result = plan_uniform(cluster, profiles, model, config,
                               device_type=args.device_type,
                               include_oom=args.include_oom, top_k=args.top_k,
@@ -2056,6 +2076,17 @@ def _parser() -> argparse.ArgumentParser:
     p_het.add_argument("--profile-dir", required=True)
     _add_model_args(p_het)
     _add_search_args(p_het)
+
+    p_tpu = sub.add_parser("tpu", help="TPU multi-slice plan search (ICI/DCN model)")
+    p_tpu.add_argument("--slices", required=True,
+                       help="comma-separated slice names, e.g. v4-32,v5e-16")
+    p_tpu.add_argument("--chips-per-node", type=int, default=4)
+    p_tpu.add_argument("--profile-dir", required=True)
+    p_tpu.add_argument("--calibration", default=None,
+                       help="collective calibration JSON (calibrate) "
+                            "overriding published ICI constants")
+    _add_model_args(p_tpu)
+    _add_search_args(p_tpu)
 
     p_uni = sub.add_parser("uniform", help="uniform Megatron-grid sweep")
     _add_cluster_args(p_uni)

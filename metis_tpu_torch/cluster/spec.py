@@ -6,8 +6,8 @@ Replaces the reference's closed ``DeviceType`` enum (A100/V100/P100/T4 only,
 ``utils.py:46-57`` — adding a type required a code change) and its
 ``GPUCluster`` façade (``gpu_cluster.py:8-58``) with an open, data-driven
 registry, so the whole planner is device-agnostic.  The port registers the
-H100 beside the reference's presets; the reference's TPU torus lowering
-(``metis_tpu/cluster/tpu.py``) is not ported.
+H100 beside the reference's presets; TPU slices lower to this through
+``cluster/tpu.py``.
 
 Known reference quirks handled here (SURVEY.md §2.3 / §7):
 

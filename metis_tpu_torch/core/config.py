@@ -193,9 +193,13 @@ class SearchConfig:
     migration_amortize_steps: int = 1000
     # Cost-tensor backend for the batched costing path (cost/batch.py):
     # "numpy" is the table-driven scalar-float path — the default and the
-    # parity oracle.  The reference's "jax" backend (a jit-compiled f64
-    # kernel) is not ported: asking for it raises MetisError here, so no
-    # search ever prices with numpy under the jax name.
+    # parity oracle; "torch" routes the same gathered per-stage tables
+    # through a hand-written CUDA kernel (cost/torch_backend.py, the
+    # counterpart of the reference's jit backend) that mirrors the numpy
+    # expressions op for op, so rankings stay byte-identical.  It runs on
+    # the card unless the search is given ``cost_device="cpu"``, and torch
+    # is imported only when it is selected.  The reference's "jax" backend
+    # raises MetisError here, so no search ever prices under the jax name.
     cost_backend: str = "numpy"
     # Symmetry-collapsed search (AMP-style, arXiv 2210.07297): placements
     # that differ only by a permutation of cost-interchangeable device
@@ -258,14 +262,14 @@ class SearchConfig:
             raise ValueError("progress_every must be >= 1")
         if self.workers < 1:
             raise ValueError("workers must be >= 1")
-        if self.cost_backend not in ("numpy", "jax"):
+        if self.cost_backend not in ("numpy", "jax", "torch"):
             raise ValueError(
-                f"cost_backend must be 'numpy' or 'jax', "
+                f"cost_backend must be 'numpy', 'jax' or 'torch', "
                 f"got {self.cost_backend!r}")
         if self.cost_backend == "jax":
             raise MetisError(
                 "cost_backend='jax' is not available in the PyTorch port; "
-                "use cost_backend='numpy'")
+                "use cost_backend='numpy' or 'torch'")
         if self.backend not in ("beam", "exact"):
             raise ValueError(
                 f"backend must be 'beam' or 'exact', got {self.backend!r}")

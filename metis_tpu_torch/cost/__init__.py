@@ -1,7 +1,8 @@
-"""Cost model of the port (``metis_tpu/cost``), with its calibration
-(``cost/calibration.py``: the fits, and the measurements over
-``torch.distributed``).  Not ported: the TPU ICI/DCN model
-(``cost/ici.py``) and the jit cost backend (``cost/jax_backend.py``)."""
+"""Cost model of the port (``metis_tpu/cost``), with the TPU ICI/DCN model
+(``cost/ici.py``), its calibration (``cost/calibration.py``: the fits, and
+the measurements over ``torch.distributed``) and the batched cost tensor
+on the card (``cost/torch_backend.py``, the counterpart of the reference's
+``cost/jax_backend.py``; imported only when selected)."""
 from metis_tpu_torch.cost.volume import (
     TransformerVolume,
 )
@@ -9,6 +10,15 @@ from metis_tpu_torch.cost.bandwidth import (
     StageBandwidthModel,
     HeteroScalarBandwidth,
     HomoScalarBandwidth,
+)
+from metis_tpu_torch.cost.ici import (
+    IciDcnBandwidth,
+    ring_all_reduce_ms,
+    all_gather_ms,
+    reduce_scatter_ms,
+    all_to_all_ms,
+    p2p_ms,
+    sub_torus_eff_bw_gbps,
 )
 from metis_tpu_torch.cost.calibration import (
     CalibrationError,
@@ -43,6 +53,13 @@ __all__ = [
     "StageBandwidthModel",
     "HeteroScalarBandwidth",
     "HomoScalarBandwidth",
+    "IciDcnBandwidth",
+    "ring_all_reduce_ms",
+    "all_gather_ms",
+    "reduce_scatter_ms",
+    "all_to_all_ms",
+    "p2p_ms",
+    "sub_torus_eff_bw_gbps",
     "CalibrationError",
     "CollectiveCalibration",
     "LinearFit",

@@ -5,7 +5,7 @@ The port's copy of ``metis_tpu/cost/bandwidth.py``.
 
 These exist for (a) golden/differential parity with the reference cost model
 and (b) clusters genuinely described by per-type scalars — every GPU
-cluster the port plans (the reference's TPU ICI/DCN model is not ported).
+cluster the port plans (TPU slices plan through ``cost/ici.py``).
 
 Reference semantics reproduced exactly (differential-tested):
 

@@ -80,15 +80,15 @@ class BatchCostEstimator:
     scalar math (see module docstring for the exactness contract).
     """
 
-    def __init__(self, scalar, counters=None):
+    def __init__(self, scalar, counters=None, cost_device: str = "cuda"):
         # the reference's jit backend (SearchConfig.cost_backend="jax") is
         # not ported: asking for it raises rather than pricing with numpy
         # under another name
         backend = getattr(scalar.options, "cost_backend", "numpy")
-        if backend != "numpy":
+        if backend not in ("numpy", "torch"):
             raise MetisError(
                 f"cost_backend={backend!r} is not available in the PyTorch "
-                "port; use cost_backend='numpy'")
+                "port; use cost_backend='numpy' or 'torch'")
         self.scalar = scalar
         self.counters = counters
         self.options = scalar.options
@@ -113,6 +113,16 @@ class BatchCostEstimator:
         self._seq_meta: dict = {}   # (node_sequence, r0, r1) -> _StageMeta
         self._seq_dpfac: dict = {}  # (node_sequence, r0, r1, dp) -> factor
         self._seq_ppden: dict = {}  # (node_sequence, r0, end2) -> denominator
+        # the cost kernel backend (SearchConfig.cost_backend="torch"):
+        # shares every memo above through the host reference and stays
+        # byte-identical to the numpy loop (cost/torch_backend.py
+        # docstring); it runs on ``cost_device`` and its construction raises
+        # without a card there or when the kernel does not build.  torch is
+        # imported only here, so the numpy path stays torch-free.
+        self._torch = None
+        if backend == "torch":
+            from metis_tpu_torch.cost.torch_backend import TorchCostBackend
+            self._torch = TorchCostBackend(self, device=cost_device)
 
     # -- public API --------------------------------------------------------
     def cost_many(
@@ -128,6 +138,8 @@ class BatchCostEstimator:
         if not intras:
             return []
         P = self._placement(inter)
+        if self._torch is not None:
+            return self._torch.cost_many(P, inter, intras)
         return [self._cost_one(P, inter, intra) for intra in intras]
 
     def _cost_one(self, P, inter, intra):

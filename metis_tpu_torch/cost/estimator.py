@@ -112,8 +112,9 @@ class EstimatorOptions:
     migration_bw_gbps: float = 100.0
     migration_amortize_steps: int = 1000
     # Batched cost-tensor backend (SearchConfig.cost_backend): "numpy" is
-    # the scalar-float oracle and the only backend of the port; the
-    # reference's "jax" backend makes the batch estimator raise here.
+    # the scalar-float oracle, "torch" the CUDA cost kernel
+    # (cost/torch_backend.py); the reference's "jax" backend makes the
+    # batch estimator raise.
     cost_backend: str = "numpy"
 
     @staticmethod

@@ -41,29 +41,11 @@ from __future__ import annotations
 
 from metis_tpu_torch.core.config import ModelSpec
 from metis_tpu_torch.cost.context_parallel import ActivationSplitModel
+from metis_tpu_torch.cost.ici import all_to_all_ms
 
 # All-to-all passes per MoE layer per microbatch: dispatch + combine, forward
 # and backward.
 A2A_PASSES = 4
-
-
-def _bytes_per_ms(bw_gbps: float) -> float:
-    return bw_gbps * 1e6
-
-
-def all_to_all_ms(nbytes: float, group_size: int, bw_gbps: float,
-                  latency_ms: float = 0.0, wrap: bool = True) -> float:
-    """All-to-all on a ring — the port's own copy of
-    ``metis_tpu/cost/ici.py:all_to_all_ms`` (the torus model itself is not
-    ported).  Each rank sends ``nbytes/n`` to every peer over shortest
-    paths; the per-direction link traffic sums to ``n*nbytes/8`` on a
-    bidirectional ring (mean hop distance n/4, both directions used), double
-    on a line.  Unlike an all-gather it *grows* with n (bisection limited)."""
-    if group_size <= 1:
-        return 0.0
-    factor = 8.0 if wrap else 4.0
-    return (group_size * nbytes / factor / _bytes_per_ms(bw_gbps)
-            + (group_size - 1) * latency_ms)
 
 
 def ep_candidates(max_ep_degree: int, num_experts: int) -> list[int]:
@@ -118,7 +100,7 @@ def ep_a2a_ms(
     """All-to-all time (ms) for one microbatch across a stage's MoE layers:
     4 passes (dispatch + combine, forward + backward) of the per-rank send
     buffer through the bidirectional-ring all-to-all model
-    (``all_to_all_ms`` — per-link traffic ``n*V/8``, which *grows* with
+    (``ici.all_to_all_ms`` — per-link traffic ``n*V/8``, which *grows* with
     ep; the flat (ep-1)/ep volume model under-charged large ep by >2x)."""
     if ep <= 1 or num_moe_layers <= 0:
         return 0.0

@@ -1,2 +1,3 @@
-"""Attention ops of the PyTorch port: hand-written Hopper kernels with plain
-PyTorch versions beside them."""
+"""Ops of the PyTorch port: hand-written Hopper kernels (flash attention,
+the planner's batched cost tensor) with plain PyTorch versions beside
+them."""

@@ -4,6 +4,7 @@ from metis_tpu_torch.planner.api import (
     RankedUniformPlan,
     UniformPlannerResult,
     plan_hetero,
+    plan_tpu,
     plan_uniform,
 )
 
@@ -12,6 +13,7 @@ __all__ = [
     "RankedUniformPlan",
     "UniformPlannerResult",
     "plan_hetero",
+    "plan_tpu",
     "plan_uniform",
 ]
 from metis_tpu_torch.planner.replan import (

@@ -1,10 +1,11 @@
 """Planner entry points — the library API over search + balance + cost.
 
 The port's copy of ``metis_tpu/planner/api.py``: ``plan_hetero``,
-``plan_uniform`` and ``make_search_state``.  The reference's TPU entry
-(``plan_tpu``, the ICI/DCN torus model) is not ported: GPU clusters plan
-through the clusterfile's scalar link bandwidths.  The planning APIs take no
-device; they run on the host, as the reference's do.
+``plan_uniform``, ``make_search_state`` and the TPU entry ``plan_tpu`` (the
+ICI/DCN torus model of ``cost/ici.py``).  The searches run on the host, as
+the reference's do; with ``SearchConfig.cost_backend="torch"`` the batched
+costing runs its cost kernel on ``cost_device`` (the card unless the caller
+asks for the CPU).  The numpy path imports no torch.
 
 ≅ reference orchestration layer (``cost_het_cluster.py:20-49``,
 ``cost_homo_cluster.py:21-37``) with structured results instead of stdout
@@ -22,6 +23,7 @@ import time
 from dataclasses import dataclass
 
 from metis_tpu_torch.cluster.spec import ClusterSpec
+from metis_tpu_torch.cluster.tpu import TpuClusterSpec
 from metis_tpu_torch.core.config import ModelSpec, SearchConfig
 from metis_tpu_torch.core.errors import MetisError
 from metis_tpu_torch.core.events import EventLog, NULL_LOG
@@ -39,6 +41,7 @@ from metis_tpu_torch.obs.ledger import (
 )
 from metis_tpu_torch.profiles.store import ProfileStore
 from metis_tpu_torch.cost.estimator import EstimatorOptions, UniformCostEstimator
+from metis_tpu_torch.cost.ici import IciDcnBandwidth
 from metis_tpu_torch.cost.volume import TransformerVolume
 from metis_tpu_torch.search.inter_stage import (
     inter_stage_plans,
@@ -133,6 +136,7 @@ def make_search_state(
     bandwidth_factory=None,
     counters=None,
     node_ids=None,
+    cost_device: str = "cuda",
 ) -> CandidateEvaluator:
     """Build the search state ``plan_hetero`` otherwise constructs in its
     setup span: the cost estimator, stage-performance model, layer
@@ -152,12 +156,14 @@ def make_search_state(
     ``cluster.nodes`` order — the daemon passes fleet-level ids for a
     tenant carve so the state's ``touched_nodes`` tags live in the fleet
     namespace and a ``ClusterDelta`` can re-cost only intersecting states.
+
+    ``cost_device``: where ``cost_backend="torch"`` runs its cost kernel.
     """
     _check_profile_attn(profiles, model)
     return CandidateEvaluator(
         cluster, profiles, model, config,
         bandwidth_factory=bandwidth_factory, counters=counters,
-        node_ids=node_ids)
+        node_ids=node_ids, cost_device=cost_device)
 
 
 def plan_hetero(
@@ -174,6 +180,7 @@ def plan_hetero(
     decisions=None,
     decision_meta: dict | None = None,
     residual_model=None,
+    cost_device: str = "cuda",
 ) -> PlannerResult:
     """Full heterogeneous search: inter-stage × intra-stage candidates,
     costed and ranked (≅ ``cost_het_cluster``).
@@ -189,8 +196,7 @@ def plan_hetero(
 
     ``inter_filter``: optional predicate on InterStagePlan applied before
     intra-stage expansion — topology validity filters (e.g. the TPU
-    sub-torus alignment check of the reference's ``plan_tpu``) plug in
-    here.
+    sub-torus alignment check of ``plan_tpu``) plug in here.
 
     Observability (core/trace.py): with an enabled ``events`` log the run
     records a span tree (setup / enumeration / intra_stage / costing /
@@ -222,7 +228,12 @@ def plan_hetero(
     outcome is appended as one decision record (kind ``cold_search``
     unless ``decision_meta`` overrides it).  ``decision_meta``: extra
     DecisionRecord fields (``kind``, ``cause``, ``parent_seq``,
-    ``trace_id``, ``query_fingerprint``, ...)."""
+    ``trace_id``, ``query_fingerprint``, ...).
+
+    ``cost_device``: where ``config.cost_backend="torch"`` runs its cost
+    kernel — the card by default; it raises without one (pass ``"cpu"`` to
+    price on the host with the kernel's plain version).  A keyword, not a
+    ``SearchConfig`` field: the config's fields are the reference's."""
     _check_profile_attn(profiles, model)
     from metis_tpu_torch.cost.uncertainty import make_risk_scorer
 
@@ -258,7 +269,8 @@ def plan_hetero(
             cluster, profiles, model, config,
             bandwidth_factory=bandwidth_factory, top_k=top_k,
             events=events, inter_filter=inter_filter,
-            search_state=search_state, residual_model=residual_model))
+            search_state=search_state, residual_model=residual_model,
+            cost_device=cost_device))
     if config.workers > 1 and scorer is None:
         # risk-ranked searches take the serial loop below — the sharded
         # workers don't carry a residual model across the process boundary
@@ -267,7 +279,8 @@ def plan_hetero(
         parallel_result = try_parallel_plan_hetero(
             cluster, profiles, model, config,
             bandwidth_factory=bandwidth_factory, top_k=top_k,
-            events=events, inter_filter=inter_filter)
+            events=events, inter_filter=inter_filter,
+            cost_device=cost_device)
         if parallel_result is not None:
             return _record(parallel_result)
     tracer = Tracer(events)
@@ -288,7 +301,8 @@ def plan_hetero(
         ctx = CandidateEvaluator(
             cluster, profiles, model, config,
             bandwidth_factory=bandwidth_factory,
-            counters=tracer.counters if tracer.enabled else None)
+            counters=tracer.counters if tracer.enabled else None,
+            cost_device=cost_device)
     setup_span.__exit__(None, None, None)
     setup_s = time.perf_counter() - t0
     events.emit(
@@ -593,3 +607,50 @@ def plan_uniform(
         search_seconds=elapsed,
     )
 
+
+def plan_tpu(
+    tpu_cluster: TpuClusterSpec,
+    profiles: ProfileStore,
+    model: ModelSpec,
+    config: SearchConfig,
+    chips_per_node: int = 4,
+    top_k: int | None = None,
+    events: EventLog = NULL_LOG,
+    calibration=None,
+    aligned_groups: bool = True,
+    device: str = "cuda",
+    cost_device: str = "cuda",
+) -> PlannerResult:
+    """Heterogeneous search over TPU slices with the ICI/DCN-aware bandwidth
+    model (the BASELINE.md north-star path: e.g. v4-32 + v5e-16 over DCN).
+
+    ``calibration``: an optional ``cost.CollectiveCalibration`` from
+    ``microbenchmark_collectives`` — measured wire constants override the
+    published per-generation link bandwidths for matching slices.
+
+    ``aligned_groups``: prune inter-stage plans whose stage rank ranges
+    cannot map to contiguous sub-toruses / whole slices (SURVEY.md §7 hard
+    part #4 — arbitrary GPU-style rank sets are not valid TPU device
+    groups); disable to reproduce the unconstrained GPU-style search.
+
+    ``device``: the device type planned for, handed to ``IciDcnBandwidth``
+    (the reference reads JAX's default backend): a ``"cpu"`` calibration
+    applies only with ``device="cpu"``.  ``cost_device``: as for
+    ``plan_hetero``.  The bandwidth factory is a closure, which does not
+    pickle, so ``config.workers > 1`` falls back to the serial loop."""
+    from metis_tpu_torch.cluster.tpu import stage_groups_torus_aligned
+
+    cluster = tpu_cluster.as_cluster_spec(chips_per_node)
+    inter_filter = None
+    if aligned_groups:
+        inter_filter = lambda inter: stage_groups_torus_aligned(  # noqa: E731
+            tpu_cluster, inter.node_sequence, inter.device_groups)
+    return plan_hetero(
+        cluster, profiles, model, config,
+        bandwidth_factory=lambda plan: IciDcnBandwidth(
+            tpu_cluster, plan, calibration=calibration, device=device),
+        top_k=top_k,
+        events=events,
+        inter_filter=inter_filter,
+        cost_device=cost_device,
+    )

@@ -18,6 +18,7 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass
 
+from metis_tpu_torch.cluster.tpu import TPU_GENERATIONS
 from metis_tpu_torch.core.config import ModelSpec
 from metis_tpu_torch.profiles.store import (
     DeviceTypeMeta,
@@ -44,19 +45,15 @@ class ChipPerf:
 
 
 # Rough public-spec rooflines for the GPU types used by reference-shaped tests,
-# plus the TPU generations of the reference's topology model
-# (``metis_tpu/cluster/tpu.py`` ``TPU_GENERATIONS``, not ported: the fleet
-# drill and the reference-shaped fixtures still name these chips).
+# plus TPU generations pulled from the topology model.
 CHIP_PERF: dict[str, ChipPerf] = {
     "A100": ChipPerf("A100", bf16_tflops=312, hbm_bw_gbps=2039, hbm_gb=80),
     "V100": ChipPerf("V100", bf16_tflops=125, hbm_bw_gbps=900, hbm_gb=16),
     "P100": ChipPerf("P100", bf16_tflops=21, hbm_bw_gbps=732, hbm_gb=16),
     "T4": ChipPerf("T4", bf16_tflops=65, hbm_bw_gbps=320, hbm_gb=15),
-    "tpu_v4": ChipPerf("tpu_v4", bf16_tflops=275, hbm_bw_gbps=1228, hbm_gb=32),
-    "tpu_v5e": ChipPerf("tpu_v5e", bf16_tflops=197, hbm_bw_gbps=819, hbm_gb=16),
-    "tpu_v5p": ChipPerf("tpu_v5p", bf16_tflops=459, hbm_bw_gbps=2765, hbm_gb=95),
-    "tpu_v6e": ChipPerf("tpu_v6e", bf16_tflops=918, hbm_bw_gbps=1640, hbm_gb=32),
 }
+for _g in TPU_GENERATIONS.values():
+    CHIP_PERF[_g.name] = ChipPerf(_g.name, _g.bf16_tflops, _g.hbm_bw_gbps, _g.hbm_gb)
 
 _ADAM_STATE_FACTOR = 6.0   # fp32 master + 2 moments over bf16 weights
 _BWD_FLOP_FACTOR = 2.0     # backward ≈ 2x forward FLOPs

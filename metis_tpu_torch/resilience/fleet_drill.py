@@ -60,10 +60,9 @@ SLO attainment (training: planned every tick; inference: planned AND the
 carve's throughput covers the tick's diurnal demand).
 
 The fleet TPUs (a reserved v6e pool, a spot v5e pool) are the
-reference's: the port does not model the TPU torus
-(``metis_tpu/cluster/tpu.py`` is not ported), so ``fleet_cluster`` builds
-their ``DeviceSpec``s from the same scalars (``_TPU_CHIPS``,
-``slice_device_spec``).  The fleet and tenant legs run on the host; the
+reference's slices (``cluster/tpu.py``), lowered to their scalar
+``DeviceSpec``s (``slice_device_spec``).  The fleet and tenant legs run on
+the host; the
 fleet leg imports no torch (the tenant leg's scheduler does, for its
 switch decisions' plan artifacts, ``sched/fleet.py``).
 
@@ -83,67 +82,22 @@ from pathlib import Path
 
 import numpy as np
 
-from metis_tpu_torch.cluster.spec import ClusterSpec, DeviceSpec, NodeSpec
+from metis_tpu_torch.cluster.spec import ClusterSpec, DeviceSpec
+from metis_tpu_torch.cluster.tpu import slice_from_name
 from metis_tpu_torch.core.config import ModelSpec, SearchConfig
-from metis_tpu_torch.core.errors import ClusterSpecError
 from metis_tpu_torch.core.events import EventLog, read_events, read_events_rotated
 from metis_tpu_torch.obs.events_schema import validate_events
 
 RESERVED_TYPE = "tpu_v6e"
 SPOT_TYPE = "tpu_v5e"
 
-#: The per-chip scalars of the fleet's two TPU generations
-#: (``metis_tpu/cluster/tpu.py`` ``TPU_GENERATIONS``): HBM GB, ICI GB/s per
-#: link and direction, DCN GB/s per host; both are 2D tori.
-_TPU_CHIPS = {
-    "tpu_v5e": dict(hbm_gb=16, ici_bw_gbps=45, dcn_bw_gbps=25),
-    "tpu_v6e": dict(hbm_gb=32, ici_bw_gbps=90, dcn_bw_gbps=50),
-}
-_TORUS_DIMS = 2
-
-
-def _default_topology(chips: int, dims: int = _TORUS_DIMS) -> tuple[int, ...]:
-    """Most-cubic factorization of ``chips`` into ``dims`` extents (the
-    reference's ``cluster/tpu._default_topology``: 16 chips, 2D -> 4x4)."""
-    if chips < 1:
-        raise ClusterSpecError("chip count must be positive")
-    topo = [1] * dims
-    factors: list[int] = []
-    n = chips
-    p = 2
-    while p * p <= n:
-        while n % p == 0:
-            factors.append(p)
-            n //= p
-        p += 1
-    if n > 1:
-        factors.append(n)
-    for f in sorted(factors, reverse=True):
-        topo[topo.index(min(topo))] *= f
-    return tuple(sorted(topo, reverse=True))
-
 
 def slice_device_spec(generation: str, chips: int) -> DeviceSpec:
-    """The scalar view of a slice of ``chips`` chips of ``generation``,
-    as the reference's ``slice_from_name(...).as_device_spec()`` gives it:
-    memory the chip's HBM, inter bandwidth the host's DCN, intra bandwidth
-    the ICI ring of the slowest torus axis — both directions when the axis
-    wraps (an extent of 4 or more), one otherwise."""
-    chip = _TPU_CHIPS[generation]
-    dirs = 2 if min(_default_topology(chips)) >= 4 else 1
-    return DeviceSpec(name=generation, memory_gb=chip["hbm_gb"],
-                      intra_bw_gbps=chip["ici_bw_gbps"] * dirs,
-                      inter_bw_gbps=chip["dcn_bw_gbps"])
-
-
-def _slice_nodes(generation: str, chips: int,
-                 chips_per_node: int) -> list[NodeSpec]:
-    if chips % chips_per_node:
-        raise ClusterSpecError(
-            f"slice of {chips} chips not divisible into "
-            f"{chips_per_node}-chip nodes")
-    return [NodeSpec(generation, chips_per_node)
-            for _ in range(chips // chips_per_node)]
+    """The scalar view of a slice of ``chips`` chips of ``generation``
+    (``TpuSliceSpec.as_device_spec``): memory the chip's HBM, inter
+    bandwidth the host's DCN, intra bandwidth the ICI ring of the slowest
+    torus axis."""
+    return slice_from_name(f"{generation}-{chips}").as_device_spec()
 
 
 def fleet_model() -> ModelSpec:
@@ -161,8 +115,8 @@ def fleet_cluster(devices: int = 256, chips_per_node: int = 32,
     spot_spec = dataclasses.replace(
         slice_device_spec(SPOT_TYPE, half), tier="spot",
         preemption_rate_per_hr=spot_rate_per_hr)
-    nodes = (_slice_nodes(RESERVED_TYPE, half, chips_per_node)
-             + _slice_nodes(SPOT_TYPE, half, chips_per_node))
+    nodes = (slice_from_name(f"{RESERVED_TYPE}-{half}").as_nodes(chips_per_node)
+             + slice_from_name(f"{SPOT_TYPE}-{half}").as_nodes(chips_per_node))
     return ClusterSpec(nodes=tuple(nodes),
                        devices={RESERVED_TYPE: slice_device_spec(RESERVED_TYPE, half),
                                 SPOT_TYPE: spot_spec})

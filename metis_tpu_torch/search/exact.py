@@ -250,6 +250,7 @@ def exact_plan_hetero(
     inter_filter=None,
     search_state=None,
     residual_model=None,
+    cost_device: str = "cuda",
 ):
     """Branch-and-bound heterogeneous search with an optimality certificate.
 
@@ -290,7 +291,8 @@ def exact_plan_hetero(
         ctx = search_state if search_state is not None else make_search_state(
             cluster, profiles, model, config,
             bandwidth_factory=bandwidth_factory,
-            counters=tracer.counters if tracer.enabled else None)
+            counters=tracer.counters if tracer.enabled else None,
+            cost_device=cost_device)
         bound = RelaxationBound.from_evaluator(ctx)
     events.emit(
         "search_started", mode="hetero", devices=cluster.total_devices,

@@ -100,7 +100,8 @@ class CandidateEvaluator:
     """
 
     def __init__(self, cluster, profiles, model, config,
-                 bandwidth_factory=None, counters=None, node_ids=None):
+                 bandwidth_factory=None, counters=None, node_ids=None,
+                 cost_device: str = "cuda"):
         self.cluster = cluster
         self.model = model
         self.config = config
@@ -194,8 +195,11 @@ class CandidateEvaluator:
             getattr(config, "use_batch_eval", True)
             and not sched_families
             and self.families == [((1, "ring"), 1, 0, False)])
+        # ``cost_device``: where the torch cost backend runs (the card
+        # unless the caller asks for the CPU); the numpy backend ignores it
         self.batch_estimator = (
-            BatchCostEstimator(self.estimator, counters=counters)
+            BatchCostEstimator(self.estimator, counters=counters,
+                               cost_device=cost_device)
             if self._batch_fast else None)
         # serial-path tracing hooks: plan_hetero routes the intra generators
         # through its intra_stage accum span and costing through cost_acc;
@@ -556,7 +560,7 @@ def run_worker_shard(ctx, pruner, worker_id, num_workers,
 
 def _worker_main(worker_id, num_workers, out_queue, cluster, profiles,
                  model, config, bandwidth_factory, inter_filter, top_k,
-                 want_counters):
+                 want_counters, cost_device="cuda"):
     """One shard of the search, in a one-shot child process: build the
     evaluator + pruner, run :func:`run_worker_shard`, report
     ``("progress", ...)`` heartbeats and one final ``("result", ...)``
@@ -565,7 +569,8 @@ def _worker_main(worker_id, num_workers, out_queue, cluster, profiles,
         counters = Counters() if want_counters else None
         ctx = CandidateEvaluator(
             cluster, profiles, model, config,
-            bandwidth_factory=bandwidth_factory, counters=counters)
+            bandwidth_factory=bandwidth_factory, counters=counters,
+            cost_device=cost_device)
         pruner = build_shard_pruner(ctx, profiles)
 
         def _progress(ticks, elapsed, best, n_plans, n_pruned):
@@ -602,6 +607,7 @@ def try_parallel_plan_hetero(
     top_k: int | None = None,
     events: EventLog = NULL_LOG,
     inter_filter=None,
+    cost_device: str = "cuda",
 ):
     """Run ``plan_hetero``'s search sharded over ``config.workers``
     processes.  Returns the merged PlannerResult — byte-identical ranking
@@ -638,7 +644,8 @@ def try_parallel_plan_hetero(
     ctx = CandidateEvaluator(
         cluster, profiles, model, config,
         bandwidth_factory=bandwidth_factory,
-        counters=tracer.counters if tracer.enabled else None)
+        counters=tracer.counters if tracer.enabled else None,
+        cost_device=cost_device)
     setup_span.__exit__(None, None, None)
     events.emit(
         "search_started", mode="hetero", devices=cluster.total_devices,
@@ -653,7 +660,7 @@ def try_parallel_plan_hetero(
                 target=_worker_main,
                 args=(wid, workers, out_queue, cluster, profiles, model,
                       config, bandwidth_factory, inter_filter, top_k,
-                      events.enabled),
+                      events.enabled, cost_device),
                 daemon=True)
             p.start()
             procs.append(p)

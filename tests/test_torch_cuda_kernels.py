@@ -93,3 +93,45 @@ def test_unsupported_inputs_raise_on_the_card(card, dtype, d):
     t = torch.zeros(4, 64, d, device=card, dtype=dtype)
     with pytest.raises(NotImplementedError):
         fa.fa_fwd(t, t, t, q_heads=4, kv_heads=4, causal=True)
+
+
+# -- the batched cost tensor (ops/cost_tensor.py): f64, bit-equal ------------------
+
+def _cost_inputs(S, B, seed):
+    gen = torch.Generator().manual_seed(seed)
+    from metis_tpu_torch.ops import cost_tensor as ct
+
+    x = 10.0 ** (torch.rand(ct.width(S), B, generator=gen, dtype=torch.float64) * 5 - 2)
+    pp_den = 10.0 ** (torch.rand(S - 1, generator=gen, dtype=torch.float64) * 2 + 6)
+    return x, pp_den, (4.0, 0.05, 23.0, 0.7)
+
+
+@pytest.mark.parametrize("S,B", [(1, 1), (2, 37), (5, 300), (8, 4096)])
+@pytest.mark.parametrize("ov,has_lat,has_spot,has_mig", [
+    (False, False, False, False), (True, True, True, True),
+    (True, False, True, False), (False, True, False, True)])
+def test_cost_tensor_matches_its_plain_version(card, S, B, ov, has_lat, has_spot,
+                                               has_mig):
+    from metis_tpu_torch.ops import cost_tensor as ct
+
+    x, pp_den, scalars = _cost_inputs(S, B, seed=S * 1000 + B)
+    flags = dict(S=S, ov=ov, has_lat=has_lat, has_spot=has_spot, has_mig=has_mig)
+    before = ct.launch_counts["cost_tensor"]
+    got = ct.cost_tensor(x.to(card), pp_den.to(card), *scalars, **flags)
+    torch.cuda.synchronize()
+    assert ct.launch_counts["cost_tensor"] == before + 1
+    assert torch.equal(got, ct.cost_tensor_plain(x.to(card), pp_den.to(card), *scalars,
+                                                 **flags))
+    assert torch.equal(got.cpu(), ct.cost_tensor_plain(x, pp_den, *scalars, **flags))
+
+
+def test_cost_tensor_refuses_what_it_does_not_take(card):
+    from metis_tpu_torch.ops import cost_tensor as ct
+
+    x, pp_den, scalars = _cost_inputs(3, 8, seed=0)
+    flags = dict(S=3, ov=True, has_lat=False, has_spot=False, has_mig=False)
+    with pytest.raises(ValueError, match="different devices"):
+        ct.cost_tensor(x.to(card), pp_den, *scalars, **flags)
+    with pytest.raises(ValueError, match="contiguous"):
+        wide = torch.zeros(ct.width(3), 16, dtype=torch.float64, device=card)
+        ct.cost_tensor(wide[:, ::2], pp_den.to(card), *scalars, **flags)

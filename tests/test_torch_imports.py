@@ -139,6 +139,57 @@ def test_profiles_native_fixtures_and_drills_import_no_torch(tmp_path):
     assert proc.stdout.strip() == "ok"
 
 
+# the TPU slice planner: the torus model, its bandwidth model and plan_tpu
+TPU_PLANNER_MODULES = ("metis_tpu_torch.cluster.tpu", "metis_tpu_torch.cost.ici",
+                       "metis_tpu_torch.cost.torch_backend",
+                       "metis_tpu_torch.ops.cost_tensor")
+
+
+def test_the_tpu_planner_modules_are_covered():
+    assert set(TPU_PLANNER_MODULES) <= set(_port_modules())
+    assert (PACKAGE / "ops" / "csrc" / "cost_tensor.cu").exists()
+
+
+def test_tpu_planner_and_numpy_cost_path_import_no_torch(tmp_path):
+    """``cluster/tpu.py``, ``cost/ici.py`` and the planner on its numpy cost
+    backend (``plan_hetero``, ``plan_tpu`` and the ``tpu`` command) import
+    and run without torch; only ``cost_backend="torch"`` imports it, when
+    the search builds its estimator."""
+    blocked = ", ".join(repr(m) for m in FORBIDDEN)
+    code = (
+        "import sys\n"
+        f"for name in ({blocked},):\n"
+        "    sys.modules[name] = None\n"
+        "from metis_tpu_torch.cluster.tpu import TpuClusterSpec, slice_from_name\n"
+        "from metis_tpu_torch.cost.ici import IciDcnBandwidth\n"
+        "from metis_tpu_torch.planner.api import plan_hetero, plan_tpu\n"
+        "from metis_tpu_torch.core.config import SearchConfig\n"
+        "from metis_tpu_torch.profiles import synthesize_profiles, tiny_test_model\n"
+        "from metis_tpu_torch import cli\n"
+        "model = tiny_test_model()\n"
+        "profiles = synthesize_profiles(model, ['tpu_v5e'], tps=[1, 2], bss=[1, 2, 4])\n"
+        "slices = TpuClusterSpec((slice_from_name('v5e-16'),))\n"
+        "assert plan_tpu(slices, profiles, model, SearchConfig(gbs=8)).plans\n"
+        f"profiles.dump_to_dir({str(tmp_path / 'p')!r})\n"
+        "assert cli.main(['tpu', '--slices', 'v5e-16', '--profile-dir', "
+        f"{str(tmp_path / 'p')!r}, '--gbs', '8', '--num-layers', '10', "
+        "'--hidden-size', '4096', '--seq-len', '1024', '--vocab-size', '51200', "
+        f"'--num-heads', '32', '--output', {str(tmp_path / 'o.json')!r}]) == 0\n"
+        "assert 'torch' not in sys.modules, 'the numpy path imported torch'\n"
+        "try:\n"
+        "    plan_tpu(slices, profiles, model, SearchConfig(gbs=8, cost_backend='torch'),\n"
+        "             cost_device='cpu')\n"
+        "except Exception:\n"
+        "    pass\n"
+        "assert 'torch' in sys.modules, 'the torch backend did not import torch'\n"
+        "print('ok')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
 def _imported_roots(path: pathlib.Path) -> set[str]:
     roots = set()
     for node in ast.walk(ast.parse(path.read_text())):
@@ -197,6 +248,11 @@ def _entry_points():
         microbenchmark_chip,
         microbenchmark_collectives,
     )
+    from metis_tpu_torch.cluster.spec import ClusterSpec
+    from metis_tpu_torch.cluster.tpu import TpuClusterSpec, slice_from_name
+    from metis_tpu_torch.core.config import SearchConfig
+    from metis_tpu_torch.planner.api import plan_hetero, plan_tpu
+    from metis_tpu_torch.profiles import synthesize_profiles, tiny_test_model
 
     spec = ModelSpec(name="t", num_layers=3, hidden_size=32,
                      sequence_length=16, vocab_size=64, num_heads=2)
@@ -205,6 +261,8 @@ def _entry_points():
     shape = dict(vocab_size=64, seq_len=16, hidden=32, num_heads=2, num_blocks=1)
     plan = UniformPlan(1, 1, 1, 1, 1)
     ds = TokenDataset.synthetic(64, 100, 16)
+    tiny = tiny_test_model()
+    torch_costs = SearchConfig(gbs=4, cost_backend="torch")
     return {
         "entry": lambda: entry(),
         "build_executable": lambda: build_executable(
@@ -266,6 +324,15 @@ def _entry_points():
         # the fleet drill's supervisor leg, alone and behind ``chaos --fleet``
         "run_supervisor_spot_drill": lambda: run_supervisor_spot_drill("spot"),
         "chaos_fleet_cli": lambda: cli.main(["chaos", "--fleet"]),
+        # the cost kernel backend prices on the card unless asked otherwise
+        "plan_hetero_torch_costs": lambda: plan_hetero(
+            ClusterSpec.of(("A100", 1, 4)),
+            synthesize_profiles(tiny, ["A100"], tps=[1], bss=[1, 2, 4]), tiny,
+            torch_costs),
+        "plan_tpu_torch_costs": lambda: plan_tpu(
+            TpuClusterSpec((slice_from_name("v5e-4"),)),
+            synthesize_profiles(tiny, ["tpu_v5e"], tps=[1], bss=[1, 2, 4]), tiny,
+            torch_costs),
     }
 
 
@@ -297,7 +364,8 @@ ENTRY_POINTS = ["entry", "build_executable", "build_train_state",
                 "measure_dp_overlap", "measure_pipeline_overlap", "calibrate_cli",
                 "profile_model_decode", "measure_remat_fraction",
                 "profile_decode_cli", "run_supervisor_spot_drill",
-                "chaos_fleet_cli"]
+                "chaos_fleet_cli", "plan_hetero_torch_costs",
+                "plan_tpu_torch_costs"]
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)

@@ -301,6 +301,8 @@ def test_cost_backend_jax_raises():
 
     with pytest.raises(MetisError, match="numpy"):
         BatchCostEstimator(_Scalar())
+    # the port's own backend, the cost kernel, is accepted
+    assert tconfig.SearchConfig(gbs=8, cost_backend="torch").cost_backend == "torch"
 
 
 def test_h100_preset():
